@@ -1,0 +1,191 @@
+// Bilinear plane-sampling forward kernels of the K-Planes render path,
+// written for Hopper (sm_90a), with a plain C interface bound by ctypes
+// (soccernerfs_tpu_torch/ops/kernels/plane_kernels.py).
+//
+// Both kernels compute, for every point i of every plane p in one launch,
+//   out_p[i, :] = lerp_y(lerp_x(P[y0, x0], P[y0, x1]),
+//                        lerp_x(P[y1, x0], P[y1, x1]))
+// with (y0, x0) from the row id y0*w + x0, x1 = min(x0 + 1, w - 1) and
+// y1 = min(y0 + 1, h - 1) (the border replicates), fractions tx_p[i] and
+// ty[i], a bf16 table and f32 arithmetic in the order
+//   top = p00*(1-tx) + p01*tx,  bot = p10*(1-tx) + p11*tx,
+//   out = top*(1-ty) + bot*ty.
+// Every multiply and add rounds on its own (__fmul_rn/__fadd_rn, no FMA
+// contraction), so a kernel equals its plain PyTorch version bit for bit.
+//
+// snt_bilerp_fwd_unpacked replaces unpacked_bilerp_fwd_group
+//   (soccernerfs_tpu/ops/pallas/plane_kernels.py, body _fwd_kernel_unpacked):
+//   the table is the plane itself, [h*w, F] bf16; the four corners are
+//   four rows.
+// snt_bilerp_fwd_packed replaces packed_bilerp_fwd_group (same file, body
+//   _fwd_kernel): the table is quad-packed, [R, 4F] bf16, each row holding
+//   the 2x2 corner block, so a point reads one contiguous 8F-byte row.
+//
+// The planes of one launch share their y axis (the caller groups planes by
+// it, as the TPU kernels' stripe groups do), so they share ty: one ty array
+// per launch, read once per point whatever the plane count.
+//
+// Bound on the card: bytes.  Per point the kernel must read 4 B of ty, and
+// per point and plane 8 B (row id, tx) and write 4F B of f32 (136 B at
+// F = 32), against 9 flops per feature, about 2 flop/B, far under the ~20 flop/B where H100's f32
+// rate (67 TFLOP/s over 3.35 TB/s) would bind.  The table is read once at least (64 MiB for a
+// 1024x1024x32 bf16 plane) but gathered at random rows, so the kernel
+// lives on L2 hits and 32-byte sector efficiency.  The design:
+//   * The TPU kernels sort points into row stripes and gather with one-hot
+//     MXU matmuls because Mosaic cannot lower a vector gather.  Here every
+//     thread gathers directly, so no sort, no one-hot and no stripe
+//     bookkeeping exist and the points may come in any order.
+//   * F/8 threads serve one point; each owns 8 features and loads them as
+//     one 16-byte vector per corner, so the threads of a point read whole
+//     32-byte sectors of a corner row (F = 32) and a warp keeps 4 x 32
+//     independent 16-byte loads in flight.
+//   * Each thread writes its 8 f32 outputs as two 16-byte stores; the
+//     threads of a warp cover 8 (F = 32) or 32 (F = 8) consecutive output
+//     rows, a fully coalesced stream.
+//   * Up to 3 planes of one table shape share a launch (blockIdx.y), so a
+//     plane group costs one launch.  The parameter struct is
+//     __grid_constant__, so indexing it by blockIdx.y reads parameter
+//     space: without it nvcc may copy the struct to a local stack frame in
+//     every thread, which cost 2.3x in time on the H100.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxPlanes = 3;
+constexpr int kThreads = 256;
+
+struct PlaneArgs {
+  const uint4* table[kMaxPlanes];
+  const int32_t* rowid[kMaxPlanes];
+  const float* tx[kMaxPlanes];
+  float* out[kMaxPlanes];
+  const float* ty;
+};
+
+// 8 bf16 values in one 16-byte vector -> 8 floats (exact: bf16 is the top
+// half of an f32).
+__device__ __forceinline__ void bf16x8_to_f32(const uint4 v, float (&f)[8]) {
+  const unsigned int u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(u[k] << 16);
+    f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+  }
+}
+
+template <int F, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+bilerp_fwd_kernel(const __grid_constant__ PlaneArgs a, long long m, int h,
+                  int w, long long rows) {
+  constexpr int kLanes = F / 8;  // threads per point, 8 features each
+  const int p = blockIdx.y;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long i = t / kLanes;
+  const int lane = (int)(t - i * kLanes);
+  if (i >= m) return;
+
+  long long row = __ldg(a.rowid[p] + i);
+  row = row < 0 ? 0 : (row >= rows ? rows - 1 : row);  // gather "clip" mode
+  const float tx = __ldg(a.tx[p] + i);
+  const uint4* table = a.table[p];
+  const float ty = __ldg(a.ty + i);
+
+  uint4 q00, q01, q10, q11;
+  if constexpr (kPacked) {
+    const uint4* r = table + row * (4 * kLanes) + lane;
+    q00 = __ldg(r);
+    q01 = __ldg(r + kLanes);
+    q10 = __ldg(r + 2 * kLanes);
+    q11 = __ldg(r + 3 * kLanes);
+  } else {
+    const int y0 = (int)(row / w);
+    const int x0 = (int)(row - (long long)y0 * w);
+    const long long dx = x0 < w - 1 ? 1 : 0;
+    const long long dy = y0 < h - 1 ? w : 0;
+    const uint4* r = table + row * kLanes + lane;
+    q00 = __ldg(r);
+    q01 = __ldg(r + dx * kLanes);
+    q10 = __ldg(r + dy * kLanes);
+    q11 = __ldg(r + (dy + dx) * kLanes);
+  }
+
+  float f00[8], f01[8], f10[8], f11[8], o[8];
+  bf16x8_to_f32(q00, f00);
+  bf16x8_to_f32(q01, f01);
+  bf16x8_to_f32(q10, f10);
+  bf16x8_to_f32(q11, f11);
+  const float omtx = __fsub_rn(1.0f, tx);
+  const float omty = __fsub_rn(1.0f, ty);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float top = __fadd_rn(__fmul_rn(f00[k], omtx), __fmul_rn(f01[k], tx));
+    const float bot = __fadd_rn(__fmul_rn(f10[k], omtx), __fmul_rn(f11[k], tx));
+    o[k] = __fadd_rn(__fmul_rn(top, omty), __fmul_rn(bot, ty));
+  }
+  float4* dst = reinterpret_cast<float4*>(a.out[p] + i * F + lane * 8);
+  dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+  dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+int fill_args(PlaneArgs* a, int planes, const void* const* tables,
+              const void* const* rowids, const void* const* txs,
+              const void* ty, void* const* outs) {
+  if (planes < 1 || planes > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < kMaxPlanes; ++p) {
+    const int q = p < planes ? p : 0;
+    a->table[p] = static_cast<const uint4*>(tables[q]);
+    a->rowid[p] = static_cast<const int32_t*>(rowids[q]);
+    a->tx[p] = static_cast<const float*>(txs[q]);
+    a->out[p] = static_cast<float*>(outs[q]);
+  }
+  a->ty = static_cast<const float*>(ty);
+  return 0;
+}
+
+template <bool kPacked>
+int launch(int planes, const void* const* tables, const void* const* rowids,
+           const void* const* txs, const void* ty, void* const* outs,
+           long long m, int h, int w, long long rows, int feat, void* stream) {
+  PlaneArgs a;
+  const int err = fill_args(&a, planes, tables, rowids, txs, ty, outs);
+  if (err != 0) return err;
+  if (m <= 0) return (int)cudaErrorInvalidValue;
+  const long long threads = m * (feat / 8);
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), planes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (feat) {
+    case 8:
+      bilerp_fwd_kernel<8, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w, rows);
+      break;
+    case 32:
+      bilerp_fwd_kernel<32, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w, rows);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// tables: P pointers to [h*w, feat] bf16; rowids: P x [m] int32;
+// txs: P x [m] f32; ty: [m] f32, shared by the P planes;
+// outs: P x [m, feat] f32.  feat in {8, 32}, 1 <= P <= 3.
+extern "C" int snt_bilerp_fwd_unpacked(
+    int planes, const void* const* tables, const void* const* rowids,
+    const void* const* txs, const void* ty, void* const* outs,
+    long long m, int h, int w, int feat, void* stream) {
+  return launch<false>(planes, tables, rowids, txs, ty, outs, m, h, w,
+                       (long long)h * w, feat, stream);
+}
+
+// tables: P pointers to [rows, 4*feat] bf16 quad-packed rows; the rest as
+// snt_bilerp_fwd_unpacked.
+extern "C" int snt_bilerp_fwd_packed(
+    int planes, const void* const* tables, const void* const* rowids,
+    const void* const* txs, const void* ty, void* const* outs,
+    long long m, long long rows, int feat, void* stream) {
+  return launch<true>(planes, tables, rowids, txs, ty, outs, m, 1, 1, rows,
+                      feat, stream);
+}
