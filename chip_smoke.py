@@ -2,19 +2,37 @@
 """Drive the PyTorch port (soccernerfs_tpu_torch) on one CUDA card and check it.
 
   1. Prints the card's name and power limit (nvidia-smi).
-  2. Builds the CUDA kernels from soccernerfs_tpu_torch/csrc with nvcc.
-  3. Kernel phase: at the render path's shapes, holds each kernel against
-     its plain PyTorch version (relative max error <= 1e-5) and times it
-     with CUDA events beside the plain version and, as a yardstick,
-     torch.nn.functional.grid_sample(align_corners=True,
+  2. Builds the CUDA kernels from soccernerfs_tpu_torch/csrc, one nvcc per
+     source, all started together.
+  3. Kernel phase, forward: at the render path's shapes, holds each forward
+     kernel against its plain PyTorch version (relative max error <= 1e-5)
+     and times it with CUDA events beside the plain version and, as a
+     yardstick, torch.nn.functional.grid_sample(align_corners=True,
      padding_mode="border") on the same points.
-  4. Render phase: the full ``k-planes`` model with weights drawn from a
+  4. Kernel phase, backward: at the train step's shapes, the same for each
+     backward kernel (atomics: 1e-5 of the max), with
+     aten.grid_sampler_2d_backward (input gradient only) as the yardstick.
+  5. Render phase: the full ``k-planes`` model with weights drawn from a
      numpy seed, loaded through ``params_from_jax``; renders two 960x540
      frames (two cameras at two times) with ``render_camera`` and fails
-     unless both kernels launched during them.  Then times two more frames
-     and traces one with torch.profiler.
-  5. CPU check: one 4096-ray chunk through the same model on the CPU
+     unless both forward kernels launched during them.  Then times two
+     more frames and traces one with torch.profiler.
+  6. CPU check: one 4096-ray chunk through the same model on the CPU
      (the kernels' plain versions) against the card.
+  7. Train phase: ``TrainStep.train_iteration`` on 4096-ray batches of
+     bench.py's 20-camera ring, steps 0-11 (all update the proposals) and
+     a steady window of 60 steps at step 10,000 (an update every sixth
+     step); fails unless all four kernels launched, the loss and every
+     gradient are finite and the parameters moved.  Prints ms per update
+     and non-update step, train rays/s over the window and its 12-step
+     sub-windows, the process's CPU time per step and peak memory, and
+     traces one step of each kind with torch.profiler.
+  8. Train CPU check: for three seeds, one 1024-ray step with the same
+     params, batch and draws on the card and on the CPU; the loss terms and
+     every gradient before the update agree.  Two more CPU steps, one with
+     the card's PDF bins and one that also moves the ray directions by one
+     ulp, show what the resampling adds and how far the step moves on the
+     CPU alone.
 
 Prints a JSON line with the kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -26,7 +44,9 @@ Usage (from the repository root):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -43,6 +63,10 @@ SEED = 0
 H, W = 540, 960
 DEVICE = "cuda"
 MODEL = "k-planes"
+AABB = [[-1.5] * 3, [1.5] * 3]
+TRAIN_CPU_RAYS = 1024
+TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
+TRAIN_WINDOW = 60                # steps, 10 update cycles
 
 
 def log(*a):
@@ -197,6 +221,113 @@ def kernel_phase(cfg, staged, dev):
     return results
 
 
+def bwd_kernel_cases(cfg, params):
+    """The train step's plane groups that the backward kernel phase runs,
+    at its point counts (4096 rays): the finest scale's space and time
+    groups and the coarsest scale's space group (4096 rows, the contention
+    case) of the main field (bilerp_bwd_unpacked), the first proposal
+    field's time group and the second's space group (bilerp_bwd_packed,
+    F = 8)."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+
+    rays = train_num_rays_per_batch[MODEL]
+    field = params["fields"]["grids"]
+    props = params["proposal_networks"]
+    last = len(field) - 1
+    m_field = rays * cfg.num_nerf_samples_per_ray
+    return [
+        (f"field scale {last}", "unpacked", field[last], XZ_YZ, m_field),
+        (f"field scale {last}", "unpacked", field[last], XT_YT_ZT, m_field),
+        ("field scale 0", "unpacked", field[0], XZ_YZ, m_field),
+        ("proposal0", "packed", props["proposal_0"]["grids"][0], XT_YT_ZT,
+         rays * cfg.num_proposal_samples_per_ray[0]),
+        ("proposal1", "packed", props["proposal_1"]["grids"][0], XZ_YZ,
+         rays * cfg.num_proposal_samples_per_ray[1]),
+    ]
+
+
+def bwd_kernel_phase(cfg, params, dev):
+    from soccernerfs_tpu_torch.ops.grid_sample import grid_coords
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    results = {"bilerp_bwd_unpacked": [], "bilerp_bwd_packed": []}
+    for label, kind, grids, (members, c2), m in bwd_kernel_cases(cfg, params):
+        planes = [grids[ci] for _c1, ci in members]
+        h, w, feat = planes[0].shape
+        n = len(members)
+        pts = torch.rand((m, 4), generator=gen, device=dev) * 2.0 - 1.0
+        gs = [torch.randn((m, feat), generator=gen, device=dev) for _ in members]
+        yc, ty = grid_coords(pts[:, c2], h)
+        rowids, txs = [], []
+        for c1, _ci in members:
+            xc, tx = grid_coords(pts[:, c1], w)
+            rowids.append(yc * w + xc)
+            txs.append(tx)
+        if kind == "unpacked":
+            def kern():
+                return pk.bilerp_bwd_unpacked(gs, rowids, txs, ty, h=h, w=w)
+
+            def plain():
+                return pk.bilerp_bwd_unpacked_plain(gs, rowids, txs, ty, h=h, w=w)
+        else:
+            def kern():
+                return pk.bilerp_bwd_packed(gs, rowids, txs, ty, rows=h * w)
+
+            def plain():
+                return pk.bilerp_bwd_packed_plain(gs, rowids, txs, ty, rows=h * w)
+
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        err = max(float((g - e).abs().max()) for g, e in zip(got, want))
+        scale = max(float(e.abs().max()) for e in want)
+        # atomics add in an order that changes from run to run
+        if not err <= KERNEL_REL_TOL * scale:
+            raise AssertionError(f"bwd {kind} {label}: max |kernel - plain| = "
+                                 f"{err} > {KERNEL_REL_TOL} * {scale}")
+
+        # yardstick: the input gradient of grid_sample (bilinear, border,
+        # align_corners) for the same f32 NCHW planes, points and gradients
+        inp = torch.stack([pl.permute(2, 0, 1) for pl in planes]).contiguous()
+        grid = torch.stack([pts[:, [c1, c2]] for c1, _ci in members])[:, None]
+        gout = torch.stack(gs).permute(0, 2, 1)[:, :, None].contiguous()
+
+        def library():
+            return torch.ops.aten.grid_sampler_2d_backward(
+                gout, inp, grid, 0, 1, True, [True, False])[0]
+
+        lib_diff = None
+        if kind == "unpacked":
+            lib = library().permute(0, 2, 3, 1).reshape(n, h * w, feat)
+            lib_diff = max(float((g - e).abs().max()) for g, e in zip(got, lib))
+            del lib
+        del got, want
+
+        ms = time_ms(kern, 20)
+        plain_ms = time_ms(plain, 5)
+        library_ms = time_ms(library, 10)
+        table = h * w * feat * (1 if kind == "unpacked" else 4)
+        bytes_ = m * 4 + n * m * (8 + 4 * feat) + n * table * 4
+        flops = m * (1 + n * (5 + 8 * feat))   # 1-ty; 1-tx, 4 weights, 8/feature
+        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        row = {
+            "case": f"{label} {n} planes [{h},{w},{feat}] "
+                    f"grad table {[h * w, table // (h * w)]}",
+            "planes": n, "M": m, "max_abs_err": err, "max_abs_plain": scale,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_diff": lib_diff, "bytes": bytes_, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        log("kernel", f"bwd_{kind}", json.dumps(row))
+        results[f"bilerp_bwd_{kind}"].append(row)
+        del pts, gs, rowids, txs, ty, inp, grid, gout
+        torch.cuda.empty_cache()
+    return results
+
+
 def make_cameras(dev):
     from soccernerfs_tpu_torch.core.cameras import Cameras
 
@@ -211,19 +342,21 @@ def make_cameras(dev):
     )
 
 
-def profile_frame(render, trace_dir):
-    """Device time by kernel over one frame; busy share of the wall time."""
+def profile_device(label, fn, trace_path):
+    """Device time by kernel over one call of ``fn``; busy share of the
+    wall time.  Returns {kernel wrapper name: device ms} of the plane
+    kernels (templates bilerp_{fwd,bwd}_kernel<F, packed>)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if trace_dir:
-        Path(trace_dir).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(trace_dir) / "render_frame_trace.json"))
+    if trace_path:
+        Path(trace_path).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace_path))
     rows = []
     for evt in prof.key_averages():
         # kernels only: an operator's row repeats the time of its kernels
@@ -235,20 +368,20 @@ def profile_frame(render, trace_dir):
             rows.append((dev_us, evt.count, evt.key))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    plane_us = sum(r[0] for r in rows if "bilerp_fwd" in r[2])
+    plane_us = sum(r[0] for r in rows if "bilerp_" in r[2])
     # one stream: kernels do not overlap, so their sum is the busy time
-    log(f"profile: wall {wall * 1e3:.3f} ms (profiled), device kernel time "
-        f"{total_us / 1e3:.3f} ms, busy share "
+    log(f"profile {label}: wall {wall * 1e3:.3f} ms (profiled), "
+        f"{sum(r[1] for r in rows)} kernels, device kernel "
+        f"time {total_us / 1e3:.3f} ms, busy share "
         + (f"{total_us / 1e6 / wall:.4f}, plane-kernel share "
            f"{plane_us / total_us:.4f}" if total_us else "not measured"))
     for dev_us, count, key in rows[:15]:
-        log(f"profile: {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
-    # device time of each plane kernel in the frame (template <F, packed>)
+        log(f"profile {label}: {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
     return {
-        name: sum(r[0] for r in rows
-                  if "bilerp_fwd_kernel<" in r[2] and flag in r[2]) / 1e3
-        for name, flag in (("bilerp_fwd_unpacked", ", false>"),
-                           ("bilerp_fwd_packed", ", true>"))
+        f"bilerp_{d}_{kind}": sum(r[0] for r in rows
+                                  if f"bilerp_{d}_kernel<" in r[2] and flag in r[2]) / 1e3
+        for d in ("fwd", "bwd")
+        for kind, flag in (("unpacked", ", false>"), ("packed", ", true>"))
     }
 
 
@@ -279,10 +412,355 @@ def frame_plane_bound_ms(cfg, staged, n_chunks):
     return {k: v * n_chunks / H100_BYTES_PER_S * 1e3 for k, v in total.items()}
 
 
+def cpu_stat():
+    """The machine's CPU time counters (/proc/stat: user, nice, system,
+    idle, iowait, irq, softirq, steal, ...)."""
+    return [int(x) for x in Path("/proc/stat").read_text().split("\n")[0].split()[1:]]
+
+
+def ring_cameras(dev):
+    """bench.py's training cameras: 20 poses on a ring around the box,
+    looking at the origin, 960x540, times linspace(0, 1)."""
+    from soccernerfs_tpu_torch.core.cameras import Cameras
+
+    n = 20
+    c2w = np.zeros((n, 3, 4), np.float32)
+    for i in range(n):
+        th = 2 * np.pi * i / n
+        z = np.array([np.cos(th), np.sin(th), 0.5])
+        z = z / np.linalg.norm(z)
+        x = np.cross(np.array([0.0, 0.0, 1.0]), z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        c2w[i, :, 0], c2w[i, :, 1], c2w[i, :, 2] = x, y, z
+        c2w[i, :, 3] = z * 2.5
+    return Cameras.create(
+        camera_to_worlds=c2w, fx=800.0, fy=800.0, cx=480.0, cy=270.0,
+        width=960, height=540, times=np.linspace(0, 1, n).astype(np.float32),
+        device=dev,
+    )
+
+
+def make_batch(seed, rays, dev):
+    """A batch in the JAX trainer's layout: random (camera, pixel) pairs of
+    the ring, pixel centres, random colours, from a numpy seed."""
+    r = np.random.default_rng(seed)
+    coords = np.stack([r.integers(0, 540, rays), r.integers(0, 960, rays)], -1)
+    return {
+        "cam_idx": torch.from_numpy(r.integers(0, 20, rays).astype(np.int32)).to(dev),
+        "coords": torch.from_numpy(coords.astype(np.float32) + 0.5).to(dev),
+        "image": torch.from_numpy(r.uniform(0, 1, (rays, 3)).astype(np.float32)).to(dev),
+    }
+
+
+def train_phase(cfg, tree, dev, trace_dir):
+    """The train main path, counted: steps 0-11 and a window of
+    TRAIN_WINDOW steps at step 10,000.  Returns the launch counts and the profiled steps'
+    device time per plane kernel."""
+    from soccernerfs_tpu_torch.configs.method_configs import (
+        optimizer_configs, train_num_rays_per_batch)
+    from soccernerfs_tpu_torch.convert import params_from_jax
+    from soccernerfs_tpu_torch.engine.trainer import TrainStep
+    from soccernerfs_tpu_torch.models.kplanes import host_static_kwargs
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.utils.tree import tree_leaves
+
+    rays = train_num_rays_per_batch[MODEL]
+    trainer = TrainStep(cfg, ring_cameras(dev), AABB, optimizer_configs[MODEL],
+                        device=dev)
+    state = trainer.init_state(params_from_jax(tree, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [make_batch(i, rays, dev) for i in range(8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    pk.reset_launch_counts()
+    # step 0 as train_iteration runs it, with its gradients kept: every one
+    # must be finite (the warm-up lr is 0 here, so nothing moves yet)
+    t0 = time.perf_counter()
+    loss, _ld, _m, grads = trainer.loss_and_grads(
+        state, batches[0], train_proposal_networks=True, generator=gen)
+    bad = [i for i, g in enumerate(grads)
+           if g is not None and not bool(torch.isfinite(g).all())]
+    if bad or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"step 0: loss {float(loss)}, non-finite "
+                             f"gradients at leaves {bad}")
+    if any(g is None for g in grads):
+        raise AssertionError("step 0 (an update step) left a leaf without "
+                             "a gradient")
+    trainer.apply_grads(state, grads)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    del grads
+    watch = tree_leaves(state.params)
+    before = [w.detach().clone() for w in watch[:3]]
+
+    def run(steps, times):
+        """``steps`` train iterations from the state's step, each timed by
+        the host clock to a synchronised end and by the process's CPU
+        time; appends (update step?, wall s, CPU s) to ``times``."""
+        for _ in range(steps):
+            update = host_static_kwargs(
+                cfg, state.step, {"steps_since_update": state.steps_since_update}
+            )["train_proposal_networks"]
+            t0, c0 = time.perf_counter(), time.process_time()
+            m = trainer.train_iteration(state, batches[state.step % 8], gen)
+            torch.cuda.synchronize()
+            times.append((update, time.perf_counter() - t0,
+                          time.process_time() - c0))
+            if not all(bool(torch.isfinite(v)) for v in m.values()):
+                raise AssertionError(f"step {state.step - 1}: non-finite {m}")
+        return m
+
+    def ms(times, update):
+        ts = np.array([t for u, t, _c in times if u == update]) * 1e3
+        return (f"{len(ts)} x {ts.mean():.3f} ms mean, median "
+                f"{np.median(ts):.3f}, min {ts.min():.3f}, max {ts.max():.3f}"
+                if len(ts) else "none")
+
+    warm = []
+    run(1, warm)
+    if all(torch.equal(b, w.detach()) for b, w in zip(before, watch)):
+        raise AssertionError("parameters did not move at step 1 (lr > 0)")
+    del before
+    m = run(10, warm)
+    log(f"train: step 0 {first * 1e3:.3f} ms (first, with warm-up); steps "
+        f"1-11: update steps {ms(warm, True)}; non-update steps "
+        f"{ms(warm, False)}; loss {float(m['Train Loss']):.6f}, psnr "
+        f"{float(m['psnr']):.4f}")
+
+    # the window: an update every sixth step, so each 12-step sub-window
+    # holds 2 update and 10 non-update steps
+    state.step, state.steps_since_update = 10_000, 0
+    times = []
+    load, stat = os.getloadavg()[0], cpu_stat()
+    m = run(TRAIN_WINDOW, times)
+    stat = [b - a for a, b in zip(stat, cpu_stat())]
+    wall = np.array([t for _u, t, _c in times])
+    cpu = np.array([c for _u, _t, c in times])
+    sub = rays * 12 / wall.reshape(-1, 12).sum(1)
+    launches = {k.__name__: k.launches for k in pk.KERNELS}
+    log(f"train: window steps 10000-{10000 + TRAIN_WINDOW - 1}: update steps "
+        f"{ms(times, True)}; non-update steps {ms(times, False)}; "
+        f"{rays * TRAIN_WINDOW / wall.sum():.1f} train rays/s over the "
+        f"window; 12-step sub-windows {[round(float(r), 1) for r in sub]} "
+        f"train rays/s (median {np.median(sub):.1f}, min {sub.min():.1f}, "
+        f"max {sub.max():.1f}); process CPU time per step {cpu.mean() * 1e3:.3f} "
+        f"ms mean ({cpu.sum() / wall.sum():.4f} of the wall time; correlation "
+        f"with the step's wall time {np.corrcoef(cpu, wall)[0, 1]:.4f}); "
+        f"host: steal {stat[7] / max(sum(stat[:8]), 1):.4f} of the CPUs' time, load "
+        f"average (1 min) {load:.2f} before, "
+        f"{os.getloadavg()[0]:.2f} after, {os.cpu_count()} CPUs; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; loss "
+        f"{float(m['Train Loss']):.6f}; launches {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched by the train path")
+
+    # where one non-update step's wall time goes: forward, losses and
+    # backward, then the optimizer update (host clock, synchronised)
+    t0 = time.perf_counter()
+    _l, _d, _m, grads = trainer.loss_and_grads(
+        state, batches[1], train_proposal_networks=False, generator=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.apply_grads(state, grads)
+    torch.cuda.synchronize()
+    log(f"train: one non-update step split: forward + losses + backward "
+        f"{(t1 - t0) * 1e3:.3f} ms, optimizer update "
+        f"{(time.perf_counter() - t1) * 1e3:.3f} ms")
+    del grads
+
+    in_step = {}
+    for update in (True, False):
+        label = "update step" if update else "non-update step"
+        # the step after an update is a non-update one; after 5 non-update
+        # steps the next updates
+        state.steps_since_update = 5 if update else 0
+        pk.reset_launch_counts()
+        in_step[update] = profile_device(
+            f"train {label}",
+            lambda: trainer.train_iteration(state, batches[0], gen),
+            Path(trace_dir) / f"train_{label.replace(' ', '_')}_trace.json"
+            if trace_dir else None)
+        log(f"launches in one {label}: "
+            f"{ {k.__name__: k.launches for k in pk.KERNELS} }")
+    del state, trainer, batches
+    torch.cuda.empty_cache()
+    return launches, in_step
+
+
+def leaf_paths(tree, prefix=""):
+    """Names of a param tree's leaves, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items() for q in leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree) for q in leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+@contextlib.contextmanager
+def pdf_bins(record=None, replay=None):
+    """While open, the proposal sampler's PDF resamplings append their
+    RaySamples to ``record``; or, with ``replay``, each takes the bins of
+    the next recorded one (moved to its device) in place of its own."""
+    from soccernerfs_tpu_torch.ops import samplers
+
+    orig = samplers.pdf_samples
+    it = iter(replay or ())
+
+    def patched(*a, **k):
+        out = orig(*a, **k)
+        if replay is None:
+            record.append(out)
+            return out
+        rec = next(it)
+        return out.replace(**{
+            f: getattr(rec, f).to(out.starts.device)
+            for f in ("starts", "ends", "spacing_starts", "spacing_ends")})
+
+    samplers.pdf_samples = patched
+    try:
+        yield
+    finally:
+        samplers.pdf_samples = orig
+
+
+@contextlib.contextmanager
+def one_ulp_directions():
+    """While open, the train step's rays have every other direction
+    component moved up by one f32 ulp."""
+    from soccernerfs_tpu_torch.engine import trainer
+
+    orig = trainer.generate_rays
+
+    def patched(*a, **k):
+        rays = orig(*a, **k)
+        d = rays.directions.clone()
+        flat = d.view(-1)
+        flat[::2] = torch.nextafter(flat[::2], torch.full_like(flat[::2], 2.0))
+        return rays.replace(directions=d)
+
+    trainer.generate_rays = patched
+    try:
+        yield
+    finally:
+        trainer.generate_rays = orig
+
+
+def train_cpu_check(cfg, tree, dev):
+    """One step of TRAIN_CPU_RAYS rays on the card and on the CPU (the
+    kernels' plain versions), same params, batch and draws, proposal
+    update on, for each of TRAIN_CPU_SEEDS: the loss terms and every
+    gradient before the update.  Two more CPU steps are the witnesses of
+    what sets the gradients' worst elements: one takes the card's PDF bins
+    in place of its own, and one also moves the ray directions by one ulp
+    (the CPU against itself: the step's own sensitivity to rounding)."""
+    from soccernerfs_tpu_torch.configs.method_configs import optimizer_configs
+    from soccernerfs_tpu_torch.convert import params_from_jax
+    from soccernerfs_tpu_torch.engine.trainer import TrainStep
+    from soccernerfs_tpu_torch.models.kplanes import sample_counts
+
+    n = TRAIN_CPU_RAYS
+    cpu = torch.device("cpu")
+    trainers = {d: TrainStep(cfg, ring_cameras(d), AABB,
+                             optimizer_configs[MODEL], device=d)
+                for d in (dev, cpu)}
+    states = {d: trainers[d].init_state(params_from_jax(tree, device=d))
+              for d in (dev, cpu)}
+    names = leaf_paths(states[cpu].params)
+
+    def compare(a_run, b_run):
+        """Loss terms |a - b| / |b|; per leaf, (|a - b| / |b| in L2,
+        max |a - b| / max |b|, leaf name), worst L2 first."""
+        terms = {k: abs(a_run[0][k] - v) / max(abs(v), 1e-30)
+                 for k, v in b_run[0].items()}
+        rows = []
+        for a, b, name in zip(a_run[1], b_run[1], names):
+            if (a is None) != (b is None):
+                raise AssertionError(f"{name}: gradient on one run only")
+            if a is not None:
+                rows.append((float((a - b).norm() / b.norm().clamp(min=1e-30)),
+                             float((a - b).abs().max()
+                                   / b.abs().max().clamp(min=1e-30)), name))
+        rows.sort(reverse=True)
+        return terms, rows
+
+    def fmt(rows):
+        return ", ".join(f"{name} {l2:.3e} / {mx:.3e}" for l2, mx, name in rows)
+
+    results = []
+    for seed in TRAIN_CPU_SEEDS:
+        rng = np.random.default_rng(seed)
+        jitters = [rng.uniform(0, 1, (n, s + 1)).astype(np.float32)
+                   for s in sample_counts(cfg)]
+        background = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+        bins = []
+        out = {}
+        for where, d, patches in (
+                ("card", dev, [pdf_bins(record=bins)]),
+                ("cpu", cpu, []),
+                ("cpu, card's bins", cpu, [pdf_bins(replay=bins)]),
+                ("cpu, card's bins, directions + 1 ulp", cpu,
+                 [pdf_bins(replay=bins), one_ulp_directions()])):
+            state = states[d]
+            state.step = 300
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                for patch in patches:
+                    stack.enter_context(patch)
+                loss, ld, _m, grads = trainers[d].loss_and_grads(
+                    state, make_batch(seed + 1, n, d),
+                    train_proposal_networks=True,
+                    jitters=[torch.from_numpy(j).to(d) for j in jitters],
+                    background=torch.from_numpy(background).to(d))
+            out[where] = ({"Train Loss": float(loss),
+                           **{k: float(v) for k, v in ld.items()}},
+                          [None if g is None else g.cpu() for g in grads])
+            log(f"train cpu check, seed {seed}: {where} step "
+                f"{time.perf_counter() - t0:.3f} s")
+            del grads
+        pairs = {
+            "card vs cpu": compare(out["card"], out["cpu"]),
+            "card vs cpu, both the card's bins":
+                compare(out["card"], out["cpu, card's bins"]),
+            "cpu vs cpu, directions + 1 ulp, both the card's bins":
+                compare(out["cpu, card's bins, directions + 1 ulp"],
+                        out["cpu, card's bins"]),
+        }
+        for label, (t, r) in pairs.items():
+            log(f"train cpu check, seed {seed} ({n} rays, step 300, proposal "
+                f"update on), {label}: loss terms |a - b| / |b| max "
+                f"{max(t.values()):.3e} ({max(t, key=t.get)}); gradients "
+                f"|a - b| / |b| in L2, worst: {fmt(r[:3])}; max |a - b| / "
+                f"max |b|, worst: {fmt(sorted(r, key=lambda x: -x[1])[:3])}")
+        del out, bins
+        # Loss terms: f32 sums in another order.  Gradients: when its inputs
+        # move by one ulp, the step moves single elements of the finest
+        # planes by up to ~10 % of a leaf's max (the last witness: the CPU
+        # against itself), because the MLPs round their operands to bf16
+        # and a flipped rounding is a 2^-8 step (with f32 MLPs that
+        # sensitivity falls below 1e-5: tests/test_torch_train_step.py,
+        # test_one_ulp_sensitivity_comes_from_the_bf16_mlp).  Card and CPU
+        # round f32 sums differently all along the step, so their
+        # difference is of that size, with the PDF bins shared or not.
+        # So single elements are not held; each leaf is, in L2, where the
+        # TV gradient over every entry keeps the norm stable.
+        terms, rows = pairs["card vs cpu"]
+        if max(terms.values()) > 1e-4 or rows[0][0] > 1e-2:
+            raise AssertionError(
+                f"card and CPU train steps disagree, seed {seed}: {terms}, "
+                f"gradient {rows[0]}")
+        results.append(pairs)
+    del trainers, states
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
-                        help="directory for a chrome trace of one frame")
+                        help="directory for chrome traces of one frame and "
+                             "of one update and one non-update train step")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -301,21 +779,21 @@ def main() -> int:
     from soccernerfs_tpu_torch.models import kplanes
     from soccernerfs_tpu_torch.ops.kernels import build
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
     dev = torch.device(DEVICE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log("card:", card)
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "python", sys.version.split()[0])
 
     t0 = time.perf_counter()
-    lib = build.build("plane_kernels")
-    log(f"build: {time.perf_counter() - t0:.3f} s, {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("ptxas:", line.strip())
+    libs = build.build_all(pk.LIBRARIES)
+    log(f"build: {time.perf_counter() - t0:.3f} s, {[lib.name for lib in libs]}")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log("ptxas:", line.strip())
 
     cfg = model_configs[MODEL]
     t0 = time.perf_counter()
@@ -323,13 +801,14 @@ def main() -> int:
     params = params_from_jax(tree, device=dev)
     staged = kplanes.prepare_render_params(cfg, params)
     torch.cuda.synchronize()
-    n_params = sum(int(np.prod(a.shape)) for a in _leaves(tree))
+    n_params = sum(int(np.prod(a.shape)) for a in tree_leaves(tree))
     log(f"params: {n_params} ({n_params * 4 / 2**20:.1f} MiB f32), made and "
         f"staged in {time.perf_counter() - t0:.3f} s")
 
     kernels = kernel_phase(cfg, staged, dev)
+    kernels.update(bwd_kernel_phase(cfg, params, dev))
 
-    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=dev)
+    aabb = torch.tensor(AABB, device=dev)
     cams = make_cameras(dev)
 
     # the main path, counted: two whole frames
@@ -342,8 +821,8 @@ def main() -> int:
     launches = {k.__name__: k.launches for k in pk.KERNELS}
     log(f"render: 2 frames {W}x{H} in {first_two_s:.3f} s (first frames), "
         f"launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("bilerp_fwd_unpacked", "bilerp_fwd_packed"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the render path")
     for i, fr in enumerate(frames):
         rgb, depth, acc = fr["rgb"], fr["depth"], fr["accumulation"]
@@ -369,9 +848,10 @@ def main() -> int:
         f"{H * W / per_frame:.1f} test rays/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     pk.reset_launch_counts()
-    in_frame = profile_frame(
+    in_frame = profile_device(
+        "render frame",
         lambda: render_camera(cfg, staged, cams, 1, device=dev, aabb=aabb),
-        args.trace)
+        Path(args.trace) / "render_frame_trace.json" if args.trace else None)
     per_frame_launches = {k.__name__: k.launches for k in pk.KERNELS}
     log(f"launches per frame {per_frame_launches}")
     n_chunks = -(-H * W // cfg.eval_num_rays_per_chunk)
@@ -406,10 +886,21 @@ def main() -> int:
     # the median depth jumps where the cumulative weight sits at 0.5
     if diffs["rgb"] > 2e-3 or diffs["accumulation"] > 2e-3 or depth_off > 0.01:
         raise AssertionError(f"card and CPU disagree: {diffs}, {depth_off}")
+    del staged, params, params_cpu, outs
+    torch.cuda.empty_cache()
 
+    train_launches, in_step = train_phase(cfg, tree, dev, args.trace)
+    for update, times in in_step.items():
+        log(f"in-step plane kernels ({'update' if update else 'non-update'} "
+            f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    train_cpu_check(cfg, tree, dev)
+
+    pallas = "soccernerfs_tpu/ops/pallas/plane_kernels.py"
     replaces = {
-        "bilerp_fwd_unpacked": "soccernerfs_tpu/ops/pallas/plane_kernels.py:591",
-        "bilerp_fwd_packed": "soccernerfs_tpu/ops/pallas/plane_kernels.py:1062",
+        "bilerp_fwd_unpacked": (f"{pallas}:591", "plane_kernels.cu"),
+        "bilerp_fwd_packed": (f"{pallas}:1062", "plane_kernels.cu"),
+        "bilerp_bwd_unpacked": (f"{pallas}:1418", "plane_bwd_kernels.cu"),
+        "bilerp_bwd_packed": (f"{pallas}:1156", "plane_bwd_kernels.cu"),
     }
     summary = []
     for name, rows in kernels.items():
@@ -417,9 +908,10 @@ def main() -> int:
         t_ops = sum(r["flops"] for r in rows) / H100_F32_FLOPS * 1e3
         summary.append({
             "name": name, "route": "cuda",
-            "source": "soccernerfs_tpu_torch/csrc/plane_kernels.cu",
-            "replaces": replaces[name],
-            "launches": launches[name],
+            "source": f"soccernerfs_tpu_torch/csrc/{replaces[name][1]}",
+            "replaces": replaces[name][0],
+            # both main paths: the two render frames and the train steps
+            "launches": launches[name] + train_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -433,17 +925,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -1,10 +1,14 @@
-"""Model configs of the registered methods the port runs (counterpart of
-soccernerfs_tpu/configs/method_configs.py; only the model values, copied).
+"""Configs of the registered methods the port runs (counterpart of
+soccernerfs_tpu/configs/method_configs.py; the values are copied): the
+model, the per-group optimizers and schedules, and the rays per train
+batch.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from soccernerfs_tpu_torch.engine.optimizers import AdamOptimizerConfig
+from soccernerfs_tpu_torch.engine.schedulers import CosineDecaySchedulerConfig
 from soccernerfs_tpu_torch.models import kplanes as kplanes_model
 
 # K-Planes loss coefficients of the fork's methods
@@ -46,3 +50,17 @@ model_configs: Dict[str, kplanes_model.Config] = {
         is_euclidean_depth=False,
     ),
 }
+
+# {group: {"optimizer": ..., "scheduler": ...}} per method, the groups being
+# the top-level keys of the params
+_KPLANES_GROUP = {
+    "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12),
+    "scheduler": CosineDecaySchedulerConfig(
+        warm_up_end=512, max_steps=30000, learning_rate_alpha=0
+    ),
+}
+optimizer_configs: Dict[str, Dict[str, dict]] = {
+    "k-planes": {"proposal_networks": _KPLANES_GROUP, "fields": _KPLANES_GROUP},
+}
+
+train_num_rays_per_batch: Dict[str, int] = {"k-planes": 4096}

@@ -7,10 +7,22 @@ from typing import Optional
 import torch
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """exp; the clamped-input backward of the JAX version comes with
-    training (forward only here)."""
-    return torch.exp(x)
+    """exp whose backward evaluates exp(clamp(x, -15, 15)), so gradients
+    neither vanish nor explode."""
+    return _TruncExp.apply(x)
 
 
 def intersect_aabb(

@@ -1,0 +1,101 @@
+"""Per-group Adam (counterpart of soccernerfs_tpu/engine/optimizers.py).
+
+The JAX package chains optax transforms per top-level param group
+("fields", "proposal_networks"): Adam with low-precision moment storage
+(``scale_by_adam_lowp``), then ``scale_by_schedule(-lr * schedule)``.  The
+port writes that chain as plain functions over a group's list of leaves
+rather than as a ``torch.optim.Optimizer``: the params are the JAX
+package's nested dicts and lists, the schedule counts updates from 0 as
+optax's does (so the registry's warm-up makes the first update move
+nothing), and zero gradients still advance the moments, which is what the
+proposal sigma nets get on non-update steps.  A torch optimizer would skip
+parameters without a gradient and count steps from 1.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, List
+
+import numpy as np
+import torch
+
+from soccernerfs_tpu_torch.engine.schedulers import (
+    CosineDecaySchedulerConfig,
+    ExponentialDecaySchedulerConfig,
+    cosine_decay_schedule,
+    exponential_decay_schedule,
+)
+
+f32 = np.float32
+
+
+@dataclass(frozen=True)
+class AdamOptimizerConfig:
+    """Adam; field names and defaults are the JAX package's.
+
+    The first moment is stored in bf16 and the second in f32, as the
+    registered k-planes method stores them; all arithmetic is f32.  The
+    JAX config's other storage types, weight decay, clipping and RAdam are
+    not ported: no registered method the port runs uses them.
+    """
+
+    lr: float = 5e-4
+    eps: float = 1e-8
+
+
+def schedule_fn(scheduler_config, lr_init: float) -> Callable:
+    """The update-count -> lr-multiplier schedule of a scheduler config
+    (None: constant 1)."""
+    if scheduler_config is None:
+        return lambda step: f32(1.0)
+    if isinstance(scheduler_config, CosineDecaySchedulerConfig):
+        return cosine_decay_schedule(scheduler_config)
+    if isinstance(scheduler_config, ExponentialDecaySchedulerConfig):
+        return exponential_decay_schedule(scheduler_config, lr_init)
+    raise TypeError(f"unknown scheduler config {scheduler_config!r}")
+
+
+@dataclass
+class AdamState:
+    """One group's state: the count of updates made (Adam's bias
+    correction of an update uses the count after it, the schedule the
+    count before it), the moments."""
+
+    count: int = 0
+    mu: List[torch.Tensor] = field(default_factory=list)
+    nu: List[torch.Tensor] = field(default_factory=list)
+
+
+def adam_init(leaves) -> AdamState:
+    return AdamState(
+        mu=[torch.zeros_like(p, dtype=torch.bfloat16) for p in leaves],
+        nu=[torch.zeros_like(p, dtype=torch.float32) for p in leaves],
+    )
+
+
+@torch.no_grad()
+def adam_update(cfg: AdamOptimizerConfig, schedule: Callable,
+                state: AdamState, leaves, grads,
+                b1: float = 0.9, b2: float = 0.999) -> None:
+    """One update of a group's ``leaves`` in place, from ``grads`` (None
+    for a leaf that got no gradient: a zero gradient).
+
+    Per leaf, in f32 and in the order of the JAX package's
+    scale_by_adam_lowp: mu = b1 mu + (1-b1) g, nu = b2 nu + (1-b2) g g,
+    u = (mu / c1) / (sqrt(nu / c2) + eps) with c_k = 1 - b_k^count; then
+    p += u * (-lr * schedule(count - 1)).  The moments are stored back in
+    their storage types.
+    """
+    step_size = float(f32(-cfg.lr) * f32(schedule(state.count)))
+    state.count += 1
+    count = f32(state.count)
+    c1 = f32(1.0) - f32(b1) ** count
+    c2 = f32(1.0) - f32(b2) ** count
+    for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
+        g = torch.zeros_like(p) if g is None else g.float()
+        mu_f = b1 * mu.float() + (1.0 - b1) * g
+        nu_f = b2 * nu.float() + (1.0 - b2) * g * g
+        upd = (mu_f / float(c1)) / (torch.sqrt(nu_f / float(c2)) + cfg.eps)
+        p.add_(upd * step_size)
+        mu.copy_(mu_f)
+        nu.copy_(nu_f)

@@ -42,10 +42,6 @@ def render_camera(
         ``device``.
     """
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        # the bf16 MLP policy multiplies in f32: TF32 would round further
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     leaf = params["fields"]["grids"][0][0]
     if leaf.device.type != dev.type:
         raise ValueError(f"params are on {leaf.device}, rendering on {dev}")

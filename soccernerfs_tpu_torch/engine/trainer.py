@@ -1,0 +1,140 @@
+"""One K-Planes training step on one device (the counterpart of the step
+that soccernerfs_tpu's ``Trainer._build_step_fns`` jits, without a mesh).
+
+``TrainStep`` holds what does not change between steps (model config,
+cameras, scene box, per-group optimizer configs); ``TrainState`` holds
+what does (params, the optimizer state, the step and the host counter of
+the proposal-update schedule).  ``train_iteration`` decides the proposal
+update on the host, generates the batch's rays, runs the forward, the
+losses and ``backward``, and applies one Adam update per param group.
+The batch comes from the caller in the layout of the JAX trainer's
+``_device_batch``: ``cam_idx`` [N] int32, ``coords`` [N, 2] (row, col)
+pixel coordinates + 0.5, ``image`` [N, 3].
+"""
+from __future__ import annotations
+
+import functools
+import operator
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from soccernerfs_tpu_torch.core.cameras import Cameras, generate_rays
+from soccernerfs_tpu_torch.engine.optimizers import (
+    AdamState,
+    adam_init,
+    adam_update,
+    schedule_fn,
+)
+from soccernerfs_tpu_torch.models import kplanes
+from soccernerfs_tpu_torch.utils.device import resolve_device
+from soccernerfs_tpu_torch.utils.tree import tree_leaves
+
+
+@dataclass
+class TrainState:
+    params: dict                      # leaves require grad
+    opt_state: Dict[str, AdamState]   # per top-level param group
+    step: int = 0
+    steps_since_update: int = 0       # host counter of host_static_kwargs
+
+
+class TrainStep:
+    """The static half of training: config, cameras, scene box, optimizers.
+
+    Args:
+        cfg: the model config.
+        cameras: the training cameras (moved to ``device``).
+        aabb: [2, 3] scene box.
+        optimizer_configs: {group: {"optimizer": AdamOptimizerConfig,
+            "scheduler": config or None}} per top-level param group
+            (configs/method_configs.py).
+        device: default CUDA; raises when CUDA is absent and the caller
+            did not ask for another device.
+    """
+
+    def __init__(self, cfg: kplanes.Config, cameras: Cameras, aabb,
+                 optimizer_configs: Dict[str, dict], device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.cameras = cameras.to(self.device)
+        self.aabb = torch.as_tensor(aabb, dtype=torch.float32, device=self.device)
+        self.optimizers = {
+            name: (g["optimizer"],
+                   schedule_fn(g.get("scheduler"), g["optimizer"].lr))
+            for name, g in optimizer_configs.items()
+        }
+
+    def init_state(self, params: dict) -> TrainState:
+        """A state at step 0 over ``params`` (the model's param tree on
+        this device; its leaves are made to require grad, in place)."""
+        for leaf in tree_leaves(params):
+            if leaf.device.type != self.device.type:
+                raise ValueError(f"params are on {leaf.device}, training on "
+                                 f"{self.device}")
+            leaf.requires_grad_(True)
+        return TrainState(params=params, opt_state={
+            name: adam_init(tree_leaves(group))
+            for name, group in params.items()
+        })
+
+    def loss_and_grads(
+        self,
+        state: TrainState,
+        batch: Dict[str, torch.Tensor],
+        *,
+        train_proposal_networks: bool,
+        generator: Optional[torch.Generator] = None,
+        jitters: Optional[Sequence[torch.Tensor]] = None,
+        background: Optional[torch.Tensor] = None,
+    ):
+        """Loss, loss dict, metrics and the gradient of every leaf of
+        ``state.params`` (``tree_leaves`` order; None for a leaf the loss
+        does not reach) at ``state.step``, before any update.  The draws
+        come from ``jitters``/``background`` when given, else from
+        ``generator`` (models/kplanes.train_draws)."""
+        cfg = self.cfg
+        rays = generate_rays(self.cameras, batch["cam_idx"], batch["coords"])
+        outputs = kplanes.get_outputs(
+            cfg, state.params, self.aabb, rays, train=True,
+            anneal=kplanes.proposal_anneal(cfg, state.step),
+            train_proposal_networks=train_proposal_networks,
+            jitters=jitters, background=background, generator=generator,
+        )
+        metrics = kplanes.get_metrics_dict(cfg, outputs, batch)
+        loss_dict = kplanes.get_loss_dict(cfg, state.params, outputs, batch)
+        loss = functools.reduce(operator.add, loss_dict.values())
+        grads = torch.autograd.grad(loss, tree_leaves(state.params),
+                                    allow_unused=True)
+        return (loss.detach(), {k: v.detach() for k, v in loss_dict.items()},
+                metrics, list(grads))
+
+    def apply_grads(self, state: TrainState, grads: List) -> None:
+        """One optimizer update per param group, in place; step + 1."""
+        i = 0
+        for name, group in state.params.items():
+            leaves = tree_leaves(group)
+            opt, schedule = self.optimizers[name]
+            adam_update(opt, schedule, state.opt_state[name], leaves,
+                        grads[i:i + len(leaves)])
+            i += len(leaves)
+        state.step += 1
+
+    def train_iteration(
+        self,
+        state: TrainState,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One training step, in place on ``state``, its draws from
+        ``generator``.  Returns {"Train Loss", **loss_dict, **metrics} as
+        0-d tensors."""
+        host = {"steps_since_update": state.steps_since_update}
+        flag = kplanes.host_static_kwargs(
+            self.cfg, state.step, host)["train_proposal_networks"]
+        state.steps_since_update = host["steps_since_update"]
+        loss, loss_dict, metrics, grads = self.loss_and_grads(
+            state, batch, train_proposal_networks=flag, generator=generator)
+        self.apply_grads(state, grads)
+        return {"Train Loss": loss, **loss_dict, **metrics}

@@ -1,14 +1,15 @@
-"""K-Planes field (counterpart of soccernerfs_tpu/fields/kplanes.py), eval.
+"""K-Planes field (counterpart of soccernerfs_tpu/fields/kplanes.py).
 
 Params are plain dicts of tensors in the JAX package's layout: ``grids`` is
 a list (scales) of lists (planes, k-choose-2 order XY, XZ, XT, YZ, YT, ZT)
 of [H, W, F] planes, MLPs are {"w": [...], "b": [...]}.
 
 This follows the JAX package's unsorted sampler (``interpolate_kplanes``).
-Its stripe-sorted sampler exists because Mosaic cannot lower a vector
-gather; a CUDA thread gathers directly, so the render path samples the
-tables staged by ``pack_grids_for_render`` through the two forward kernels
-(ops/grid_sample.plane_sample_{packed,unpacked}_group) in ray order.
+Its stripe-sorted samplers exist because Mosaic cannot lower a vector
+gather; a CUDA thread gathers (and atomically scatters) directly, so every
+path samples in ray order through the CUDA kernels: the render path the
+tables staged once by ``pack_grids_for_render``, the train path the grids
+themselves through the differentiable group samplers of ops/grid_sample.
 
 Kept from the JAX package: the proposal field maps bounded positions to
 [-1, 1] like the main field (the reference left them in [0, 1]), and
@@ -31,10 +32,12 @@ from soccernerfs_tpu_torch.core.math import (
 from soccernerfs_tpu_torch.core.scene_box import SceneBox
 from soccernerfs_tpu_torch.ops.grid_sample import (
     grid_coords,
+    plane_sample_fold_group,
+    plane_sample_group_bwdsort,
     plane_sample_packed_group,
     plane_sample_unpacked_group,
     quad_pack,
-    sample_plane_bilinear_packed,
+    stage_table,
 )
 from soccernerfs_tpu_torch.ops.mlp import init_mlp, mlp_apply
 
@@ -80,22 +83,11 @@ def _sampled_planes(pts_dim: int, n_planes: int):
 
 
 def pack_grids_for_render(params: dict) -> dict:
-    """Stage every plane table as a bf16 copy once per parameter snapshot.
-
-    Big F = 32 tables (h*w >= 65536 and w % 32 == 0) are stored unpacked
-    ([h*w, F], for the unpacked kernel, 4x less memory), the rest
-    quad-packed ([h*w, 4F]), on every device: the unpacked sampler has a
-    plain version for CPU tensors.  Both stagings hold the same bf16
-    values.  The copies ride the params dict under ``grids_packed``.
-    """
-
-    def stage(g):
-        h, w, f = g.shape
-        if 4 * f == 128 and h * w >= 65536 and w % 32 == 0:
-            return g.reshape(h * w, f).to(torch.bfloat16).contiguous()
-        return quad_pack(g.to(torch.bfloat16)).contiguous()
-
-    packed = [[stage(g) for g in grids] for grids in params["grids"]]
+    """Stage every plane table as a bf16 copy once per parameter snapshot
+    (``ops/grid_sample.stage_table``: big F = 32 tables unpacked, the rest
+    quad-packed, on every device).  The copies ride the params dict under
+    ``grids_packed``."""
+    packed = [[stage_table(g) for g in grids] for grids in params["grids"]]
     return {**params, "grids_packed": packed}
 
 
@@ -114,24 +106,40 @@ def interpolate_kplanes(
     ms_grids,
     concat_features: bool,
     freeze_time_planes: bool = False,
+    freeze_space_planes: bool = False,
     ms_packed=None,
 ) -> torch.Tensor:
     """Query multiscale planes: per-plane bilinear sample, Hadamard product
     over planes, concat/sum over scales.
 
-    With ``ms_packed`` (tables staged by pack_grids_for_render) the planes
-    of one scale are grouped by their y axis and width, as the JAX
-    package's sorted path groups them, and each group costs one kernel
-    launch; the product runs in place into a running per-scale tensor, so
-    no more than one group's outputs are alive at a time.  Without it,
-    each plane is quad-packed and sampled in plain PyTorch.
+    The planes of one scale are grouped by their y axis and width, as the
+    JAX package's sorted path groups them, and each group costs one kernel
+    launch.  With ``ms_packed`` (tables staged by pack_grids_for_render)
+    the no-grad samplers read the staged tables.  Without it the
+    differentiable group samplers read the grids: narrow (F = 8) planes
+    whose widths divide by 4 quad-packed (plane_sample_group_bwdsort, the
+    JAX condition of its proposal-field path), the rest through
+    plane_sample_fold_group.  With grad disabled the product runs in place
+    into a running per-scale tensor, so no more than one group's outputs
+    are alive at a time; with grad enabled it runs out of place, since
+    autograd keeps every factor for the product's backward.
+
+    Positions carry no gradient here (PDF bins are detached and the camera
+    optimizer is not ported): the group samplers return none for their
+    coordinates, so the function refuses ``pts`` that require grad rather
+    than give silent zeros.
 
     Args:
         pts: [M, 3] or [M, 4] normalized coordinates in [-1, 1].
         ms_grids: list (scales) of lists (planes) of [H, W, F] tensors.
+        freeze_time_planes: skip the time planes; freeze_space_planes:
+            detach the space planes.
     Returns:
         [M, F * num_scales] if concat else [M, F].
     """
+    if pts.requires_grad:
+        raise ValueError("plane coordinates that require grad are not "
+                         "supported: the plane samplers give them none")
     dim = pts.shape[-1]
     has_time = dim == 4
     n_scales = len(ms_grids)
@@ -141,24 +149,23 @@ def interpolate_kplanes(
         for ci, (c1, c2) in _sampled_planes(dim, len(ms_grids[0]))
         if not (freeze_time_planes and has_time and 3 in (c1, c2))
     ]
+    narrow = feat == 8 and all(g.shape[1] % 4 == 0 for g in ms_grids[0])
+    inplace = not torch.is_grad_enabled()
     out = None
-    if concat_features:
+    if concat_features and inplace:
         out = torch.empty((pts.shape[0], n_scales * feat), device=pts.device)
+    per_scale = []
     for s, grids in enumerate(ms_grids):
         acc = None
-        if ms_packed is None:
-            for ci, c1, c2 in planes:
-                f = sample_plane_bilinear_packed(grids[ci], pts[:, [c1, c2]])
-                acc = f if acc is None else acc.mul_(f)
-        else:
-            for (c2, w), members in plane_groups(planes, grids).items():
-                h = grids[members[0][0]].shape[0]
-                yc, ty = grid_coords(pts[:, c2], h)
-                rowids, txs = [], []
-                for _ci, c1 in members:
-                    xc, tx = grid_coords(pts[:, c1], w)
-                    rowids.append(yc * w + xc)
-                    txs.append(tx)
+        for (c2, w), members in plane_groups(planes, grids).items():
+            h = grids[members[0][0]].shape[0]
+            yc, ty = grid_coords(pts[:, c2], h)
+            rowids, txs = [], []
+            for _ci, c1 in members:
+                xc, tx = grid_coords(pts[:, c1], w)
+                rowids.append(yc * w + xc)
+                txs.append(tx)
+            if ms_packed is not None:
                 tables = [ms_packed[s][ci] for ci, _c1 in members]
                 if tables[0].shape[-1] == feat:
                     feats = plane_sample_unpacked_group(
@@ -166,13 +173,37 @@ def interpolate_kplanes(
                     )
                 else:
                     feats = plane_sample_packed_group(tables, rowids, txs, ty)
-                for f in feats:
-                    acc = f if acc is None else acc.mul_(f)
-        if concat_features:
+            else:
+                sel = [
+                    grids[ci].detach()
+                    if freeze_space_planes and not (has_time and 3 in (c1, c2))
+                    else grids[ci]
+                    for ci, c1 in members
+                ]
+                if narrow:
+                    feats = plane_sample_group_bwdsort(
+                        [quad_pack(g) for g in sel], rowids, txs, ty)
+                else:
+                    feats = plane_sample_fold_group(sel, rowids, txs, ty)
+            for f in feats:
+                if acc is None:
+                    acc = f
+                elif inplace:
+                    acc.mul_(f)
+                else:
+                    acc = acc * f
+        if out is not None:
             out[:, s * feat:(s + 1) * feat] = acc
         else:
-            out = acc if out is None else out.add_(acc)
-    return out
+            per_scale.append(acc)
+    if out is not None:
+        return out
+    if concat_features:
+        return torch.cat(per_scale, dim=-1)
+    total = per_scale[0]
+    for p in per_scale[1:]:
+        total = total.add_(p) if inplace else total + p
+    return total
 
 
 @dataclass(frozen=True)
@@ -300,6 +331,7 @@ def kplanes_density(
         params["grids"],
         concat_features=cfg.concat_features_across_scales,
         freeze_time_planes=cfg.freeze_time_planes,
+        freeze_space_planes=cfg.freeze_space_planes,
         ms_packed=params.get("grids_packed"),
     )
     if cfg.linear_decoder:
@@ -436,6 +468,7 @@ def kplanes_density_field_density(
         params["grids"],
         concat_features=False,
         freeze_time_planes=cfg.freeze_time_planes,
+        freeze_space_planes=cfg.freeze_space_planes,
         ms_packed=params.get("grids_packed"),
     )
     activation = "none" if cfg.linear_decoder else "relu"

@@ -1,14 +1,17 @@
-"""K-Planes model (counterpart of soccernerfs_tpu/models/kplanes.py), eval.
+"""K-Planes model (counterpart of soccernerfs_tpu/models/kplanes.py).
 
 Proposal-samples rays with the density fields, evaluates the main field
-and composites rgb / accumulation / depth.  Training (losses, schedules,
-the proposal-update gate) comes with the backward kernels.
+and composites rgb / accumulation / depth; in training also the per-step
+schedules (proposal-weight anneal, the host-side proposal-update gate),
+the PSNR metric and the scaled loss dict.  The depth loss waits for the
+data path that brings depth images.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from soccernerfs_tpu_torch.core.math import intersect_aabb
@@ -22,6 +25,7 @@ from soccernerfs_tpu_torch.fields.kplanes import (
     kplanes_field_forward,
     pack_grids_for_render,
 )
+from soccernerfs_tpu_torch.ops import losses as L
 from soccernerfs_tpu_torch.ops.rendering import (
     render_accumulation,
     render_depth,
@@ -109,6 +113,10 @@ class Config:
         for name in ("spacetime_resolution", "multiscale_res",
                      "num_proposal_samples_per_ray"):
             object.__setattr__(self, name, tuple(getattr(self, name)))
+
+    @property
+    def loss_coef(self) -> Dict[str, float]:
+        return dict(self.loss_coefficients)
 
     @property
     def has_time(self) -> bool:
@@ -207,20 +215,87 @@ def set_nears_and_fars(cfg: Config, ray_bundle: RayBundle, aabb) -> RayBundle:
     return ray_bundle.replace(nears=nears, fars=fars)
 
 
+def proposal_anneal(cfg: Config, step: int) -> float:
+    """Exponent of the proposal weights before PDF resampling at ``step``
+    (mip-NeRF 360 eq. 18 bias), in f32 arithmetic as the JAX version."""
+    if not cfg.use_proposal_weight_anneal:
+        return 1.0
+    f32 = np.float32
+    x = np.clip(f32(step) / f32(cfg.proposal_weights_anneal_max_num_iters),
+                f32(0.0), f32(1.0))
+    b = f32(cfg.proposal_weights_anneal_slope)
+    return float((b * x) / ((b - f32(1.0)) * x + f32(1.0)))
+
+
+def host_static_kwargs(cfg: Config, step: int, host_state: dict) -> dict:
+    """The proposal-update decision, made on the host.
+
+    Gradients reach the proposal networks only on update steps; on the
+    others the proposal fields run with grad disabled, so the proposal
+    backward does not run at all (the reference wraps them in
+    ``torch.no_grad()`` too).  The
+    counter increments before the comparison, as the reference's does, so
+    after warmup an update fires every ``proposal_update_every + 1`` steps.
+    Mutates ``host_state["steps_since_update"]``.
+    """
+    ssu = host_state.get("steps_since_update", 0)
+    sched = float(np.clip(
+        np.interp(step, [0, cfg.proposal_warmup], [0, cfg.proposal_update_every]),
+        1, cfg.proposal_update_every,
+    ))
+    updated = (ssu + 1) > sched or step < 10
+    host_state["steps_since_update"] = 0 if updated else ssu + 1
+    return {"train_proposal_networks": bool(updated)}
+
+
+def sample_counts(cfg: Config) -> list:
+    """Samples per ray of each level: the proposal levels, then the field."""
+    return [*cfg.num_proposal_samples_per_ray[:cfg.num_proposal_iterations],
+            cfg.num_nerf_samples_per_ray]
+
+
+def train_draws(cfg: Config, num_rays: int, generator: torch.Generator,
+                device) -> Tuple[list, torch.Tensor]:
+    """The uniform draws of one training forward: per level the stratified
+    jitter, [N, S + 1] ([N, 1] with a single jitter), then the [N, 3]
+    random background."""
+    jitters = [
+        torch.rand((num_rays, 1 if cfg.use_single_jitter else s + 1),
+                   generator=generator, device=device)
+        for s in sample_counts(cfg)
+    ]
+    return jitters, torch.rand((num_rays, 3), generator=generator, device=device)
+
+
 def get_outputs(
     cfg: Config,
     params: dict,
     aabb: torch.Tensor,
     ray_bundle: RayBundle,
     train: bool = False,
+    anneal: float = 1.0,
+    train_proposal_networks: bool = True,
+    jitters: Optional[Sequence[torch.Tensor]] = None,
+    background: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> dict:
-    """Eval forward: rgb [N, 3], accumulation [N], depth [N], median_rgb
+    """Forward: rgb [N, 3], accumulation [N], depth [N], median_rgb
     [N, 3], prop_depth_i [N], directions_norm [N], plus the per-level
-    weights and samples."""
-    if train:
-        raise NotImplementedError("the port renders only; training is not ported yet")
+    weights and samples (the interlevel and distortion losses read them).
+
+    In training the samplers jitter and the background is random: the
+    draws (``train_draws``' layout) are ``jitters`` and ``background``
+    when given, else drawn from ``generator``.  ``anneal`` and
+    ``train_proposal_networks`` are the step's schedules
+    (``proposal_anneal``, ``host_static_kwargs``).
+    """
     if ray_bundle.nears is None or ray_bundle.fars is None:
         ray_bundle = set_nears_and_fars(cfg, ray_bundle, aabb)
+    if train and (jitters is None) != (background is None):
+        raise ValueError("pass both jitters and background, or neither")
+    if train and jitters is None:
+        jitters, background = train_draws(cfg, ray_bundle.num_rays, generator,
+                                          ray_bundle.origins.device)
 
     def make_density_fn(idx, dcfg):
         def density_fn(ray_samples: RaySamples):
@@ -249,6 +324,9 @@ def get_outputs(
         num_proposal_samples_per_ray=cfg.num_proposal_samples_per_ray,
         num_nerf_samples_per_ray=cfg.num_nerf_samples_per_ray,
         initial_spacing="uniform" if cfg.bounded else "piecewise",
+        anneal=anneal,
+        jitters=jitters if train else None,
+        train_proposal_networks=train_proposal_networks,
     )
 
     positions = ray_samples.get_positions()
@@ -270,7 +348,7 @@ def get_outputs(
         flat_dirs,
         flat_times,
         flat_cam,
-        train=False,
+        train=train,
     )
     rgb_samples = rgb_samples.reshape(n, s, 3)
     density = density.reshape(n, s)
@@ -279,9 +357,13 @@ def get_outputs(
     weights_list = weights_list + [weights]
     ray_samples_list = ray_samples_list + [ray_samples]
 
+    background_color = cfg.background_color_eval
+    if train:
+        background_color = (background if cfg.background_color_train == "random"
+                            else cfg.background_color_train)
     outputs = {
         "rgb": render_rgb(rgb_samples, weights,
-                          background_color=cfg.background_color_eval),
+                          background_color=background_color, train=train),
         "accumulation": render_accumulation(weights),
         "depth": render_depth(weights, ray_samples),
         "median_rgb": render_median_rgb(rgb_samples, weights),
@@ -294,3 +376,51 @@ def get_outputs(
     if ray_bundle.directions_norm is not None:
         outputs["directions_norm"] = ray_bundle.directions_norm
     return outputs
+
+
+def _needs_depth(cfg: Config, batch: dict) -> None:
+    if "depth_image" in batch and cfg.loss_coef.get("depth_loss", 0) > 0:
+        raise NotImplementedError(
+            "the depth loss is not ported yet (it comes with the data path)")
+
+
+def get_metrics_dict(cfg: Config, outputs: dict, batch: dict) -> dict:
+    """PSNR of the batch, a 0-d tensor outside the autograd graph."""
+    _needs_depth(cfg, batch)
+    mse = torch.mean((outputs["rgb"].detach() - batch["image"]) ** 2)
+    return {"psnr": -10.0 * torch.log10(mse)}
+
+
+def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict) -> dict:
+    """The scaled training loss dict, in the JAX package's insertion order
+    (the total is summed in that order)."""
+    _needs_depth(cfg, batch)
+    loss_coef = cfg.loss_coef
+    loss_dict = {"rgb_loss": L.mse_loss(batch["image"], outputs["rgb"])}
+    wl, rsl = outputs["weights_list"], outputs["ray_samples_list"]
+    if "distortion_loss" in loss_coef:
+        loss_dict["distortion_loss"] = L.distortion_loss(wl, rsl)
+    if "interlevel_loss" in loss_coef:
+        loss_dict["interlevel_loss"] = L.interlevel_loss(wl, rsl)
+
+    ms_grids_nerf = params["fields"]["grids"]
+    ms_grids_prop = [p["grids"][0]
+                     for p in params["proposal_networks"].values()]
+    if "space_tv_loss" in loss_coef:
+        loss_dict["space_tv_loss"] = L.space_tv_loss(ms_grids_nerf)
+    if "space_tv_proposal_loss" in loss_coef and ms_grids_prop:
+        loss_dict["space_tv_proposal_loss"] = L.space_tv_loss(ms_grids_prop)
+    if cfg.has_time and not cfg.freeze_time_planes:
+        if "sparse_transients_loss" in loss_coef:
+            loss_dict["sparse_transients_loss"] = L.sparse_transients_loss(
+                ms_grids_nerf)
+        if "sparse_transients_proposal_loss" in loss_coef and ms_grids_prop:
+            loss_dict["sparse_transients_proposal_loss"] = (
+                L.sparse_transients_loss(ms_grids_prop))
+        if "time_smoothness_loss" in loss_coef:
+            loss_dict["time_smoothness_loss"] = L.time_smoothness_loss(
+                ms_grids_nerf)
+        if "time_smoothness_proposal_loss" in loss_coef and ms_grids_prop:
+            loss_dict["time_smoothness_proposal_loss"] = (
+                L.time_smoothness_loss(ms_grids_prop))
+    return L.scale_dict(loss_dict, loss_coef)

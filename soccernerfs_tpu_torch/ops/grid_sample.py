@@ -5,8 +5,11 @@ mode="bilinear")`` for 2D planes.  Planes are [H, W, F], features last;
 coordinates are (x, y) in [-1, 1] with x indexing W and y indexing H; a
 table row id is ``y0 * W + x0``.
 
-The two no-grad group samplers at the bottom are the render path's seams
-to the CUDA kernels (ops/kernels/plane_kernels.py).
+The group samplers at the bottom are the seams to the CUDA kernels
+(ops/kernels/plane_kernels.py): two no-grad ones over tables staged once
+per snapshot (the render path), and two ``torch.autograd.Function``s, the
+counterparts of the JAX package's ``custom_vjp``s, whose backward runs the
+backward kernels (the train path).
 """
 from __future__ import annotations
 
@@ -59,6 +62,17 @@ def quad_pack(plane: torch.Tensor) -> torch.Tensor:
     return packed.reshape(H * W, 4 * F)
 
 
+def stage_table(plane: torch.Tensor) -> torch.Tensor:
+    """The bf16 table the forward kernels sample for an [H, W, F] plane:
+    big F = 32 planes (H*W >= 65536 and W % 32 == 0) unpacked, [H*W, F]
+    (for bilerp_fwd_unpacked, 4x less memory); the rest quad-packed,
+    [H*W, 4F] (bilerp_fwd_packed).  Both hold the same bf16 values."""
+    h, w, f = plane.shape
+    if 4 * f == 128 and h * w >= 65536 and w % 32 == 0:
+        return plane.reshape(h * w, f).to(torch.bfloat16).contiguous()
+    return quad_pack(plane.to(torch.bfloat16)).contiguous()
+
+
 def _bilerp_rows(p, rowid, tx, ty) -> torch.Tensor:
     """Lerp one quad-packed table (gathered as bf16) at row ids; f32 out."""
     return pk.packed_rows_plain(p.to(torch.bfloat16), rowid, tx, ty)
@@ -108,3 +122,102 @@ def plane_sample_unpacked_group(
     """
     return pk.bilerp_fwd_unpacked(list(tables), list(rowids), list(txs), ty,
                                   h=h, w=w)
+
+
+def _split(n: int, tensors):
+    return tensors[:n], tensors[n:2 * n], tensors[2 * n:]
+
+
+class _FoldGroup(torch.autograd.Function):
+    """Forward: stage the grids to bf16 (``stage_table``) and sample them
+    with the forward kernel the staging picks.  Backward: the unpacked
+    backward kernel for every table, [H*W, F] f32 straight into the grid's
+    gradient.  Row ids and fractions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, n, ty, *tensors):
+        grids, rowids, txs = _split(n, tensors)
+        h, w, feat = grids[0].shape
+        tables = [stage_table(g) for g in grids]
+        if tables[0].shape[-1] == feat:
+            feats = pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w)
+        else:
+            feats = pk.bilerp_fwd_packed(tables, rowids, txs, ty)
+        ctx.save_for_backward(ty, *rowids, *txs)
+        ctx.shape = (n, h, w, feat)
+        return tuple(feats)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        n, h, w, feat = ctx.shape
+        ty, *rest = ctx.saved_tensors
+        rowids, txs = rest[:n], rest[n:]
+        need = [i for i in range(n) if ctx.needs_input_grad[2 + i]]
+        grads = pk.bilerp_bwd_unpacked(
+            [gouts[i].contiguous() for i in need], [rowids[i] for i in need],
+            [txs[i] for i in need], ty, h=h, w=w)
+        out = [None] * n
+        for i, g in zip(need, grads):
+            out[i] = g.reshape(h, w, feat)
+        return (None, None, *out, *([None] * (2 * n)))
+
+
+class _PackedGroup(torch.autograd.Function):
+    """Forward: bilerp_fwd_packed on the quad-packed tables cast to bf16.
+    Backward: bilerp_bwd_packed, f32 [R, 4F] per table.  Row ids and
+    fractions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, n, ty, *tensors):
+        tables, rowids, txs = _split(n, tensors)
+        feats = pk.bilerp_fwd_packed(
+            [t.to(torch.bfloat16).contiguous() for t in tables], rowids, txs,
+            ty)
+        ctx.save_for_backward(ty, *rowids, *txs)
+        ctx.shape = (n, tables[0].shape[0])
+        return tuple(feats)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        n, rows = ctx.shape
+        ty, *rest = ctx.saved_tensors
+        rowids, txs = rest[:n], rest[n:]
+        need = [i for i in range(n) if ctx.needs_input_grad[2 + i]]
+        grads = pk.bilerp_bwd_packed(
+            [gouts[i].contiguous() for i in need], [rowids[i] for i in need],
+            [txs[i] for i in need], ty, rows=rows)
+        out = [None] * n
+        for i, g in zip(need, grads):
+            out[i] = g
+        return (None, None, *out, *([None] * (2 * n)))
+
+
+def plane_sample_fold_group(grids: Sequence[torch.Tensor], rowids, txs,
+                            ty: torch.Tensor) -> List[torch.Tensor]:
+    """Differentiable bilinear sample of P same-shaped f32 [H, W, F] planes
+    that share their y axis: the gradient boundary sits at the grids.
+
+    Args:
+        grids: P [H, W, F] f32; rowids: P [M] int32 (y0*W + x0, any
+            order); txs: P [M] f32; ty: [M] f32 (no gradient flows to
+            these).
+    Returns:
+        P [M, F] f32 features.
+    """
+    return list(_FoldGroup.apply(len(grids), ty, *grids, *rowids, *txs))
+
+
+def plane_sample_group_bwdsort(tables: Sequence[torch.Tensor], rowids, txs,
+                               ty: torch.Tensor) -> List[torch.Tensor]:
+    """Differentiable bilinear sample of P same-shaped f32 quad-packed
+    [R, 4F] tables (``quad_pack`` of the grids, outside this function, so
+    autograd's transpose of it folds the packed gradient into the grid).
+    The JAX version sorts the points inside its backward for the TPU
+    kernel; the CUDA kernel takes them in any order.
+
+    Args:
+        tables: P [R, 4F] f32; rowids, txs, ty: as plane_sample_fold_group.
+    Returns:
+        P [M, F] f32 features.
+    """
+    return list(_PackedGroup.apply(len(tables), ty, *tables, *rowids, *txs))

@@ -1,21 +1,25 @@
-"""Bilinear plane-sampling forward kernels: CUDA wrappers, plain versions,
-launch counters.
+"""Bilinear plane-sampling kernels: CUDA wrappers, plain versions, launch
+counters.
 
-``bilerp_fwd_unpacked`` replaces ``unpacked_bilerp_fwd_group`` and
-``bilerp_fwd_packed`` replaces ``packed_bilerp_fwd_group``
-(soccernerfs_tpu/ops/pallas/plane_kernels.py).  The kernels are in
-``csrc/plane_kernels.cu``, which also states their bound on the card and
-what the design does about it.
+Forward (``csrc/plane_kernels.cu``): ``bilerp_fwd_unpacked`` replaces
+``unpacked_bilerp_fwd_group`` and ``bilerp_fwd_packed`` replaces
+``packed_bilerp_fwd_group`` (soccernerfs_tpu/ops/pallas/plane_kernels.py).
+Backward (``csrc/plane_bwd_kernels.cu``): ``bilerp_bwd_unpacked`` replaces
+``bilerp_bwd_group_fold`` and ``bilerp_bwd_packed`` replaces
+``packed_bilerp_bwd_group``.  The sources state each kernel's bound on the
+card and what its design does about it.
 
 Each wrapper takes P planes of one table shape that share their y axis,
 with a row id and x fraction per point and plane and one y fraction per
-point, and returns P f32 [M, F] features.  For
-CPU tensors it runs its plain version (the CPU tests' path); for CUDA
-tensors it launches its kernel or raises.  ``<wrapper>.launches`` counts
-kernel launches, and nothing else.
+point.  The forward wrappers return P f32 [M, F] features; the backward
+wrappers take P f32 [M, F] upstream gradients and return P f32 table
+gradients.  For CPU tensors a wrapper runs its plain version (the CPU
+tests' path); for CUDA tensors it launches its kernel or raises.
+``<wrapper>.launches`` counts kernel launches, and nothing else.
 
 Unlike the TPU kernels, these take points in any order: a CUDA thread
-gathers directly, so the stripe sort the TPU needed does not exist here.
+gathers (or atomically scatters) directly, so the stripe sort the TPU
+needed does not exist here.
 """
 from __future__ import annotations
 
@@ -61,22 +65,67 @@ def bilerp_fwd_packed_plain(tables, rowids, txs, ty) -> List[torch.Tensor]:
             for t, r, tx in zip(tables, rowids, txs)]
 
 
+def corner_rows(rowid, *, h: int, w: int):
+    """Rows (y0, x0), (y0, x1), (y1, x0), (y1, x1) of an [h*w, F] table
+    for row ids y0*w + x0 (clipped into the table), x1 = min(x0+1, w-1),
+    y1 = min(y0+1, h-1): the border replicates."""
+    row = torch.clamp(rowid.long(), 0, h * w - 1)
+    y0 = torch.div(row, w, rounding_mode="floor")
+    dx = (row - y0 * w < w - 1).long()
+    dy = (y0 < h - 1).long() * w
+    return row, row + dx, row + dy, row + dy + dx
+
+
 def bilerp_fwd_unpacked_plain(tables, rowids, txs, ty, *, h: int, w: int
                               ) -> List[torch.Tensor]:
-    """Plain version of bilerp_fwd_unpacked: corners (y0, x0), (y0, x1),
-    (y1, x0), (y1, x1) of an [h*w, F] table, x1 = min(x0+1, w-1),
-    y1 = min(y0+1, h-1)."""
+    """Plain version of bilerp_fwd_unpacked: the four corner rows of an
+    [h*w, F] table (``corner_rows``), lerped."""
     outs = []
     for table, rowid, tx in zip(tables, rowids, txs):
-        row = torch.clamp(rowid.long(), 0, h * w - 1)
-        y0 = torch.div(row, w, rounding_mode="floor")
-        x0 = row - y0 * w
-        dx = (x0 < w - 1).long()
-        dy = (y0 < h - 1).long() * w
-        outs.append(lerp_corners(
-            table[row], table[row + dx], table[row + dy], table[row + dy + dx],
-            tx, ty,
-        ))
+        r00, r01, r10, r11 = corner_rows(rowid, h=h, w=w)
+        outs.append(lerp_corners(table[r00], table[r01], table[r10],
+                                 table[r11], tx, ty))
+    return outs
+
+
+def corner_weights(tx, ty):
+    """[M] bilinear weights of the corners (y0, x0), (y0, x1), (y1, x0),
+    (y1, x1), each a product of two rounded factors, as the backward
+    kernels compute them."""
+    omtx = 1.0 - tx
+    omty = 1.0 - ty
+    return omtx * omty, tx * omty, omtx * ty, tx * ty
+
+
+def bilerp_bwd_unpacked_plain(gs, rowids, txs, ty, *, h: int, w: int
+                              ) -> List[torch.Tensor]:
+    """Plain version of bilerp_bwd_unpacked: the f32 transpose of
+    bilerp_fwd_unpacked, ``index_add_`` of g * weight into each corner row
+    (two corners on a border are one row, so both terms land there)."""
+    outs = []
+    for g, rowid, tx in zip(gs, rowids, txs):
+        grad = torch.zeros((h * w, g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+        for rows, wt in zip(corner_rows(rowid, h=h, w=w),
+                            corner_weights(tx, ty)):
+            grad.index_add_(0, rows, g * wt[:, None])
+        outs.append(grad)
+    return outs
+
+
+def bilerp_bwd_packed_plain(gs, rowids, txs, ty, *, rows: int
+                            ) -> List[torch.Tensor]:
+    """Plain version of bilerp_bwd_packed: the f32 transpose of
+    bilerp_fwd_packed, quarter k of row ``rowid`` of an [R, 4F] table
+    getting g * w_k."""
+    outs = []
+    for g, rowid, tx in zip(gs, rowids, txs):
+        row = torch.clamp(rowid.long(), 0, rows - 1)
+        grad = torch.zeros((rows, 4 * g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+        grad.index_add_(0, row, torch.cat(
+            [g * wt[:, None] for wt in corner_weights(tx, ty)], dim=1))
+        outs.append(grad)
     return outs
 
 
@@ -85,23 +134,23 @@ def bilerp_fwd_unpacked_plain(tables, rowids, txs, ty, *, h: int, w: int
 # ---------------------------------------------------------------------------
 
 _P = ctypes.POINTER(ctypes.c_void_p)
+_POINTS = [ctypes.c_int, _P, _P, _P, ctypes.c_void_p, _P, ctypes.c_longlong]
+# function -> (library, the arguments after the shared ones, then feat and
+# the stream)
 _SIGNATURES = {
-    "snt_bilerp_fwd_unpacked": [
-        ctypes.c_int, _P, _P, _P, ctypes.c_void_p, _P,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ],
-    "snt_bilerp_fwd_packed": [
-        ctypes.c_int, _P, _P, _P, ctypes.c_void_p, _P,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ],
+    "snt_bilerp_fwd_unpacked": ("plane_kernels", [ctypes.c_int, ctypes.c_int]),
+    "snt_bilerp_fwd_packed": ("plane_kernels", [ctypes.c_longlong]),
+    "snt_bilerp_bwd_unpacked": ("plane_bwd_kernels",
+                                [ctypes.c_int, ctypes.c_int]),
+    "snt_bilerp_bwd_packed": ("plane_bwd_kernels", [ctypes.c_longlong]),
 }
+LIBRARIES = ("plane_kernels", "plane_bwd_kernels")
 
 
 def _fn(name: str):
-    lib = build.load("plane_kernels")
-    fn = getattr(lib, name)
-    fn.argtypes = _SIGNATURES[name]
+    lib_name, shape_args = _SIGNATURES[name]
+    fn = getattr(build.load(lib_name), name)
+    fn.argtypes = [*_POINTS, *shape_args, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -110,53 +159,57 @@ def _on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _check(tables, rowids, txs, ty, feat: int):
-    """Validate a CUDA launch's operands; returns (M, F)."""
-    planes = len(tables)
+def _check(ins, rowids, txs, ty, dtype) -> int:
+    """Validate a CUDA launch's operands: P contiguous 2-D ``dtype``
+    tensors of one shape (tables, or upstream gradients) and the per-point
+    arrays; returns M."""
+    planes = len(ins)
     if not 1 <= planes <= MAX_PLANES:
         raise ValueError(f"1..{MAX_PLANES} planes per launch, got {planes}")
     if not len(rowids) == len(txs) == planes:
         raise ValueError("one row id and tx array per plane")
-    dev = tables[0].device
+    dev = ins[0].device
     if dev.type != "cuda":
         raise ValueError(f"kernel operands must be CUDA tensors, got {dev}")
-    m = rowids[0].shape[0]
-    for t in tables:
-        if t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError("tables must be contiguous 2-D bf16")
-        if t.shape != tables[0].shape or t.device != dev:
+    for t in ins:
+        if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"tables and gradients must be contiguous 2-D {dtype}")
+        if t.shape != ins[0].shape or t.device != dev:
             raise ValueError("tables of one launch share shape and device")
         if t.data_ptr() % 16:
-            raise ValueError("tables must be 16-byte aligned")
-    for arrs, dtype in ((rowids, torch.int32), (txs, torch.float32),
-                        ([ty], torch.float32)):
+            raise ValueError("tables and gradients must be 16-byte aligned")
+    m = rowids[0].shape[0]
+    for arrs, want in ((rowids, torch.int32), (txs, torch.float32),
+                       ([ty], torch.float32)):
         for a in arrs:
-            if (a.dtype != dtype or a.shape != (m,) or a.device != dev
+            if (a.dtype != want or a.shape != (m,) or a.device != dev
                     or not a.is_contiguous()):
                 raise ValueError(f"per-point operands must be contiguous "
-                                 f"{dtype} [{m}] on {dev}")
+                                 f"{want} [{m}] on {dev}")
+    return m
+
+
+def _check_feat(feat: int) -> None:
     if feat not in FEATS:
         raise ValueError(f"feature width must be one of {FEATS}, got {feat}")
-    return m, feat
 
 
 def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _launch(name, tables, rowids, txs, ty, m, feat, *shape_args):
-    dev = tables[0].device
-    outs = [torch.empty((m, feat), dtype=torch.float32, device=dev)
-            for _ in tables]
+def _launch(name, ins, rowids, txs, ty, outs, m, feat, *shape_args) -> None:
+    """Launch ``name`` on the current stream of the operands' device; the
+    caller allocated ``outs``."""
+    dev = ins[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn(name)(
-            len(tables), _ptrs(tables), _ptrs(rowids), _ptrs(txs),
-            ty.data_ptr(), _ptrs(outs), m, *shape_args, feat, stream,
+            len(ins), _ptrs(ins), _ptrs(rowids), _ptrs(txs), ty.data_ptr(),
+            _ptrs(outs), m, *shape_args, feat, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
-    return outs
 
 
 def bilerp_fwd_unpacked(tables: Sequence[torch.Tensor], rowids, txs,
@@ -173,14 +226,17 @@ def bilerp_fwd_unpacked(tables: Sequence[torch.Tensor], rowids, txs,
     """
     if _on_cpu([*tables, *rowids, *txs, ty]):
         return bilerp_fwd_unpacked_plain(tables, rowids, txs, ty, h=h, w=w)
-    m, feat = _check(tables, rowids, txs, ty, tables[0].shape[-1])
+    m = _check(tables, rowids, txs, ty, torch.bfloat16)
+    feat = tables[0].shape[-1]
+    _check_feat(feat)
     if tables[0].shape[0] != h * w:
         raise ValueError(f"table has {tables[0].shape[0]} rows, want {h * w}")
+    outs = [torch.empty((m, feat), dtype=torch.float32, device=ty.device)
+            for _ in tables]
     if m == 0:
-        return [torch.empty((0, feat), device=tables[0].device)
-                for _ in tables]
-    outs = _launch("snt_bilerp_fwd_unpacked", tables, rowids, txs, ty, m,
-                   feat, h, w)
+        return outs
+    _launch("snt_bilerp_fwd_unpacked", tables, rowids, txs, ty, outs, m, feat,
+            h, w)
     bilerp_fwd_unpacked.launches += 1
     return outs
 
@@ -200,21 +256,87 @@ def bilerp_fwd_packed(tables: Sequence[torch.Tensor], rowids, txs,
     """
     if _on_cpu([*tables, *rowids, *txs, ty]):
         return bilerp_fwd_packed_plain(tables, rowids, txs, ty)
+    m = _check(tables, rowids, txs, ty, torch.bfloat16)
     if tables[0].shape[-1] % 4:
         raise ValueError("packed tables are [R, 4F]")
-    m, feat = _check(tables, rowids, txs, ty, tables[0].shape[-1] // 4)
+    feat = tables[0].shape[-1] // 4
+    _check_feat(feat)
+    outs = [torch.empty((m, feat), dtype=torch.float32, device=ty.device)
+            for _ in tables]
     if m == 0:
-        return [torch.empty((0, feat), device=tables[0].device)
-                for _ in tables]
-    outs = _launch("snt_bilerp_fwd_packed", tables, rowids, txs, ty, m,
-                   feat, tables[0].shape[0])
+        return outs
+    _launch("snt_bilerp_fwd_packed", tables, rowids, txs, ty, outs, m, feat,
+            tables[0].shape[0])
     bilerp_fwd_packed.launches += 1
     return outs
 
 
 bilerp_fwd_packed.launches = 0
 
-KERNELS = (bilerp_fwd_unpacked, bilerp_fwd_packed)
+
+def _check_grads(gs, rowids, txs, ty) -> tuple:
+    """Validate a backward launch's operands; returns (M, F)."""
+    m = _check(gs, rowids, txs, ty, torch.float32)
+    feat = gs[0].shape[1]
+    _check_feat(feat)
+    if gs[0].shape[0] != m:
+        raise ValueError(f"gradients have {gs[0].shape[0]} rows, want {m}")
+    return m, feat
+
+
+def bilerp_bwd_unpacked(gs: Sequence[torch.Tensor], rowids, txs,
+                        ty: torch.Tensor, *, h: int, w: int
+                        ) -> List[torch.Tensor]:
+    """Gradient of bilerp_fwd_unpacked w.r.t. its P [h*w, F] tables.
+
+    Args:
+        gs: P [M, F] f32 upstream gradients, F in {8, 32};
+        rowids, txs, ty: as bilerp_fwd_unpacked.
+    Returns:
+        P [h*w, F] f32 table gradients.
+    """
+    if _on_cpu([*gs, *rowids, *txs, ty]):
+        return bilerp_bwd_unpacked_plain(gs, rowids, txs, ty, h=h, w=w)
+    m, feat = _check_grads(gs, rowids, txs, ty)
+    grads = [torch.zeros((h * w, feat), dtype=torch.float32, device=ty.device)
+             for _ in gs]
+    if m == 0:
+        return grads
+    _launch("snt_bilerp_bwd_unpacked", gs, rowids, txs, ty, grads, m, feat,
+            h, w)
+    bilerp_bwd_unpacked.launches += 1
+    return grads
+
+
+bilerp_bwd_unpacked.launches = 0
+
+
+def bilerp_bwd_packed(gs: Sequence[torch.Tensor], rowids, txs,
+                      ty: torch.Tensor, *, rows: int) -> List[torch.Tensor]:
+    """Gradient of bilerp_fwd_packed w.r.t. its P quad-packed tables.
+
+    Args:
+        gs: P [M, F] f32 upstream gradients, F in {8, 32};
+        rowids, txs, ty: as bilerp_fwd_packed; rows: R.
+    Returns:
+        P [R, 4F] f32 table gradients.
+    """
+    if _on_cpu([*gs, *rowids, *txs, ty]):
+        return bilerp_bwd_packed_plain(gs, rowids, txs, ty, rows=rows)
+    m, feat = _check_grads(gs, rowids, txs, ty)
+    grads = [torch.zeros((rows, 4 * feat), dtype=torch.float32,
+                         device=ty.device) for _ in gs]
+    if m == 0:
+        return grads
+    _launch("snt_bilerp_bwd_packed", gs, rowids, txs, ty, grads, m, feat, rows)
+    bilerp_bwd_packed.launches += 1
+    return grads
+
+
+bilerp_bwd_packed.launches = 0
+
+KERNELS = (bilerp_fwd_unpacked, bilerp_fwd_packed, bilerp_bwd_unpacked,
+           bilerp_bwd_packed)
 
 
 def reset_launch_counts() -> None:

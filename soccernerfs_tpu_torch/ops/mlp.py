@@ -4,9 +4,9 @@ Params stay f32; each layer rounds its operands to bf16 and multiplies
 them in f32, which is what JAX's bf16 ``dot`` with
 ``preferred_element_type=f32`` computes.  A bf16 ``torch.matmul`` would
 round its output to bf16 as well, an extra rounding the reference does not
-make.  On the card, f32 matmuls must not use TF32
-(``torch.backends.cuda.matmul.allow_tf32 = False``; the render entry
-point sets it).
+make.  On the card, f32 matmuls must not use TF32, which would round the
+operands to 10 mantissa bits: ``mlp_apply`` turns it off for every CUDA
+input, and it stays off for the backward products that follow.
 """
 from __future__ import annotations
 
@@ -55,6 +55,8 @@ def mlp_apply(
     Returns:
         [..., out_dim] float32.
     """
+    if x.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
     h = x.to(torch.bfloat16)
     n = len(params["w"])
     for i, (w, b) in enumerate(zip(params["w"], params["b"])):

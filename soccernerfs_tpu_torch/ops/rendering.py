@@ -18,19 +18,22 @@ def render_rgb(
     rgb: torch.Tensor,
     weights: torch.Tensor,
     background_color: Union[str, torch.Tensor] = "last_sample",
+    train: bool = False,
 ) -> torch.Tensor:
-    """Composite per-sample RGB along rays as at eval: NaN-scrubbed rgb,
-    sum(w * rgb) + bg * (1 - acc), clamped to [0, 1].
+    """Composite per-sample RGB along rays: sum(w * rgb) + bg * (1 - acc).
+    Outside training rgb is NaN-scrubbed first and the result clamped to
+    [0, 1]; in training neither (gradients see the raw values).
 
     Args:
         rgb: [N, S, 3]; weights: [N, S].
-        background_color: "last_sample", "white", "black" or an explicit
-            [3] color.  (Training's "random" background comes with
-            training.)
+        background_color: "last_sample", "white", "black", or an explicit
+            [3] or [N, 3] color (training's "random" background is an
+            explicit [N, 3] uniform draw made by the caller).
     Returns:
         [N, 3].
     """
-    rgb = torch.nan_to_num(rgb)
+    if not train:
+        rgb = torch.nan_to_num(rgb)
     comp_rgb = torch.sum(weights[..., None] * rgb, dim=-2)
     acc = torch.sum(weights, dim=-1, keepdim=True)
 
@@ -41,7 +44,8 @@ def render_rgb(
             background_color = BACKGROUND_COLORS[background_color]
         bg = torch.as_tensor(background_color, dtype=comp_rgb.dtype,
                              device=comp_rgb.device)
-    return torch.clamp(comp_rgb + bg * (1.0 - acc), 0.0, 1.0)
+    comp_rgb = comp_rgb + bg * (1.0 - acc)
+    return comp_rgb if train else torch.clamp(comp_rgb, 0.0, 1.0)
 
 
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:

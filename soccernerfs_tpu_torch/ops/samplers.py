@@ -153,6 +153,7 @@ def proposal_sample(
     initial_spacing: str = "piecewise",
     anneal: float = 1.0,
     jitters: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    train_proposal_networks: bool = True,
 ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
     """Hierarchical proposal-network sampling: level 0 from the spaced
     sampler, later levels PDF-resampled from annealed weights; each
@@ -163,6 +164,10 @@ def proposal_sample(
         anneal: exponent applied to weights before PDF resampling.
         jitters: optional per-level uniform draws (see spaced_samples and
             pdf_samples); None for every level is the eval branch.
+        train_proposal_networks: a host bool; when False the proposal
+            fields run with grad disabled, so no graph is recorded and no
+            backward runs through them (the JAX package's static flag,
+            which compiles that backward away).
     Returns:
         (final RaySamples, weights_list, ray_samples_list) over the
         proposal levels.
@@ -195,7 +200,9 @@ def proposal_sample(
                 include_original=False,
             )
         if is_prop:
-            density = density_fns[i_level](ray_samples)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and train_proposal_networks):
+                density = density_fns[i_level](ray_samples)
             weights = ray_samples.get_weights(density)
             weights_list.append(weights)
             ray_samples_list.append(ray_samples)

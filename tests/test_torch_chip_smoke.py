@@ -2,8 +2,10 @@
 
 The script needs a card; here its CUDA calls are stubbed, the kernel
 wrappers are made to count their plain versions as launches, and a small
-K-Planes config stands in for the full width, so every phase (kernel
-check, two counted frames, CPU comparison, the JSON lines) runs in seconds.
+K-Planes config stands in for the full width, so every phase (forward and
+backward kernel checks, two counted frames, the render CPU comparison, the
+counted train steps, the train CPU comparison, the JSON lines) runs in
+seconds.
 Also checks that, without CUDA, the script exits non-zero and prints no
 result, both from the repository and alone in a directory.
 """
@@ -22,6 +24,19 @@ import torch
 from soccernerfs_tpu_torch.configs import method_configs as mc
 from soccernerfs_tpu_torch.ops.kernels import build
 from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs.  The suite runs in
+    parallel worker processes; a full-width torch thread pool in each of
+    them oversubscribes the cores, and its threads' spin-waiting then slows
+    these many small ops by two orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -58,7 +73,12 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         eval_num_rays_per_chunk=512,
     )
     monkeypatch.setitem(mc.model_configs, "small", small)
+    monkeypatch.setitem(mc.optimizer_configs, "small",
+                        mc.optimizer_configs["k-planes"])
+    monkeypatch.setitem(mc.train_num_rays_per_batch, "small", 256)
     monkeypatch.setattr(cs, "MODEL", "small")
+    monkeypatch.setattr(cs, "TRAIN_CPU_RAYS", 64)
+    monkeypatch.setattr(cs, "TRAIN_WINDOW", 12)
     monkeypatch.setattr(cs, "DEVICE", "cpu")
     monkeypatch.setattr(cs, "H", 24)
     monkeypatch.setattr(cs, "W", 40)
@@ -66,30 +86,38 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # a 256 MiB L2 flush per timed call is a card's concern, not a CPU's
     monkeypatch.setattr(cs, "_FLUSH", torch.empty(16, dtype=torch.uint8))
     monkeypatch.setattr(
-        cs, "profile_frame",
-        lambda render, trace_dir: (render(), {"bilerp_fwd_unpacked": 1.0,
-                                              "bilerp_fwd_packed": 1.0})[1])
+        cs, "profile_device",
+        lambda label, fn, trace_path: (fn(), {k.__name__: 1.0
+                                              for k in pk.KERNELS})[1])
     for name, value in (("is_available", lambda: True),
                         ("synchronize", lambda *a: None),
                         ("Event", _Event),
                         ("max_memory_allocated", lambda *a: 0),
+                        ("reset_peak_memory_stats", lambda *a: None),
                         ("get_device_name", lambda *a: "stub"),
                         ("device_count", lambda: 1),
                         ("empty_cache", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, value)
-    lib = tmp_path / "libplane_kernels_stub.so"
-    lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers\n")
-    monkeypatch.setattr(build, "build", lambda name: lib)
+    libs = [tmp_path / f"lib{name}_stub.so" for name in pk.LIBRARIES]
+    for lib in libs:
+        lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers\n")
+    monkeypatch.setattr(build, "build_all", lambda names: libs)
     # the wrappers take the "kernel" branch, which runs the plain versions
     monkeypatch.setattr(pk, "_on_cpu", lambda ts: False)
-    monkeypatch.setattr(pk, "_check", lambda t, r, x, y, feat:
-                        (r[0].shape[0], feat))
+    monkeypatch.setattr(pk, "_check", lambda ins, r, x, y, dtype: r[0].shape[0])
+    plain = {
+        "snt_bilerp_fwd_unpacked": lambda a, shape: pk.bilerp_fwd_unpacked_plain(
+            *a, h=shape[0], w=shape[1]),
+        "snt_bilerp_fwd_packed": lambda a, shape: pk.bilerp_fwd_packed_plain(*a),
+        "snt_bilerp_bwd_unpacked": lambda a, shape: pk.bilerp_bwd_unpacked_plain(
+            *a, h=shape[0], w=shape[1]),
+        "snt_bilerp_bwd_packed": lambda a, shape: pk.bilerp_bwd_packed_plain(
+            *a, rows=shape[0]),
+    }
 
-    def launch(name, tables, rowids, txs, ty, m, feat, *shape):
-        if name == "snt_bilerp_fwd_unpacked":
-            return pk.bilerp_fwd_unpacked_plain(tables, rowids, txs, ty,
-                                                h=shape[0], w=shape[1])
-        return pk.bilerp_fwd_packed_plain(tables, rowids, txs, ty)
+    def launch(name, ins, rowids, txs, ty, outs, m, feat, *shape):
+        for o, r in zip(outs, plain[name]((ins, rowids, txs, ty), shape)):
+            o.copy_(r)
 
     monkeypatch.setattr(pk, "_launch", launch)
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -100,13 +128,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         "ok": True, "device": {"platform": "gpu", "kind": "stub", "count": 1}}
     assert lines[-2] == "stub card, 0 W"
     kernels = json.loads(lines[-3])["kernels"]
-    assert [k["name"] for k in kernels] == ["bilerp_fwd_unpacked",
-                                            "bilerp_fwd_packed"]
+    assert [k["name"] for k in kernels] == [k.__name__ for k in pk.KERNELS]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
         assert set(k) == keys
         assert k["launches"] > 0 and k["max_abs_err"] == 0.0
+        assert k["bound_by"] == "bytes" and k["bound_ms"] > 0
         assert (REPO / k["source"]).is_file()
         assert (REPO / k["replaces"].split(":")[0]).is_file()
 

@@ -1,5 +1,5 @@
-"""The port's CUDA plane-sampling kernels against their plain versions, on
-the card.
+"""The port's CUDA plane-sampling kernels (forward and backward) against
+their plain versions, on the card.
 
 Needs CUDA and nvcc; everywhere else each test skips.  Imports neither JAX
 nor the JAX package (the card's machine has neither), so run it without
@@ -86,6 +86,49 @@ def test_packed_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
         torch.testing.assert_close(g, e, rtol=1e-6, atol=0)
 
 
+# many points on a 2x2 table: every add contends with thousands of others
+COLLISION_CASES = [(2, 2, 20000, 2, 32), (2, 2, 20000, 3, 8)]
+
+
+def _assert_close_to_plain(got, want):
+    """Atomics add in an order that changes from run to run: 1e-5 of the
+    max magnitude, not bit for bit."""
+    for g, e in zip(got, want):
+        assert g.shape == e.shape and g.dtype == torch.float32
+        scale = float(e.abs().max())
+        assert float((g - e).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("h,w,m,planes,feat", CASES + COLLISION_CASES)
+def test_unpacked_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
+    rng = np.random.default_rng(h * 1000 + w + 2)
+    gs = [torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
+          for _ in range(planes)]
+    rowids, txs, ty = _points(rng, h, w, m, planes, dev, sort)
+    before = pk.bilerp_bwd_unpacked.launches
+    got = pk.bilerp_bwd_unpacked(gs, rowids, txs, ty, h=h, w=w)
+    want = pk.bilerp_bwd_unpacked_plain(gs, rowids, txs, ty, h=h, w=w)
+    torch.cuda.synchronize()
+    assert pk.bilerp_bwd_unpacked.launches == before + 1
+    _assert_close_to_plain(got, want)
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("h,w,m,planes,feat", CASES + COLLISION_CASES)
+def test_packed_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
+    rng = np.random.default_rng(h * 1000 + w + 3)
+    gs = [torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
+          for _ in range(planes)]
+    rowids, txs, ty = _points(rng, h, w, m, planes, dev, sort)
+    before = pk.bilerp_bwd_packed.launches
+    got = pk.bilerp_bwd_packed(gs, rowids, txs, ty, rows=h * w)
+    want = pk.bilerp_bwd_packed_plain(gs, rowids, txs, ty, rows=h * w)
+    torch.cuda.synchronize()
+    assert pk.bilerp_bwd_packed.launches == before + 1
+    _assert_close_to_plain(got, want)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     table = torch.zeros((12, 32), dtype=torch.bfloat16, device=dev)
     z = torch.zeros(5, dtype=torch.int32, device=dev)
@@ -106,3 +149,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):      # F = 16 has no kernel
         pk.bilerp_fwd_packed([torch.zeros((3, 64), dtype=torch.bfloat16,
                                           device=dev)], [z], [f], f)
+    g = torch.zeros((5, 32), device=dev)
+    with pytest.raises(ValueError):      # bf16 upstream gradient
+        pk.bilerp_bwd_unpacked([g.to(torch.bfloat16)], [z], [f], f, h=3, w=4)
+    with pytest.raises(ValueError):      # gradient rows != points
+        pk.bilerp_bwd_unpacked([g[:4]], [z], [f], f, h=3, w=4)
+    with pytest.raises(ValueError):      # non-contiguous gradient
+        pk.bilerp_bwd_packed([torch.zeros((32, 5), device=dev).t()], [z], [f],
+                             f, rows=12)
+    with pytest.raises(ValueError):      # F = 16 has no kernel
+        pk.bilerp_bwd_packed([torch.zeros((5, 16), device=dev)], [z], [f], f,
+                             rows=12)

@@ -20,6 +20,18 @@ from soccernerfs_tpu_torch.ops import grid_sample as tgs
 from soccernerfs_tpu_torch.ops.kernels import plane_kernels as tpk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs.  The suite runs in
+    parallel worker processes; a full-width torch thread pool in each of
+    them oversubscribes the cores, and its threads' spin-waiting then slows
+    these many small ops by two orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16_table(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(torch.bfloat16)
 

@@ -43,6 +43,19 @@ from soccernerfs_tpu_torch.ops import samplers as tsamp
 from soccernerfs_tpu_torch.ops import searching as tsearch
 from soccernerfs_tpu_torch.utils.device import resolve_device
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs.  The suite runs in
+    parallel worker processes; a full-width torch thread pool in each of
+    them oversubscribes the cores, and its threads' spin-waiting then slows
+    these many small ops by two orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 TINY = dict(
