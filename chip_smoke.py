@@ -4,37 +4,41 @@
   1. Prints the card's name and power limit (nvidia-smi).
   2. Builds the CUDA kernels from soccernerfs_tpu_torch/csrc, one nvcc per
      source, all started together.
-  3. Kernel phase, forward: at the render path's shapes, holds each forward
-     kernel against its plain PyTorch version (relative max error <= 1e-5)
-     and times it with CUDA events beside the plain version and, as a
-     yardstick, torch.nn.functional.grid_sample(align_corners=True,
-     padding_mode="border") on the same points.
-  4. Kernel phase, backward: at the train step's shapes, the same for each
-     backward kernel (atomics: 1e-5 of the max), with
-     aten.grid_sampler_2d_backward (input gradient only) as the yardstick.
-  5. Render phase: the full ``k-planes`` model with weights drawn from a
-     numpy seed, loaded through ``params_from_jax``; renders two 960x540
-     frames (two cameras at two times) with ``render_camera`` and fails
-     unless both forward kernels launched during them.  Then times two
-     more frames and traces one with torch.profiler.
-  6. CPU check: one 4096-ray chunk through the same model on the CPU
-     (the kernels' plain versions) against the card.
-  7. Train phase: ``TrainStep.train_iteration`` on 4096-ray batches of
-     bench.py's 20-camera ring, steps 0-11 (all update the proposals) and
-     a steady window of 60 steps at step 10,000 (an update every sixth
-     step); fails unless all four kernels launched, the loss and every
-     gradient are finite and the parameters moved.  Prints ms per update
-     and non-update step, train rays/s over the window and its 12-step
-     sub-windows, the process's CPU time per step and peak memory, and
-     traces one step of each kind with torch.profiler.
-  8. Train CPU check: for three seeds, one 1024-ray step with the same
-     params, batch and draws on the card and on the CPU; the loss terms and
-     every gradient before the update agree.  Two more CPU steps, one with
-     the card's PDF bins and one that also moves the ray directions by one
-     ulp, show what the resampling adds and how far the step moves on the
-     CPU alone.
+  3. Kernel phases, at the main paths' shapes, CUDA events, L2 flushed: each
+     kernel against its plain PyTorch version, timed beside it and beside a
+     library yardstick.  Forward plane kernels (relative max error <= 1e-5;
+     yardstick torch.nn.functional.grid_sample); backward plane kernels
+     (atomics: 1e-5 of the max; aten.grid_sampler_2d_backward);
+     scatter_add_rows (atomics: 1e-6 of the largest row's sum of |terms|;
+     index_add_ on the pre-expanded update stream) on one hashed and one
+     dense level of nerfacto's main grid, the same level as sorted_scatter_add
+     takes it (expanded, sorted), one proposal level, the whole-grid launches
+     the train path makes, a wider row, a 2-row table with 100,000 updates
+     and an empty update list.
+  4. Render phases, ``k-planes`` then ``nerfacto``, full registry width,
+     weights drawn from a numpy seed and loaded through ``params_from_jax``:
+     two counted 960x540 frames through ``render_camera`` (K-Planes fails
+     unless both forward kernels launched), two timed frames, one profiled
+     with torch.profiler; then one 4096-ray chunk on the CPU (the kernels'
+     plain versions) against the card.
+  5. Train phases, ``k-planes`` then ``nerfacto`` (camera optimizer SO3xR3
+     on, as registered): ``TrainStep.train_iteration`` on 4096-ray batches
+     of bench.py's 20-camera ring, steps 0-11 (all update the proposals)
+     and a steady window at step 10,000 (an update every sixth step); fails
+     unless the path's kernels launched (K-Planes: all four plane kernels;
+     nerfacto: scatter_add_rows on every step), the loss and every gradient
+     are finite and the parameters, the camera optimizer's included, moved.
+     Prints ms per update and non-update step, train rays/s over the window
+     and its 12-step sub-windows, the process's CPU time per step and peak
+     memory, and traces one step of each kind with torch.profiler.
+  6. Train CPU checks: one 1024-ray step with the same params, batch and
+     draws on the card and on the CPU; the loss terms and every gradient
+     before the update agree (per leaf, in L2).  For K-Planes, three seeds
+     and two more CPU steps, one with the card's PDF bins and one that also
+     moves the ray directions by one ulp, which show what the resampling
+     adds and how far the step moves on the CPU alone.
 
-Prints a JSON line with the kernels' results, the card line, and last
+Prints a JSON line with the five kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
 
@@ -63,10 +67,13 @@ SEED = 0
 H, W = 540, 960
 DEVICE = "cuda"
 MODEL = "k-planes"
+NERFACTO = "nerfacto"
 AABB = [[-1.5] * 3, [1.5] * 3]
 TRAIN_CPU_RAYS = 1024
 TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
+NERFACTO_CPU_SEEDS = (2, 4)
 TRAIN_WINDOW = 60                # steps, 10 update cycles
+SCATTER_MASS_TOL = 1e-6          # of the largest row's sum of |terms|
 
 
 def log(*a):
@@ -103,6 +110,32 @@ def time_ms(fn, iters: int) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def all_kernels():
+    """Every kernel wrapper of the port (each counts its launches)."""
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    return (*pk.KERNELS, *sk.KERNELS)
+
+
+def reset_launch_counts() -> None:
+    for k in all_kernels():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in all_kernels()}
+
+
+def method_parts(method):
+    """(model module, model config, camera optimizer config) of a method."""
+    from soccernerfs_tpu_torch.configs import method_configs as mc
+    from soccernerfs_tpu_torch.models import get_model
+
+    return (get_model(mc.model_names[method]), mc.model_configs[method],
+            mc.camera_optimizer_configs[method])
 
 
 XZ_YZ = ([(0, 1), (1, 3)], 2)              # [(c1, plane index)], c2
@@ -328,6 +361,138 @@ def bwd_kernel_phase(cfg, params, dev):
     return results
 
 
+def scatter_kernel_phase(cfg, dev):
+    """scatter_add_rows against its plain version at the nerfacto train
+    step's shapes (4096 rays): corner rows and weights of uniform random
+    points from the encoder's own ``grid_corners``, random gradients."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+    from soccernerfs_tpu_torch.ops.hash_grid import (grid_corners, level_layout,
+                                                     strided_levels)
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    rays = train_num_rays_per_batch[NERFACTO]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    main = cfg.field_config().grid
+    prop0 = cfg.density_field_configs()[0][1].grid
+    b_main = rays * cfg.num_nerf_samples_per_ray
+    b_prop = rays * cfg.num_proposal_samples_per_ray[0]
+
+    def grid_case(gcfg, points, level=None):
+        """(g, idxs, ws, rows) of a whole grid, or of one of its levels."""
+        idxs, ws = grid_corners(gcfg, torch.rand((points, 3), generator=gen,
+                                                 device=dev))
+        offsets = level_layout(gcfg)[0]
+        rows = offsets[-1]
+        if level is not None:
+            idxs = (idxs[level:level + 1] - offsets[level]).contiguous()
+            ws = ws[level:level + 1].contiguous()
+            rows = offsets[level + 1] - offsets[level]
+        g = torch.randn((points, idxs.shape[0] * gcfg.level_dim), generator=gen,
+                        device=dev)
+        return g, idxs, ws, rows
+
+    def expand(g, idxs, ws):
+        """The update stream sorted_scatter_add takes: [G*K*B, c] updates and
+        their rows."""
+        groups, corners, points = idxs.shape
+        upd = g.view(points, groups, 1, -1).permute(1, 2, 0, 3)
+        upd = (upd * ws[..., None] if ws is not None
+               else upd.expand(groups, corners, points, -1))
+        return upd.reshape(groups * corners * points, -1), idxs.reshape(-1)
+
+    def sorted_stream(g, idxs, ws, rows):
+        upd, flat = expand(g, idxs, ws)
+        flat, order = torch.sort(flat)
+        return upd[order].contiguous(), flat[None, None].contiguous(), None, rows
+
+    hashed_main = strided_levels(main).index(False)
+    hashed_prop = strided_levels(prop0).index(False)
+    wide = (torch.randn((b_main, 8), generator=gen, device=dev),
+            torch.randint(0, 1 << 17, (1, 8, b_main), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.rand((1, 8, b_main), generator=gen, device=dev), 1 << 17)
+    two_rows = (torch.randn((100_000, 2), generator=gen, device=dev),
+                torch.randint(0, 2, (1, 1, 100_000), generator=gen, device=dev,
+                              dtype=torch.int32), None, 2)
+    cases = [
+        (f"main grid level {hashed_main} (hashed)",
+         lambda: grid_case(main, b_main, hashed_main)),
+        (f"main grid level {hashed_main} as sorted_scatter_add takes it "
+         f"(expanded, sorted, no weights)",
+         lambda: sorted_stream(*grid_case(main, b_main, hashed_main))),
+        ("main grid level 0 (dense, contention)",
+         lambda: grid_case(main, b_main, 0)),
+        (f"proposal_0 grid level {hashed_prop} (hashed)",
+         lambda: grid_case(prop0, b_prop, hashed_prop)),
+        ("main grid, all levels (the train path's launch)",
+         lambda: grid_case(main, b_main)),
+        ("proposal_0 grid, all levels (the train path's launch)",
+         lambda: grid_case(prop0, b_prop)),
+        ("one level, c = 8", lambda: wide),
+        ("2-row table, 100,000 updates (contention)", lambda: two_rows),
+    ]
+    results = []
+    for label, make in cases:
+        g, idxs, ws, rows = make()
+        groups, corners, points = idxs.shape
+        c = g.shape[1] // groups
+
+        def kern():
+            return sk.scatter_add_rows(g, idxs, ws, rows=rows)
+
+        def plain():
+            return sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)
+
+        got, want = kern(), plain()
+        mass = float(sk.scatter_add_rows_plain(g.abs(), idxs, ws, rows=rows).max())
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # atomics add in an order that changes from run to run, and a row's
+        # signed terms cancel: the error scales with the sum of |terms|
+        if not err <= SCATTER_MASS_TOL * mass:
+            raise AssertionError(f"scatter {label}: max |kernel - plain| = "
+                                 f"{err} > {SCATTER_MASS_TOL} * {mass}")
+        scale = float(want.abs().max())
+        del got, want
+
+        # yardstick: index_add_ of the update stream, expanded beforehand
+        upd, flat = expand(g, idxs, ws)
+        upd, flat = upd.contiguous(), flat.long()
+
+        def library():
+            return torch.zeros((rows, c), device=dev).index_add_(0, flat, upd)
+
+        ms = time_ms(kern, 20)
+        plain_ms = time_ms(plain, 5)
+        library_ms = time_ms(library, 10)
+        updates = groups * corners * points
+        # g read once, 4 B of index (and 4 B of weight) per update, the
+        # table written once: the zero fill is that write
+        bytes_ = (g.numel() * 4 + updates * (4 if ws is None else 8)
+                  + rows * c * 4)
+        flops = updates * c * (1 if ws is None else 2)
+        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        row = {
+            "case": f"{label}: G {groups}, K {corners}, B {points}, c {c}, "
+                    f"{rows} rows", "updates": updates, "max_abs_err": err,
+            "max_abs_plain": scale, "max_row_mass": mass,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        log("kernel", "scatter_add_rows", json.dumps(row))
+        results.append(row)
+        del g, idxs, ws, upd, flat
+        torch.cuda.empty_cache()
+    empty = sk.scatter_add_rows(
+        torch.zeros((0, 2), device=dev),
+        torch.zeros((1, 8, 0), dtype=torch.int32, device=dev), None, rows=16)
+    if empty.shape != (16, 2) or float(empty.abs().max()) != 0.0:
+        raise AssertionError("scatter: an empty update list gave a non-zero table")
+    return {"scatter_add_rows": results}
+
+
 def make_cameras(dev):
     from soccernerfs_tpu_torch.core.cameras import Cameras
 
@@ -344,8 +509,9 @@ def make_cameras(dev):
 
 def profile_device(label, fn, trace_path):
     """Device time by kernel over one call of ``fn``; busy share of the
-    wall time.  Returns {kernel wrapper name: device ms} of the plane
-    kernels (templates bilerp_{fwd,bwd}_kernel<F, packed>)."""
+    wall time.  Returns {kernel wrapper name: device ms} of the port's
+    kernels (templates bilerp_{fwd,bwd}_kernel<F, packed> and
+    scatter_add_rows_kernel<C>)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -368,21 +534,25 @@ def profile_device(label, fn, trace_path):
             rows.append((dev_us, evt.count, evt.key))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    plane_us = sum(r[0] for r in rows if "bilerp_" in r[2])
+    plane_us = sum(r[0] for r in rows
+                   if "bilerp_" in r[2] or "scatter_add_rows_kernel" in r[2])
     # one stream: kernels do not overlap, so their sum is the busy time
     log(f"profile {label}: wall {wall * 1e3:.3f} ms (profiled), "
         f"{sum(r[1] for r in rows)} kernels, device kernel "
         f"time {total_us / 1e3:.3f} ms, busy share "
-        + (f"{total_us / 1e6 / wall:.4f}, plane-kernel share "
+        + (f"{total_us / 1e6 / wall:.4f}, hand-written kernels' share "
            f"{plane_us / total_us:.4f}" if total_us else "not measured"))
     for dev_us, count, key in rows[:15]:
         log(f"profile {label}: {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
-    return {
+    times = {
         f"bilerp_{d}_{kind}": sum(r[0] for r in rows
                                   if f"bilerp_{d}_kernel<" in r[2] and flag in r[2]) / 1e3
         for d in ("fwd", "bwd")
         for kind, flag in (("unpacked", ", false>"), ("packed", ", true>"))
     }
+    times["scatter_add_rows"] = sum(
+        r[0] for r in rows if "scatter_add_rows_kernel<" in r[2]) / 1e3
+    return times
 
 
 def frame_plane_bound_ms(cfg, staged, n_chunks):
@@ -453,30 +623,35 @@ def make_batch(seed, rays, dev):
     }
 
 
-def train_phase(cfg, tree, dev, trace_dir):
-    """The train main path, counted: steps 0-11 and a window of
-    TRAIN_WINDOW steps at step 10,000.  Returns the launch counts and the profiled steps'
-    device time per plane kernel."""
+def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
+    """A method's train main path, counted: steps 0-11 and a window of
+    TRAIN_WINDOW steps at step 10,000, with the method's registered
+    optimizers and camera optimizer.  Fails unless every kernel of
+    ``must_launch`` launched during it, and those of ``every_step`` on every
+    step.  Returns the launch counts and the profiled steps' device time per
+    kernel."""
     from soccernerfs_tpu_torch.configs.method_configs import (
-        optimizer_configs, train_num_rays_per_batch)
+        model_names, optimizer_configs, train_num_rays_per_batch)
     from soccernerfs_tpu_torch.convert import params_from_jax
     from soccernerfs_tpu_torch.engine.trainer import TrainStep
-    from soccernerfs_tpu_torch.models.kplanes import host_static_kwargs
-    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
     from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
-    rays = train_num_rays_per_batch[MODEL]
-    trainer = TrainStep(cfg, ring_cameras(dev), AABB, optimizer_configs[MODEL],
-                        device=dev)
+    module, cfg, camera_optimizer = method_parts(method)
+    host_static_kwargs = module.host_static_kwargs
+    tag = f"train {method}"
+    rays = train_num_rays_per_batch[method]
+    trainer = TrainStep(cfg, ring_cameras(dev), AABB, optimizer_configs[method],
+                        device=dev, model=model_names[method],
+                        camera_optimizer=camera_optimizer)
     state = trainer.init_state(params_from_jax(tree, device=dev))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     batches = [make_batch(i, rays, dev) for i in range(8)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    pk.reset_launch_counts()
+    reset_launch_counts()
     # step 0 as train_iteration runs it, with its gradients kept: every one
-    # must be finite (the warm-up lr is 0 here, so nothing moves yet)
+    # must be finite
     t0 = time.perf_counter()
     loss, _ld, _m, grads = trainer.loss_and_grads(
         state, batches[0], train_proposal_networks=True, generator=gen)
@@ -492,8 +667,9 @@ def train_phase(cfg, tree, dev, trace_dir):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     del grads
-    watch = tree_leaves(state.params)
-    before = [w.detach().clone() for w in watch[:3]]
+    # the first leaf of every param group (the camera optimizer's too)
+    watch = [tree_leaves(group)[0] for group in state.params.values()]
+    before = [w.detach().clone() for w in watch]
 
     def run(steps, times):
         """``steps`` train iterations from the state's step, each timed by
@@ -503,11 +679,16 @@ def train_phase(cfg, tree, dev, trace_dir):
             update = host_static_kwargs(
                 cfg, state.step, {"steps_since_update": state.steps_since_update}
             )["train_proposal_networks"]
+            counts = launch_counts()
             t0, c0 = time.perf_counter(), time.process_time()
             m = trainer.train_iteration(state, batches[state.step % 8], gen)
             torch.cuda.synchronize()
             times.append((update, time.perf_counter() - t0,
                           time.process_time() - c0))
+            for name in every_step:
+                if launch_counts()[name] <= counts[name]:
+                    raise AssertionError(f"step {state.step - 1}: {name} was "
+                                         f"not launched")
             if not all(bool(torch.isfinite(v)) for v in m.values()):
                 raise AssertionError(f"step {state.step - 1}: non-finite {m}")
         return m
@@ -520,11 +701,14 @@ def train_phase(cfg, tree, dev, trace_dir):
 
     warm = []
     run(1, warm)
-    if all(torch.equal(b, w.detach()) for b, w in zip(before, watch)):
-        raise AssertionError("parameters did not move at step 1 (lr > 0)")
+    stuck = [name for name, b, w in zip(state.params, before, watch)
+             if torch.equal(b, w.detach())]
+    if stuck:
+        raise AssertionError(f"param groups {stuck} did not move by step 1 "
+                             f"(lr > 0)")
     del before
     m = run(10, warm)
-    log(f"train: step 0 {first * 1e3:.3f} ms (first, with warm-up); steps "
+    log(f"{tag}: step 0 {first * 1e3:.3f} ms (first, with warm-up); steps "
         f"1-11: update steps {ms(warm, True)}; non-update steps "
         f"{ms(warm, False)}; loss {float(m['Train Loss']):.6f}, psnr "
         f"{float(m['psnr']):.4f}")
@@ -539,8 +723,8 @@ def train_phase(cfg, tree, dev, trace_dir):
     wall = np.array([t for _u, t, _c in times])
     cpu = np.array([c for _u, _t, c in times])
     sub = rays * 12 / wall.reshape(-1, 12).sum(1)
-    launches = {k.__name__: k.launches for k in pk.KERNELS}
-    log(f"train: window steps 10000-{10000 + TRAIN_WINDOW - 1}: update steps "
+    launches = launch_counts()
+    log(f"{tag}: window steps 10000-{10000 + TRAIN_WINDOW - 1}: update steps "
         f"{ms(times, True)}; non-update steps {ms(times, False)}; "
         f"{rays * TRAIN_WINDOW / wall.sum():.1f} train rays/s over the "
         f"window; 12-step sub-windows {[round(float(r), 1) for r in sub]} "
@@ -553,9 +737,10 @@ def train_phase(cfg, tree, dev, trace_dir):
         f"{os.getloadavg()[0]:.2f} after, {os.cpu_count()} CPUs; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; loss "
         f"{float(m['Train Loss']):.6f}; launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} was not launched by the train path")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the {method} "
+                                 f"train path")
 
     # where one non-update step's wall time goes: forward, losses and
     # backward, then the optimizer update (host clock, synchronised)
@@ -566,7 +751,7 @@ def train_phase(cfg, tree, dev, trace_dir):
     t1 = time.perf_counter()
     trainer.apply_grads(state, grads)
     torch.cuda.synchronize()
-    log(f"train: one non-update step split: forward + losses + backward "
+    log(f"{tag}: one non-update step split: forward + losses + backward "
         f"{(t1 - t0) * 1e3:.3f} ms, optimizer update "
         f"{(time.perf_counter() - t1) * 1e3:.3f} ms")
     del grads
@@ -577,14 +762,13 @@ def train_phase(cfg, tree, dev, trace_dir):
         # the step after an update is a non-update one; after 5 non-update
         # steps the next updates
         state.steps_since_update = 5 if update else 0
-        pk.reset_launch_counts()
+        reset_launch_counts()
         in_step[update] = profile_device(
-            f"train {label}",
+            f"{tag} {label}",
             lambda: trainer.train_iteration(state, batches[0], gen),
-            Path(trace_dir) / f"train_{label.replace(' ', '_')}_trace.json"
+            Path(trace_dir) / f"train_{method}_{label.replace(' ', '_')}_trace.json"
             if trace_dir else None)
-        log(f"launches in one {label}: "
-            f"{ {k.__name__: k.launches for k in pk.KERNELS} }")
+        log(f"{tag}: launches in one {label}: {launch_counts()}")
     del state, trainer, batches
     torch.cuda.empty_cache()
     return launches, in_step
@@ -648,23 +832,27 @@ def one_ulp_directions():
         trainer.generate_rays = orig
 
 
-def train_cpu_check(cfg, tree, dev):
+def train_cpu_check(method, tree, dev, seeds, witnesses):
     """One step of TRAIN_CPU_RAYS rays on the card and on the CPU (the
     kernels' plain versions), same params, batch and draws, proposal
-    update on, for each of TRAIN_CPU_SEEDS: the loss terms and every
-    gradient before the update.  Two more CPU steps are the witnesses of
-    what sets the gradients' worst elements: one takes the card's PDF bins
-    in place of its own, and one also moves the ray directions by one ulp
-    (the CPU against itself: the step's own sensitivity to rounding)."""
-    from soccernerfs_tpu_torch.configs.method_configs import optimizer_configs
+    update on, the method's camera optimizer as registered, for each of
+    ``seeds``: the loss terms and every gradient before the update.  With
+    ``witnesses``, two more CPU steps show what sets the gradients' worst
+    elements: one takes the card's PDF bins in place of its own, and one
+    also moves the ray directions by one ulp (the CPU against itself: the
+    step's own sensitivity to rounding)."""
+    from soccernerfs_tpu_torch.configs.method_configs import (model_names,
+                                                              optimizer_configs)
     from soccernerfs_tpu_torch.convert import params_from_jax
     from soccernerfs_tpu_torch.engine.trainer import TrainStep
-    from soccernerfs_tpu_torch.models.kplanes import sample_counts
 
+    module, cfg, camera_optimizer = method_parts(method)
     n = TRAIN_CPU_RAYS
     cpu = torch.device("cpu")
     trainers = {d: TrainStep(cfg, ring_cameras(d), AABB,
-                             optimizer_configs[MODEL], device=d)
+                             optimizer_configs[method], device=d,
+                             model=model_names[method],
+                             camera_optimizer=camera_optimizer)
                 for d in (dev, cpu)}
     states = {d: trainers[d].init_state(params_from_jax(tree, device=d))
               for d in (dev, cpu)}
@@ -690,19 +878,21 @@ def train_cpu_check(cfg, tree, dev):
         return ", ".join(f"{name} {l2:.3e} / {mx:.3e}" for l2, mx, name in rows)
 
     results = []
-    for seed in TRAIN_CPU_SEEDS:
+    tag = f"train cpu check {method}"
+    single = getattr(cfg, "use_single_jitter", False)
+    for seed in seeds:
         rng = np.random.default_rng(seed)
-        jitters = [rng.uniform(0, 1, (n, s + 1)).astype(np.float32)
-                   for s in sample_counts(cfg)]
+        jitters = [rng.uniform(0, 1, (n, 1 if single else s + 1)).astype(np.float32)
+                   for s in module.sample_counts(cfg)]
         background = rng.uniform(0, 1, (n, 3)).astype(np.float32)
         bins = []
         out = {}
-        for where, d, patches in (
-                ("card", dev, [pdf_bins(record=bins)]),
-                ("cpu", cpu, []),
-                ("cpu, card's bins", cpu, [pdf_bins(replay=bins)]),
-                ("cpu, card's bins, directions + 1 ulp", cpu,
-                 [pdf_bins(replay=bins), one_ulp_directions()])):
+        runs = [("card", dev, [pdf_bins(record=bins)]), ("cpu", cpu, [])]
+        if witnesses:
+            runs += [("cpu, card's bins", cpu, [pdf_bins(replay=bins)]),
+                     ("cpu, card's bins, directions + 1 ulp", cpu,
+                      [pdf_bins(replay=bins), one_ulp_directions()])]
+        for where, d, patches in runs:
             state = states[d]
             state.step = 300
             t0 = time.perf_counter()
@@ -717,19 +907,20 @@ def train_cpu_check(cfg, tree, dev):
             out[where] = ({"Train Loss": float(loss),
                            **{k: float(v) for k, v in ld.items()}},
                           [None if g is None else g.cpu() for g in grads])
-            log(f"train cpu check, seed {seed}: {where} step "
+            log(f"{tag}, seed {seed}: {where} step "
                 f"{time.perf_counter() - t0:.3f} s")
             del grads
-        pairs = {
-            "card vs cpu": compare(out["card"], out["cpu"]),
-            "card vs cpu, both the card's bins":
-                compare(out["card"], out["cpu, card's bins"]),
-            "cpu vs cpu, directions + 1 ulp, both the card's bins":
-                compare(out["cpu, card's bins, directions + 1 ulp"],
-                        out["cpu, card's bins"]),
-        }
+        pairs = {"card vs cpu": compare(out["card"], out["cpu"])}
+        if witnesses:
+            pairs.update({
+                "card vs cpu, both the card's bins":
+                    compare(out["card"], out["cpu, card's bins"]),
+                "cpu vs cpu, directions + 1 ulp, both the card's bins":
+                    compare(out["cpu, card's bins, directions + 1 ulp"],
+                            out["cpu, card's bins"]),
+            })
         for label, (t, r) in pairs.items():
-            log(f"train cpu check, seed {seed} ({n} rays, step 300, proposal "
+            log(f"{tag}, seed {seed} ({n} rays, step 300, proposal "
                 f"update on), {label}: loss terms |a - b| / |b| max "
                 f"{max(t.values()):.3e} ({max(t, key=t.get)}); gradients "
                 f"|a - b| / |b| in L2, worst: {fmt(r[:3])}; max |a - b| / "
@@ -744,23 +935,125 @@ def train_cpu_check(cfg, tree, dev):
         # test_one_ulp_sensitivity_comes_from_the_bf16_mlp).  Card and CPU
         # round f32 sums differently all along the step, so their
         # difference is of that size, with the PDF bins shared or not.
-        # So single elements are not held; each leaf is, in L2, where the
-        # TV gradient over every entry keeps the norm stable.
+        # So single elements are not held; each leaf is, in L2 (K-Planes'
+        # TV gradient over every entry keeps the norm stable; nerfacto's
+        # leaves, the pose adjustments included, sum over many samples).
         terms, rows = pairs["card vs cpu"]
+        if not any(name == "camera_opt/pose_adjustment" for _l, _m, name in rows
+                   ) and camera_optimizer.mode != "off":
+            raise AssertionError("the camera optimizer got no gradient")
         if max(terms.values()) > 1e-4 or rows[0][0] > 1e-2:
             raise AssertionError(
-                f"card and CPU train steps disagree, seed {seed}: {terms}, "
+                f"card and CPU {method} train steps disagree, seed {seed}: {terms}, "
                 f"gradient {rows[0]}")
         results.append(pairs)
     del trainers, states
     return results
 
 
+def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=()):
+    """A method's render main path, counted: two whole frames through
+    ``render_camera``; then two timed frames and one profiled.  Returns the
+    counted frames' launches and the profiled frame's device time per
+    kernel."""
+    from soccernerfs_tpu_torch.configs.method_configs import model_names
+    from soccernerfs_tpu_torch.engine.render import render_camera
+
+    _module, cfg, _camera_optimizer = method_parts(method)
+    tag = f"render {method}"
+
+    def frame(i):
+        return render_camera(cfg, params, cams, i, device=dev, aabb=aabb,
+                             model=model_names[method])
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = [frame(i) for i in (0, 1)]
+    torch.cuda.synchronize()
+    first_two_s = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"{tag}: 2 frames {W}x{H} in {first_two_s:.3f} s (first frames), "
+        f"launches {launches}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the {method} "
+                                 f"render path")
+    for i, fr in enumerate(frames):
+        rgb, depth, acc = fr["rgb"], fr["depth"], fr["accumulation"]
+        assert rgb.shape == (H, W, 3) and depth.shape == (H, W), (rgb.shape, depth.shape)
+        assert acc.shape == (H, W)
+        for k, v in fr.items():
+            assert bool(torch.isfinite(v).all()), f"{method} frame {i} {k} not finite"
+        assert float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
+        assert float(acc.min()) >= 0.0 and float(acc.max()) <= 1.0 + 1e-4
+        log(f"{tag}: frame {i}: rgb mean {float(rgb.mean()):.6f}, acc mean "
+            f"{float(acc.mean()):.6f}, depth mean {float(depth.mean()):.6f}")
+    del frames
+
+    # steady-state frame time
+    times = []
+    for i in (0, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_frame = sum(times) / len(times)
+    log(f"{tag}: steady {per_frame:.4f} s/frame ({times}), "
+        f"{H * W / per_frame:.1f} test rays/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    reset_launch_counts()
+    in_frame = profile_device(
+        f"{tag} frame", lambda: frame(1),
+        Path(trace_dir) / f"render_{method}_frame_trace.json" if trace_dir else None)
+    log(f"{tag}: launches per frame {launch_counts()}")
+    return launches, in_frame
+
+
+def render_cpu_check(method, tree, params, cams, dev, aabb):
+    """One 4096-ray chunk through the model on the card and on the CPU (the
+    kernels' plain versions)."""
+    from soccernerfs_tpu_torch.convert import params_from_jax
+    from soccernerfs_tpu_torch.core.cameras import generate_rays
+
+    module, cfg, _camera_optimizer = method_parts(method)
+    pix = np.linspace(0, H * W - 1, 4096).astype(np.int64)
+    coords = np.stack([pix // W, pix % W], -1).astype(np.float32) + 0.5
+    cpu = torch.device("cpu")
+    params_cpu = params_from_jax(tree, device=cpu)
+    if hasattr(module, "prepare_render_params"):
+        params_cpu = module.prepare_render_params(cfg, params_cpu)
+    outs = {}
+    for where, d, p in (("card", dev, params), ("cpu", cpu, params_cpu)):
+        rays = generate_rays(cams.to(d), torch.zeros(4096, dtype=torch.int32,
+                                                     device=d),
+                             torch.from_numpy(coords).to(d))
+        with torch.no_grad():
+            o = module.get_outputs(cfg, p, aabb.to(d), rays)
+        outs[where] = {k: o[k].cpu() for k in ("rgb", "accumulation", "depth")}
+    diffs = {k: float((outs["card"][k] - outs["cpu"][k]).abs().max())
+             for k in outs["cpu"]}
+    depth_rel = ((outs["card"]["depth"] - outs["cpu"]["depth"]).abs()
+                 / outs["cpu"]["depth"].abs().clamp(min=1e-6))
+    depth_off = float((depth_rel > 1e-3).float().mean())
+    log(f"cpu check {method} (4096 rays): max |card - cpu| {diffs}, depth rays "
+        f"off by >1e-3 rel: {depth_off}")
+    # rgb/accumulation are continuous in every input: 2e-3 covers f32
+    # reduction-order differences through the MLPs and the PDF resampling;
+    # the median depth jumps where the cumulative weight sits at 0.5
+    if diffs["rgb"] > 2e-3 or diffs["accumulation"] > 2e-3 or depth_off > 0.01:
+        raise AssertionError(f"card and CPU disagree on {method}: {diffs}, "
+                             f"{depth_off}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
                         help="directory for chrome traces of one frame and "
-                             "of one update and one non-update train step")
+                             "of one update and one non-update train step "
+                             "per method")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -772,13 +1065,10 @@ def main() -> int:
         print("chip_smoke: soccernerfs_tpu_torch is not beside this script",
               file=sys.stderr)
         return 1
-    from soccernerfs_tpu_torch.configs.method_configs import model_configs
     from soccernerfs_tpu_torch.convert import params_from_jax, seeded_params
-    from soccernerfs_tpu_torch.core.cameras import generate_rays
-    from soccernerfs_tpu_torch.engine.render import render_camera
-    from soccernerfs_tpu_torch.models import kplanes
     from soccernerfs_tpu_torch.ops.kernels import build
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
     from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
     dev = torch.device(DEVICE)
@@ -788,112 +1078,72 @@ def main() -> int:
         "python", sys.version.split()[0])
 
     t0 = time.perf_counter()
-    libs = build.build_all(pk.LIBRARIES)
+    libs = build.build_all([*pk.LIBRARIES, *sk.LIBRARIES])
     log(f"build: {time.perf_counter() - t0:.3f} s, {[lib.name for lib in libs]}")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log("ptxas:", line.strip())
 
-    cfg = model_configs[MODEL]
-    t0 = time.perf_counter()
-    tree = seeded_params(cfg, SEED, time_noise=0.05)
-    params = params_from_jax(tree, device=dev)
-    staged = kplanes.prepare_render_params(cfg, params)
-    torch.cuda.synchronize()
-    n_params = sum(int(np.prod(a.shape)) for a in tree_leaves(tree))
-    log(f"params: {n_params} ({n_params * 4 / 2**20:.1f} MiB f32), made and "
-        f"staged in {time.perf_counter() - t0:.3f} s")
-
-    kernels = kernel_phase(cfg, staged, dev)
-    kernels.update(bwd_kernel_phase(cfg, params, dev))
-
     aabb = torch.tensor(AABB, device=dev)
     cams = make_cameras(dev)
+    kernels, launches = {}, {}
 
-    # the main path, counted: two whole frames
-    pk.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    frames = [render_camera(cfg, staged, cams, i, device=dev, aabb=aabb) for i in (0, 1)]
-    torch.cuda.synchronize()
-    first_two_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in pk.KERNELS}
-    log(f"render: 2 frames {W}x{H} in {first_two_s:.3f} s (first frames), "
-        f"launches {launches}")
-    for name in ("bilerp_fwd_unpacked", "bilerp_fwd_packed"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the render path")
-    for i, fr in enumerate(frames):
-        rgb, depth, acc = fr["rgb"], fr["depth"], fr["accumulation"]
-        assert rgb.shape == (H, W, 3) and depth.shape == (H, W), (rgb.shape, depth.shape)
-        assert acc.shape == (H, W)
-        for k, v in fr.items():
-            assert bool(torch.isfinite(v).all()), f"frame {i} {k} not finite"
-        assert float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
-        assert float(acc.min()) >= 0.0 and float(acc.max()) <= 1.0 + 1e-4
-        log(f"frame {i}: rgb mean {float(rgb.mean()):.6f}, acc mean "
-            f"{float(acc.mean()):.6f}, depth mean {float(depth.mean()):.6f}")
-
-    # steady-state frame time
-    times = []
-    for i in (0, 1):
-        torch.cuda.synchronize()
+    def make_params(method, **seed_args):
+        """(numpy tree, params on the card staged for rendering)."""
+        module, cfg, _camera_optimizer = method_parts(method)
         t0 = time.perf_counter()
-        render_camera(cfg, staged, cams, i, device=dev, aabb=aabb)
+        tree = seeded_params(cfg, SEED, **seed_args)
+        params = params_from_jax(tree, device=dev)
+        staged = (module.prepare_render_params(cfg, params)
+                  if hasattr(module, "prepare_render_params") else params)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    per_frame = sum(times) / len(times)
-    log(f"render: steady {per_frame:.4f} s/frame ({times}), "
-        f"{H * W / per_frame:.1f} test rays/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    pk.reset_launch_counts()
-    in_frame = profile_device(
-        "render frame",
-        lambda: render_camera(cfg, staged, cams, 1, device=dev, aabb=aabb),
-        Path(args.trace) / "render_frame_trace.json" if args.trace else None)
-    per_frame_launches = {k.__name__: k.launches for k in pk.KERNELS}
-    log(f"launches per frame {per_frame_launches}")
+        n_params = sum(int(np.prod(a.shape)) for a in tree_leaves(tree))
+        log(f"params {method}: {n_params} ({n_params * 4 / 2**20:.1f} MiB f32), "
+            f"made and staged in {time.perf_counter() - t0:.3f} s")
+        return tree, params, staged
+
+    # ---- K-Planes: plane kernels, render, train
+    _module, cfg, _camera_optimizer = method_parts(MODEL)
+    tree, params, staged = make_params(MODEL, time_noise=0.05)
+    kernels.update(kernel_phase(cfg, staged, dev))
+    kernels.update(bwd_kernel_phase(cfg, params, dev))
+    forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
+    launches[f"render {MODEL}"], in_frame = render_phase(
+        MODEL, staged, cams, dev, aabb, args.trace, must_launch=forward)
     n_chunks = -(-H * W // cfg.eval_num_rays_per_chunk)
     for name, bound in frame_plane_bound_ms(cfg, staged, n_chunks).items():
         log(f"in-frame {name}: {in_frame[name]:.3f} ms device, bound "
             f"{bound:.3f} ms (bytes)"
             + (f", {bound / in_frame[name]:.4f} of bound" if in_frame[name] else ""))
-
-    # CPU check: the same model on the CPU (plain versions), one chunk
-    pix = np.linspace(0, H * W - 1, 4096).astype(np.int64)
-    coords = np.stack([pix // W, pix % W], -1).astype(np.float32) + 0.5
-    cpu = torch.device("cpu")
-    params_cpu = kplanes.prepare_render_params(
-        cfg, params_from_jax(tree, device=cpu))
-    outs = {}
-    for where, d, p in (("card", dev, staged), ("cpu", cpu, params_cpu)):
-        rays = generate_rays(cams.to(d), torch.zeros(4096, dtype=torch.int32,
-                                                     device=d),
-                             torch.from_numpy(coords).to(d))
-        with torch.no_grad():
-            o = kplanes.get_outputs(cfg, p, aabb.to(d), rays)
-        outs[where] = {k: o[k].cpu() for k in ("rgb", "accumulation", "depth")}
-    diffs = {k: float((outs["card"][k] - outs["cpu"][k]).abs().max())
-             for k in outs["cpu"]}
-    depth_rel = ((outs["card"]["depth"] - outs["cpu"]["depth"]).abs()
-                 / outs["cpu"]["depth"].abs().clamp(min=1e-6))
-    depth_off = float((depth_rel > 1e-3).float().mean())
-    log(f"cpu check (4096 rays): max |card - cpu| {diffs}, depth rays off by "
-        f">1e-3 rel: {depth_off}")
-    # rgb/accumulation are continuous in every input: 2e-3 covers f32
-    # reduction-order differences through the MLPs and the PDF resampling;
-    # the median depth jumps where the cumulative weight sits at 0.5
-    if diffs["rgb"] > 2e-3 or diffs["accumulation"] > 2e-3 or depth_off > 0.01:
-        raise AssertionError(f"card and CPU disagree: {diffs}, {depth_off}")
-    del staged, params, params_cpu, outs
+    render_cpu_check(MODEL, tree, staged, cams, dev, aabb)
+    del staged, params
     torch.cuda.empty_cache()
-
-    train_launches, in_step = train_phase(cfg, tree, dev, args.trace)
+    launches[f"train {MODEL}"], in_step = train_phase(
+        MODEL, tree, dev, args.trace, must_launch=[k.__name__ for k in pk.KERNELS])
     for update, times in in_step.items():
-        log(f"in-step plane kernels ({'update' if update else 'non-update'} "
+        log(f"in-step kernels, {MODEL} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
-    train_cpu_check(cfg, tree, dev)
+    train_cpu_check(MODEL, tree, dev, TRAIN_CPU_SEEDS, witnesses=True)
+    del tree
+
+    # ---- nerfacto: the scatter kernel, render, train (camera optimizer on)
+    _module, ncfg, _camera_optimizer = method_parts(NERFACTO)
+    kernels.update(scatter_kernel_phase(ncfg, dev))
+    # an appearance embedding per training camera: the ring's 20
+    tree, params, _ = make_params(NERFACTO, num_train_data=20)
+    launches[f"render {NERFACTO}"], _ = render_phase(
+        NERFACTO, params, cams, dev, aabb, args.trace)
+    render_cpu_check(NERFACTO, tree, params, cams, dev, aabb)
+    del params
+    torch.cuda.empty_cache()
+    scatter = [k.__name__ for k in sk.KERNELS]
+    launches[f"train {NERFACTO}"], in_step = train_phase(
+        NERFACTO, tree, dev, args.trace, must_launch=scatter, every_step=scatter)
+    for update, times in in_step.items():
+        log(f"in-step kernels, {NERFACTO} ({'update' if update else 'non-update'} "
+            f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    train_cpu_check(NERFACTO, tree, dev, NERFACTO_CPU_SEEDS, witnesses=False)
 
     pallas = "soccernerfs_tpu/ops/pallas/plane_kernels.py"
     replaces = {
@@ -901,17 +1151,23 @@ def main() -> int:
         "bilerp_fwd_packed": (f"{pallas}:1062", "plane_kernels.cu"),
         "bilerp_bwd_unpacked": (f"{pallas}:1418", "plane_bwd_kernels.cu"),
         "bilerp_bwd_packed": (f"{pallas}:1156", "plane_bwd_kernels.cu"),
+        "scatter_add_rows": (f"{pallas}:1342", "scatter_kernels.cu"),
     }
+    log("main-path launches:", json.dumps(launches))
     summary = []
     for name, rows in kernels.items():
         t_bytes = sum(r["bytes"] for r in rows) / H100_BYTES_PER_S * 1e3
         t_ops = sum(r["flops"] for r in rows) / H100_F32_FLOPS * 1e3
+        count = sum(path[name] for path in launches.values())
+        if count <= 0:
+            raise AssertionError(f"{name} was launched on no main path")
         summary.append({
             "name": name, "route": "cuda",
             "source": f"soccernerfs_tpu_torch/csrc/{replaces[name][1]}",
             "replaces": replaces[name][0],
-            # both main paths: the two render frames and the train steps
-            "launches": launches[name] + train_launches[name],
+            # every main path: each was driven with the counts at 0 just
+            # before it and read just after
+            "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

@@ -1,15 +1,17 @@
 """Configs of the registered methods the port runs (counterpart of
 soccernerfs_tpu/configs/method_configs.py; the values are copied): the
-model, the per-group optimizers and schedules, and the rays per train
-batch.
+model and its registry name, the per-group optimizers and schedules, the
+camera optimizer, and the rays per train batch.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
+from soccernerfs_tpu_torch.core.camera_optimizer import CameraOptimizerConfig
 from soccernerfs_tpu_torch.engine.optimizers import AdamOptimizerConfig
 from soccernerfs_tpu_torch.engine.schedulers import CosineDecaySchedulerConfig
 from soccernerfs_tpu_torch.models import kplanes as kplanes_model
+from soccernerfs_tpu_torch.models import nerfacto as nerfacto_model
 
 # K-Planes loss coefficients of the fork's methods
 _KPLANES_LOSS_COEF = (
@@ -25,7 +27,7 @@ _KPLANES_LOSS_COEF = (
     ("depth_loss", 0.05),
 )
 
-model_configs: Dict[str, kplanes_model.Config] = {
+model_configs: Dict[str, Any] = {
     # dynamic K-Planes, the fork's default method
     "k-planes": kplanes_model.Config(
         eval_num_rays_per_chunk=1 << 15,
@@ -49,18 +51,44 @@ model_configs: Dict[str, kplanes_model.Config] = {
         depth_sigma=0.01,
         is_euclidean_depth=False,
     ),
+    # the upstream default method: static hash grids, 16 levels of 2
+    # features up to 2048 behind proposal fields of 5 levels up to 128, 256
+    "nerfacto": nerfacto_model.Config(eval_num_rays_per_chunk=1 << 15),
 }
+
+# method -> the model module's name in models/__init__.py
+model_names: Dict[str, str] = {"k-planes": "kplanes", "nerfacto": "nerfacto"}
 
 # {group: {"optimizer": ..., "scheduler": ...}} per method, the groups being
 # the top-level keys of the params
 _KPLANES_GROUP = {
-    "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12),
+    "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12,
+                                     moment_dtype="bfloat16"),
     "scheduler": CosineDecaySchedulerConfig(
         warm_up_end=512, max_steps=30000, learning_rate_alpha=0
     ),
 }
 optimizer_configs: Dict[str, Dict[str, dict]] = {
     "k-planes": {"proposal_networks": _KPLANES_GROUP, "fields": _KPLANES_GROUP},
+    "nerfacto": {
+        "proposal_networks": {
+            "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+            "scheduler": None,
+        },
+        "fields": {
+            "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+            "scheduler": None,
+        },
+        "camera_opt": {
+            "optimizer": AdamOptimizerConfig(lr=6e-4, eps=1e-8, weight_decay=1e-2),
+            "scheduler": None,
+        },
+    },
 }
 
-train_num_rays_per_batch: Dict[str, int] = {"k-planes": 4096}
+camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
+    "k-planes": CameraOptimizerConfig(mode="off"),
+    "nerfacto": CameraOptimizerConfig(mode="SO3xR3"),
+}
+
+train_num_rays_per_batch: Dict[str, int] = {"k-planes": 4096, "nerfacto": 4096}

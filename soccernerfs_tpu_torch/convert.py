@@ -1,13 +1,14 @@
 """Parameters between the JAX package and the port.
 
-``params_from_jax`` takes the parameter pytree of the JAX package's
-``models/kplanes.init``, mapped to numpy arrays (``jax.tree_util.tree_map(
+``params_from_jax`` takes the parameter pytree of a JAX model's ``init``
+(``models/kplanes``, ``models/nerfacto``; with the trainer's ``camera_opt``
+group or without), mapped to numpy arrays (``jax.tree_util.tree_map(
 np.asarray, params)``), and returns the port's params: the same nested
 dicts and lists, with torch tensors on a device.  Both packages then
 compute the same function.
 
 ``seeded_params`` makes such a numpy tree without JAX, from a numpy seed
-(for runs on machines that have no JAX, like the card's).
+(for runs on machines that have no JAX).
 """
 from __future__ import annotations
 
@@ -16,13 +17,10 @@ import math
 import numpy as np
 import torch
 
-from soccernerfs_tpu_torch.fields.kplanes import (
-    field_mlp_dims,
-    plane_combinations,
-    proposal_mlp_dims,
-    scale_resolutions,
-)
-from soccernerfs_tpu_torch.models import kplanes
+from soccernerfs_tpu_torch.fields import kplanes as kplanes_field
+from soccernerfs_tpu_torch.fields import nerfacto as nerfacto_field
+from soccernerfs_tpu_torch.models import kplanes, nerfacto
+from soccernerfs_tpu_torch.ops.hash_grid import level_layout
 from soccernerfs_tpu_torch.utils.device import resolve_device
 
 
@@ -43,20 +41,37 @@ def params_from_jax(np_tree, device=None):
     return conv(np_tree)
 
 
-def seeded_params(cfg: kplanes.Config, seed: int, num_train_data: int = 0,
-                  time_noise: float = 0.0) -> dict:
-    """A numpy param tree in the layout of the JAX package's
-    ``kplanes.init(rng, cfg, num_train_data)``, drawn with numpy.
+def _seeded_mlp(rng, in_dim, hidden, layers, out_dim) -> dict:
+    """Weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), as the JAX
+    init draws them."""
+    dims = [in_dim] + [hidden] * layers + [out_dim]
+    ws, bs = [], []
+    for i in range(len(dims) - 1):
+        bound = 1.0 / math.sqrt(dims[i])
+        ws.append(rng.uniform(-bound, bound, (dims[i], dims[i + 1]))
+                  .astype(np.float32))
+        bs.append(rng.uniform(-bound, bound, (dims[i + 1],))
+                  .astype(np.float32))
+    return {"w": ws, "b": bs}
 
-    Space planes U(0.1, 0.5) (proposal planes U(0.1, 0.15)), time planes
-    1 + U(-time_noise, time_noise), MLP weights and biases
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), as the JAX init draws them.
+
+def seeded_params(cfg, seed: int, num_train_data: int = 0,
+                  time_noise: float = 0.0, grid_std: float = 1e-4) -> dict:
+    """A numpy param tree in the layout of the JAX package's
+    ``init(rng, cfg, num_train_data)`` for a K-Planes or nerfacto config,
+    drawn with numpy; MLPs as ``_seeded_mlp``, appearance embeddings N(0, 1).
+
+    K-Planes: space planes U(0.1, 0.5) (proposal planes U(0.1, 0.15)), time
+    planes 1 + U(-time_noise, time_noise).  Nerfacto: hash tables
+    U(-grid_std, grid_std) (the JAX init's is 1e-4).
     """
     rng = np.random.default_rng(seed)
+    if isinstance(cfg, nerfacto.Config):
+        return _seeded_nerfacto(cfg, rng, num_train_data, grid_std)
 
     def planes(feat, reso, a, b):
         out = []
-        for c1, c2 in plane_combinations(len(reso)):
+        for c1, c2 in kplanes_field.plane_combinations(len(reso)):
             shape = (reso[c2], reso[c1], feat)
             if len(reso) == 4 and 3 in (c1, c2):
                 g = 1.0 + rng.uniform(-time_noise, time_noise, shape)
@@ -65,22 +80,11 @@ def seeded_params(cfg: kplanes.Config, seed: int, num_train_data: int = 0,
             out.append(g.astype(np.float32))
         return out
 
-    def mlp(in_dim, hidden, layers, out_dim):
-        dims = [in_dim] + [hidden] * layers + [out_dim]
-        ws, bs = [], []
-        for i in range(len(dims) - 1):
-            bound = 1.0 / math.sqrt(dims[i])
-            ws.append(rng.uniform(-bound, bound, (dims[i], dims[i + 1]))
-                      .astype(np.float32))
-            bs.append(rng.uniform(-bound, bound, (dims[i + 1],))
-                      .astype(np.float32))
-        return {"w": ws, "b": bs}
-
     fcfg = cfg.field_config(num_train_data)
     fields = {"grids": [planes(fcfg.feat_dim, reso, 0.1, 0.5)
-                        for reso in scale_resolutions(fcfg)]}
-    for name, dims in field_mlp_dims(fcfg).items():
-        fields[name] = mlp(*dims)
+                        for reso in kplanes_field.scale_resolutions(fcfg)]}
+    for name, dims in kplanes_field.field_mlp_dims(fcfg).items():
+        fields[name] = _seeded_mlp(rng, *dims)
     if fcfg.use_appearance_embedding:
         fields["appearance_embedding"] = rng.standard_normal(
             (fcfg.num_images, fcfg.appearance_dim)).astype(np.float32)
@@ -91,6 +95,35 @@ def seeded_params(cfg: kplanes.Config, seed: int, num_train_data: int = 0,
         if name not in props:
             props[name] = {
                 "grids": [planes(dcfg.feature_dim, dcfg.resolution, 0.1, 0.15)],
-                "sigma_net": mlp(*proposal_mlp_dims(dcfg)),
+                "sigma_net": _seeded_mlp(
+                    rng, *kplanes_field.proposal_mlp_dims(dcfg)),
+            }
+    return {"fields": fields, "proposal_networks": props}
+
+
+def _seeded_nerfacto(cfg: nerfacto.Config, rng, num_train_data: int,
+                     grid_std: float) -> dict:
+    def grid(gcfg):
+        rows = level_layout(gcfg)[0][-1]
+        return {"embeddings": rng.uniform(
+            -grid_std, grid_std, (rows, gcfg.row_channels)).astype(np.float32)}
+
+    fcfg = cfg.field_config(num_train_data)
+    dims = nerfacto_field.field_mlp_dims(fcfg)
+    fields = {"grid": grid(fcfg.grid),
+              "mlp_base": _seeded_mlp(rng, *dims["mlp_base"])}
+    if fcfg.use_appearance_embedding:
+        fields["appearance_embedding"] = rng.standard_normal(
+            (max(fcfg.num_images, 1), fcfg.appearance_embedding_dim)
+        ).astype(np.float32)
+    fields["mlp_head"] = _seeded_mlp(rng, *dims["mlp_head"])
+
+    props = {}
+    for idx, dcfg in cfg.density_field_configs():
+        name = f"proposal_{idx}"
+        if name not in props:
+            props[name] = {
+                "grid": grid(dcfg.grid),
+                "mlp": _seeded_mlp(rng, *nerfacto_field.proposal_mlp_dims(dcfg)),
             }
     return {"fields": fields, "proposal_networks": props}

@@ -150,6 +150,7 @@ def generate_rays(
     cameras: Cameras,
     camera_indices: torch.Tensor,
     coords: torch.Tensor,
+    camera_opt_to_camera: Optional[torch.Tensor] = None,
     disable_distortion: bool = False,
 ) -> RayBundle:
     """World-space rays for (camera, pixel) pairs.
@@ -161,6 +162,8 @@ def generate_rays(
     Args:
         camera_indices: [R] int indices into ``cameras``.
         coords: [R, 2] (row, col) pixel coordinates (typically +0.5).
+        camera_opt_to_camera: [R, 3, 4] optional pose-optimizer correction,
+            applied in the camera's frame.
     Returns:
         RayBundle with R rays.
     """
@@ -223,6 +226,10 @@ def generate_rays(
     )  # [3, R, 3] camera-frame directions
 
     c2w = cameras.camera_to_worlds[idx]  # [R, 3, 4]
+    if camera_opt_to_camera is not None:
+        R1, t1 = c2w[..., :3], c2w[..., 3:]
+        R2, t2 = camera_opt_to_camera[..., :3], camera_opt_to_camera[..., 3:]
+        c2w = torch.cat([R1 @ R2, R1 @ t2 + t1], dim=-1)
     rotation = c2w[..., :3, :3]
     directions_stack = torch.einsum("srj,rij->sri", directions_stack, rotation)
     norms = torch.clamp(

@@ -1,8 +1,10 @@
 """Per-group Adam (counterpart of soccernerfs_tpu/engine/optimizers.py).
 
 The JAX package chains optax transforms per top-level param group
-("fields", "proposal_networks"): Adam with low-precision moment storage
-(``scale_by_adam_lowp``), then ``scale_by_schedule(-lr * schedule)``.  The
+("fields", "proposal_networks", "camera_opt"): coupled weight decay where
+set (``add_decayed_weights``), Adam with f32 moments (``scale_by_adam``) or
+a low-precision first moment (``scale_by_adam_lowp``), then
+``scale_by_schedule(-lr * schedule)``.  The
 port writes that chain as plain functions over a group's list of leaves
 rather than as a ``torch.optim.Optimizer``: the params are the JAX
 package's nested dicts and lists, the schedule counts updates from 0 as
@@ -14,7 +16,7 @@ parameters without a gradient and count steps from 1.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -33,14 +35,24 @@ f32 = np.float32
 class AdamOptimizerConfig:
     """Adam; field names and defaults are the JAX package's.
 
-    The first moment is stored in bf16 and the second in f32, as the
-    registered k-planes method stores them; all arithmetic is f32.  The
-    JAX config's other storage types, weight decay, clipping and RAdam are
-    not ported: no registered method the port runs uses them.
+    ``weight_decay`` is coupled L2: ``weight_decay * p`` joins the gradient
+    before the moments, as torch.optim.Adam's.  ``moment_dtype`` is the
+    first moment's storage type: None for f32 (the nerfacto groups),
+    "bfloat16" (the k-planes groups); the second moment is stored in f32
+    and all arithmetic is f32.  The JAX config's clipping, RAdam and bf16
+    second moment are not ported: no registered method the port runs uses
+    them.
     """
 
     lr: float = 5e-4
     eps: float = 1e-8
+    weight_decay: float = 0.0
+    moment_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.moment_dtype not in (None, "bfloat16"):
+            raise ValueError(f"moment_dtype {self.moment_dtype!r} is not "
+                             f"ported (None or 'bfloat16')")
 
 
 def schedule_fn(scheduler_config, lr_init: float) -> Callable:
@@ -66,9 +78,10 @@ class AdamState:
     nu: List[torch.Tensor] = field(default_factory=list)
 
 
-def adam_init(leaves) -> AdamState:
+def adam_init(cfg: AdamOptimizerConfig, leaves) -> AdamState:
+    mu_dtype = torch.float32 if cfg.moment_dtype is None else torch.bfloat16
     return AdamState(
-        mu=[torch.zeros_like(p, dtype=torch.bfloat16) for p in leaves],
+        mu=[torch.zeros_like(p, dtype=mu_dtype) for p in leaves],
         nu=[torch.zeros_like(p, dtype=torch.float32) for p in leaves],
     )
 
@@ -80,8 +93,9 @@ def adam_update(cfg: AdamOptimizerConfig, schedule: Callable,
     """One update of a group's ``leaves`` in place, from ``grads`` (None
     for a leaf that got no gradient: a zero gradient).
 
-    Per leaf, in f32 and in the order of the JAX package's
-    scale_by_adam_lowp: mu = b1 mu + (1-b1) g, nu = b2 nu + (1-b2) g g,
+    Per leaf, in f32 and in the order of optax's scale_by_adam and the JAX
+    package's scale_by_adam_lowp: g += weight_decay p where set, then
+    mu = b1 mu + (1-b1) g, nu = b2 nu + (1-b2) g g,
     u = (mu / c1) / (sqrt(nu / c2) + eps) with c_k = 1 - b_k^count; then
     p += u * (-lr * schedule(count - 1)).  The moments are stored back in
     their storage types.
@@ -93,6 +107,8 @@ def adam_update(cfg: AdamOptimizerConfig, schedule: Callable,
     c2 = f32(1.0) - f32(b2) ** count
     for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
         g = torch.zeros_like(p) if g is None else g.float()
+        if cfg.weight_decay:
+            g = g + cfg.weight_decay * p
         mu_f = b1 * mu.float() + (1.0 - b1) * g
         nu_f = b2 * nu.float() + (1.0 - b2) * g * g
         upd = (mu_f / float(c1)) / (torch.sqrt(nu_f / float(c2)) + cfg.eps)

@@ -1,6 +1,7 @@
 """Whole-image rendering (counterpart of soccernerfs_tpu's
-``Trainer.render_camera``): fixed-size chunks with a zero-padded tail, the
-plane tables staged once per parameter snapshot."""
+``Trainer.render_camera``): fixed-size chunks with a zero-padded tail; a
+model that stages tables for rendering (K-Planes' bf16 plane tables) does
+so once per parameter snapshot."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -8,14 +9,15 @@ from typing import Dict, Optional
 import torch
 
 from soccernerfs_tpu_torch.core.cameras import Cameras, generate_rays, get_image_coords
-from soccernerfs_tpu_torch.models import kplanes
+from soccernerfs_tpu_torch.models import get_model
 from soccernerfs_tpu_torch.utils.device import resolve_device
+from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
 OUTPUT_KEYS = ("rgb", "depth", "accumulation")
 
 
 def render_camera(
-    cfg: kplanes.Config,
+    cfg,
     params: dict,
     cameras: Cameras,
     camera_index: int,
@@ -23,26 +25,31 @@ def render_camera(
     device=None,
     *,
     aabb,
+    model: str = "kplanes",
 ) -> Dict[str, torch.Tensor]:
     """Render one camera's image.
 
     Args:
         cfg: the model config.
-        params: the model's params (``models/kplanes.init`` layout, e.g.
-            from ``convert.params_from_jax``) on ``device``; staged once
-            here unless ``prepare_render_params`` already ran on them.
+        params: the model's params (its ``init`` layout, e.g. from
+            ``convert.params_from_jax``) on ``device``; a model with
+            ``prepare_render_params`` stages them once here unless that
+            already ran on them.  A "camera_opt" group is ignored: pose
+            corrections belong to the training cameras.
         cameras: the cameras, moved to ``device``.
         camera_index: which camera.
         chunk: rays per forward (default ``cfg.eval_num_rays_per_chunk``).
         device: default CUDA; raises when CUDA is absent and the caller
             did not ask for another device.
         aabb: [2, 3] scene box.
+        model: the model's registry name (models/__init__.py).
     Returns:
         {"rgb": [H, W, 3], "depth": [H, W], "accumulation": [H, W]} on
         ``device``.
     """
     dev = resolve_device(device)
-    leaf = params["fields"]["grids"][0][0]
+    module = get_model(model)
+    leaf = tree_leaves(params["fields"])[0]
     if leaf.device.type != dev.type:
         raise ValueError(f"params are on {leaf.device}, rendering on {dev}")
     chunk = chunk or cfg.eval_num_rays_per_chunk
@@ -56,14 +63,14 @@ def render_camera(
     coords = torch.cat([coords, torch.zeros((n_pad - n, 2), device=dev)])
     cam_idx = torch.full((n_pad,), camera_index, dtype=torch.int32, device=dev)
 
-    if "grids_packed" not in params["fields"]:
-        params = kplanes.prepare_render_params(cfg, params)
+    if hasattr(module, "prepare_render_params"):
+        params = module.prepare_render_params(cfg, params)
     outs = {k: [] for k in OUTPUT_KEYS}
     with torch.no_grad():
         for i in range(0, n_pad, chunk):
             rays = generate_rays(cameras, cam_idx[i:i + chunk],
                                  coords[i:i + chunk])
-            o = kplanes.get_outputs(cfg, params, aabb, rays, train=False)
+            o = module.get_outputs(cfg, params, aabb, rays, train=False)
             for k in OUTPUT_KEYS:
                 outs[k].append(o[k])
     return {

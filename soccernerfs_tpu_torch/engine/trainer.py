@@ -1,12 +1,14 @@
-"""One K-Planes training step on one device (the counterpart of the step
-that soccernerfs_tpu's ``Trainer._build_step_fns`` jits, without a mesh).
+"""One training step on one device (the counterpart of the step that
+soccernerfs_tpu's ``Trainer._build_step_fns`` jits, without a mesh).
 
-``TrainStep`` holds what does not change between steps (model config,
-cameras, scene box, per-group optimizer configs); ``TrainState`` holds
-what does (params, the optimizer state, the step and the host counter of
-the proposal-update schedule).  ``train_iteration`` decides the proposal
-update on the host, generates the batch's rays, runs the forward, the
-losses and ``backward``, and applies one Adam update per param group.
+``TrainStep`` holds what does not change between steps (the model and its
+config, cameras, scene box, per-group optimizer configs, the camera
+optimizer's config); ``TrainState`` holds what does (params, the optimizer
+state, the step and the host counter of the proposal-update schedule).
+``train_iteration`` decides the proposal update on the host, generates the
+batch's rays (through the camera optimizer's pose corrections when it is
+on), runs the forward, the losses and ``backward``, and applies one Adam
+update per param group.
 The batch comes from the caller in the layout of the JAX trainer's
 ``_device_batch``: ``cam_idx`` [N] int32, ``coords`` [N, 2] (row, col)
 pixel coordinates + 0.5, ``image`` [N, 3].
@@ -20,6 +22,11 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from soccernerfs_tpu_torch.core.camera_optimizer import (
+    CameraOptimizerConfig,
+    apply_camera_optimizer,
+    init_camera_optimizer,
+)
 from soccernerfs_tpu_torch.core.cameras import Cameras, generate_rays
 from soccernerfs_tpu_torch.engine.optimizers import (
     AdamState,
@@ -27,7 +34,7 @@ from soccernerfs_tpu_torch.engine.optimizers import (
     adam_update,
     schedule_fn,
 )
-from soccernerfs_tpu_torch.models import kplanes
+from soccernerfs_tpu_torch.models import get_model
 from soccernerfs_tpu_torch.utils.device import resolve_device
 from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
@@ -41,7 +48,7 @@ class TrainState:
 
 
 class TrainStep:
-    """The static half of training: config, cameras, scene box, optimizers.
+    """The static half of training: model, cameras, scene box, optimizers.
 
     Args:
         cfg: the model config.
@@ -52,12 +59,21 @@ class TrainStep:
             (configs/method_configs.py).
         device: default CUDA; raises when CUDA is absent and the caller
             did not ask for another device.
+        model: the model's registry name (models/__init__.py).
+        camera_optimizer: when its mode is not "off", ``init_state`` adds a
+            "camera_opt" param group (one pose adjustment per training
+            camera) and every step's rays go through its corrections, so
+            origins, directions and sample positions carry a gradient.
     """
 
-    def __init__(self, cfg: kplanes.Config, cameras: Cameras, aabb,
-                 optimizer_configs: Dict[str, dict], device=None):
+    def __init__(self, cfg, cameras: Cameras, aabb,
+                 optimizer_configs: Dict[str, dict], device=None, *,
+                 model: str = "kplanes",
+                 camera_optimizer: CameraOptimizerConfig = CameraOptimizerConfig()):
         self.device = resolve_device(device)
+        self.model = get_model(model)
         self.cfg = cfg
+        self.camera_optimizer = camera_optimizer
         self.cameras = cameras.to(self.device)
         self.aabb = torch.as_tensor(aabb, dtype=torch.float32, device=self.device)
         self.optimizers = {
@@ -68,14 +84,23 @@ class TrainStep:
 
     def init_state(self, params: dict) -> TrainState:
         """A state at step 0 over ``params`` (the model's param tree on
-        this device; its leaves are made to require grad, in place)."""
+        this device; its leaves are made to require grad, in place).  With
+        the camera optimizer on, a "camera_opt" group of zero adjustments
+        joins the params unless they bring one."""
+        if self.camera_optimizer.mode != "off" and "camera_opt" not in params:
+            params["camera_opt"] = init_camera_optimizer(
+                self.camera_optimizer, self.cameras.num_cameras,
+                device=self.device)
+        missing = [name for name in params if name not in self.optimizers]
+        if missing:
+            raise KeyError(f"no optimizer config for param groups {missing}")
         for leaf in tree_leaves(params):
             if leaf.device.type != self.device.type:
                 raise ValueError(f"params are on {leaf.device}, training on "
                                  f"{self.device}")
             leaf.requires_grad_(True)
         return TrainState(params=params, opt_state={
-            name: adam_init(tree_leaves(group))
+            name: adam_init(self.optimizers[name][0], tree_leaves(group))
             for name, group in params.items()
         })
 
@@ -93,22 +118,27 @@ class TrainStep:
         ``state.params`` (``tree_leaves`` order; None for a leaf the loss
         does not reach) at ``state.step``, before any update.  The draws
         come from ``jitters``/``background`` when given, else from
-        ``generator`` (models/kplanes.train_draws)."""
-        cfg = self.cfg
-        rays = generate_rays(self.cameras, batch["cam_idx"], batch["coords"])
-        outputs = kplanes.get_outputs(
+        ``generator`` (the model's ``train_draws``)."""
+        cfg, model = self.cfg, self.model
+        correction = apply_camera_optimizer(
+            self.camera_optimizer, state.params.get("camera_opt"),
+            batch["cam_idx"])
+        rays = generate_rays(self.cameras, batch["cam_idx"], batch["coords"],
+                             correction)
+        outputs = model.get_outputs(
             cfg, state.params, self.aabb, rays, train=True,
-            anneal=kplanes.proposal_anneal(cfg, state.step),
+            anneal=model.proposal_anneal(cfg, state.step),
             train_proposal_networks=train_proposal_networks,
             jitters=jitters, background=background, generator=generator,
         )
-        metrics = kplanes.get_metrics_dict(cfg, outputs, batch)
-        loss_dict = kplanes.get_loss_dict(cfg, state.params, outputs, batch)
+        metrics = model.get_metrics_dict(cfg, outputs, batch)
+        loss_dict = model.get_loss_dict(cfg, state.params, outputs, batch,
+                                        metrics)
         loss = functools.reduce(operator.add, loss_dict.values())
         grads = torch.autograd.grad(loss, tree_leaves(state.params),
                                     allow_unused=True)
         return (loss.detach(), {k: v.detach() for k, v in loss_dict.items()},
-                metrics, list(grads))
+                {k: v.detach() for k, v in metrics.items()}, list(grads))
 
     def apply_grads(self, state: TrainState, grads: List) -> None:
         """One optimizer update per param group, in place; step + 1."""
@@ -131,7 +161,7 @@ class TrainStep:
         ``generator``.  Returns {"Train Loss", **loss_dict, **metrics} as
         0-d tensors."""
         host = {"steps_since_update": state.steps_since_update}
-        flag = kplanes.host_static_kwargs(
+        flag = self.model.host_static_kwargs(
             self.cfg, state.step, host)["train_proposal_networks"]
         state.steps_since_update = host["steps_since_update"]
         loss, loss_dict, metrics, grads = self.loss_and_grads(

@@ -1,0 +1,19 @@
+"""Model registry: each model module exposes ``Config`` (a frozen
+dataclass), ``init``, ``get_outputs``, ``get_metrics_dict``,
+``get_loss_dict``, ``proposal_anneal``, ``host_static_kwargs`` and
+``train_draws``, and optionally ``prepare_render_params``."""
+from __future__ import annotations
+
+import importlib
+
+_MODEL_MODULES = {
+    "kplanes": "soccernerfs_tpu_torch.models.kplanes",
+    "nerfacto": "soccernerfs_tpu_torch.models.nerfacto",
+}
+
+
+def get_model(name: str):
+    """Resolve a model module by registry name."""
+    if name not in _MODEL_MODULES:
+        raise KeyError(f"unknown model {name!r}; known: {sorted(_MODEL_MODULES)}")
+    return importlib.import_module(_MODEL_MODULES[name])

@@ -188,8 +188,11 @@ def init(cfg: Config, num_train_data: int = 0,
 def prepare_render_params(cfg: Config, params: dict) -> dict:
     """Stage every plane table (field + proposals) to bf16 once per
     parameter snapshot (fields/kplanes.pack_grids_for_render); whole-image
-    rendering reuses them across chunks.  Eval only: the copies carry no
-    gradient link to the grids."""
+    rendering reuses them across chunks; params that are staged already
+    come back as they are.  Eval only: the copies carry no gradient link to
+    the grids."""
+    if "grids_packed" in params["fields"]:
+        return params
     with torch.no_grad():
         return {
             **params,
@@ -391,9 +394,11 @@ def get_metrics_dict(cfg: Config, outputs: dict, batch: dict) -> dict:
     return {"psnr": -10.0 * torch.log10(mse)}
 
 
-def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict) -> dict:
+def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
+                  metrics_dict: Optional[dict] = None) -> dict:
     """The scaled training loss dict, in the JAX package's insertion order
-    (the total is summed in that order)."""
+    (the total is summed in that order).  ``metrics_dict`` is the models'
+    common argument; this model's losses read nothing from it."""
     _needs_depth(cfg, batch)
     loss_coef = cfg.loss_coef
     loss_dict = {"rgb_loss": L.mse_loss(batch["image"], outputs["rgb"])}

@@ -1,11 +1,11 @@
 """chip_smoke.py's control flow, rehearsed on the CPU at a small size.
 
 The script needs a card; here its CUDA calls are stubbed, the kernel
-wrappers are made to count their plain versions as launches, and a small
-K-Planes config stands in for the full width, so every phase (forward and
-backward kernel checks, two counted frames, the render CPU comparison, the
-counted train steps, the train CPU comparison, the JSON lines) runs in
-seconds.
+wrappers are made to count their plain versions as launches, and small
+K-Planes and nerfacto configs stand in for the full widths, so every phase
+(the plane and scatter kernel checks, and per method two counted frames,
+the render CPU comparison, the counted train steps, the train CPU
+comparison; the JSON lines) runs in seconds.
 Also checks that, without CUDA, the script exits non-zero and prints no
 result, both from the repository and alone in a directory.
 """
@@ -24,6 +24,7 @@ import torch
 from soccernerfs_tpu_torch.configs import method_configs as mc
 from soccernerfs_tpu_torch.ops.kernels import build
 from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,11 +73,26 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         num_proposal_samples_per_ray=(16, 8), num_nerf_samples_per_ray=8,
         eval_num_rays_per_chunk=512,
     )
-    monkeypatch.setitem(mc.model_configs, "small", small)
-    monkeypatch.setitem(mc.optimizer_configs, "small",
-                        mc.optimizer_configs["k-planes"])
-    monkeypatch.setitem(mc.train_num_rays_per_batch, "small", 256)
+    small_nerfacto = dataclasses.replace(
+        mc.model_configs["nerfacto"], num_levels=4, max_res=64,
+        log2_hashmap_size=13, hidden_dim=16, hidden_dim_color=16,
+        proposal_net_args_list=(
+            {"hidden_dim": 8, "log2_hashmap_size": 12, "num_levels": 3, "max_res": 32},
+            {"hidden_dim": 8, "log2_hashmap_size": 12, "num_levels": 3, "max_res": 64},
+        ),
+        num_proposal_samples_per_ray=(16, 8), num_nerf_samples_per_ray=8,
+        eval_num_rays_per_chunk=512,
+    )
+    for small_name, method, small_cfg in (("small", "k-planes", small),
+                                          ("small-nerfacto", "nerfacto",
+                                           small_nerfacto)):
+        monkeypatch.setitem(mc.model_configs, small_name, small_cfg)
+        for table in (mc.optimizer_configs, mc.model_names,
+                      mc.camera_optimizer_configs):
+            monkeypatch.setitem(table, small_name, table[method])
+        monkeypatch.setitem(mc.train_num_rays_per_batch, small_name, 256)
     monkeypatch.setattr(cs, "MODEL", "small")
+    monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "TRAIN_CPU_RAYS", 64)
     monkeypatch.setattr(cs, "TRAIN_WINDOW", 12)
     monkeypatch.setattr(cs, "DEVICE", "cpu")
@@ -88,7 +104,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(
         cs, "profile_device",
         lambda label, fn, trace_path: (fn(), {k.__name__: 1.0
-                                              for k in pk.KERNELS})[1])
+                                              for k in cs.all_kernels()})[1])
     for name, value in (("is_available", lambda: True),
                         ("synchronize", lambda *a: None),
                         ("Event", _Event),
@@ -98,7 +114,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                         ("device_count", lambda: 1),
                         ("empty_cache", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, value)
-    libs = [tmp_path / f"lib{name}_stub.so" for name in pk.LIBRARIES]
+    libs = [tmp_path / f"lib{name}_stub.so"
+            for name in (*pk.LIBRARIES, *sk.LIBRARIES)]
     for lib in libs:
         lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers\n")
     monkeypatch.setattr(build, "build_all", lambda names: libs)
@@ -120,6 +137,12 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             o.copy_(r)
 
     monkeypatch.setattr(pk, "_launch", launch)
+    monkeypatch.setattr(sk, "_on_cpu", lambda ts: False)
+    monkeypatch.setattr(sk, "_check_cuda", lambda operands: None)
+    monkeypatch.setattr(
+        sk, "_launch",
+        lambda g, idxs, ws, out, flag, points, groups, corners, c, rows:
+        out.copy_(sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)))
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
 
     assert cs.main() == 0
@@ -128,7 +151,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         "ok": True, "device": {"platform": "gpu", "kind": "stub", "count": 1}}
     assert lines[-2] == "stub card, 0 W"
     kernels = json.loads(lines[-3])["kernels"]
-    assert [k["name"] for k in kernels] == [k.__name__ for k in pk.KERNELS]
+    assert [k["name"] for k in kernels] == [
+        k.__name__ for k in (*pk.KERNELS, *sk.KERNELS)]
+    assert len(kernels) == 5
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:

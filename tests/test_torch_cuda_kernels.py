@@ -1,5 +1,5 @@
-"""The port's CUDA plane-sampling kernels (forward and backward) against
-their plain versions, on the card.
+"""The port's CUDA kernels (plane sampling forward and backward, the hash
+grids' row scatter-add) against their plain versions, on the card.
 
 Needs CUDA and nvcc; everywhere else each test skips.  Imports neither JAX
 nor the JAX package (the card's machine has neither), so run it without
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -160,3 +161,85 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):      # F = 16 has no kernel
         pk.bilerp_bwd_packed([torch.zeros((5, 16), device=dev)], [z], [f], f,
                              rows=12)
+
+
+# ---------------------------------------------------------------------------
+# scatter_add_rows
+# ---------------------------------------------------------------------------
+
+SCATTER_CASES = [  # rows, c, groups, corners, points
+    (1000, 2, 1, 1, 5000),       # sorted_scatter_add's own shape
+    (1000, 2, 4, 8, 3000),       # a hash grid: levels x corners
+    (777, 4, 3, 8, 2000),
+    (64, 1, 2, 4, 999),
+    (500, 8, 2, 2, 1500),
+    (300, 16, 1, 8, 700),
+    (200, 32, 2, 1, 800),
+    (50, 128, 1, 2, 300),
+    (2, 2, 1, 1, 100_000),       # every add contends with 50,000 others
+    (2, 4, 2, 8, 20_000),
+]
+
+
+def _scatter_operands(rows, c, groups, corners, points, dev, sort, weights):
+    rng = np.random.default_rng(rows * 31 + c)
+    idx = rng.integers(0, rows, (groups, corners, points)).astype(np.int32)
+    if sort:
+        idx.sort(axis=-1)
+    g = rng.standard_normal((points, groups * c), dtype=np.float32)
+    ws = (rng.uniform(0, 1, idx.shape).astype(np.float32) if weights else None)
+    return (torch.from_numpy(g).to(dev), torch.from_numpy(idx).to(dev),
+            None if ws is None else torch.from_numpy(ws).to(dev))
+
+
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("rows,c,groups,corners,points", SCATTER_CASES)
+def test_scatter_kernel_matches_plain(dev, rows, c, groups, corners, points,
+                                      sort, weights):
+    """Each product rounds as the plain version's; atomics add in an order
+    that changes from run to run, and a row's sum of up to 160,000 signed
+    terms cancels, so the sums are held to 1e-6 of the largest row's sum of
+    |terms| (what f32 rounding scales with), not to the result's size."""
+    g, idx, ws = _scatter_operands(rows, c, groups, corners, points, dev, sort,
+                                   weights)
+    before = sk.scatter_add_rows.launches
+    got = sk.scatter_add_rows(g, idx, ws, rows=rows)
+    want = sk.scatter_add_rows_plain(g, idx, ws, rows=rows)
+    torch.cuda.synchronize()
+    assert sk.scatter_add_rows.launches == before + 1
+    mass = sk.scatter_add_rows_plain(g.abs(), idx, ws, rows=rows)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-6 * float(mass.max())
+
+
+def test_scatter_kernel_empty_update_list(dev):
+    g = torch.zeros((0, 4), device=dev)
+    idx = torch.zeros((2, 8, 0), dtype=torch.int32, device=dev)
+    before = sk.scatter_add_rows.launches
+    out = sk.scatter_add_rows(g, idx, None, rows=9)
+    assert out.shape == (9, 2) and float(out.abs().max()) == 0.0
+    assert sk.scatter_add_rows.launches == before      # nothing to launch
+
+
+def test_scatter_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.zeros((5, 4), device=dev)
+    idx = torch.zeros((2, 3, 5), dtype=torch.int32, device=dev)
+    w = torch.ones((2, 3, 5), device=dev)
+    with pytest.raises(ValueError):      # int64 indices
+        sk.scatter_add_rows(g, idx.long(), w, rows=7)
+    with pytest.raises(ValueError):      # bf16 gradient
+        sk.scatter_add_rows(g.to(torch.bfloat16), idx, w, rows=7)
+    with pytest.raises(ValueError):      # width 3 per group
+        sk.scatter_add_rows(torch.zeros((5, 6), device=dev), idx, w, rows=7)
+    with pytest.raises(ValueError):      # weights of another shape
+        sk.scatter_add_rows(g, idx, w[:, :2], rows=7)
+    with pytest.raises(ValueError):      # mixed devices
+        sk.scatter_add_rows(g, idx.cpu(), w, rows=7)
+    with pytest.raises(ValueError):      # non-contiguous gradient
+        sk.scatter_add_rows(torch.zeros((4, 5), device=dev).t(), idx, w, rows=7)
+    for bad in (-1, 7):                  # a row outside the table: no clip
+        idx2 = idx.clone()
+        idx2[1, 2, 3] = bad
+        with pytest.raises(IndexError):
+            sk.scatter_add_rows(g, idx2, w, rows=7)

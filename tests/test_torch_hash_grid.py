@@ -1,0 +1,290 @@
+"""The port's static hash-grid encoder (soccernerfs_tpu_torch/ops/hash_grid.py)
+and the plain version of its scatter kernel against the JAX package on the
+CPU: row indices exactly, values, table gradients and position gradients
+at stated tolerances, for the xor, zline and tiled configs, dense and
+hashed levels.  Inputs are made with numpy from a seed.
+
+JAX runs two ways: its default CPU path (f32 gathers, ``jnp.take``'s
+transpose), which computes what the port computes, and its TPU path in
+Pallas interpret mode (``SCATTER_INTERPRET``, set by monkeypatch as the JAX
+package's own tests do), which gathers hashed zline levels from a bf16
+table and scatters bf16 updates.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from soccernerfs_tpu.ops import hash_grid as jh
+from soccernerfs_tpu.ops.pallas import plane_kernels as jpk
+from soccernerfs_tpu_torch.ops import hash_grid as th
+from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch CPU thread while this file runs.  The suite runs in
+    parallel worker processes; a full-width torch thread pool in each of
+    them oversubscribes the cores, and its threads' spin-waiting then slows
+    these many small ops by two orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# levels 0-1 dense (4^3, 7^3 cells), 2-5 oversubscribed at 2^10 rows
+SMALL = dict(num_levels=6, level_dim=2, base_resolution=4,
+             desired_resolution=64, log2_hashmap_size=10)
+CONFIGS = {
+    "xor": dict(SMALL, hash_scheme="xor"),
+    "zline": dict(SMALL, hash_scheme="zline"),
+    "tiled": dict(SMALL, gridtype="tiled"),
+    "xor4": dict(SMALL, hash_scheme="xor", level_dim=4, num_levels=3),
+}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _rel(got, want) -> float:
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-30))
+
+
+@pytest.mark.parametrize("name", ["xor", "zline", "tiled"])
+def test_level_layout_matches_jax(name):
+    """Offsets, scales and resolutions, exactly; at the registered nerfacto
+    widths too (16 levels to 2048 at 2^19 rows: 5 dense levels, 6,098,120
+    rows; proposal grids of 5 levels to 128 and 256 at 2^17)."""
+    for kw in (CONFIGS[name],
+               dict(num_levels=16, desired_resolution=2048, hash_scheme="zline"),
+               dict(num_levels=5, desired_resolution=128, log2_hashmap_size=17),
+               dict(num_levels=5, desired_resolution=256, log2_hashmap_size=17)):
+        jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+        assert th.level_layout(tc) == jh.level_layout(jc)
+        assert (jc.scale, jc.output_dim, jc.row_channels) == (
+            tc.scale, tc.output_dim, tc.row_channels)
+    main = th.HashGridConfig(num_levels=16, desired_resolution=2048)
+    assert th.level_layout(main)[0][-1] == 6_098_120
+    assert sum(th.strided_levels(main)) == 5
+
+
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("name", ["xor", "zline", "tiled"])
+def test_hash_index_equals_jax(name, strided):
+    """Row indices of random lattice coordinates in [0, 4100)^3 (uint32
+    products wrap from ~2 on), per level kind and hash scheme, against
+    ``_hash_index``: equal, every one."""
+    kw = CONFIGS[name]
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+    rng = np.random.default_rng(1)
+    coords = rng.integers(0, 4100, (4000, 3)).astype(np.int32)
+    coords[:8] = [[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [4099] * 3,
+                  [2048, 2047, 2049], [1, 1, 1], [15, 16, 17]]
+    for resolution, rows in ((7, 344), (23, 12168), (300, 1 << 10), (2048, 1 << 19)):
+        dense = strided and name != "tiled"
+        if name != "tiled" and not strided and resolution**3 <= rows:
+            continue
+        if name == "tiled" and not strided:
+            continue    # a tiled grid has no hashed level
+        want = np.asarray(jh._hash_index(jnp.asarray(coords), resolution, rows,
+                                         jc, dense))
+        per_dim = [_t(coords[:, d].astype(np.int64))[None, None] for d in range(3)]
+        got = th.hash_index(per_dim, torch.tensor([[[resolution]]]),
+                            torch.tensor([[[rows]]]), tc, strided)
+        assert got.shape == (1, 1, 4000)
+        np.testing.assert_array_equal(got[0, 0].numpy(), want)
+        assert want.min() >= 0 and want.max() < rows
+
+
+@pytest.mark.parametrize("name", ["xor", "zline", "tiled"])
+def test_grid_corners_match_jax_per_level(name):
+    """The encoder's own corner rows and weights on every level against
+    the JAX package's per-corner construction (``_hash_index`` of
+    ``floor(pos) + offset``), x = 0 and x = 1 included: rows equal, weights
+    to 1e-6."""
+    kw = CONFIGS[name]
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+    offsets, scales, resolutions = jh.level_layout(jc)
+    rng = np.random.default_rng(2)
+    x = rng.uniform(0, 1, (300, 3)).astype(np.float32)
+    x[0], x[1], x[2] = 0.0, 1.0, [0.0, 1.0, 0.5]
+    idxs, ws = th.grid_corners(tc, _t(x))
+    assert idxs.dtype == torch.int32 and idxs.shape == (jc.num_levels, 8, 300)
+    corner_offsets = np.stack(np.meshgrid(*([np.arange(2)] * 3), indexing="ij"),
+                              -1).reshape(-1, 3)
+    for lvl in range(jc.num_levels):
+        rows = offsets[lvl + 1] - offsets[lvl]
+        dense = resolutions[lvl] ** 3 <= rows
+        pos = jnp.asarray(x) * scales[lvl] + 0.5
+        pos0 = jnp.floor(pos)
+        frac = np.asarray(pos - pos0)
+        for c, off in enumerate(corner_offsets):
+            want = np.asarray(jh._hash_index(pos0.astype(jnp.int32) + off,
+                                             resolutions[lvl], rows, jc, dense))
+            np.testing.assert_array_equal(idxs[lvl, c].numpy(),
+                                          want + offsets[lvl])
+            w = np.prod(np.where(off[None] == 1, frac, 1.0 - frac), axis=-1)
+            np.testing.assert_allclose(ws[lvl, c].numpy(), w, atol=1e-6)
+
+
+def _encode_both(kw, x, table, cot):
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+
+    def jloss(t, xx):
+        return jnp.vdot(jh.hash_grid_encode(jc, {"embeddings": t}, xx), cot)
+
+    jout = jh.hash_grid_encode(jc, {"embeddings": jnp.asarray(table)},
+                               jnp.asarray(x))
+    jgt, jgx = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(table), jnp.asarray(x))
+    tt = _t(table).requires_grad_(True)
+    tx = _t(x).requires_grad_(True)
+    tout = th.hash_grid_encode(tc, {"embeddings": tt}, tx)
+    (tout * _t(cot)).sum().backward()
+    return (jout, jgt, jgx), (tout, tt.grad, tx.grad)
+
+
+def _inputs(kw, seed, n=400):
+    rng = np.random.default_rng(seed)
+    rows = th.level_layout(th.HashGridConfig(**kw))[0][-1]
+    table = rng.uniform(-0.5, 0.5, (rows, kw["level_dim"])).astype(np.float32)
+    x = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    x[0], x[1] = 0.0, 1.0
+    cot = rng.standard_normal((n, kw["num_levels"] * kw["level_dim"])
+                              ).astype(np.float32)
+    return x, table, cot
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_encode_matches_jax_cpu_path(name):
+    """Values, table gradient and position gradient against JAX's default
+    CPU path (f32 gathers), dense and hashed levels together.  Values 1e-6
+    of the max (the same f32 products, summed over the corners in the same
+    order); gradients 1e-5 of the max (f32 sums of colliding updates in
+    another order)."""
+    kw = CONFIGS[name]
+    (jout, jgt, jgx), (tout, tgt, tgx) = _encode_both(kw, *_inputs(kw, 3))
+    assert tout.shape == jout.shape
+    assert _rel(tout, jout) <= 1e-6
+    assert _rel(tgt, jgt) <= 1e-5
+    assert _rel(tgx, jgx) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["xor", "zline", "tiled"])
+def test_encode_matches_jax_pallas_interpret_path(name, monkeypatch):
+    """The same against JAX's TPU path run in Pallas interpret mode, which
+    gathers hashed zline levels from a bf16 copy of the table and feeds
+    ``sorted_scatter_add`` bf16 updates: values to 1e-2 of the max,
+    gradients to 2e-2 (the bf16 tolerances of the JAX package's own
+    tests).  The port gathers and adds in f32, so it sits at the exact end
+    of that band."""
+    monkeypatch.setattr(jh, "SCATTER_INTERPRET", True)
+    kw = CONFIGS[name]
+    (jout, jgt, jgx), (tout, tgt, tgx) = _encode_both(kw, *_inputs(kw, 4, n=150))
+    assert _rel(tout, jout) <= 1e-2
+    assert _rel(tgt, jgt) <= 2e-2
+    assert _rel(tgx, jgx) <= 2e-2
+
+
+def test_encode_without_position_gradient_skips_the_weight_gradient():
+    """Positions that do not require grad: the table gradient is the same
+    and no gradient comes back for the weights (autograd's own
+    bookkeeping, where the JAX package has an ``input_grads`` flag)."""
+    kw = CONFIGS["zline"]
+    x, table, cot = _inputs(kw, 5)
+    tc = th.HashGridConfig(**kw)
+    grads = []
+    for needs in (True, False):
+        tt = _t(table).requires_grad_(True)
+        tx = _t(x).requires_grad_(needs)
+        (th.hash_grid_encode(tc, {"embeddings": tt}, tx) * _t(cot)).sum().backward()
+        grads.append(tt.grad)
+        assert (tx.grad is not None) == needs
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
+    with torch.no_grad():
+        out = th.hash_grid_encode(tc, {"embeddings": _t(table)}, _t(x))
+    assert out.shape == (x.shape[0], tc.output_dim) and not out.requires_grad
+
+
+def test_temporal_grids_are_refused():
+    with pytest.raises(NotImplementedError):
+        th.hash_grid_encode(th.HashGridConfig(temporal_dim=4),
+                            {"embeddings": torch.zeros(8, 6)}, torch.zeros(2, 3))
+    with pytest.raises(NotImplementedError):
+        th.init_hash_grid(th.HashGridConfig(temporal_dim=4))
+    table = th.init_hash_grid(th.HashGridConfig(**CONFIGS["xor"]),
+                              torch.Generator().manual_seed(0))["embeddings"]
+    assert table.shape == (th.level_layout(th.HashGridConfig(**CONFIGS["xor"]))[0][-1], 2)
+    assert float(table.abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# scatter_add_rows' plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 128])
+def test_scatter_plain_matches_sorted_scatter_add(c):
+    """G = K = 1 without weights on sorted indices against the Pallas
+    kernel in interpret mode, every row width it accepts.  The TPU kernel
+    rounds g to bf16, so it gets bf16-representable updates; then both add
+    in f32: 1e-6 of the max."""
+    rng = np.random.default_rng(10 + c)
+    rows, m = 700, 3000
+    idx = np.sort(rng.integers(0, rows, m)).astype(np.int32)
+    g = np.asarray(jnp.asarray(rng.standard_normal((m, c)).astype(np.float32)
+                               ).astype(jnp.bfloat16).astype(jnp.float32))
+    want = jpk.sorted_scatter_add(jnp.asarray(g), jnp.asarray(idx), r=rows, c=c,
+                                  interpret=True)
+    got = sk.scatter_add_rows_plain(_t(g), _t(idx)[None, None], rows=rows)
+    assert got.shape == (rows, c) and got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-6
+    # the wrapper takes the plain version for CPU tensors, and counts nothing
+    before = sk.scatter_add_rows.launches
+    again = sk.scatter_add_rows(_t(g), _t(idx)[None, None], rows=rows)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    assert sk.scatter_add_rows.launches == before
+
+
+@pytest.mark.parametrize("weights", [False, True])
+def test_scatter_plain_matches_at_add_unsorted(weights):
+    """Groups, corners and weights on unsorted indices against
+    ``.at[].add`` of the expanded update stream: 1e-6 of the max."""
+    rng = np.random.default_rng(20)
+    rows, groups, corners, points, c = 97, 3, 8, 500, 2
+    idx = rng.integers(0, rows, (groups, corners, points)).astype(np.int32)
+    g = rng.standard_normal((points, groups * c)).astype(np.float32)
+    ws = rng.uniform(0, 1, idx.shape).astype(np.float32) if weights else None
+    upd = np.broadcast_to(
+        g.reshape(points, groups, 1, c).transpose(1, 2, 0, 3),
+        (groups, corners, points, c))
+    if weights:
+        upd = upd * ws[..., None]
+    want = jnp.zeros((rows, c)).at[jnp.asarray(idx.reshape(-1))].add(
+        jnp.asarray(upd.reshape(-1, c)))
+    got = sk.scatter_add_rows(_t(g), _t(idx), None if ws is None else _t(ws),
+                              rows=rows)
+    assert _rel(got, want) <= 1e-6
+
+
+def test_scatter_refuses_bad_operands_on_the_cpu_too():
+    g = torch.zeros((5, 4))
+    idx = torch.zeros((2, 3, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        sk.scatter_add_rows(g, idx.long(), rows=7)
+    with pytest.raises(ValueError):
+        sk.scatter_add_rows(torch.zeros((5, 6)), idx, rows=7)     # width 3
+    with pytest.raises(ValueError):
+        sk.scatter_add_rows(g, idx, torch.ones((2, 3, 4)), rows=7)
+    for bad in (-1, 7):
+        idx2 = idx.clone()
+        idx2[1, 1, 1] = bad
+        with pytest.raises(IndexError):
+            sk.scatter_add_rows(g, idx2, rows=7)
+    out = sk.scatter_add_rows(torch.zeros((0, 4)),
+                              torch.zeros((2, 3, 0), dtype=torch.int32), rows=7)
+    assert out.shape == (7, 2) and float(out.abs().max()) == 0.0

@@ -562,17 +562,17 @@ def test_schedules_match_jax(kind):
 
 
 def _assert_same_optimizer(mine, theirs):
-    """The port's Adam config equals the JAX one on every field it has,
-    and the JAX one uses none of the options the port leaves out (weight
-    decay, clipping, RAdam, moment storage other than a bf16 first and an
-    f32 second moment)."""
+    """The port's Adam config equals the JAX one on every field it has
+    (lr, eps, weight decay, the first moment's storage type), and the JAX
+    one uses none of the options the port leaves out (clipping, RAdam, a
+    second moment stored in anything but f32)."""
     ref = dataclasses.asdict(theirs)
     got = dataclasses.asdict(mine)
     assert got == {k: ref[k] for k in got}
     assert type(theirs) is jopt.AdamOptimizerConfig
     assert {k: v for k, v in ref.items() if k not in got} == {
-        "weight_decay": 0.0, "max_norm": None, "kind": "adam",
-        "moment_dtype": "bfloat16", "nu_moment_dtype": "float32"}
+        "max_norm": None, "kind": "adam", "nu_moment_dtype": "float32"}
+    assert (got["weight_decay"], got["moment_dtype"]) == (0.0, "bfloat16")
 
 
 def test_adam_update_matches_scale_by_adam_lowp():
@@ -593,7 +593,7 @@ def test_adam_update_matches_scale_by_adam_lowp():
     jstate = jtx.init(jp)
     tp = [_t(p) for p in params]
     opt = gcfg["optimizer"]
-    tstate = topt.adam_init(tp)
+    tstate = topt.adam_init(opt, tp)
     sched = topt.schedule_fn(gcfg["scheduler"], opt.lr)
     for i in range(4):
         grads = [rng.standard_normal(p.shape).astype(np.float32) * 10.0 ** -i
