@@ -8,7 +8,10 @@
      kernel against its plain PyTorch version, timed beside it and beside a
      library yardstick.  Forward plane kernels (relative max error <= 1e-5;
      yardstick torch.nn.functional.grid_sample); backward plane kernels
-     (atomics: 1e-5 of the max; aten.grid_sampler_2d_backward);
+     (atomics: 1e-5 of the max; aten.grid_sampler_2d_backward) on uniform
+     random points and on every launch of one K-Planes train step,
+     captured at the wrappers (the path's own ray-ordered operands), with
+     each case's vector reductions and their rate;
      scatter_add_rows (atomics: 1e-6 of the largest row's sum of |terms|;
      index_add_ on the pre-expanded update stream) on one hashed and one
      dense level of nerfacto's main grid, the same level as sorted_scatter_add
@@ -30,7 +33,10 @@
      are finite and the parameters, the camera optimizer's included, moved.
      Prints ms per update and non-update step, train rays/s over the window
      and its 12-step sub-windows, the process's CPU time per step and peak
-     memory, and traces one step of each kind with torch.profiler.
+     memory, and traces one step of each kind with torch.profiler; for
+     K-Planes, each backward kernel's device time in a profiled step
+     beside the byte bound of the captured step's launches (the counts
+     must match).
   6. Train CPU checks: one 1024-ray step with the same params, batch and
      draws on the card and on the CPU; the loss terms and every gradient
      before the update agree (per leaf, in L2).  For K-Planes, three seeds
@@ -51,6 +57,7 @@ import argparse
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -74,6 +81,7 @@ TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
 NERFACTO_CPU_SEEDS = (2, 4)
 TRAIN_WINDOW = 60                # steps, 10 update cycles
 SCATTER_MASS_TOL = 1e-6          # of the largest row's sum of |terms|
+BWD_PASSES = 5                   # timing passes per backward case
 
 
 def log(*a):
@@ -279,16 +287,14 @@ def bwd_kernel_cases(cfg, params):
     ]
 
 
-def bwd_kernel_phase(cfg, params, dev):
+def bwd_random_cases(cfg, params, dev):
+    """bwd_kernel_cases' groups with uniform random points and gradients:
+    one backward case each (see bwd_case)."""
     from soccernerfs_tpu_torch.ops.grid_sample import grid_coords
-    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    results = {"bilerp_bwd_unpacked": [], "bilerp_bwd_packed": []}
     for label, kind, grids, (members, c2), m in bwd_kernel_cases(cfg, params):
-        planes = [grids[ci] for _c1, ci in members]
-        h, w, feat = planes[0].shape
-        n = len(members)
+        h, w, feat = grids[members[0][1]].shape
         pts = torch.rand((m, 4), generator=gen, device=dev) * 2.0 - 1.0
         gs = [torch.randn((m, feat), generator=gen, device=dev) for _ in members]
         yc, ty = grid_coords(pts[:, c2], h)
@@ -297,67 +303,189 @@ def bwd_kernel_phase(cfg, params, dev):
             xc, tx = grid_coords(pts[:, c1], w)
             rowids.append(yc * w + xc)
             txs.append(tx)
-        if kind == "unpacked":
-            def kern():
-                return pk.bilerp_bwd_unpacked(gs, rowids, txs, ty, h=h, w=w)
+        yield {"label": f"{label}, random points", "order": "random",
+               "kind": kind, "h": h, "w": w, "gs": gs, "rowids": rowids,
+               "txs": txs, "ty": ty,
+               "grid": torch.stack([pts[:, [c1, c2]] for c1, _ci in members])[:, None]}
 
-            def plain():
-                return pk.bilerp_bwd_unpacked_plain(gs, rowids, txs, ty, h=h, w=w)
-        else:
-            def kern():
-                return pk.bilerp_bwd_packed(gs, rowids, txs, ty, rows=h * w)
 
-            def plain():
-                return pk.bilerp_bwd_packed_plain(gs, rowids, txs, ty, rows=h * w)
+def make_trainer(method, tree, dev):
+    """(TrainStep, its state) of a method as registered, on bench.py's
+    ring, the parameters loaded from ``tree``."""
+    from soccernerfs_tpu_torch.configs.method_configs import (
+        model_names, optimizer_configs)
+    from soccernerfs_tpu_torch.convert import params_from_jax
+    from soccernerfs_tpu_torch.engine.trainer import TrainStep
 
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        err = max(float((g - e).abs().max()) for g, e in zip(got, want))
-        scale = max(float(e.abs().max()) for e in want)
-        # atomics add in an order that changes from run to run
-        if not err <= KERNEL_REL_TOL * scale:
-            raise AssertionError(f"bwd {kind} {label}: max |kernel - plain| = "
-                                 f"{err} > {KERNEL_REL_TOL} * {scale}")
+    _module, cfg, camera_optimizer = method_parts(method)
+    trainer = TrainStep(cfg, ring_cameras(dev), AABB, optimizer_configs[method],
+                        device=dev, model=model_names[method],
+                        camera_optimizer=camera_optimizer)
+    return trainer, trainer.init_state(params_from_jax(tree, device=dev))
 
-        # yardstick: the input gradient of grid_sample (bilinear, border,
-        # align_corners) for the same f32 NCHW planes, points and gradients
-        inp = torch.stack([pl.permute(2, 0, 1) for pl in planes]).contiguous()
-        grid = torch.stack([pts[:, [c1, c2]] for c1, _ci in members])[:, None]
-        gout = torch.stack(gs).permute(0, 2, 1)[:, :, None].contiguous()
 
-        def library():
-            return torch.ops.aten.grid_sampler_2d_backward(
-                gout, inp, grid, 0, 1, True, [True, False])[0]
+def bwd_step_cases(tree, dev):
+    """The backward plane launches of one K-Planes train step (step 0 of
+    the train phase: an update step, make_batch(0), the same draws),
+    captured where the wrappers launch, one backward case each (see
+    bwd_case): the path's own operands, its samples flattened ray by ray."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
-        lib_diff = None
-        if kind == "unpacked":
-            lib = library().permute(0, 2, 3, 1).reshape(n, h * w, feat)
-            lib_diff = max(float((g - e).abs().max()) for g, e in zip(got, lib))
-            del lib
-        del got, want
+    trainer, state = make_trainer(MODEL, tree, dev)
+    launch = pk._launch
+    record = []
 
-        ms = time_ms(kern, 20)
-        plain_ms = time_ms(plain, 5)
-        library_ms = time_ms(library, 10)
-        table = h * w * feat * (1 if kind == "unpacked" else 4)
-        bytes_ = m * 4 + n * m * (8 + 4 * feat) + n * table * 4
-        flops = m * (1 + n * (5 + 8 * feat))   # 1-ty; 1-tx, 4 weights, 8/feature
-        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_F32_FLOPS * 1e3
-        row = {
-            "case": f"{label} {n} planes [{h},{w},{feat}] "
-                    f"grad table {[h * w, table // (h * w)]}",
-            "planes": n, "M": m, "max_abs_err": err, "max_abs_plain": scale,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_max_abs_diff": lib_diff, "bytes": bytes_, "flops": flops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        log("kernel", f"bwd_{kind}", json.dumps(row))
-        results[f"bilerp_bwd_{kind}"].append(row)
-        del pts, gs, rowids, txs, ty, inp, grid, gout
+    def capture(name, ins, rowids, txs, ty, outs, m, feat, *shape):
+        if name.startswith("snt_bilerp_bwd_"):
+            record.append((name[len("snt_bilerp_bwd_"):],
+                           [t.clone() for t in ins], [t.clone() for t in rowids],
+                           [t.clone() for t in txs], ty.clone(), shape))
+        return launch(name, ins, rowids, txs, ty, outs, m, feat, *shape)
+
+    pk._launch = capture
+    try:
+        trainer.loss_and_grads(
+            state, make_batch(0, train_num_rays_per_batch[MODEL], dev),
+            train_proposal_networks=True,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+    finally:
+        pk._launch = launch
+    # a packed launch names its rows only: the proposal planes give (h, w)
+    hw = {g.shape[0] * g.shape[1]: tuple(g.shape[:2])
+          for field in state.params["proposal_networks"].values()
+          for scale in field["grids"] for g in scale}
+    del trainer, state
+    for j, (kind, gs, rowids, txs, ty, shape) in enumerate(record):
+        h, w = shape if kind == "unpacked" else hw[shape[0]]
+        # the continuous coordinates of each cell and fraction, for the
+        # grid_sample yardstick
+        yc = torch.div(rowids[0], w, rounding_mode="floor")
+        y = (yc + ty) * (2.0 / max(h - 1, 1)) - 1.0
+        grid = torch.stack([torch.stack(
+            [(r - yc + tx) * (2.0 / max(w - 1, 1)) - 1.0, y], -1)
+            for r, tx in zip(rowids, txs)])[:, None]
+        yield {"label": f"train step launch {j}, ray-ordered", "order": "ray",
+               "kind": kind, "h": h, "w": w, "gs": gs,
+               "rowids": rowids, "txs": txs, "ty": ty, "grid": grid}
+
+
+def bwd_strip() -> int:
+    """Points per lane strip of the built backward kernels."""
+    from soccernerfs_tpu_torch.ops.kernels import build
+
+    return build.load("plane_bwd_kernels").snt_bilerp_bwd_strip()
+
+
+def strip_flushes(rowid, strip) -> int:
+    """Corner-sum flushes of one plane's points walked in strips of
+    ``strip``: a strip's first point and each point whose row id differs
+    from the one before it."""
+    change = torch.ones_like(rowid, dtype=torch.bool)
+    change[1:] = rowid[1:] != rowid[:-1]
+    change[::strip] = True
+    return int(change.sum())
+
+
+def bwd_case(case, strip):
+    """Check one backward case against its plain version and time kernel,
+    plain version and aten.grid_sampler_2d_backward; returns its row."""
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    kind, h, w, gs = case["kind"], case["h"], case["w"], case["gs"]
+    m, feat, n = gs[0].shape[0], gs[0].shape[1], len(gs)
+    args = (gs, case["rowids"], case["txs"], case["ty"])
+    if kind == "unpacked":
+        def kern():
+            return pk.bilerp_bwd_unpacked(*args, h=h, w=w)
+
+        def plain():
+            return pk.bilerp_bwd_unpacked_plain(*args, h=h, w=w)
+    else:
+        def kern():
+            return pk.bilerp_bwd_packed(*args, rows=h * w)
+
+        def plain():
+            return pk.bilerp_bwd_packed_plain(*args, rows=h * w)
+
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = max(float((g - e).abs().max()) for g, e in zip(got, want))
+    scale = max(float(e.abs().max()) for e in want)
+    # register sums and atomics add in another order, which changes from
+    # run to run
+    if not err <= KERNEL_REL_TOL * scale:
+        raise AssertionError(f"bwd {kind} {case['label']}: max |kernel - plain| "
+                             f"= {err} > {KERNEL_REL_TOL} * {scale}")
+    del got, want
+
+    # yardstick: the input gradient of grid_sample (bilinear, border,
+    # align_corners) of f32 NCHW planes of the same shape, for the same
+    # points and gradients (the planes' values do not enter it)
+    inp = torch.zeros((n, feat, h, w), device=gs[0].device)
+    gout = torch.stack(gs).permute(0, 2, 1)[:, :, None].contiguous()
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            gout, inp, case["grid"], 0, 1, True, [True, False])[0]
+
+    lib_diff = None
+    if kind == "unpacked":
+        lib = library().permute(0, 2, 3, 1).reshape(n, h * w, feat)
+        lib_diff = max(float((g - e).abs().max()) for g, e in zip(kern(), lib))
+        del lib
+
+    # the kernel's time: the median of BWD_PASSES passes of 20 launches
+    # each, every pass beside it (a pass's mean can carry a transient)
+    passes = [time_ms(kern, 20) for _ in range(BWD_PASSES)]
+    ms = statistics.median(passes)
+    plain_ms = time_ms(plain, 5)
+    library_ms = time_ms(library, 10)
+    table = h * w * feat * (1 if kind == "unpacked" else 4)
+    bytes_ = m * 4 + n * m * (8 + 4 * feat) + n * table * 4
+    flops = m * (1 + n * (5 + 8 * feat))   # 1-ty; 1-tx, 4 weights, 8/feature
+    t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    # the kernel's atomic operations: per flush F lanes (4 corners x F/4
+    # quarters), one 16-byte vector reduction each
+    flushes = sum(strip_flushes(r, strip) for r in case["rowids"])
+    reductions = flushes * feat
+    row = {
+        "case": f"{case['label']}, {n} planes [{h},{w},{feat}] "
+                f"grad table {[h * w, table // (h * w)]}",
+        "order": case["order"], "planes": n, "M": m, "max_abs_err": err,
+        "max_abs_plain": scale, "ms": ms, "ms_passes": passes, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_max_abs_diff": lib_diff,
+        "bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "strip": strip, "points_per_flush": n * m / flushes,
+        "vector_reductions": reductions,
+        "G_reductions_per_s": reductions / ms / 1e6,
+        "G_float_adds_per_s": n * m * 4 * feat / ms / 1e6,
+    }
+    log("kernel", f"bwd_{kind}", json.dumps(row))
+    return row
+
+
+def bwd_kernel_phase(cfg, params, tree, dev):
+    """Both backward kernels on bwd_kernel_cases' random points, then on
+    the launches of one train step (bwd_step_cases); returns the rows by
+    kernel."""
+    strip = bwd_strip()
+    results = {"bilerp_bwd_unpacked": [], "bilerp_bwd_packed": []}
+    for cases in (bwd_random_cases(cfg, params, dev), bwd_step_cases(tree, dev)):
+        for case in cases:
+            results[f"bilerp_bwd_{case['kind']}"].append(bwd_case(case, strip))
         torch.cuda.empty_cache()
+    for name, rows in results.items():
+        ray = [r for r in rows if r["order"] == "ray"]
+        log(f"train step launches of {name}, ray-ordered: {len(ray)}, kernel "
+            f"{sum(r['ms'] for r in ray):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in ray):.4f} ms, library "
+            f"{sum(r['library_ms'] for r in ray):.4f} ms, bound "
+            f"{sum(r['bound_ms'] for r in ray):.4f} ms (bytes), "
+            f"{sum(r['vector_reductions'] for r in ray)} vector reductions")
     return results
 
 
@@ -628,22 +756,16 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
     TRAIN_WINDOW steps at step 10,000, with the method's registered
     optimizers and camera optimizer.  Fails unless every kernel of
     ``must_launch`` launched during it, and those of ``every_step`` on every
-    step.  Returns the launch counts and the profiled steps' device time per
-    kernel."""
-    from soccernerfs_tpu_torch.configs.method_configs import (
-        model_names, optimizer_configs, train_num_rays_per_batch)
-    from soccernerfs_tpu_torch.convert import params_from_jax
-    from soccernerfs_tpu_torch.engine.trainer import TrainStep
+    step.  Returns the launch counts and, for the profiled update and
+    non-update step, the device time per kernel and the launches."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
-    module, cfg, camera_optimizer = method_parts(method)
+    module, cfg, _camera_optimizer = method_parts(method)
     host_static_kwargs = module.host_static_kwargs
     tag = f"train {method}"
     rays = train_num_rays_per_batch[method]
-    trainer = TrainStep(cfg, ring_cameras(dev), AABB, optimizer_configs[method],
-                        device=dev, model=model_names[method],
-                        camera_optimizer=camera_optimizer)
-    state = trainer.init_state(params_from_jax(tree, device=dev))
+    trainer, state = make_trainer(method, tree, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     batches = [make_batch(i, rays, dev) for i in range(8)]
     torch.cuda.synchronize()
@@ -763,12 +885,13 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
         # steps the next updates
         state.steps_since_update = 5 if update else 0
         reset_launch_counts()
-        in_step[update] = profile_device(
+        times = profile_device(
             f"{tag} {label}",
             lambda: trainer.train_iteration(state, batches[0], gen),
             Path(trace_dir) / f"train_{method}_{label.replace(' ', '_')}_trace.json"
             if trace_dir else None)
-        log(f"{tag}: launches in one {label}: {launch_counts()}")
+        in_step[update] = (times, launch_counts())
+        log(f"{tag}: launches in one {label}: {in_step[update][1]}")
     del state, trainer, batches
     torch.cuda.empty_cache()
     return launches, in_step
@@ -841,21 +964,12 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
     elements: one takes the card's PDF bins in place of its own, and one
     also moves the ray directions by one ulp (the CPU against itself: the
     step's own sensitivity to rounding)."""
-    from soccernerfs_tpu_torch.configs.method_configs import (model_names,
-                                                              optimizer_configs)
-    from soccernerfs_tpu_torch.convert import params_from_jax
-    from soccernerfs_tpu_torch.engine.trainer import TrainStep
-
     module, cfg, camera_optimizer = method_parts(method)
     n = TRAIN_CPU_RAYS
     cpu = torch.device("cpu")
-    trainers = {d: TrainStep(cfg, ring_cameras(d), AABB,
-                             optimizer_configs[method], device=d,
-                             model=model_names[method],
-                             camera_optimizer=camera_optimizer)
-                for d in (dev, cpu)}
-    states = {d: trainers[d].init_state(params_from_jax(tree, device=d))
-              for d in (dev, cpu)}
+    trainers, states = {}, {}
+    for d in (dev, cpu):
+        trainers[d], states[d] = make_trainer(method, tree, d)
     names = leaf_paths(states[cpu].params)
 
     def compare(a_run, b_run):
@@ -1107,7 +1221,7 @@ def main() -> int:
     _module, cfg, _camera_optimizer = method_parts(MODEL)
     tree, params, staged = make_params(MODEL, time_noise=0.05)
     kernels.update(kernel_phase(cfg, staged, dev))
-    kernels.update(bwd_kernel_phase(cfg, params, dev))
+    kernels.update(bwd_kernel_phase(cfg, params, tree, dev))
     forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
     launches[f"render {MODEL}"], in_frame = render_phase(
         MODEL, staged, cams, dev, aabb, args.trace, must_launch=forward)
@@ -1121,9 +1235,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches[f"train {MODEL}"], in_step = train_phase(
         MODEL, tree, dev, args.trace, must_launch=[k.__name__ for k in pk.KERNELS])
-    for update, times in in_step.items():
+    for update, (times, _counts) in in_step.items():
         log(f"in-step kernels, {MODEL} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    # the backward kernels against the byte bound of the captured step's
+    # launches: an update step launches all of them, a non-update step
+    # the unpacked ones only
+    for name in ("bilerp_bwd_unpacked", "bilerp_bwd_packed"):
+        ray = [r for r in kernels[name] if r["order"] == "ray"]
+        step_launches, bound = len(ray), sum(r["bound_ms"] for r in ray)
+        for update, (times, counts) in in_step.items():
+            want = step_launches if update or name == "bilerp_bwd_unpacked" else 0
+            if counts[name] != want:
+                raise AssertionError(f"{name}: {counts[name]} launches in the "
+                                     f"profiled step, the captured step made {want}")
+            if want:
+                log(f"in-step {name} ({'update' if update else 'non-update'} "
+                    f"step): {times[name]:.3f} ms device in {counts[name]} "
+                    f"launches, bound {bound:.3f} ms (bytes), "
+                    + (f"{bound / times[name]:.4f} of bound" if times[name]
+                       else "not measured"))
     train_cpu_check(MODEL, tree, dev, TRAIN_CPU_SEEDS, witnesses=True)
     del tree
 
@@ -1140,7 +1271,7 @@ def main() -> int:
     scatter = [k.__name__ for k in sk.KERNELS]
     launches[f"train {NERFACTO}"], in_step = train_phase(
         NERFACTO, tree, dev, args.trace, must_launch=scatter, every_step=scatter)
-    for update, times in in_step.items():
+    for update, (times, _counts) in in_step.items():
         log(f"in-step kernels, {NERFACTO} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
     train_cpu_check(NERFACTO, tree, dev, NERFACTO_CPU_SEEDS, witnesses=False)
@@ -1156,6 +1287,10 @@ def main() -> int:
     log("main-path launches:", json.dumps(launches))
     summary = []
     for name, rows in kernels.items():
+        # the kernel phases' own cases, as earlier runs summed them; the
+        # backward kernels' captured train-step launches have lines of
+        # their own
+        rows = [r for r in rows if r.get("order", "random") == "random"]
         t_bytes = sum(r["bytes"] for r in rows) / H100_BYTES_PER_S * 1e3
         t_ops = sum(r["flops"] for r in rows) / H100_F32_FLOPS * 1e3
         count = sum(path[name] for path in launches.values())

@@ -13,6 +13,7 @@ import dataclasses
 import importlib.util
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -119,6 +120,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     for lib in libs:
         lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers\n")
     monkeypatch.setattr(build, "build_all", lambda names: libs)
+    monkeypatch.setattr(cs, "bwd_strip", lambda: 8)
     # the wrappers take the "kernel" branch, which runs the plain versions
     monkeypatch.setattr(pk, "_on_cpu", lambda ts: False)
     monkeypatch.setattr(pk, "_check", lambda ins, r, x, y, dtype: r[0].shape[0])
@@ -147,6 +149,24 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
 
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
+    # the backward kernels on the train step's own launches, beside their
+    # random cases, and against the step's byte bound after the profile
+    bwd = [{**json.loads(line.split(" ", 2)[2]),
+            "kernel": "bilerp_" + line.split(" ", 2)[1]}
+           for line in lines if line.startswith("kernel bwd_")]
+    step = [r for r in bwd if r["order"] == "ray"]
+    assert len(bwd) - len(step) == 5
+    assert {r["planes"] for r in step} == {1, 2, 3}
+    assert all(0 < r["vector_reductions"] and r["points_per_flush"] >= 1.0
+               for r in bwd)
+    # samples of a ray often share a cell of these small planes
+    assert max(r["points_per_flush"] for r in step) > 1.0
+    assert all(len(r["ms_passes"]) == cs.BWD_PASSES
+               and r["ms"] == statistics.median(r["ms_passes"]) for r in bwd)
+    in_step = [line for line in lines if line.startswith("in-step bilerp_bwd_")]
+    assert [line.split(" (")[0] for line in in_step] == [
+        "in-step bilerp_bwd_unpacked"] * 2 + ["in-step bilerp_bwd_packed"]
+    assert all("of bound" in line for line in in_step)
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "stub", "count": 1}}
     assert lines[-2] == "stub card, 0 W"
@@ -162,6 +182,14 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert k["bound_by"] == "bytes" and k["bound_ms"] > 0
         assert (REPO / k["source"]).is_file()
         assert (REPO / k["replaces"].split(":")[0]).is_file()
+    # the line sums the random cases of the backward kernels, as before the
+    # captured train-step launches were added
+    for k in kernels[2:4]:
+        random = [r for r in bwd if r["kernel"] == k["name"]
+                  and r["order"] == "random"]
+        assert k["bound_ms"] == pytest.approx(
+            sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
+        assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

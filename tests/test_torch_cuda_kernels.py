@@ -130,6 +130,67 @@ def test_packed_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
     _assert_close_to_plain(got, want)
 
 
+def _runs(rng, h, w, lengths, planes, dev, border=False):
+    """Points in runs: within a run every point has the same row id on each
+    plane (one cell, random fractions), as consecutive samples of a ray
+    often do; with ``border`` each run's cell is on the right or bottom
+    border (or both), where two corners fold onto one row."""
+    m = int(sum(lengths))
+    run_of = np.repeat(np.arange(len(lengths)), lengths)
+    yc = rng.integers(0, h, len(lengths))
+    xcs = [rng.integers(0, w, len(lengths)) for _ in range(planes)]
+    if border:
+        side = rng.integers(0, 3, len(lengths))   # right, bottom, corner
+        yc[side > 0] = h - 1
+        for xc in xcs:
+            xc[side != 1] = w - 1
+    rowids = [torch.from_numpy((yc * w + xc)[run_of].astype(np.int32)).to(dev)
+              for xc in xcs]
+    txs = [torch.from_numpy(rng.uniform(0, 1, m).astype(np.float32)).to(dev)
+           for _ in range(planes)]
+    ty = torch.from_numpy(rng.uniform(0, 1, m).astype(np.float32)).to(dev)
+    return rowids, txs, ty
+
+
+# run lengths: long runs of one row; runs that cross the edges of a strip
+# (8 points), a warp (32 points at F = 32, 128 at F = 8) and a block (256,
+# 1024); every point on one row; runs on border cells; a point count that
+# is not a multiple of the strip, and one below it
+RUN_PATTERNS = {
+    "long": lambda rng: rng.integers(1, 40, 60),
+    "edges": lambda rng: [7, 9, 33, 257, 1025, 1, 2, 3, 127, 129, 300],
+    "one_row": lambda rng: [4000],
+    "border": lambda rng: rng.integers(1, 20, 80),
+    "ragged": lambda rng: [3, 12, 6, 2],
+    "short": lambda rng: [5],
+}
+
+
+@pytest.mark.parametrize("pattern", list(RUN_PATTERNS))
+@pytest.mark.parametrize("planes", [1, 2, 3])
+@pytest.mark.parametrize("feat", [8, 32])
+@pytest.mark.parametrize("kind", ["unpacked", "packed"])
+def test_bwd_kernels_merge_runs_of_one_row(dev, kind, feat, planes, pattern):
+    """Runs of equal row ids, which the kernels sum in registers before
+    their atomics, give the plain version's table gradient."""
+    h, w = 9, 16
+    rng = np.random.default_rng([feat, planes, len(pattern)])
+    lengths = RUN_PATTERNS[pattern](rng)
+    rowids, txs, ty = _runs(rng, h, w, lengths, planes, dev,
+                            border=pattern == "border")
+    m = ty.shape[0]
+    gs = [torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
+          for _ in range(planes)]
+    kernel = getattr(pk, f"bilerp_bwd_{kind}")
+    shape = {"h": h, "w": w} if kind == "unpacked" else {"rows": h * w}
+    before = kernel.launches
+    got = kernel(gs, rowids, txs, ty, **shape)
+    want = getattr(pk, f"bilerp_bwd_{kind}_plain")(gs, rowids, txs, ty, **shape)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _assert_close_to_plain(got, want)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     table = torch.zeros((12, 32), dtype=torch.bfloat16, device=dev)
     z = torch.zeros(5, dtype=torch.int32, device=dev)
