@@ -13,11 +13,14 @@
      captured at the wrappers (the path's own ray-ordered operands), with
      each case's vector reductions and their rate;
      scatter_add_rows (atomics: 1e-6 of the largest row's sum of |terms|;
-     index_add_ on the pre-expanded update stream) on one hashed and one
-     dense level of nerfacto's main grid, the same level as sorted_scatter_add
-     takes it (expanded, sorted), one proposal level, the whole-grid launches
-     the train path makes, a wider row, a 2-row table with 100,000 updates
-     and an empty update list.
+     index_add_ on the pre-expanded update stream) on uniform random points:
+     one hashed and one dense level of nerfacto's main grid, the same level
+     as sorted_scatter_add takes it (expanded, sorted), one proposal level,
+     the whole-grid launches the train path makes, a wider row, a 2-row
+     table with 100,000 updates, an empty update list; then on the 3
+     launches of one nerfacto train step, captured at the wrapper; each
+     with its L2 reductions (scatter_plan) and their rate.  A case's time is
+     the median of five passes of 20 launches.
   4. Render phases, ``k-planes`` then ``nerfacto``, full registry width,
      weights drawn from a numpy seed and loaded through ``params_from_jax``:
      two counted 960x540 frames through ``render_camera`` (K-Planes fails
@@ -36,7 +39,8 @@
      memory, and traces one step of each kind with torch.profiler; for
      K-Planes, each backward kernel's device time in a profiled step
      beside the byte bound of the captured step's launches (the counts
-     must match).
+     must match), and for nerfacto scatter_add_rows' the same way.  The
+     scatter's deferred range check runs after every synchronised step.
   6. Train CPU checks: one 1024-ray step with the same params, batch and
      draws on the card and on the CPU; the loss terms and every gradient
      before the update agree (per leaf, in L2).  For K-Planes, three seeds
@@ -81,7 +85,7 @@ TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
 NERFACTO_CPU_SEEDS = (2, 4)
 TRAIN_WINDOW = 60                # steps, 10 update cycles
 SCATTER_MASS_TOL = 1e-6          # of the largest row's sum of |terms|
-BWD_PASSES = 5                   # timing passes per backward case
+BWD_PASSES = 5                   # timing passes per backward or scatter case
 
 
 def log(*a):
@@ -489,14 +493,36 @@ def bwd_kernel_phase(cfg, params, tree, dev):
     return results
 
 
-def scatter_kernel_phase(cfg, dev):
-    """scatter_add_rows against its plain version at the nerfacto train
-    step's shapes (4096 rays): corner rows and weights of uniform random
-    points from the encoder's own ``grid_corners``, random gradients."""
+def scatter_layout(dev) -> dict:
+    """The built scatter kernel's strip per row width and threads per block,
+    and the card's SM count: scatter_plan's arguments."""
+    from soccernerfs_tpu_torch.ops.kernels import build
+    from soccernerfs_tpu_torch.ops.kernels.scatter_kernels import CHANNELS
+
+    lib = build.load("scatter_kernels")
+    return {"strip": {c: lib.snt_scatter_add_rows_strip(c) for c in CHANNELS},
+            "threads": lib.snt_scatter_add_rows_threads(),
+            "sms": torch.cuda.get_device_properties(dev).multi_processor_count}
+
+
+def expand_updates(g, idxs, ws):
+    """The update stream sorted_scatter_add takes: [G*K*B, c] updates and
+    their rows."""
+    groups, corners, points = idxs.shape
+    upd = g.view(points, groups, 1, -1).permute(1, 2, 0, 3)
+    upd = (upd * ws[..., None] if ws is not None
+           else upd.expand(groups, corners, points, -1))
+    return upd.reshape(groups * corners * points, -1), idxs.reshape(-1)
+
+
+def scatter_random_cases(cfg, dev):
+    """scatter_add_rows at the nerfacto train step's shapes (4096 rays):
+    corner rows and weights of uniform random points from the encoder's own
+    ``grid_corners``, random gradients; yields (label, (g, idxs, ws,
+    rows))."""
     from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.ops.hash_grid import (grid_corners, level_layout,
                                                      strided_levels)
-    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
     rays = train_num_rays_per_batch[NERFACTO]
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -519,22 +545,14 @@ def scatter_kernel_phase(cfg, dev):
                         device=dev)
         return g, idxs, ws, rows
 
-    def expand(g, idxs, ws):
-        """The update stream sorted_scatter_add takes: [G*K*B, c] updates and
-        their rows."""
-        groups, corners, points = idxs.shape
-        upd = g.view(points, groups, 1, -1).permute(1, 2, 0, 3)
-        upd = (upd * ws[..., None] if ws is not None
-               else upd.expand(groups, corners, points, -1))
-        return upd.reshape(groups * corners * points, -1), idxs.reshape(-1)
-
     def sorted_stream(g, idxs, ws, rows):
-        upd, flat = expand(g, idxs, ws)
+        upd, flat = expand_updates(g, idxs, ws)
         flat, order = torch.sort(flat)
         return upd[order].contiguous(), flat[None, None].contiguous(), None, rows
 
     hashed_main = strided_levels(main).index(False)
     hashed_prop = strided_levels(prop0).index(False)
+    # drawn first, as earlier runs drew them
     wide = (torch.randn((b_main, 8), generator=gen, device=dev),
             torch.randint(0, 1 << 17, (1, 8, b_main), generator=gen, device=dev,
                           dtype=torch.int32),
@@ -542,77 +560,163 @@ def scatter_kernel_phase(cfg, dev):
     two_rows = (torch.randn((100_000, 2), generator=gen, device=dev),
                 torch.randint(0, 2, (1, 1, 100_000), generator=gen, device=dev,
                               dtype=torch.int32), None, 2)
-    cases = [
-        (f"main grid level {hashed_main} (hashed)",
-         lambda: grid_case(main, b_main, hashed_main)),
-        (f"main grid level {hashed_main} as sorted_scatter_add takes it "
-         f"(expanded, sorted, no weights)",
-         lambda: sorted_stream(*grid_case(main, b_main, hashed_main))),
-        ("main grid level 0 (dense, contention)",
-         lambda: grid_case(main, b_main, 0)),
-        (f"proposal_0 grid level {hashed_prop} (hashed)",
-         lambda: grid_case(prop0, b_prop, hashed_prop)),
-        ("main grid, all levels (the train path's launch)",
-         lambda: grid_case(main, b_main)),
-        ("proposal_0 grid, all levels (the train path's launch)",
-         lambda: grid_case(prop0, b_prop)),
-        ("one level, c = 8", lambda: wide),
-        ("2-row table, 100,000 updates (contention)", lambda: two_rows),
-    ]
+    yield (f"main grid level {hashed_main} (hashed)",
+           grid_case(main, b_main, hashed_main))
+    yield (f"main grid level {hashed_main} as sorted_scatter_add takes it "
+           f"(expanded, sorted, no weights)",
+           sorted_stream(*grid_case(main, b_main, hashed_main)))
+    yield "main grid level 0 (dense, contention)", grid_case(main, b_main, 0)
+    yield (f"proposal_0 grid level {hashed_prop} (hashed)",
+           grid_case(prop0, b_prop, hashed_prop))
+    yield ("main grid, all levels (the train path's launch)",
+           grid_case(main, b_main))
+    yield ("proposal_0 grid, all levels (the train path's launch)",
+           grid_case(prop0, b_prop))
+    yield "one level, c = 8", wide
+    yield "2-row table, 100,000 updates (contention)", two_rows
+
+
+def scatter_step_cases(cfg, tree, dev):
+    """The scatter_add_rows launches of one nerfacto train step (step 0 of
+    the train phase: an update step, make_batch(0), the same draws),
+    captured where the wrapper launches: the path's own operands, samples
+    flattened ray by ray.  Yields (label, grid, (g, idxs, ws, rows)); the
+    grid ("main", "proposal_0", ...) is told by its rows and points."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+    from soccernerfs_tpu_torch.ops.hash_grid import level_layout
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    trainer, state = make_trainer(NERFACTO, tree, dev)
+    launch = sk._launch
+    record = []
+
+    def capture(g, idxs, ws, out, flag, points, groups, corners, c, rows, window):
+        record.append((g.clone(), idxs.clone(),
+                       None if ws is None else ws.clone(), rows))
+        return launch(g, idxs, ws, out, flag, points, groups, corners, c, rows,
+                      window)
+
+    sk._launch = capture
+    try:
+        trainer.loss_and_grads(
+            state, make_batch(0, train_num_rays_per_batch[NERFACTO], dev),
+            train_proposal_networks=True,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+    finally:
+        sk._launch = launch
+    del trainer, state
+    rays = train_num_rays_per_batch[NERFACTO]
+    grids = {(level_layout(d.grid)[0][-1],
+              rays * cfg.num_proposal_samples_per_ray[i]): f"proposal_{i}"
+             for i, (_idx, d) in enumerate(cfg.density_field_configs())}
+    grids[(level_layout(cfg.field_config().grid)[0][-1],
+           rays * cfg.num_nerf_samples_per_ray)] = "main"
+    while record:
+        g, idxs, ws, rows = record.pop(0)
+        grid = grids[(rows, g.shape[0])]
+        yield (f"train step launch, {grid} grid, ray-ordered", grid,
+               (g, idxs, ws, rows))
+
+
+def scatter_case(label, operands, layout, dev):
+    """Check one scatter case against its plain version and time kernel,
+    plain version and index_add_; count the kernel's atomic operations
+    (scatter_plan); returns its row."""
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    g, idxs, ws, rows = operands
+    groups, corners, points = idxs.shape
+    c = g.shape[1] // groups
+
+    def kern():
+        return sk.scatter_add_rows(g, idxs, ws, rows=rows)
+
+    def plain():
+        return sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)
+
+    got, want = kern(), plain()
+    mass = float(sk.scatter_add_rows_plain(g.abs(), idxs, ws, rows=rows).max())
+    torch.cuda.synchronize()
+    sk.raise_if_out_of_range(dev)
+    err = float((got - want).abs().max())
+    # atomics add in an order that changes from run to run, and a row's
+    # signed terms cancel: the error scales with the sum of |terms|
+    if not err <= SCATTER_MASS_TOL * mass:
+        raise AssertionError(f"scatter {label}: max |kernel - plain| = "
+                             f"{err} > {SCATTER_MASS_TOL} * {mass}")
+    scale = float(want.abs().max())
+    del got, want
+
+    # yardstick: index_add_ of the update stream, expanded beforehand
+    upd, flat = expand_updates(g, idxs, ws)
+    upd, flat = upd.contiguous(), flat.long()
+
+    def library():
+        return torch.zeros((rows, c), device=dev).index_add_(0, flat, upd)
+
+    # the kernel's time: the median of BWD_PASSES passes of 20 launches
+    passes = [time_ms(kern, 20) for _ in range(BWD_PASSES)]
+    ms = statistics.median(passes)
+    plain_ms = time_ms(plain, 5)
+    library_ms = time_ms(library, 10)
+    sk.raise_if_out_of_range(dev)
+    del upd, flat
+    updates = groups * corners * points
+    # g read once, 4 B of index (and 4 B of weight) per update, the
+    # table written once: the zero fill is that write
+    bytes_ = (g.numel() * 4 + updates * (4 if ws is None else 8)
+              + rows * c * 4)
+    flops = updates * c * (1 if ws is None else 2)
+    t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    plan = sk.scatter_plan(idxs, c, rows, strip=layout["strip"][c],
+                           threads=layout["threads"], sms=layout["sms"])
+    return {
+        "case": f"{label}: G {groups}, K {corners}, B {points}, c {c}, "
+                f"{rows} rows", "updates": updates, "max_abs_err": err,
+        "max_abs_plain": scale, "max_row_mass": mass,
+        "ms": ms, "ms_passes": passes, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bytes": bytes_, "flops": flops,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "shared_rows": sk.shared_rows(rows, c),
+        "l2_reductions": plan["l2_reductions"],
+        "updates_per_reduction": updates / max(plan["l2_reductions"], 1),
+        "G_reductions_per_s": plan["l2_reductions"] / ms / 1e6,
+        "flushes": plan["flushes"], "shared_adds": plan["shared_adds"],
+        "window_flushes": plan["window_flushes"],
+    }
+
+
+def scatter_kernel_phase(cfg, tree, dev):
+    """scatter_add_rows against its plain version on scatter_random_cases
+    and on the launches of one nerfacto train step (scatter_step_cases),
+    then an empty update list; returns the rows."""
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    layout = scatter_layout(dev)
     results = []
-    for label, make in cases:
-        g, idxs, ws, rows = make()
-        groups, corners, points = idxs.shape
-        c = g.shape[1] // groups
-
-        def kern():
-            return sk.scatter_add_rows(g, idxs, ws, rows=rows)
-
-        def plain():
-            return sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)
-
-        got, want = kern(), plain()
-        mass = float(sk.scatter_add_rows_plain(g.abs(), idxs, ws, rows=rows).max())
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        # atomics add in an order that changes from run to run, and a row's
-        # signed terms cancel: the error scales with the sum of |terms|
-        if not err <= SCATTER_MASS_TOL * mass:
-            raise AssertionError(f"scatter {label}: max |kernel - plain| = "
-                                 f"{err} > {SCATTER_MASS_TOL} * {mass}")
-        scale = float(want.abs().max())
-        del got, want
-
-        # yardstick: index_add_ of the update stream, expanded beforehand
-        upd, flat = expand(g, idxs, ws)
-        upd, flat = upd.contiguous(), flat.long()
-
-        def library():
-            return torch.zeros((rows, c), device=dev).index_add_(0, flat, upd)
-
-        ms = time_ms(kern, 20)
-        plain_ms = time_ms(plain, 5)
-        library_ms = time_ms(library, 10)
-        updates = groups * corners * points
-        # g read once, 4 B of index (and 4 B of weight) per update, the
-        # table written once: the zero fill is that write
-        bytes_ = (g.numel() * 4 + updates * (4 if ws is None else 8)
-                  + rows * c * 4)
-        flops = updates * c * (1 if ws is None else 2)
-        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_F32_FLOPS * 1e3
-        row = {
-            "case": f"{label}: G {groups}, K {corners}, B {points}, c {c}, "
-                    f"{rows} rows", "updates": updates, "max_abs_err": err,
-            "max_abs_plain": scale, "max_row_mass": mass,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
+    for label, operands in scatter_random_cases(cfg, dev):
+        row = {**scatter_case(label, operands, layout, dev), "order": "random"}
         log("kernel", "scatter_add_rows", json.dumps(row))
         results.append(row)
-        del g, idxs, ws, upd, flat
+        del operands
         torch.cuda.empty_cache()
+    for label, grid, operands in scatter_step_cases(cfg, tree, dev):
+        row = {**scatter_case(label, operands, layout, dev), "order": "ray",
+               "grid": grid}
+        log("kernel", "scatter_add_rows", json.dumps(row))
+        results.append(row)
+        del operands
+        torch.cuda.empty_cache()
+    ray = [r for r in results if r["order"] == "ray"]
+    log(f"train step launches of scatter_add_rows, ray-ordered: {len(ray)}, "
+        f"kernel {sum(r['ms'] for r in ray):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in ray):.4f} ms, library "
+        f"{sum(r['library_ms'] for r in ray):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in ray):.4f} ms (bytes), "
+        f"{sum(r['updates'] for r in ray)} updates in "
+        f"{sum(r['l2_reductions'] for r in ray)} L2 reductions")
     empty = sk.scatter_add_rows(
         torch.zeros((0, 2), device=dev),
         torch.zeros((1, 8, 0), dtype=torch.int32, device=dev), None, rows=16)
@@ -759,6 +863,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
     step.  Returns the launch counts and, for the profiled update and
     non-update step, the device time per kernel and the launches."""
     from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
     from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
     module, cfg, _camera_optimizer = method_parts(method)
@@ -788,6 +893,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
     trainer.apply_grads(state, grads)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
+    sk.raise_if_out_of_range(dev)
     del grads
     # the first leaf of every param group (the camera optimizer's too)
     watch = [tree_leaves(group)[0] for group in state.params.values()]
@@ -807,6 +913,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
             torch.cuda.synchronize()
             times.append((update, time.perf_counter() - t0,
                           time.process_time() - c0))
+            sk.raise_if_out_of_range(dev)
             for name in every_step:
                 if launch_counts()[name] <= counts[name]:
                     raise AssertionError(f"step {state.step - 1}: {name} was "
@@ -873,6 +980,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
     t1 = time.perf_counter()
     trainer.apply_grads(state, grads)
     torch.cuda.synchronize()
+    sk.raise_if_out_of_range(dev)
     log(f"{tag}: one non-update step split: forward + losses + backward "
         f"{(t1 - t0) * 1e3:.3f} ms, optimizer update "
         f"{(time.perf_counter() - t1) * 1e3:.3f} ms")
@@ -891,6 +999,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
             Path(trace_dir) / f"train_{method}_{label.replace(' ', '_')}_trace.json"
             if trace_dir else None)
         in_step[update] = (times, launch_counts())
+        sk.raise_if_out_of_range(dev)
         log(f"{tag}: launches in one {label}: {in_step[update][1]}")
     del state, trainer, batches
     torch.cuda.empty_cache()
@@ -1260,9 +1369,9 @@ def main() -> int:
 
     # ---- nerfacto: the scatter kernel, render, train (camera optimizer on)
     _module, ncfg, _camera_optimizer = method_parts(NERFACTO)
-    kernels.update(scatter_kernel_phase(ncfg, dev))
     # an appearance embedding per training camera: the ring's 20
     tree, params, _ = make_params(NERFACTO, num_train_data=20)
+    kernels.update(scatter_kernel_phase(ncfg, tree, dev))
     launches[f"render {NERFACTO}"], _ = render_phase(
         NERFACTO, params, cams, dev, aabb, args.trace)
     render_cpu_check(NERFACTO, tree, params, cams, dev, aabb)
@@ -1274,6 +1383,20 @@ def main() -> int:
     for update, (times, _counts) in in_step.items():
         log(f"in-step kernels, {NERFACTO} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    # against the byte bound of the captured step's launches: an update
+    # step launches all of them, a non-update step the main grid's only
+    ray = [r for r in kernels["scatter_add_rows"] if r["order"] == "ray"]
+    for update, (times, counts) in in_step.items():
+        step = ray if update else [r for r in ray if r["grid"] == "main"]
+        bound, t = sum(r["bound_ms"] for r in step), times["scatter_add_rows"]
+        if counts["scatter_add_rows"] != len(step):
+            raise AssertionError(f"scatter_add_rows: {counts['scatter_add_rows']} "
+                                 f"launches in the profiled step, the captured "
+                                 f"step made {len(step)}")
+        log(f"in-step scatter_add_rows ({'update' if update else 'non-update'} "
+            f"step): {t:.3f} ms device in {len(step)} launches, bound "
+            f"{bound:.3f} ms (bytes), "
+            + (f"{bound / t:.4f} of bound" if t else "not measured"))
     train_cpu_check(NERFACTO, tree, dev, NERFACTO_CPU_SEEDS, witnesses=False)
 
     pallas = "soccernerfs_tpu/ops/pallas/plane_kernels.py"

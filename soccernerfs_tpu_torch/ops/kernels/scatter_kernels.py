@@ -1,5 +1,6 @@
 """Row scatter-add, the hash grids' table gradient: CUDA wrapper, plain
-version, launch counter.
+version, launch counter, deferred range check, and the count of the
+kernel's atomic operations.
 
 ``scatter_add_rows`` (``csrc/scatter_kernels.cu``) replaces
 ``sorted_scatter_add`` (soccernerfs_tpu/ops/pallas/plane_kernels.py).  The
@@ -21,7 +22,7 @@ for CUDA tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -61,18 +62,23 @@ def scatter_add_rows_plain(g: torch.Tensor, idxs: torch.Tensor,
                            ws: Optional[torch.Tensor] = None, *, rows: int
                            ) -> torch.Tensor:
     """Plain version of scatter_add_rows: one ``index_add_`` of the
-    expanded updates into an f32 zero table."""
+    expanded updates (each product rounded in f32, as the kernel rounds
+    it) into an f64 zero table, rounded to f32 once.  Summed in f32 with
+    atomics, the card's ``index_add_`` strays by up to ~3e-6 of a row's sum
+    of |terms| on the rows of the train step's proposal grids that take
+    10,000-40,000 updates, more than the kernel does; the f64 sum keeps the
+    reference's own error out of the comparison."""
     groups, corners, points, c = _shapes(g, idxs, ws, rows)
-    out = torch.zeros((rows, c), dtype=torch.float32, device=g.device)
+    out = torch.zeros((rows, c), dtype=torch.float64, device=g.device)
     if points == 0:
-        return out
+        return out.float()
     if int(idxs.min()) < 0 or int(idxs.max()) >= rows:
         _raise_out_of_range(rows)
     upd = g.view(points, groups, 1, c).permute(1, 2, 0, 3)       # [G, 1, B, c]
     if ws is not None:
         upd = upd * ws[..., None]
-    upd = upd.expand(groups, corners, points, c)
-    return out.index_add_(0, idxs.reshape(-1).long(), upd.reshape(-1, c))
+    upd = upd.expand(groups, corners, points, c).reshape(-1, c).double()
+    return out.index_add_(0, idxs.reshape(-1).long(), upd).float()
 
 
 def _on_cpu(tensors) -> bool:
@@ -96,25 +102,77 @@ def _fn():
     fn = build.load(LIBRARIES[0]).snt_scatter_add_rows
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(g, idxs, ws, out, flag, points, groups, corners, c, rows) -> None:
+def _launch(g, idxs, ws, out, flag, points, groups, corners, c, rows,
+            window) -> None:
     """Launch the kernel on the current stream of the operands' device; the
-    caller allocated ``out`` (zeros) and ``flag`` (one int32 zero)."""
+    caller allocated ``out`` (zeros) and ``flag`` (the device's sticky
+    int32); the table's first ``window`` rows are summed in shared
+    memory."""
     dev = g.device
     with torch.cuda.device(dev):
         err = _fn()(
             g.data_ptr(), idxs.data_ptr(),
             None if ws is None else ws.data_ptr(), out.data_ptr(),
-            flag.data_ptr(), points, groups, corners, c, rows,
+            flag.data_ptr(), points, groups, corners, c, rows, window,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"snt_scatter_add_rows failed to launch: CUDA "
                            f"error {err}")
+
+
+# the shared-memory window of each block: 32 KB, level 0 (16^3 rows of 2
+# channels) of every nerfacto grid, whose rows take the most updates
+SHARED_BYTES = 32 * 1024
+
+
+def shared_rows(rows: int, c: int) -> int:
+    """Leading table rows the kernel sums in shared memory: as many as fit
+    SHARED_BYTES, a whole number of 16-byte pieces (rows * c a multiple of
+    4), at most the table."""
+    n = min(rows, SHARED_BYTES // (4 * c))
+    return n - n % (4 // min(c, 4))
+
+
+# one int32 per CUDA device that the kernel sets when it drops an update
+# whose row lies outside the table; raise_if_out_of_range reads and clears it
+_FLAGS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _flag(dev: torch.device) -> torch.Tensor:
+    dev = _cuda_device(dev)
+    if dev not in _FLAGS:
+        _FLAGS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _FLAGS[dev]
+
+
+def raise_if_out_of_range(device=None) -> None:
+    """Raise ``IndexError`` if a ``scatter_add_rows`` launch on ``device``
+    (default: the current CUDA device) met a row index outside its table
+    since the last check, and clear the flag.  Reading the flag waits for
+    those launches: call it where the caller synchronises anyway (after
+    reading a step's loss).  No-op for the CPU, whose path raises at once."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda" or not _FLAGS:
+        return
+    dev = _cuda_device(dev)
+    flag = _FLAGS.get(dev)
+    if flag is not None and int(flag):
+        flag.zero_()
+        raise IndexError(f"scatter_add_rows: a row index on {dev} lay outside "
+                         f"its table (the update was dropped)")
 
 
 def scatter_add_rows(g: torch.Tensor, idxs: torch.Tensor,
@@ -131,9 +189,13 @@ def scatter_add_rows(g: torch.Tensor, idxs: torch.Tensor,
     Returns:
         [rows, c] f32.
     Raises:
-        IndexError: an index lies outside [0, rows).  On the card the kernel
-            drops such an update and raises a flag; reading it waits for
-            the kernel.
+        IndexError: on the CPU, at once when an index lies outside
+            [0, rows).  On the card the range check is deferred, so that
+            the wrapper never waits for the device: the kernel drops such
+            an update and sets the device's sticky flag, and
+            ``raise_if_out_of_range(device)`` raises.  A caller checks
+            there before it trusts a table gradient, where it reads the
+            step's loss (the train loop syncs there anyway).
     """
     operands = [g, idxs] + ([] if ws is None else [ws])
     if _on_cpu(operands):
@@ -144,11 +206,9 @@ def scatter_add_rows(g: torch.Tensor, idxs: torch.Tensor,
     out = torch.zeros((rows, c), dtype=torch.float32, device=dev)
     if points == 0:
         return out
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch(g, idxs, ws, out, flag, points, groups, corners, c, rows)
+    _launch(g, idxs, ws, out, _flag(dev), points, groups, corners, c, rows,
+            shared_rows(rows, c))
     scatter_add_rows.launches += 1
-    if int(flag):
-        _raise_out_of_range(rows)
     return out
 
 
@@ -160,3 +220,51 @@ KERNELS = (scatter_add_rows,)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def scatter_plan(idxs: torch.Tensor, c: int, rows: int, *, strip: int,
+                 threads: int, sms: int) -> dict:
+    """The atomic operations ``snt_scatter_add_rows`` issues on these
+    indices, counted from the operands (the kernel's strips, window and
+    blocks, on the card's ``sms``; ``strip`` and ``threads`` as the built
+    library reports them).
+
+    Returns a dict: ``updates`` (G*K*B), ``flushes`` (the lanes' merged
+    sums: per strip and corner, its first point and each point whose row
+    differs from the one before, times the row's chunks of 4 channels),
+    ``shared_adds`` (scalar shared-memory atomics), ``window_flushes``
+    (16-byte window pieces the blocks touched, an upper bound: a piece that
+    sums to zero is skipped) and ``l2_reductions`` (vector or scalar
+    reductions into the table: window flushes plus the flushes of rows past
+    the window).  Rows outside the table count nowhere.
+    """
+    groups, corners, points = idxs.shape
+    window = shared_rows(rows, c)
+    vec = min(c, 4)
+    chunks = c // vec
+    strips = -(-points // strip)
+    items = groups * strips * corners * chunks
+    blocks = max(1, min(sms, -(-items // threads)))
+
+    r = idxs.long()
+    start = torch.ones(r.shape, dtype=torch.bool, device=idxs.device)
+    start[..., 1:] = r[..., 1:] != r[..., :-1]
+    start[..., ::strip] = True
+    runs = r[start]
+    valid = (runs >= 0) & (runs < rows)
+    inside = valid & (runs < window)
+    # the window's pieces, per block: the blocks stride over the items
+    at = start.nonzero()[inside]                            # j, k, b
+    item = ((at[:, 0] * strips + at[:, 2] // strip) * corners
+            + at[:, 1]) * chunks                            # chunk 0
+    keys = [((item + q) // threads % blocks) * (window * c // 4 + 1)
+            + (runs[inside] * c + q * vec) // 4 for q in range(chunks)]
+    window_flushes = int(torch.cat(keys).unique().numel())
+    flushes = int(start.sum()) * chunks
+    return {
+        "updates": groups * corners * points,
+        "flushes": flushes,
+        "shared_adds": c * int(inside.sum()),
+        "window_flushes": window_flushes,
+        "l2_reductions": chunks * int((valid & ~inside).sum()) + window_flushes,
+    }

@@ -143,8 +143,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(sk, "_check_cuda", lambda operands: None)
     monkeypatch.setattr(
         sk, "_launch",
-        lambda g, idxs, ws, out, flag, points, groups, corners, c, rows:
+        lambda g, idxs, ws, out, flag, points, groups, corners, c, rows, window:
         out.copy_(sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)))
+    monkeypatch.setattr(cs, "scatter_layout", lambda dev: {
+        "strip": {c: 8 if c <= 2 else 4 for c in sk.CHANNELS},
+        "threads": 1024, "sms": 132})
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
 
     assert cs.main() == 0
@@ -190,6 +193,28 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert k["bound_ms"] == pytest.approx(
             sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
         assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
+    # scatter_add_rows: random cases, then the 3 launches of one nerfacto
+    # update step captured at the wrapper, each with its L2 reductions; the
+    # kernels line sums the random cases only
+    scatter = [json.loads(line.split(" ", 2)[2]) for line in lines
+               if line.startswith("kernel scatter_add_rows ")]
+    ray = [r for r in scatter if r["order"] == "ray"]
+    random = [r for r in scatter if r["order"] == "random"]
+    assert len(random) == 8 and len(ray) == 3
+    assert sorted(r["grid"] for r in ray) == ["main", "proposal_0", "proposal_1"]
+    assert all(r["l2_reductions"] > 0 and len(r["ms_passes"]) == cs.BWD_PASSES
+               and r["ms"] == statistics.median(r["ms_passes"]) for r in scatter)
+    assert all(r["updates_per_reduction"] >= 1.0 for r in ray)
+    in_step = [line for line in lines if line.startswith("in-step scatter_add_rows")]
+    assert [line.split(" (")[1].split(")")[0] for line in in_step] == [
+        "update step", "non-update step"]
+    assert all("of bound" in line for line in in_step)
+    assert "in 3 launches" in in_step[0] and "in 1 launches" in in_step[1]
+    k = kernels[4]
+    assert k["name"] == "scatter_add_rows"
+    assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
+    assert k["bound_ms"] == pytest.approx(
+        sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -239,6 +239,8 @@ SCATTER_CASES = [  # rows, c, groups, corners, points
     (50, 128, 1, 2, 300),
     (2, 2, 1, 1, 100_000),       # every add contends with 50,000 others
     (2, 4, 2, 8, 20_000),
+    (1 << 19, 2, 16, 8, 60_000),  # a table past the shared-memory window;
+    (6000, 1, 16, 8, 60_000),     # each lane walks many items of its block
 ]
 
 
@@ -266,12 +268,10 @@ def test_scatter_kernel_matches_plain(dev, rows, c, groups, corners, points,
                                    weights)
     before = sk.scatter_add_rows.launches
     got = sk.scatter_add_rows(g, idx, ws, rows=rows)
-    want = sk.scatter_add_rows_plain(g, idx, ws, rows=rows)
     torch.cuda.synchronize()
+    sk.raise_if_out_of_range(dev)
     assert sk.scatter_add_rows.launches == before + 1
-    mass = sk.scatter_add_rows_plain(g.abs(), idx, ws, rows=rows)
-    assert got.shape == want.shape and got.dtype == torch.float32
-    assert float((got - want).abs().max()) <= 1e-6 * float(mass.max())
+    _assert_scatter_close(got, g, idx, ws, rows)
 
 
 def test_scatter_kernel_empty_update_list(dev):
@@ -299,8 +299,99 @@ def test_scatter_wrapper_refuses_what_the_kernel_does_not_take(dev):
         sk.scatter_add_rows(g, idx.cpu(), w, rows=7)
     with pytest.raises(ValueError):      # non-contiguous gradient
         sk.scatter_add_rows(torch.zeros((4, 5), device=dev).t(), idx, w, rows=7)
+    sk.raise_if_out_of_range(dev)
     for bad in (-1, 7):                  # a row outside the table: no clip
         idx2 = idx.clone()
         idx2[1, 2, 3] = bad
-        with pytest.raises(IndexError):
-            sk.scatter_add_rows(g, idx2, w, rows=7)
+        sk.scatter_add_rows(g, idx2, w, rows=7)
+        with pytest.raises(IndexError):  # the deferred check
+            sk.raise_if_out_of_range(dev)
+        sk.raise_if_out_of_range(dev)    # and it cleared the flag
+
+
+def _assert_scatter_close(got, g, idx, ws, rows):
+    """1e-6 of the largest row's sum of |terms| (see
+    test_scatter_kernel_matches_plain)."""
+    want = sk.scatter_add_rows_plain(g, idx, ws, rows=rows)
+    mass = sk.scatter_add_rows_plain(g.abs(), idx, ws, rows=rows)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-6 * float(mass.max())
+
+
+def _pair_runs(rng, lengths, lo, hi, corners):
+    """[corners, points] rows in [lo, hi) in runs of equal rows (consecutive
+    samples of a ray in one cell): corners 2m, 2m+1 are a z-pair r, r+1 at
+    random (even and odd) r; every fifth run's pairs start at the level's
+    last row and wrap to its first, as the hashes' modulo does."""
+    base = rng.integers(lo, hi - 1, (corners // 2, len(lengths)))
+    base[:, ::5] = hi - 1
+    top = np.where(base + 1 < hi, base + 1, lo)
+    rows = np.stack([base, top], 1).reshape(corners, len(lengths))
+    return np.repeat(rows, lengths, axis=1)
+
+
+# run lengths along consecutive points: 1, 2, one strip (8 points for
+# c <= 2, 4 wider), longer than a strip, and mixed
+PAIR_RUNS = {
+    "ones": lambda rng: [1] * 500,
+    "twos": lambda rng: [2] * 300,
+    "strip": lambda rng: [8] * 90 + [4] * 40,
+    "long": lambda rng: [20, 9, 33, 100, 7, 1, 64, 300, 17, 5],
+    "mixed": lambda rng: rng.integers(1, 40, 80),
+}
+
+
+@pytest.mark.parametrize("pattern", list(PAIR_RUNS))
+@pytest.mark.parametrize("c", sk.CHANNELS)
+def test_scatter_kernel_merges_runs_of_one_row(dev, c, pattern):
+    """Two levels of one table, as a hash grid has them: a dense 4096-row
+    level 0 the kernel sums in shared memory (for c <= 2) and a 300,000-row
+    level 1 past its window; runs of one row along consecutive points, for
+    z-pairs of corners on neighbouring rows at even and odd first rows and
+    wrapping at a level's end."""
+    rng = np.random.default_rng([c, len(pattern)])
+    lengths = PAIR_RUNS[pattern](rng)
+    dense, rows = 4096, 4096 + 300_000
+    idx = np.stack([_pair_runs(rng, lengths, 0, dense, 8),
+                    _pair_runs(rng, lengths, dense, rows, 8)]).astype(np.int32)
+    points = idx.shape[-1]
+    g = torch.from_numpy(rng.standard_normal((points, 2 * c), dtype=np.float32)).to(dev)
+    ws = torch.from_numpy(rng.uniform(0, 1, idx.shape).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(idx).to(dev)
+    assert 0 < sk.shared_rows(rows, c) < rows
+    before = sk.scatter_add_rows.launches
+    got = sk.scatter_add_rows(g, idx, ws, rows=rows)
+    torch.cuda.synchronize()
+    sk.raise_if_out_of_range(dev)
+    assert sk.scatter_add_rows.launches == before + 1
+    _assert_scatter_close(got, g, idx, ws, rows)
+
+
+def test_scatter_wrapper_never_synchronises(dev):
+    """At the nerfacto main grid's shape (16 levels of 2 channels, 196,608
+    points, 6,098,120 rows) the wrapper launches under
+    torch.cuda.set_sync_debug_mode("error"), which turns any host-device
+    sync into an error; the deferred range check afterwards finds
+    nothing."""
+    from soccernerfs_tpu_torch.ops.hash_grid import (HashGridConfig, grid_corners,
+                                                     level_layout)
+
+    cfg = HashGridConfig(num_levels=16, desired_resolution=2048,
+                         hash_scheme="zline")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx, ws = grid_corners(cfg, torch.rand((196_608, 3), generator=gen, device=dev))
+    idx, ws = idx.contiguous(), ws.contiguous()
+    g = torch.randn((196_608, 32), generator=gen, device=dev)
+    rows = level_layout(cfg)[0][-1]
+    sk.scatter_add_rows(g, idx, ws, rows=rows)     # builds, makes the flag
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sk.scatter_add_rows(g, idx, ws, rows=rows)
+        with pytest.raises(RuntimeError):          # the mode is on
+            float(got[0, 0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sk.raise_if_out_of_range(dev)
+    _assert_scatter_close(got, g, idx, ws, rows)

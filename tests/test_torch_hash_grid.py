@@ -288,3 +288,129 @@ def test_scatter_refuses_bad_operands_on_the_cpu_too():
     out = sk.scatter_add_rows(torch.zeros((0, 4)),
                               torch.zeros((2, 3, 0), dtype=torch.int32), rows=7)
     assert out.shape == (7, 2) and float(out.abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# scatter_add_rows' host-side plan: the shared-memory window and the count
+# of atomic operations the CUDA kernel issues
+# ---------------------------------------------------------------------------
+
+def test_shared_window_holds_level_0_at_registered_widths():
+    """The window the wrapper gives the kernel is level 0 of the nerfacto
+    main, proposal_0 and proposal_1 grids (16^3 rows of 2 channels), in
+    whole 16-byte pieces, and never more than the table."""
+    for kw in (dict(num_levels=16, desired_resolution=2048, hash_scheme="zline"),
+               dict(num_levels=5, desired_resolution=128, log2_hashmap_size=17),
+               dict(num_levels=5, desired_resolution=256, log2_hashmap_size=17)):
+        offsets = th.level_layout(th.HashGridConfig(**kw))[0]
+        assert sk.shared_rows(offsets[-1], 2) == offsets[1] == 16**3
+    for rows, c in ((2, 1), (3, 1), (5, 2), (1000, 1), (10**6, 128), (7, 8)):
+        n = sk.shared_rows(rows, c)
+        assert 0 <= n <= rows and (n * c) % 4 == 0 and n * c * 4 <= sk.SHARED_BYTES
+    assert sk.shared_rows(7, 8) == 7 and sk.shared_rows(3, 1) == 0
+
+
+def _emulate_scatter_kernel(g, idxs, ws, rows, *, strip, threads, sms):
+    """snt_scatter_add_rows' walk, one item at a time: items (group,
+    strip, corner, chunk), the blocks striding over them together, the run
+    merge and the shared-memory window flushed per block.  Returns (table,
+    counts as scatter_plan names them)."""
+    groups, corners, points = idxs.shape
+    c = g.shape[1] // groups
+    window = sk.shared_rows(rows, c)
+    vec = min(c, 4)
+    chunks, strips = c // vec, -(-points // strip)
+    items = groups * strips * corners * chunks
+    blocks = max(1, min(sms, -(-items // threads)))
+    idx, gg = idxs.numpy(), g.numpy().astype(np.float64)
+    w = np.ones(idx.shape) if ws is None else ws.numpy().astype(np.float64)
+    out = np.zeros((rows, c))
+    n = dict(flushes=0, shared_adds=0, window_flushes=0, l2_reductions=0)
+    for blk in range(blocks):
+        shared = np.zeros((window, c))
+        touched = set()
+
+        def flush(row, acc, q):
+            n["flushes"] += 1
+            cols = slice(q * vec, q * vec + vec)
+            if 0 <= row < window:
+                shared[row, cols] += acc
+                n["shared_adds"] += vec
+                touched.add((row * c + q * vec) // 4)
+            elif window <= row < rows:
+                out[row, cols] += acc
+                n["l2_reductions"] += 1
+
+        for it in (i for i in range(items) if i // threads % blocks == blk):
+            q, k = it % chunks, it // chunks % corners
+            s, j = it // chunks // corners % strips, it // chunks // corners // strips
+            cur = acc = None
+            for b in range(s * strip, min(points, s * strip + strip)):
+                term = gg[b, j * c + q * vec: j * c + q * vec + vec] * w[j, k, b]
+                if idx[j, k, b] == cur:
+                    acc = acc + term
+                else:
+                    if cur is not None:
+                        flush(cur, acc, q)
+                    cur, acc = int(idx[j, k, b]), term
+            flush(cur, acc, q)
+        out[:window] += shared
+        n["window_flushes"] += len(touched)
+        n["l2_reductions"] += len(touched)
+    return out, n
+
+
+def _ray_ordered_corners(kw, rays, samples, rng):
+    """Corner rows and weights of points along rays, flattened ray by ray
+    as the train path flattens its samples."""
+    o = rng.uniform(0.2, 0.8, (rays, 1, 3))
+    d = rng.standard_normal((rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0, 0.4, (rays, samples, 1)), axis=1)
+    x = np.clip(o + t * d, 0, 1).reshape(-1, 3).astype(np.float32)
+    return th.grid_corners(th.HashGridConfig(**kw), _t(x))
+
+
+@pytest.mark.parametrize("case", ["zline", "xor", "tiled", "c1", "c4", "c8",
+                                  "k1", "k4", "out_of_range"])
+def test_scatter_plan_counts_the_kernels_walk(case, monkeypatch):
+    """scatter_plan's vectorised counts against the kernel's walk emulated
+    item by item, whose table equals the plain version's (1e-6 of the max),
+    on ray-ordered hash-grid corners and on runs of one row, with a window
+    that ends inside a level."""
+    monkeypatch.setattr(sk, "SHARED_BYTES", 1024)
+    rng = np.random.default_rng(len(case))
+    ws = None
+    if case in ("zline", "xor", "tiled"):
+        kw = CONFIGS[case]
+        idxs, ws = _ray_ordered_corners(kw, 12, 24, rng)
+        rows = th.level_layout(th.HashGridConfig(**kw))[0][-1]
+        c = 2
+    else:
+        c = {"c1": 1, "c4": 4, "c8": 8}.get(case, 2)
+        corners = {"k1": 1, "k4": 4}.get(case, 8)
+        rows = 300
+        # runs of 1-9 equal rows
+        lengths = rng.integers(1, 10, 60)
+        first = rng.integers(0, rows - 1, (2, corners // 2 or 1, len(lengths)))
+        r = np.repeat(first, lengths, axis=-1)
+        idx = np.stack([r, r + 1], 2).reshape(2, -1, r.shape[-1])[:, :corners]
+        if case == "out_of_range":
+            idx[1, 3, 5] = rows
+            idx[0, 0, 7] = -1
+        idxs = _t(idx.astype(np.int32))
+        ws = _t(rng.uniform(0, 1, idx.shape).astype(np.float32))
+    groups, _k, points = idxs.shape
+    g = _t(rng.standard_normal((points, groups * c)).astype(np.float32))
+    strip = 8 if c <= 2 else 4
+    table, counts = _emulate_scatter_kernel(g, idxs, ws, rows, strip=strip,
+                                            threads=64, sms=3)
+    plan = sk.scatter_plan(idxs, c, rows, strip=strip, threads=64, sms=3)
+    assert plan == {"updates": idxs.numel(), **counts}
+    assert plan["l2_reductions"] < plan["updates"]
+    if case == "out_of_range":
+        valid = (idxs >= 0) & (idxs < rows)
+        idxs = torch.where(valid, idxs, torch.zeros_like(idxs))
+        ws = ws * valid
+    want = sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)
+    assert _rel(torch.from_numpy(table), want) <= 1e-6
