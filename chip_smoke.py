@@ -18,29 +18,39 @@
      as sorted_scatter_add takes it (expanded, sorted), one proposal level,
      the whole-grid launches the train path makes, a wider row, a 2-row
      table with 100,000 updates, an empty update list; then on the 3
-     launches of one nerfacto train step, captured at the wrapper; each
-     with its L2 reductions (scatter_plan) and their rate.  A case's time is
-     the median of five passes of 20 launches.
-  4. Render phases, ``k-planes`` then ``nerfacto``, full registry width,
+     launches of one nerfacto train step, captured at the wrapper, and
+     (after the nerfplayer-nerfacto render) on the 3 width-1 launches of
+     one nerfplayer-nerfacto train step over the flattened temporal tables;
+     each with its L2 reductions (scatter_plan) and their rate.  A case's
+     time is the median of five passes of 20 launches.
+  4. Render phases, ``k-planes``, ``nerfacto``, then
+     ``nerfplayer-nerfacto`` (temporal hash grids), full registry width,
      weights drawn from a numpy seed and loaded through ``params_from_jax``:
      two counted 960x540 frames through ``render_camera`` (K-Planes fails
      unless both forward kernels launched), two timed frames, one profiled
      with torch.profiler; then one 4096-ray chunk on the CPU (the kernels'
-     plain versions) against the card.
-  5. Train phases, ``k-planes`` then ``nerfacto`` (camera optimizer SO3xR3
-     on, as registered): ``TrainStep.train_iteration`` on 4096-ray batches
-     of bench.py's 20-camera ring, steps 0-11 (all update the proposals)
-     and a steady window at step 10,000 (an update every sixth step); fails
-     unless the path's kernels launched (K-Planes: all four plane kernels;
-     nerfacto: scatter_add_rows on every step), the loss and every gradient
-     are finite and the parameters, the camera optimizer's included, moved.
+     plain versions) against the card, a random background handed to both
+     sides as the same draws.
+  5. Train phases, ``k-planes``, ``nerfacto`` (camera optimizer SO3xR3
+     on, as registered), then ``nerfplayer-nerfacto`` (camera optimizer
+     off, the temporal TV over its three grids):
+     ``TrainStep.train_iteration`` on 4096-ray batches of bench.py's
+     20-camera ring, steps 0-11 (all update the proposals) and a steady
+     window at step 10,000 (an update every sixth step); fails unless the
+     path's kernels launched (K-Planes: all four plane kernels; nerfacto,
+     nerfplayer-nerfacto: scatter_add_rows on every step), the loss and
+     every gradient are finite and the parameters, the camera optimizer's
+     included, moved.
      Prints ms per update and non-update step, train rays/s over the window
      and its 12-step sub-windows, the process's CPU time per step and peak
      memory, and traces one step of each kind with torch.profiler; for
      K-Planes, each backward kernel's device time in a profiled step
      beside the byte bound of the captured step's launches (the counts
-     must match), and for nerfacto scatter_add_rows' the same way.  The
-     scatter's deferred range check runs after every synchronised step.
+     must match), and for the hash-grid methods scatter_add_rows' the same
+     way.  The scatter's deferred range check
+     (``scatter_kernels.raise_if_out_of_range``) runs wherever a step's
+     loss is read on the host: after every synchronised step, and after
+     each step of the CPU checks.
   6. Train CPU checks: one 1024-ray step with the same params, batch and
      draws on the card and on the CPU; the loss terms and every gradient
      before the update agree (per leaf, in L2).  For K-Planes, three seeds
@@ -79,10 +89,12 @@ H, W = 540, 960
 DEVICE = "cuda"
 MODEL = "k-planes"
 NERFACTO = "nerfacto"
+NERFPLAYER = "nerfplayer-nerfacto"
 AABB = [[-1.5] * 3, [1.5] * 3]
 TRAIN_CPU_RAYS = 1024
 TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
 NERFACTO_CPU_SEEDS = (2, 4)
+NERFPLAYER_CPU_SEEDS = (2, 4)
 TRAIN_WINDOW = 60                # steps, 10 update cycles
 SCATTER_MASS_TOL = 1e-6          # of the largest row's sum of |terms|
 BWD_PASSES = 5                   # timing passes per backward or scatter case
@@ -576,17 +588,26 @@ def scatter_random_cases(cfg, dev):
     yield "2-row table, 100,000 updates (contention)", two_rows
 
 
-def scatter_step_cases(cfg, tree, dev):
-    """The scatter_add_rows launches of one nerfacto train step (step 0 of
-    the train phase: an update step, make_batch(0), the same draws),
-    captured where the wrapper launches: the path's own operands, samples
-    flattened ray by ray.  Yields (label, grid, (g, idxs, ws, rows)); the
-    grid ("main", "proposal_0", ...) is told by its rows and points."""
-    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+def scatter_rows(gcfg) -> int:
+    """Rows of the table that scatter_add_rows fills for a hash grid: the
+    grid's rows, or for a temporal grid its flattened [rows * C_row, 1]."""
     from soccernerfs_tpu_torch.ops.hash_grid import level_layout
+
+    rows = level_layout(gcfg)[0][-1]
+    return rows * gcfg.row_channels if gcfg.temporal_dim else rows
+
+
+def scatter_step_cases(method, cfg, tree, dev):
+    """The scatter_add_rows launches of one train step of a hash-grid method
+    (step 0 of the train phase: an update step, make_batch(0), the same
+    draws), captured where the wrapper launches: the path's own operands,
+    samples flattened ray by ray.  Yields (label, grid, (g, idxs, ws,
+    rows)); the grid ("main", "proposal_0", ...) is told by its rows and
+    points."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
-    trainer, state = make_trainer(NERFACTO, tree, dev)
+    trainer, state = make_trainer(method, tree, dev)
     launch = sk._launch
     record = []
 
@@ -599,22 +620,23 @@ def scatter_step_cases(cfg, tree, dev):
     sk._launch = capture
     try:
         trainer.loss_and_grads(
-            state, make_batch(0, train_num_rays_per_batch[NERFACTO], dev),
+            state, make_batch(0, train_num_rays_per_batch[method], dev),
             train_proposal_networks=True,
             generator=torch.Generator(device=dev).manual_seed(SEED))
     finally:
         sk._launch = launch
+    sk.raise_if_out_of_range(dev)
     del trainer, state
-    rays = train_num_rays_per_batch[NERFACTO]
-    grids = {(level_layout(d.grid)[0][-1],
+    rays = train_num_rays_per_batch[method]
+    grids = {(scatter_rows(d.grid),
               rays * cfg.num_proposal_samples_per_ray[i]): f"proposal_{i}"
              for i, (_idx, d) in enumerate(cfg.density_field_configs())}
-    grids[(level_layout(cfg.field_config().grid)[0][-1],
+    grids[(scatter_rows(cfg.field_config().grid),
            rays * cfg.num_nerf_samples_per_ray)] = "main"
     while record:
         g, idxs, ws, rows = record.pop(0)
         grid = grids[(rows, g.shape[0])]
-        yield (f"train step launch, {grid} grid, ray-ordered", grid,
+        yield (f"{method} train step launch, {grid} grid, ray-ordered", grid,
                (g, idxs, ws, rows))
 
 
@@ -635,7 +657,8 @@ def scatter_case(label, operands, layout, dev):
         return sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)
 
     got, want = kern(), plain()
-    mass = float(sk.scatter_add_rows_plain(g.abs(), idxs, ws, rows=rows).max())
+    mass = float(sk.scatter_add_rows_plain(
+        g.abs(), idxs, None if ws is None else ws.abs(), rows=rows).max())
     torch.cuda.synchronize()
     sk.raise_if_out_of_range(dev)
     err = float((got - want).abs().max())
@@ -688,9 +711,32 @@ def scatter_case(label, operands, layout, dev):
     }
 
 
+def scatter_step_phase(method, cfg, tree, dev):
+    """scatter_add_rows against its plain version on the launches of one
+    train step of ``method`` (scatter_step_cases); returns the rows
+    ("order": "ray", with the grid and the method)."""
+    layout = scatter_layout(dev)
+    results = []
+    for label, grid, operands in scatter_step_cases(method, cfg, tree, dev):
+        row = {**scatter_case(label, operands, layout, dev), "order": "ray",
+               "grid": grid, "method": method}
+        log("kernel", "scatter_add_rows", json.dumps(row))
+        results.append(row)
+        del operands
+        torch.cuda.empty_cache()
+    log(f"{method} train step launches of scatter_add_rows, ray-ordered: "
+        f"{len(results)}, kernel {sum(r['ms'] for r in results):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in results):.4f} ms, library "
+        f"{sum(r['library_ms'] for r in results):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in results):.4f} ms (bytes), "
+        f"{sum(r['updates'] for r in results)} updates in "
+        f"{sum(r['l2_reductions'] for r in results)} L2 reductions")
+    return results
+
+
 def scatter_kernel_phase(cfg, tree, dev):
     """scatter_add_rows against its plain version on scatter_random_cases
-    and on the launches of one nerfacto train step (scatter_step_cases),
+    and on the launches of one nerfacto train step (scatter_step_phase),
     then an empty update list; returns the rows."""
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
@@ -702,27 +748,32 @@ def scatter_kernel_phase(cfg, tree, dev):
         results.append(row)
         del operands
         torch.cuda.empty_cache()
-    for label, grid, operands in scatter_step_cases(cfg, tree, dev):
-        row = {**scatter_case(label, operands, layout, dev), "order": "ray",
-               "grid": grid}
-        log("kernel", "scatter_add_rows", json.dumps(row))
-        results.append(row)
-        del operands
-        torch.cuda.empty_cache()
-    ray = [r for r in results if r["order"] == "ray"]
-    log(f"train step launches of scatter_add_rows, ray-ordered: {len(ray)}, "
-        f"kernel {sum(r['ms'] for r in ray):.4f} ms, plain "
-        f"{sum(r['plain_ms'] for r in ray):.4f} ms, library "
-        f"{sum(r['library_ms'] for r in ray):.4f} ms, bound "
-        f"{sum(r['bound_ms'] for r in ray):.4f} ms (bytes), "
-        f"{sum(r['updates'] for r in ray)} updates in "
-        f"{sum(r['l2_reductions'] for r in ray)} L2 reductions")
+    results += scatter_step_phase(NERFACTO, cfg, tree, dev)
     empty = sk.scatter_add_rows(
         torch.zeros((0, 2), device=dev),
         torch.zeros((1, 8, 0), dtype=torch.int32, device=dev), None, rows=16)
     if empty.shape != (16, 2) or float(empty.abs().max()) != 0.0:
         raise AssertionError("scatter: an empty update list gave a non-zero table")
     return {"scatter_add_rows": results}
+
+
+def scatter_in_step(method, rows, in_step):
+    """The profiled steps' scatter_add_rows device time against the byte
+    bound of ``method``'s captured launches (``rows``): an update step
+    launches all of them, a non-update step the main grid's only.  Fails
+    unless the profiled step launched as many."""
+    ray = [r for r in rows if r.get("method") == method]
+    for update, (times, counts) in in_step.items():
+        step = ray if update else [r for r in ray if r["grid"] == "main"]
+        bound, t = sum(r["bound_ms"] for r in step), times["scatter_add_rows"]
+        if counts["scatter_add_rows"] != len(step):
+            raise AssertionError(f"scatter_add_rows: {counts['scatter_add_rows']} "
+                                 f"launches in the profiled {method} step, the "
+                                 f"captured step made {len(step)}")
+        log(f"in-step scatter_add_rows ({'update' if update else 'non-update'} "
+            f"step) {method}: {t:.3f} ms device in {len(step)} launches, bound "
+            f"{bound:.3f} ms (bytes), "
+            + (f"{bound / t:.4f} of bound" if t else "not measured"))
 
 
 def make_cameras(dev):
@@ -1073,6 +1124,8 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
     elements: one takes the card's PDF bins in place of its own, and one
     also moves the ray directions by one ulp (the CPU against itself: the
     step's own sensitivity to rounding)."""
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
     module, cfg, camera_optimizer = method_parts(method)
     n = TRAIN_CPU_RAYS
     cpu = torch.device("cpu")
@@ -1108,6 +1161,10 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
         jitters = [rng.uniform(0, 1, (n, 1 if single else s + 1)).astype(np.float32)
                    for s in module.sample_counts(cfg)]
         background = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+        # the temporal TV's index_list rows, for the models that have it
+        tv_rows = ([int(rng.integers(0, g.temporal_dim - 1))
+                    for g in module.tv_grids(cfg)]
+                   if hasattr(module, "tv_grids") else None)
         bins = []
         out = {}
         runs = [("card", dev, [pdf_bins(record=bins)]), ("cpu", cpu, [])]
@@ -1126,8 +1183,11 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
                     state, make_batch(seed + 1, n, d),
                     train_proposal_networks=True,
                     jitters=[torch.from_numpy(j).to(d) for j in jitters],
-                    background=torch.from_numpy(background).to(d))
-            out[where] = ({"Train Loss": float(loss),
+                    background=torch.from_numpy(background).to(d),
+                    tv_rows=tv_rows)
+            loss = float(loss)
+            sk.raise_if_out_of_range(d)
+            out[where] = ({"Train Loss": loss,
                            **{k: float(v) for k, v in ld.items()}},
                           [None if g is None else g.cpu() for g in grads])
             log(f"{tag}, seed {seed}: {where} step "
@@ -1248,13 +1308,20 @@ def render_cpu_check(method, tree, params, cams, dev, aabb):
     params_cpu = params_from_jax(tree, device=cpu)
     if hasattr(module, "prepare_render_params"):
         params_cpu = module.prepare_render_params(cfg, params_cpu)
+    # a random background: the same draws on both sides
+    background = (np.random.default_rng(SEED).uniform(0, 1, (4096, 3))
+                  .astype(np.float32)
+                  if getattr(cfg, "background_color", None) == "random" else None)
     outs = {}
     for where, d, p in (("card", dev, params), ("cpu", cpu, params_cpu)):
         rays = generate_rays(cams.to(d), torch.zeros(4096, dtype=torch.int32,
                                                      device=d),
                              torch.from_numpy(coords).to(d))
         with torch.no_grad():
-            o = module.get_outputs(cfg, p, aabb.to(d), rays)
+            o = module.get_outputs(
+                cfg, p, aabb.to(d), rays,
+                **({} if background is None
+                   else {"background": torch.from_numpy(background).to(d)}))
         outs[where] = {k: o[k].cpu() for k in ("rgb", "accumulation", "depth")}
     diffs = {k: float((outs["card"][k] - outs["cpu"][k]).abs().max())
              for k in outs["cpu"]}
@@ -1383,21 +1450,28 @@ def main() -> int:
     for update, (times, _counts) in in_step.items():
         log(f"in-step kernels, {NERFACTO} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
-    # against the byte bound of the captured step's launches: an update
-    # step launches all of them, a non-update step the main grid's only
-    ray = [r for r in kernels["scatter_add_rows"] if r["order"] == "ray"]
-    for update, (times, counts) in in_step.items():
-        step = ray if update else [r for r in ray if r["grid"] == "main"]
-        bound, t = sum(r["bound_ms"] for r in step), times["scatter_add_rows"]
-        if counts["scatter_add_rows"] != len(step):
-            raise AssertionError(f"scatter_add_rows: {counts['scatter_add_rows']} "
-                                 f"launches in the profiled step, the captured "
-                                 f"step made {len(step)}")
-        log(f"in-step scatter_add_rows ({'update' if update else 'non-update'} "
-            f"step): {t:.3f} ms device in {len(step)} launches, bound "
-            f"{bound:.3f} ms (bytes), "
-            + (f"{bound / t:.4f} of bound" if t else "not measured"))
+    scatter_in_step(NERFACTO, kernels["scatter_add_rows"], in_step)
     train_cpu_check(NERFACTO, tree, dev, NERFACTO_CPU_SEEDS, witnesses=False)
+    del tree
+
+    # ---- nerfplayer-nerfacto: temporal hash grids, render, train (camera
+    # optimizer off, as registered); the scatter's width-1 launches
+    _module, pcfg, _camera_optimizer = method_parts(NERFPLAYER)
+    tree, params, _ = make_params(NERFPLAYER, num_train_data=20)
+    launches[f"render {NERFPLAYER}"], _ = render_phase(
+        NERFPLAYER, params, cams, dev, aabb, args.trace)
+    render_cpu_check(NERFPLAYER, tree, params, cams, dev, aabb)
+    del params
+    torch.cuda.empty_cache()
+    kernels["scatter_add_rows"] += scatter_step_phase(NERFPLAYER, pcfg, tree, dev)
+    launches[f"train {NERFPLAYER}"], in_step = train_phase(
+        NERFPLAYER, tree, dev, args.trace, must_launch=scatter, every_step=scatter)
+    for update, (times, _counts) in in_step.items():
+        log(f"in-step kernels, {NERFPLAYER} ({'update' if update else 'non-update'} "
+            f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    scatter_in_step(NERFPLAYER, kernels["scatter_add_rows"], in_step)
+    train_cpu_check(NERFPLAYER, tree, dev, NERFPLAYER_CPU_SEEDS, witnesses=False)
+    del tree
 
     pallas = "soccernerfs_tpu/ops/pallas/plane_kernels.py"
     replaces = {

@@ -12,6 +12,7 @@ from soccernerfs_tpu_torch.engine.optimizers import AdamOptimizerConfig
 from soccernerfs_tpu_torch.engine.schedulers import CosineDecaySchedulerConfig
 from soccernerfs_tpu_torch.models import kplanes as kplanes_model
 from soccernerfs_tpu_torch.models import nerfacto as nerfacto_model
+from soccernerfs_tpu_torch.models import nerfplayer_nerfacto as npn_model
 
 # K-Planes loss coefficients of the fork's methods
 _KPLANES_LOSS_COEF = (
@@ -54,16 +55,34 @@ model_configs: Dict[str, Any] = {
     # the upstream default method: static hash grids, 16 levels of 2
     # features up to 2048 behind proposal fields of 5 levels up to 128, 256
     "nerfacto": nerfacto_model.Config(eval_num_rays_per_chunk=1 << 15),
+    # the fork's truncated NeRFPlayer: temporal hash grids (16 levels of 2
+    # features + 64 temporal channels to 1024 at 2^19 rows, proposal grids
+    # of 5 levels + 32 temporal channels to 64 and 256), the scene box as
+    # collider
+    "nerfplayer-nerfacto": npn_model.Config(
+        disable_scene_contraction=True,
+        eval_num_rays_per_chunk=1 << 15,
+        log2_hashmap_size=19,
+        temporal_dim=64,
+        temporal_tv_weight=1.0,
+    ),
 }
 
 # method -> the model module's name in models/__init__.py
-model_names: Dict[str, str] = {"k-planes": "kplanes", "nerfacto": "nerfacto"}
+model_names: Dict[str, str] = {"k-planes": "kplanes", "nerfacto": "nerfacto",
+                               "nerfplayer-nerfacto": "nerfplayer_nerfacto"}
 
 # {group: {"optimizer": ..., "scheduler": ...}} per method, the groups being
 # the top-level keys of the params
 _KPLANES_GROUP = {
     "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12,
                                      moment_dtype="bfloat16"),
+    "scheduler": CosineDecaySchedulerConfig(
+        warm_up_end=512, max_steps=30000, learning_rate_alpha=0
+    ),
+}
+_NERFPLAYER_GROUP = {
+    "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12),
     "scheduler": CosineDecaySchedulerConfig(
         warm_up_end=512, max_steps=30000, learning_rate_alpha=0
     ),
@@ -84,11 +103,15 @@ optimizer_configs: Dict[str, Dict[str, dict]] = {
             "scheduler": None,
         },
     },
+    "nerfplayer-nerfacto": {"proposal_networks": _NERFPLAYER_GROUP,
+                            "fields": _NERFPLAYER_GROUP},
 }
 
 camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
     "k-planes": CameraOptimizerConfig(mode="off"),
     "nerfacto": CameraOptimizerConfig(mode="SO3xR3"),
+    "nerfplayer-nerfacto": CameraOptimizerConfig(mode="off"),
 }
 
-train_num_rays_per_batch: Dict[str, int] = {"k-planes": 4096, "nerfacto": 4096}
+train_num_rays_per_batch: Dict[str, int] = {
+    "k-planes": 4096, "nerfacto": 4096, "nerfplayer-nerfacto": 4096}

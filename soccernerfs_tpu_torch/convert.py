@@ -1,7 +1,8 @@
 """Parameters between the JAX package and the port.
 
 ``params_from_jax`` takes the parameter pytree of a JAX model's ``init``
-(``models/kplanes``, ``models/nerfacto``; with the trainer's ``camera_opt``
+(``models/kplanes``, ``models/nerfacto``, ``models/nerfplayer_nerfacto``;
+with the trainer's ``camera_opt``
 group or without), mapped to numpy arrays (``jax.tree_util.tree_map(
 np.asarray, params)``), and returns the port's params: the same nested
 dicts and lists, with torch tensors on a device.  Both packages then
@@ -19,7 +20,8 @@ import torch
 
 from soccernerfs_tpu_torch.fields import kplanes as kplanes_field
 from soccernerfs_tpu_torch.fields import nerfacto as nerfacto_field
-from soccernerfs_tpu_torch.models import kplanes, nerfacto
+from soccernerfs_tpu_torch.fields import nerfplayer_nerfacto as npn_field
+from soccernerfs_tpu_torch.models import kplanes, nerfacto, nerfplayer_nerfacto
 from soccernerfs_tpu_torch.ops.hash_grid import level_layout
 from soccernerfs_tpu_torch.utils.device import resolve_device
 
@@ -58,16 +60,19 @@ def _seeded_mlp(rng, in_dim, hidden, layers, out_dim) -> dict:
 def seeded_params(cfg, seed: int, num_train_data: int = 0,
                   time_noise: float = 0.0, grid_std: float = 1e-4) -> dict:
     """A numpy param tree in the layout of the JAX package's
-    ``init(rng, cfg, num_train_data)`` for a K-Planes or nerfacto config,
-    drawn with numpy; MLPs as ``_seeded_mlp``, appearance embeddings N(0, 1).
+    ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto or
+    nerfplayer-nerfacto config, drawn with numpy; MLPs as ``_seeded_mlp``,
+    appearance embeddings N(0, 1).
 
     K-Planes: space planes U(0.1, 0.5) (proposal planes U(0.1, 0.15)), time
-    planes 1 + U(-time_noise, time_noise).  Nerfacto: hash tables
-    U(-grid_std, grid_std) (the JAX init's is 1e-4).
+    planes 1 + U(-time_noise, time_noise).  Nerfacto, nerfplayer-nerfacto:
+    hash tables U(-grid_std, grid_std) (the JAX init's is 1e-4).
     """
     rng = np.random.default_rng(seed)
     if isinstance(cfg, nerfacto.Config):
         return _seeded_nerfacto(cfg, rng, num_train_data, grid_std)
+    if isinstance(cfg, nerfplayer_nerfacto.Config):
+        return _seeded_nerfplayer_nerfacto(cfg, rng, num_train_data, grid_std)
 
     def planes(feat, reso, a, b):
         out = []
@@ -101,16 +106,17 @@ def seeded_params(cfg, seed: int, num_train_data: int = 0,
     return {"fields": fields, "proposal_networks": props}
 
 
+def _seeded_grid(gcfg, rng, grid_std: float) -> dict:
+    rows = level_layout(gcfg)[0][-1]
+    return {"embeddings": rng.uniform(
+        -grid_std, grid_std, (rows, gcfg.row_channels)).astype(np.float32)}
+
+
 def _seeded_nerfacto(cfg: nerfacto.Config, rng, num_train_data: int,
                      grid_std: float) -> dict:
-    def grid(gcfg):
-        rows = level_layout(gcfg)[0][-1]
-        return {"embeddings": rng.uniform(
-            -grid_std, grid_std, (rows, gcfg.row_channels)).astype(np.float32)}
-
     fcfg = cfg.field_config(num_train_data)
     dims = nerfacto_field.field_mlp_dims(fcfg)
-    fields = {"grid": grid(fcfg.grid),
+    fields = {"grid": _seeded_grid(fcfg.grid, rng, grid_std),
               "mlp_base": _seeded_mlp(rng, *dims["mlp_base"])}
     if fcfg.use_appearance_embedding:
         fields["appearance_embedding"] = rng.standard_normal(
@@ -123,7 +129,30 @@ def _seeded_nerfacto(cfg: nerfacto.Config, rng, num_train_data: int,
         name = f"proposal_{idx}"
         if name not in props:
             props[name] = {
-                "grid": grid(dcfg.grid),
+                "grid": _seeded_grid(dcfg.grid, rng, grid_std),
                 "mlp": _seeded_mlp(rng, *nerfacto_field.proposal_mlp_dims(dcfg)),
+            }
+    return {"fields": fields, "proposal_networks": props}
+
+
+def _seeded_nerfplayer_nerfacto(cfg: nerfplayer_nerfacto.Config, rng,
+                                num_train_data: int, grid_std: float) -> dict:
+    fcfg = cfg.field_config(num_train_data)
+    dims = npn_field.field_mlp_dims(fcfg)
+    fields = {"grid": _seeded_grid(fcfg.grid, rng, grid_std),
+              "mlp_base_decode": _seeded_mlp(rng, *dims["mlp_base_decode"])}
+    if fcfg.use_appearance_embedding:
+        fields["appearance_embedding"] = rng.standard_normal(
+            (max(fcfg.num_images, 1), fcfg.appearance_embedding_dim)
+        ).astype(np.float32)
+    fields["mlp_head"] = _seeded_mlp(rng, *dims["mlp_head"])
+
+    props = {}
+    for idx, dcfg in cfg.density_field_configs():
+        name = f"proposal_{idx}"
+        if name not in props:
+            props[name] = {
+                "grid": _seeded_grid(dcfg.grid, rng, grid_std),
+                "mlp": _seeded_mlp(rng, *npn_field.proposal_mlp_dims(dcfg)),
             }
     return {"fields": fields, "proposal_networks": props}

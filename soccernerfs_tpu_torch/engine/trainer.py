@@ -113,13 +113,22 @@ class TrainStep:
         generator: Optional[torch.Generator] = None,
         jitters: Optional[Sequence[torch.Tensor]] = None,
         background: Optional[torch.Tensor] = None,
+        tv_rows: Optional[Sequence] = None,
     ):
         """Loss, loss dict, metrics and the gradient of every leaf of
         ``state.params`` (``tree_leaves`` order; None for a leaf the loss
         does not reach) at ``state.step``, before any update.  The draws
-        come from ``jitters``/``background`` when given, else from
-        ``generator`` (the model's ``train_draws``)."""
+        (the model's ``train_draws``: jitters, a random background, the
+        temporal TV's rows) are ``jitters``/``background``/``tv_rows`` when
+        any is given (those the model takes), else drawn from
+        ``generator``."""
         cfg, model = self.cfg, self.model
+        if jitters is None and background is None and tv_rows is None:
+            draws = model.train_draws(cfg, batch["cam_idx"].shape[0],
+                                      generator, self.device)
+        else:
+            draws = {"jitters": jitters, "background": background,
+                     "tv_rows": tv_rows}
         correction = apply_camera_optimizer(
             self.camera_optimizer, state.params.get("camera_opt"),
             batch["cam_idx"])
@@ -129,11 +138,13 @@ class TrainStep:
             cfg, state.params, self.aabb, rays, train=True,
             anneal=model.proposal_anneal(cfg, state.step),
             train_proposal_networks=train_proposal_networks,
-            jitters=jitters, background=background, generator=generator,
+            jitters=draws["jitters"], background=draws["background"],
         )
         metrics = model.get_metrics_dict(cfg, outputs, batch)
-        loss_dict = model.get_loss_dict(cfg, state.params, outputs, batch,
-                                        metrics)
+        loss_dict = model.get_loss_dict(
+            cfg, state.params, outputs, batch, metrics,
+            **({} if draws.get("tv_rows") is None
+               else {"tv_rows": draws["tv_rows"]}))
         loss = functools.reduce(operator.add, loss_dict.values())
         grads = torch.autograd.grad(loss, tree_leaves(state.params),
                                     allow_unused=True)
@@ -159,7 +170,16 @@ class TrainStep:
     ) -> Dict[str, torch.Tensor]:
         """One training step, in place on ``state``, its draws from
         ``generator``.  Returns {"Train Loss", **loss_dict, **metrics} as
-        0-d tensors."""
+        0-d tensors, still on the device: the step never waits for it.
+
+        On CUDA, ``scatter_add_rows`` (the hash grids' table gradient)
+        checks its row indices without a host sync: an update outside the
+        table is dropped and flagged on the device.  A caller that reads
+        the loss on the host must then call
+        ``ops.kernels.scatter_kernels.raise_if_out_of_range(device)``,
+        which raises ``IndexError`` on such a drop, before it trusts the
+        step.  This method does not read the flag: reading it waits for the
+        device, and the step is to become one captured graph."""
         host = {"steps_since_update": state.steps_since_update}
         flag = self.model.host_static_kwargs(
             self.cfg, state.step, host)["train_proposal_networks"]

@@ -9,6 +9,7 @@ import importlib
 _MODEL_MODULES = {
     "kplanes": "soccernerfs_tpu_torch.models.kplanes",
     "nerfacto": "soccernerfs_tpu_torch.models.nerfacto",
+    "nerfplayer_nerfacto": "soccernerfs_tpu_torch.models.nerfplayer_nerfacto",
 }
 
 

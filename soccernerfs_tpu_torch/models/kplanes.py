@@ -258,7 +258,7 @@ def sample_counts(cfg: Config) -> list:
 
 
 def train_draws(cfg: Config, num_rays: int, generator: torch.Generator,
-                device) -> Tuple[list, torch.Tensor]:
+                device) -> dict:
     """The uniform draws of one training forward: per level the stratified
     jitter, [N, S + 1] ([N, 1] with a single jitter), then the [N, 3]
     random background."""
@@ -267,7 +267,9 @@ def train_draws(cfg: Config, num_rays: int, generator: torch.Generator,
                    generator=generator, device=device)
         for s in sample_counts(cfg)
     ]
-    return jitters, torch.rand((num_rays, 3), generator=generator, device=device)
+    return {"jitters": jitters,
+            "background": torch.rand((num_rays, 3), generator=generator,
+                                     device=device)}
 
 
 def get_outputs(
@@ -280,25 +282,22 @@ def get_outputs(
     train_proposal_networks: bool = True,
     jitters: Optional[Sequence[torch.Tensor]] = None,
     background: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
 ) -> dict:
     """Forward: rgb [N, 3], accumulation [N], depth [N], median_rgb
     [N, 3], prop_depth_i [N], directions_norm [N], plus the per-level
     weights and samples (the interlevel and distortion losses read them).
 
     In training the samplers jitter and the background is random: the
-    draws (``train_draws``' layout) are ``jitters`` and ``background``
-    when given, else drawn from ``generator``.  ``anneal`` and
+    draws (``train_draws``' layout) are ``jitters`` and ``background``,
+    which training needs.  ``anneal`` and
     ``train_proposal_networks`` are the step's schedules
     (``proposal_anneal``, ``host_static_kwargs``).
     """
     if ray_bundle.nears is None or ray_bundle.fars is None:
         ray_bundle = set_nears_and_fars(cfg, ray_bundle, aabb)
-    if train and (jitters is None) != (background is None):
-        raise ValueError("pass both jitters and background, or neither")
-    if train and jitters is None:
-        jitters, background = train_draws(cfg, ray_bundle.num_rays, generator,
-                                          ray_bundle.origins.device)
+    if train and (jitters is None or background is None):
+        raise ValueError("training needs the jitters and background draws "
+                         "(train_draws)")
 
     def make_density_fn(idx, dcfg):
         def density_fn(ray_samples: RaySamples):

@@ -145,15 +145,15 @@ def init(cfg: Config, num_train_data: int = 0,
 
 
 def train_draws(cfg: Config, num_rays: int, generator: torch.Generator,
-                device) -> Tuple[list, None]:
+                device) -> dict:
     """The uniform draws of one training forward: per level the stratified
     jitter, [N, 1] with a single jitter, else [N, S + 1].  The background
     is a fixed colour and takes no draw."""
-    return [
+    return {"jitters": [
         torch.rand((num_rays, 1 if cfg.use_single_jitter else s + 1),
                    generator=generator, device=device)
         for s in sample_counts(cfg)
-    ], None
+    ], "background": None}
 
 
 def get_outputs(
@@ -166,15 +166,14 @@ def get_outputs(
     train_proposal_networks: bool = True,
     jitters: Optional[Sequence[torch.Tensor]] = None,
     background: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
 ) -> dict:
     """Forward: rgb [N, 3], accumulation [N], depth [N], prop_depth_i [N],
     directions_norm [N], plus the per-level weights and samples (the
     interlevel and distortion losses read them).
 
     In training the samplers jitter with ``jitters`` (``train_draws``'
-    layout) when given, else with draws from ``generator``; ``background``
-    is unused (the colour is fixed).  ``anneal`` and
+    layout), which training needs; ``background`` is unused (the colour
+    is fixed).  ``anneal`` and
     ``train_proposal_networks`` are the step's schedules
     (``proposal_anneal``, ``host_static_kwargs``).  The appearance embedding
     is the ray's camera's in training (``ray_bundle.camera_indices`` index
@@ -188,8 +187,7 @@ def get_outputs(
             nears=torch.full((n,), cfg.near_plane, device=dev),
             fars=torch.full((n,), cfg.far_plane, device=dev))
     if train and jitters is None:
-        jitters, _ = train_draws(cfg, ray_bundle.num_rays, generator,
-                                 ray_bundle.origins.device)
+        raise ValueError("training needs the jitters draws (train_draws)")
 
     def make_density_fn(idx, dcfg):
         def density_fn(ray_samples: RaySamples):

@@ -1,15 +1,15 @@
-"""Multi-level hash-grid encoder, static grids (counterpart of
-soccernerfs_tpu/ops/hash_grid.py with ``temporal_dim == 0``).
+"""Multi-level hash-grid encoders, static and temporal (counterpart of
+soccernerfs_tpu/ops/hash_grid.py).
 
-One flat ``[rows, level_dim]`` table holds every level at an offset.  A
-level whose dense grid fits its share of the table (and every level of a
-``tiled`` grid) is indexed by strides; the others hash the lattice corner:
-``xor`` is the torch-ngp prime-XOR hash, ``zline`` hashes the leading
-dimensions and adds the last one.  The row indices are those of the JAX
-package bit for bit (a snapshot's table is only meaningful under its
-hash), for lattice coordinates >= 0, which is what inputs in [0, 1] give;
-negative coordinates wrap through the modulo to rows in range, but not to
-the JAX package's rows.
+One flat ``[rows, level_dim + temporal_dim]`` table holds every level at
+an offset.  A level whose dense grid fits its share of the table (and
+every level of a ``tiled`` grid) is indexed by strides; the others hash
+the lattice corner: ``xor`` is the torch-ngp prime-XOR hash, ``zline``
+hashes the leading dimensions and adds the last one.  The row indices are
+those of the JAX package bit for bit (a snapshot's table is only
+meaningful under its hash), for lattice coordinates >= 0, which is what
+inputs in [0, 1] give; negative coordinates wrap through the modulo to
+rows in range, but not to the JAX package's rows.
 
 Every level takes one path: the 2^D lattice corners of a point, their
 rows and multilinear weights, ``out = sum_k ws[k] * table[idxs[k]]``, with
@@ -23,6 +23,16 @@ table gradient through ``scatter_add_rows`` (one launch for all levels of
 the grid) and, when the weights require grad (positions that carry a
 gradient, as under the camera optimizer), the weight gradient
 ``d_ws[k] = sum_c g * table[idxs[k]]``.
+
+A temporal grid (``temporal_dim > 0``) slides a window over each row's
+channels with time: output channel i of a level is ``w_a * row[ch_a] +
+w_b * row[ch_b]``, the channels and weights a function of the time
+(``get_temporal_index``).  So a point reads 2 * level_dim entries of each
+corner's row, never the whole row: the forward gathers those picked
+entries of the flattened table, and the table gradient is one
+``scatter_add_rows`` launch of width 1 over ``[rows * C_row, 1]``, one
+group per level whose "corners" are the (corner, picked entry) pairs.  Position and time gradients of a
+temporal grid are not ported (the registered methods detach both).
 """
 from __future__ import annotations
 
@@ -43,7 +53,7 @@ _MASK32 = 0xFFFFFFFF
 class HashGridConfig:
     """Field names and defaults are the JAX package's."""
 
-    temporal_dim: int = 0  # 0: a static grid, the only kind ported
+    temporal_dim: int = 0  # 0: a static grid
     input_dim: int = 3
     num_levels: int = 16
     level_dim: int = 2
@@ -110,8 +120,8 @@ def strided_levels(cfg: HashGridConfig) -> Tuple[bool, ...]:
 
 
 def _check(cfg: HashGridConfig) -> None:
-    if cfg.temporal_dim > 0:
-        raise NotImplementedError("temporal hash grids are not ported yet")
+    if cfg.temporal_dim == 1 or cfg.temporal_dim < 0:
+        raise ValueError(f"temporal_dim must be 0 or >= 2, got {cfg.temporal_dim}")
     if cfg.gridtype not in ("hash", "tiled") or cfg.hash_scheme not in ("xor", "zline"):
         raise ValueError(f"unknown gridtype/hash_scheme in {cfg}")
 
@@ -264,14 +274,218 @@ class _GatherSum(torch.autograd.Function):
         return d_table, None, d_ws
 
 
-def hash_grid_encode(cfg: HashGridConfig, params: dict, xyz: torch.Tensor
-                     ) -> torch.Tensor:
-    """Encode points -> [B, num_levels * level_dim].
+# ---------------------------------------------------------------------------
+# temporal grids
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def temporal_tables(cfg: HashGridConfig):
+    """The per-temporal-row channel tables, numpy (the JAX package's
+    construction).  Consecutive temporal rows differ in one channel, so
+    the window slides smoothly.  Returns:
+      sampling_index [T-1, C*4] f32: per output channel (w_a, ch_a, w_b,
+          ch_b), the channels as f32 (exact: they are < C + T);
+      mask_a, mask_b [T-1, C*4] bool: where the time weights go;
+      index_list [T-1, C+1] int64: [new_ch, next_ch, shared...], whose
+          first two entries are the temporal TV loss's channel pair.
+    """
+    assert cfg.temporal_dim >= 2
+    level_dim = cfg.level_dim
+    index_init = [0, level_dim] + list(range(1, level_dim))
+    permute_base = list(range(2, level_dim + 1))
+    last_entry = 0
+    index_list = [np.asarray(index_init, np.int64)]
+    permute_list = [np.asarray([0] + permute_base, np.int64)]
+
+    def to_sampling_index(index, permute, last_entry):
+        row = index[permute]
+        row = np.stack(
+            [np.ones_like(row), row, np.zeros_like(row), np.zeros_like(row)], 1
+        ).reshape(-1)
+        mask_a = np.zeros_like(row, bool)
+        mask_b = np.zeros_like(row, bool)
+        row = row.astype(np.float32)
+        row[last_entry * 4 + 3] = index[1]
+        mask_a[last_entry * 4] = True
+        mask_b[last_entry * 4 + 2] = True
+        return row, mask_a, mask_b
+
+    row, ma, mb = to_sampling_index(index_list[0], permute_list[0], last_entry)
+    sampling_index, mask_a_list, mask_b_list = [row], [ma], [mb]
+    for _ in range(1, cfg.temporal_dim - 1):
+        last_entry += 1
+        if last_entry >= level_dim:
+            last_entry = 0
+        last_max = int(index_list[-1].max())
+        last_min = int(index_list[-1].min())
+        tem_permute = permute_list[-1].copy()
+        tem_permute[tem_permute == 0] += 1
+        prev = index_list[-1][1:][tem_permute - 1].tolist()
+        prev.pop(last_entry)
+        new_index = np.asarray([last_min + 1, last_max + 1] + prev, np.int64)
+        new_permute = np.asarray(
+            permute_base[:last_entry] + [0] + permute_base[last_entry:], np.int64
+        )
+        index_list.append(new_index)
+        permute_list.append(new_permute)
+        row, ma, mb = to_sampling_index(new_index, new_permute, last_entry)
+        sampling_index.append(row)
+        mask_a_list.append(ma)
+        mask_b_list.append(mb)
+
+    return (np.stack(sampling_index), np.stack(mask_a_list),
+            np.stack(mask_b_list), np.stack(index_list))
+
+
+_temporal_constants: Dict[tuple, tuple] = {}
+
+
+def _temporal_device_tables(cfg: HashGridConfig, device) -> tuple:
+    """temporal_tables as tensors on ``device``, made once per config and
+    device."""
+    key = (cfg, str(device))
+    if key not in _temporal_constants:
+        _temporal_constants[key] = tuple(
+            torch.from_numpy(a).to(device) for a in temporal_tables(cfg))
+    return _temporal_constants[key]
+
+
+def get_temporal_row(cfg: HashGridConfig, time: torch.Tensor) -> torch.Tensor:
+    """time [B] in [0, 1] -> temporal-table row [B] int64:
+    ``clip(floor(time * (T - 2)), 0, T - 2)``, in f32 as the JAX
+    package's."""
+    n_rows = cfg.temporal_dim - 1
+    row_val = time.float() * (n_rows - 1)
+    return torch.clamp(torch.floor(row_val).long(), 0, n_rows - 1)
+
+
+def get_temporal_index(cfg: HashGridConfig, time: torch.Tensor) -> torch.Tensor:
+    """time [B] in [0, 1] -> [B, C*4] rows (w_a, ch_a, w_b, ch_b) per output
+    channel: the temporal row's picks, its time weights ``w_a = row + 1 -
+    time * (T - 2)`` and ``w_b = time * (T - 2) - row`` where the masks put
+    them (f32 arithmetic as the JAX package's)."""
+    sampling_index, mask_a, mask_b, _ = _temporal_device_tables(cfg, time.device)
+    n_rows = sampling_index.shape[0]
+    row_val = time.float() * (n_rows - 1)
+    row_idx = torch.clamp(torch.floor(row_val).long(), 0, n_rows - 1)
+    w_a = (row_idx + 1 - row_val)[:, None]
+    w_b = (row_val - row_idx)[:, None]
+    rows = sampling_index[row_idx]
+    rows = torch.where(mask_a[row_idx], w_a, rows)
+    return torch.where(mask_b[row_idx], w_b, rows)
+
+
+def _picked_entries(idx: torch.Tensor, ch: torch.Tensor, c_row: int, rows: int
+                    ) -> torch.Tensor:
+    """Flat indices ``idx * c_row + ch`` of the picked entries, int64.
 
     Args:
-        params: {"embeddings": [rows, level_dim] f32}.
-        xyz: [B, input_dim] in [0, 1]; gradients reach it when it requires
-            grad (through the corner weights).
+        idx: [..., B] int32 table rows; ch: [P, B] int64 picked channels.
+    Returns:
+        [..., P, B].  A row outside [0, rows) gives an index outside the
+        flattened table (rows are clamped to [-1, rows] first, so that no
+        product wraps into range when the caller casts to int32).
     """
+    return idx.long().clamp(-1, rows).unsqueeze(-2) * c_row + ch
+
+
+class _TemporalGatherSum(torch.autograd.Function):
+    """``out[b, l*C + i] = sum_k ws[l, k, b] * sum_s w[b, i, s] *
+    T[idxs[l, k, b], ch[b, i, s]]``: per point, level and corner the
+    2 * C picked entries of the row; the corner sum comes first, then the
+    time weights, as the JAX package's CPU path rounds it.
+
+    The table gradient is one width-1 ``scatter_add_rows`` launch over the
+    flattened table: one group per level, whose K * 2C "corners" are the
+    (corner, picked entry) pairs, with the weights ``ws[l, k, b] * (g[b,
+    l*C + i] * w[b, i, s])`` (the JAX transpose's products) and a gradient
+    of ones.  The kernel's neighbouring lanes then take the picks of one
+    corner's row together, so their reductions meet in the row's few
+    32-byte sectors; a pick whose time weight is 0 (the second pick of
+    every channel but the window's last) is pointed at its channel's first
+    pick, adding 0 where the launch adds anyway.
+    """
+
+    @staticmethod
+    def forward(ctx, table, idxs, ws, ch, w):
+        levels, corners, points = idxs.shape
+        rows, c_row = table.shape
+        flat_table = table.reshape(-1)
+        picks = ch.reshape(points, -1).t().contiguous()                # [2C, B]
+        acc = None
+        for k in range(corners):
+            vals = torch.take(flat_table,
+                              _picked_entries(idxs[:, k], picks, c_row, rows))
+            term = ws[:, k, None, :] * vals                            # [L, 2C, B]
+            acc = term if acc is None else acc + term
+        acc = acc.view(levels, -1, 2, points)                          # [L, C, 2, B]
+        out = (acc * w.permute(1, 2, 0)[None]).sum(2)                  # [L, C, B]
+        ctx.save_for_backward(idxs, ws, picks, w)
+        ctx.table_shape = (rows, c_row)
+        return out.permute(2, 0, 1).reshape(points, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        idxs, ws, picks, w = ctx.saved_tensors
+        rows, c_row = ctx.table_shape
+        levels, corners, points = idxs.shape
+        n_picks = picks.shape[0]
+        w = w.reshape(points, n_picks).t().contiguous()                # [2C, B]
+        gw = (g.reshape(points, levels, -1).permute(1, 2, 0)[:, :, None]
+              * w.view(-1, 2, points)).reshape(levels, n_picks, points)
+        first = picks.view(-1, 2, points)[:, :1].expand(-1, 2, -1)
+        picks = torch.where(w == 0, first.reshape(n_picks, points), picks)
+        flat = _picked_entries(idxs, picks, c_row, rows).to(torch.int32)
+        d_table = scatter_add_rows(
+            torch.ones((points, levels), device=g.device),
+            flat.reshape(levels, -1, points),
+            (ws[:, :, None] * gw[:, None]).reshape(levels, -1, points),
+            rows=rows * c_row)
+        return d_table.view(rows, c_row), None, None, None, None
+
+
+def hash_grid_encode(cfg: HashGridConfig, params: dict, xyz: torch.Tensor,
+                     time: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encode points (with time, for a temporal grid) -> [B, num_levels *
+    level_dim].
+
+    Args:
+        params: {"embeddings": [rows, level_dim + temporal_dim] f32}.
+        xyz: [B, input_dim] in [0, 1]; gradients reach it when it requires
+            grad (through the corner weights) on a static grid.
+        time: [B] in [0, 1], a temporal grid's only.
+    Raises:
+        NotImplementedError: positions or times of a temporal grid that
+            require grad (the JAX package's ``input_grads``; every
+            registered method detaches them).
+    """
+    if cfg.temporal_dim == 0:
+        if time is not None:
+            raise ValueError("a static grid takes no time")
+        idxs, ws = grid_corners(cfg, xyz)
+        return _GatherSum.apply(params["embeddings"], idxs.contiguous(), ws)
+    if time is None:
+        raise ValueError("a temporal grid needs a time per point")
+    if xyz.requires_grad or time.requires_grad:
+        raise NotImplementedError(
+            "position and time gradients of a temporal hash grid are not "
+            "ported; detach the inputs")
     idxs, ws = grid_corners(cfg, xyz)
-    return _GatherSum.apply(params["embeddings"], idxs.contiguous(), ws)
+    tri = get_temporal_index(cfg, time).view(xyz.shape[0], cfg.level_dim, 4)
+    return _TemporalGatherSum.apply(params["embeddings"], idxs.contiguous(), ws,
+                                    tri[..., 1::2].long(), tri[..., 0::2])
+
+
+def temporal_tv_loss(cfg: HashGridConfig, params: dict, row) -> torch.Tensor:
+    """Mean over the table's rows of ``|T[:, i0] - T[:, i1]|``, the channel
+    pair ``(i0, i1)`` = the first two entries of ``index_list[row]``.
+
+    The JAX package draws ``row`` with ``jax.random.randint`` from a key;
+    torch cannot reproduce that stream, so the port takes the draw (an int
+    or a 0-d int64 tensor in [0, T - 1), on the table's device: no host
+    sync) from its caller.
+    """
+    table = params["embeddings"]
+    index_list = _temporal_device_tables(cfg, table.device)[3]
+    cols = table.index_select(1, index_list[row, :2])
+    return torch.mean(torch.abs(cols[:, 0] - cols[:, 1]))

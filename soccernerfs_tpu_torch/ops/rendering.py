@@ -1,7 +1,7 @@
 """Volume-rendering compositors (counterpart of soccernerfs_tpu/ops/rendering.py)."""
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -46,6 +46,20 @@ def render_rgb(
                              device=comp_rgb.device)
     comp_rgb = comp_rgb + bg * (1.0 - acc)
     return comp_rgb if train else torch.clamp(comp_rgb, 0.0, 1.0)
+
+
+def random_background(num_rays: int, device,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """The "random" background: [N, 3] uniform draws from ``generator``.
+    Without one (outside training) it draws from a generator seeded with 0,
+    so that a whole-image render is deterministic, as the JAX package's is
+    with its fixed ``PRNGKey(0)`` there: the same distribution, other
+    values (torch cannot reproduce JAX's stream; tests hand both sides the
+    same draws)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.rand((num_rays, 3), generator=generator, device=device)
 
 
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:

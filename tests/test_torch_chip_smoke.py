@@ -2,10 +2,10 @@
 
 The script needs a card; here its CUDA calls are stubbed, the kernel
 wrappers are made to count their plain versions as launches, and small
-K-Planes and nerfacto configs stand in for the full widths, so every phase
-(the plane and scatter kernel checks, and per method two counted frames,
-the render CPU comparison, the counted train steps, the train CPU
-comparison; the JSON lines) runs in seconds.
+K-Planes, nerfacto and nerfplayer-nerfacto configs stand in for the full
+widths, so every phase (the plane and scatter kernel checks, and per
+method two counted frames, the render CPU comparison, the counted train
+steps, the train CPU comparison; the JSON lines) runs in seconds.
 Also checks that, without CUDA, the script exits non-zero and prints no
 result, both from the repository and alone in a directory.
 """
@@ -84,9 +84,25 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         num_proposal_samples_per_ray=(16, 8), num_nerf_samples_per_ray=8,
         eval_num_rays_per_chunk=512,
     )
+    small_nerfplayer = dataclasses.replace(
+        mc.model_configs["nerfplayer-nerfacto"], num_levels=3,
+        log2_hashmap_size=12, temporal_dim=8, hidden_dim=16,
+        hidden_dim_color=16,
+        proposal_net_args_list=(
+            {"hidden_dim": 8, "temporal_dim": 6, "log2_hashmap_size": 11,
+             "num_levels": 3, "max_res": 32},
+            {"hidden_dim": 8, "temporal_dim": 6, "log2_hashmap_size": 11,
+             "num_levels": 3, "max_res": 64},
+        ),
+        num_proposal_samples_per_ray=(16, 8), num_nerf_samples_per_ray=8,
+        eval_num_rays_per_chunk=512,
+    )
     for small_name, method, small_cfg in (("small", "k-planes", small),
                                           ("small-nerfacto", "nerfacto",
-                                           small_nerfacto)):
+                                           small_nerfacto),
+                                          ("small-nerfplayer",
+                                           "nerfplayer-nerfacto",
+                                           small_nerfplayer)):
         monkeypatch.setitem(mc.model_configs, small_name, small_cfg)
         for table in (mc.optimizer_configs, mc.model_names,
                       mc.camera_optimizer_configs):
@@ -94,6 +110,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         monkeypatch.setitem(mc.train_num_rays_per_batch, small_name, 256)
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
+    monkeypatch.setattr(cs, "NERFPLAYER", "small-nerfplayer")
+    # every range check the script makes, by the function that makes it
+    checks = []
+    check = sk.raise_if_out_of_range
+    monkeypatch.setattr(sk, "raise_if_out_of_range",
+                        lambda device=None: (checks.append(
+                            sys._getframe(1).f_code.co_name), check(device)))
     monkeypatch.setattr(cs, "TRAIN_CPU_RAYS", 64)
     monkeypatch.setattr(cs, "TRAIN_WINDOW", 12)
     monkeypatch.setattr(cs, "DEVICE", "cpu")
@@ -194,22 +217,51 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
         assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
     # scatter_add_rows: random cases, then the 3 launches of one nerfacto
-    # update step captured at the wrapper, each with its L2 reductions; the
-    # kernels line sums the random cases only
+    # and of one nerfplayer-nerfacto update step captured at the wrapper
+    # (the temporal grids' at width 1 over their flattened tables), each
+    # with its L2 reductions; the kernels line sums the random cases only
     scatter = [json.loads(line.split(" ", 2)[2]) for line in lines
                if line.startswith("kernel scatter_add_rows ")]
     ray = [r for r in scatter if r["order"] == "ray"]
     random = [r for r in scatter if r["order"] == "random"]
-    assert len(random) == 8 and len(ray) == 3
-    assert sorted(r["grid"] for r in ray) == ["main", "proposal_0", "proposal_1"]
+    assert len(random) == 8 and len(ray) == 6
+    for method, c in (("small-nerfacto", 2), ("small-nerfplayer", 1)):
+        mine = [r for r in ray if r["method"] == method]
+        assert sorted(r["grid"] for r in mine) == ["main", "proposal_0",
+                                                   "proposal_1"]
+        assert all(f", c {c}, " in r["case"] for r in mine)
     assert all(r["l2_reductions"] > 0 and len(r["ms_passes"]) == cs.BWD_PASSES
                and r["ms"] == statistics.median(r["ms_passes"]) for r in scatter)
     assert all(r["updates_per_reduction"] >= 1.0 for r in ray)
     in_step = [line for line in lines if line.startswith("in-step scatter_add_rows")]
-    assert [line.split(" (")[1].split(")")[0] for line in in_step] == [
-        "update step", "non-update step"]
+    assert [line.split(" (")[1].split(":")[0] for line in in_step] == [
+        "update step) small-nerfacto", "non-update step) small-nerfacto",
+        "update step) small-nerfplayer", "non-update step) small-nerfplayer"]
     assert all("of bound" in line for line in in_step)
-    assert "in 3 launches" in in_step[0] and "in 1 launches" in in_step[1]
+    assert all("in 3 launches" in line for line in in_step[::2])
+    assert all("in 1 launches" in line for line in in_step[1::2])
+    # the third method renders and trains, and the deferred range check runs
+    # where each train phase and CPU check reads a step's loss
+    for method in ("small-nerfplayer",):
+        assert any(line.startswith(f"render {method}: steady") for line in lines)
+        assert any(line.startswith(f"train {method}: window steps")
+                   for line in lines)
+        assert any(line.startswith(f"train cpu check {method}, seed 2 ")
+                   for line in lines)
+    main_path = json.loads(next(line for line in lines if line.startswith(
+        "main-path launches:")).split(":", 1)[1])
+    # at least one launch per counted step: step 0, steps 1-11, the window
+    assert (main_path["train small-nerfplayer"]["scatter_add_rows"]
+            >= 1 + 11 + cs.TRAIN_WINDOW)
+    assert main_path["render small-nerfplayer"]["scatter_add_rows"] == 0
+    # per method's train phase: step 0, the split step and the 2 profiled
+    # steps, and every one of its 11 + TRAIN_WINDOW counted steps; per seed
+    # of the CPU checks, each step (K-Planes: 4 with its witnesses, else 2)
+    assert checks.count("train_phase") == 3 * 4
+    assert checks.count("run") == 3 * (11 + cs.TRAIN_WINDOW)
+    assert checks.count("train_cpu_check") == (
+        4 * len(cs.TRAIN_CPU_SEEDS) + 2 * len(cs.NERFACTO_CPU_SEEDS)
+        + 2 * len(cs.NERFPLAYER_CPU_SEEDS))
     k = kernels[4]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))

@@ -241,6 +241,8 @@ SCATTER_CASES = [  # rows, c, groups, corners, points
     (2, 4, 2, 8, 20_000),
     (1 << 19, 2, 16, 8, 60_000),  # a table past the shared-memory window;
     (6000, 1, 16, 8, 60_000),     # each lane walks many items of its block
+    (330_000, 1, 16, 32, 3000),   # the temporal main grid's width-1 launch:
+                                  # 16 levels of 8 corners x 4 picked entries
 ]
 
 
@@ -395,3 +397,40 @@ def test_scatter_wrapper_never_synchronises(dev):
     torch.cuda.synchronize()
     sk.raise_if_out_of_range(dev)
     _assert_scatter_close(got, g, idx, ws, rows)
+
+
+def test_temporal_encode_on_the_card_matches_the_cpu(dev):
+    """A temporal grid (3 levels, 8 temporal channels: dense and hashed
+    levels) encoded on the card and on the CPU from the same table, points
+    and times: values to 1e-6 of the max (the same f32 gathers and
+    products in the same order); the table gradient, one width-1
+    scatter_add_rows launch over the flattened table (3 levels of 8
+    corners x 4 picked entries), to 1e-5 of the max (atomics against the
+    plain version's f64 sum)."""
+    from soccernerfs_tpu_torch.ops.hash_grid import (HashGridConfig,
+                                                     hash_grid_encode,
+                                                     level_layout)
+
+    cfg = HashGridConfig(temporal_dim=8, num_levels=3, base_resolution=4,
+                         desired_resolution=64, log2_hashmap_size=10)
+    rng = np.random.default_rng(40)
+    rows = level_layout(cfg)[0][-1]
+    table = rng.uniform(-0.5, 0.5, (rows, cfg.row_channels)).astype(np.float32)
+    x = rng.uniform(0, 1, (50_000, 3)).astype(np.float32)
+    t = rng.uniform(0, 1, 50_000).astype(np.float32)
+    cot = rng.standard_normal((50_000, cfg.output_dim)).astype(np.float32)
+    results = {}
+    for where in ("cpu", dev):
+        tab = torch.from_numpy(table).to(where).requires_grad_(True)
+        out = hash_grid_encode(cfg, {"embeddings": tab},
+                               torch.from_numpy(x).to(where),
+                               torch.from_numpy(t).to(where))
+        before = sk.scatter_add_rows.launches
+        (out * torch.from_numpy(cot).to(where)).sum().backward()
+        results[str(where)] = (out.detach().cpu(), tab.grad.cpu())
+    torch.cuda.synchronize()
+    sk.raise_if_out_of_range(dev)
+    assert sk.scatter_add_rows.launches == before + 1
+    (out_cpu, g_cpu), (out_card, g_card) = results["cpu"], results[str(dev)]
+    assert float((out_card - out_cpu).abs().max()) <= 1e-6 * float(out_cpu.abs().max())
+    assert float((g_card - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max())

@@ -211,16 +211,234 @@ def test_encode_without_position_gradient_skips_the_weight_gradient():
     assert out.shape == (x.shape[0], tc.output_dim) and not out.requires_grad
 
 
-def test_temporal_grids_are_refused():
-    with pytest.raises(NotImplementedError):
-        th.hash_grid_encode(th.HashGridConfig(temporal_dim=4),
-                            {"embeddings": torch.zeros(8, 6)}, torch.zeros(2, 3))
-    with pytest.raises(NotImplementedError):
-        th.init_hash_grid(th.HashGridConfig(temporal_dim=4))
-    table = th.init_hash_grid(th.HashGridConfig(**CONFIGS["xor"]),
-                              torch.Generator().manual_seed(0))["embeddings"]
-    assert table.shape == (th.level_layout(th.HashGridConfig(**CONFIGS["xor"]))[0][-1], 2)
-    assert float(table.abs().max()) <= 1e-4
+def test_init_hash_grid_draws_every_row_channel():
+    """U(-1e-4, 1e-4) over [rows, level_dim + temporal_dim], static and
+    temporal."""
+    for kw in (CONFIGS["xor"], TEMPORAL["xor"]):
+        cfg = th.HashGridConfig(**kw)
+        table = th.init_hash_grid(cfg, torch.Generator().manual_seed(0))["embeddings"]
+        assert table.shape == (th.level_layout(cfg)[0][-1], cfg.row_channels)
+        assert float(table.abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# temporal grids
+# ---------------------------------------------------------------------------
+
+# 3 levels: level 0 dense (4^3), 1-2 oversubscribed at 2^10 rows; 8 temporal
+# channels (10 per row), and 5 with 3 features per level
+TEMPORAL = {
+    "xor": dict(SMALL, num_levels=3, temporal_dim=8, hash_scheme="xor"),
+    "zline": dict(SMALL, num_levels=3, temporal_dim=8, hash_scheme="zline"),
+    "xor3": dict(SMALL, num_levels=3, level_dim=3, temporal_dim=5),
+}
+# the registered nerfplayer-nerfacto grids: main field, proposal_0, proposal_1
+REGISTERED_TEMPORAL = (
+    dict(temporal_dim=64, num_levels=16, desired_resolution=1024),
+    dict(temporal_dim=32, num_levels=5, desired_resolution=64,
+         log2_hashmap_size=17, hash_scheme="zline"),
+    dict(temporal_dim=32, num_levels=5, desired_resolution=256,
+         log2_hashmap_size=17, hash_scheme="zline"),
+)
+
+
+@pytest.mark.parametrize("kw", [*TEMPORAL.values(), *REGISTERED_TEMPORAL],
+                         ids=[*TEMPORAL, "main", "proposal_0", "proposal_1"])
+def test_temporal_tables_equal_jax(kw):
+    """sampling_index, both masks and index_list, exactly, with their
+    types; the channel picks, held as f32, are whole numbers below the
+    row's channels."""
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+    got, want = th.temporal_tables(tc), jh.temporal_tables(jc)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    picks = got[0].reshape(got[0].shape[0], -1, 4)[..., 1::2]
+    assert np.array_equal(picks, np.round(picks)) and picks.max() < tc.row_channels
+
+
+@pytest.mark.parametrize("name", list(TEMPORAL))
+def test_temporal_index_equals_jax(name):
+    """get_temporal_index and get_temporal_row on random times, 0, 1 and
+    the temporal rows' edges, exactly (the same f32 arithmetic)."""
+    kw = TEMPORAL[name]
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+    rng = np.random.default_rng(6)
+    n_rows = tc.temporal_dim - 1
+    t = np.concatenate([rng.uniform(0, 1, 500), [0.0, 1.0],
+                        np.arange(n_rows) / (n_rows - 1)]).astype(np.float32)
+    np.testing.assert_array_equal(
+        th.get_temporal_index(tc, _t(t)).numpy(),
+        np.asarray(jh.get_temporal_index(jc, jnp.asarray(t))))
+    np.testing.assert_array_equal(
+        th.get_temporal_row(tc, _t(t)).numpy(),
+        np.asarray(jh.get_temporal_row(jc, jnp.asarray(t))))
+
+
+def _temporal_inputs(kw, seed, n=300):
+    rng = np.random.default_rng(seed)
+    cfg = th.HashGridConfig(**kw)
+    rows = th.level_layout(cfg)[0][-1]
+    table = rng.uniform(-0.5, 0.5, (rows, cfg.row_channels)).astype(np.float32)
+    x = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    x[0], x[1] = 0.0, 1.0
+    t = rng.uniform(0, 1, n).astype(np.float32)
+    t[:3] = [0.0, 1.0, 0.5]
+    cot = rng.standard_normal((n, cfg.output_dim)).astype(np.float32)
+    return x, t, table, cot
+
+
+def _temporal_encode_both(kw, x, t, table, cot):
+    """(values, table gradient) of JAX's encode and the port's."""
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+
+    def jloss(tab):
+        return jnp.vdot(jh.hash_grid_encode(jc, {"embeddings": tab},
+                                            jnp.asarray(x), jnp.asarray(t)), cot)
+
+    jout = jh.hash_grid_encode(jc, {"embeddings": jnp.asarray(table)},
+                               jnp.asarray(x), jnp.asarray(t))
+    jgt = jax.grad(jloss)(jnp.asarray(table))
+    tt = _t(table).requires_grad_(True)
+    tout = th.hash_grid_encode(tc, {"embeddings": tt}, _t(x), _t(t))
+    (tout * _t(cot)).sum().backward()
+    return (jout, jgt), (tout, tt.grad)
+
+
+@pytest.mark.parametrize("name", list(TEMPORAL))
+def test_temporal_encode_matches_jax_cpu_path(name):
+    """Values and table gradient against JAX's default CPU path (f32
+    gathers, the corner sum in row space, then the window pick), dense and
+    hashed levels together, f32 at rtol 1e-5 of the max: the values are
+    the same f32 products summed in the same order; the gradient sums
+    colliding updates in another order."""
+    kw = TEMPORAL[name]
+    (jout, jgt), (tout, tgt) = _temporal_encode_both(kw, *_temporal_inputs(kw, 7))
+    assert tout.shape == jout.shape == (300, kw["num_levels"] * kw["level_dim"])
+    assert _rel(tout, jout) <= 1e-5
+    assert _rel(tgt, jgt) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["xor", "zline"])
+def test_temporal_encode_matches_jax_pallas_interpret_path(name, monkeypatch):
+    """The same against JAX's TPU path run in Pallas interpret mode, which
+    gathers bf16 rows and feeds ``sorted_scatter_add`` bf16 updates on
+    temporal-row keys: values to 1e-2 of the max, gradients to 2e-2 (the
+    bf16 tolerances of the JAX package's own tests)."""
+    monkeypatch.setattr(jh, "SCATTER_INTERPRET", True)
+    kw = TEMPORAL[name]
+    (jout, jgt), (tout, tgt) = _temporal_encode_both(
+        kw, *_temporal_inputs(kw, 8, n=120))
+    assert _rel(tout, jout) <= 1e-2
+    assert _rel(tgt, jgt) <= 2e-2
+
+
+def test_temporal_scatter_plain_matches_dense_transpose():
+    """The encode's table gradient (width-1 scatter_add_rows' plain version
+    over the flattened table, one group per level and picked entry)
+    against the dense transpose built entry by entry in f64 with
+    ``np.add.at``: 1e-6 of the max; and the encode's values against the
+    same picks read in f64."""
+    kw = TEMPORAL["zline"]
+    cfg = th.HashGridConfig(**kw)
+    x, t, table, cot = _temporal_inputs(kw, 9, n=200)
+    idxs, ws = th.grid_corners(cfg, _t(x))
+    tri = th.get_temporal_index(cfg, _t(t)).view(len(t), cfg.level_dim, 4).numpy()
+    w, ch = tri[..., 0::2].astype(np.float64), tri[..., 1::2].astype(np.int64)
+    idxs, ws = idxs.numpy().astype(np.int64), ws.numpy().astype(np.float64)
+    levels, corners, points = idxs.shape
+    want = np.zeros(table.size)
+    value = np.zeros((points, levels, cfg.level_dim))
+    g = cot.reshape(points, levels, cfg.level_dim).astype(np.float64)
+    flat = table.reshape(-1).astype(np.float64)
+    for lvl in range(levels):
+        for k in range(corners):
+            for i in range(cfg.level_dim):
+                for s in range(2):
+                    entry = idxs[lvl, k] * cfg.row_channels + ch[:, i, s]
+                    coef = ws[lvl, k] * w[:, i, s]
+                    np.add.at(want, entry, coef * g[:, lvl, i])
+                    value[:, lvl, i] += coef * flat[entry]
+    tt = _t(table).requires_grad_(True)
+    out = th.hash_grid_encode(cfg, {"embeddings": tt}, _t(x), _t(t))
+    (out * _t(cot)).sum().backward()
+    assert _rel(out, value.reshape(points, -1)) <= 1e-6
+    assert _rel(tt.grad.reshape(-1), want) <= 1e-6
+
+
+def test_temporal_out_of_range_index_raises(monkeypatch):
+    """A corner row outside the table: the encode's gather and its
+    width-1 scatter (the flat index ``row * C_row + channel``, formed in
+    int64 and clamped before the int32 cast, so no product wraps into
+    range) both raise IndexError on the CPU."""
+    kw = TEMPORAL["xor"]
+    cfg = th.HashGridConfig(**kw)
+    x, t, table, cot = _temporal_inputs(kw, 10, n=50)
+    rows = table.shape[0]
+    corners = th.grid_corners
+
+    def bad(gcfg, xyz):
+        idxs, ws = corners(gcfg, xyz)
+        idxs[1, 3, 7] = rows
+        return idxs, ws
+
+    monkeypatch.setattr(th, "grid_corners", bad)
+    with pytest.raises(IndexError):
+        th.hash_grid_encode(cfg, {"embeddings": _t(table)}, _t(x), _t(t))
+    monkeypatch.setattr(th, "grid_corners", corners)
+    idxs, ws = th.grid_corners(cfg, _t(x))
+    ch = torch.zeros((4, 50), dtype=torch.long)
+    for row in (rows, -1, 2**31 - 1, 2**31 // cfg.row_channels + 1):
+        flat = th._picked_entries(torch.full_like(idxs, row), ch,
+                                  cfg.row_channels, rows).to(torch.int32)
+        assert bool(((flat < 0) | (flat >= table.size)).all())
+        with pytest.raises(IndexError):
+            sk.scatter_add_rows(torch.ones((50, flat.shape[0] * 4)),
+                                flat.view(-1, 8, 50), rows=table.size)
+
+
+def test_temporal_inputs_that_need_a_gradient_are_refused():
+    """Positions or times that require grad raise (no position or time
+    backward is ported); a temporal grid needs times, a static one takes
+    none; temporal_dim 1 has no window."""
+    kw = TEMPORAL["xor"]
+    cfg = th.HashGridConfig(**kw)
+    x, t, table, _cot = _temporal_inputs(kw, 11, n=10)
+    params = {"embeddings": _t(table)}
+    for tx, tt in ((_t(x).requires_grad_(True), _t(t)),
+                   (_t(x), _t(t).requires_grad_(True))):
+        with pytest.raises(NotImplementedError):
+            th.hash_grid_encode(cfg, params, tx, tt)
+    with pytest.raises(ValueError):
+        th.hash_grid_encode(cfg, params, _t(x))
+    with pytest.raises(ValueError):
+        th.hash_grid_encode(th.HashGridConfig(**CONFIGS["xor"]),
+                            {"embeddings": torch.zeros(10, 2)}, _t(x), _t(t))
+    with pytest.raises(ValueError):
+        th.init_hash_grid(th.HashGridConfig(temporal_dim=1))
+
+
+@pytest.mark.parametrize("name", list(TEMPORAL))
+def test_temporal_tv_loss_matches_jax(name):
+    """temporal_tv_loss at the index_list row JAX draws from a key (handed
+    to the port as an int and as a 0-d tensor), value and table gradient:
+    1e-6 of the max (f32 means in another order)."""
+    kw = TEMPORAL[name]
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+    _x, _tm, table, _cot = _temporal_inputs(kw, 12)
+    n_rows = jh.temporal_tables(jc)[3].shape[0]
+    for seed in range(3):
+        key = jax.random.PRNGKey(seed)
+        row = int(jax.random.randint(key, (), 0, n_rows))
+        want, jg = jax.value_and_grad(
+            lambda tab: jh.temporal_tv_loss(jc, {"embeddings": tab}, key))(
+            jnp.asarray(table))
+        for r in (row, torch.tensor(row)):
+            tt = _t(table).requires_grad_(True)
+            got = th.temporal_tv_loss(tc, {"embeddings": tt}, r)
+            got.backward()
+            assert _rel(got, want) <= 1e-6
+            assert _rel(tt.grad, jg) <= 1e-6
 
 
 # ---------------------------------------------------------------------------
