@@ -17,46 +17,59 @@
      one hashed and one dense level of nerfacto's main grid, the same level
      as sorted_scatter_add takes it (expanded, sorted), one proposal level,
      the whole-grid launches the train path makes, a wider row, a 2-row
-     table with 100,000 updates, an empty update list; then on the 3
-     launches of one nerfacto train step, captured at the wrapper, and
-     (after the nerfplayer-nerfacto render) on the 3 width-1 launches of
-     one nerfplayer-nerfacto train step over the flattened temporal tables;
-     each with its L2 reductions (scatter_plan) and their rate.  A case's
-     time is the median of five passes of 20 launches.
-  4. Render phases, ``k-planes``, ``nerfacto``, then
-     ``nerfplayer-nerfacto`` (temporal hash grids), full registry width,
-     weights drawn from a numpy seed and loaded through ``params_from_jax``:
-     two counted 960x540 frames through ``render_camera`` (K-Planes fails
-     unless both forward kernels launched), two timed frames, one profiled
-     with torch.profiler; then one 4096-ray chunk on the CPU (the kernels'
-     plain versions) against the card, a random background handed to both
-     sides as the same draws.
+     table with 100,000 updates, an empty update list; then on the
+     launches of one train step of each hash-grid method, captured at the
+     wrapper: nerfacto's 3, nerfplayer-nerfacto's 3 width-1 launches over
+     the flattened temporal tables, instant-ngp-bounded's one over its
+     static grid and nerfplayer-ngp's one width-1 launch over its temporal
+     grid; each with its L2 reductions (scatter_plan) and their rate.  A
+     case's time is the median of five passes of 20 launches.
+  4. Render phases, ``k-planes``, ``nerfacto``, ``nerfplayer-nerfacto``
+     (temporal hash grids), then the occupancy-grid methods
+     ``instant-ngp-bounded`` and ``nerfplayer-ngp``, full registry width,
+     weights drawn from a numpy seed and loaded through ``params_from_jax``
+     (the occupancy methods' grid state from one all-cells update at those
+     weights): two counted 960x540 frames through ``render_camera``
+     (K-Planes fails unless both forward kernels launched), two timed
+     frames, one profiled with torch.profiler; then one 4096-ray chunk on
+     the CPU (the kernels' plain versions) against the card, a random
+     background handed to both sides as the same draws, an occupancy
+     method's binary grid too (the rays whose samples differ are counted,
+     at most 0.1 %, and left out of the comparison).
   5. Train phases, ``k-planes``, ``nerfacto`` (camera optimizer SO3xR3
-     on, as registered), then ``nerfplayer-nerfacto`` (camera optimizer
-     off, the temporal TV over its three grids):
-     ``TrainStep.train_iteration`` on 4096-ray batches of bench.py's
-     20-camera ring, steps 0-11 (all update the proposals) and a steady
-     window at step 10,000 (an update every sixth step); fails unless the
-     path's kernels launched (K-Planes: all four plane kernels; nerfacto,
-     nerfplayer-nerfacto: scatter_add_rows on every step), the loss and
-     every gradient are finite and the parameters, the camera optimizer's
-     included, moved.
+     on, as registered), ``nerfplayer-nerfacto`` (camera optimizer off,
+     the temporal TV over its three grids), then ``instant-ngp-bounded``
+     and ``nerfplayer-ngp`` (8192-ray batches; the grid updated after the
+     optimizer step every 16 steps, over all cells before step 256):
+     ``TrainStep.train_iteration`` on batches of bench.py's 20-camera
+     ring, steps 0-11 (all update the proposals; an occupancy method's
+     step 0 updates its grid) and a steady window at step 10,000 (60
+     steps, a proposal update every sixth; 64 for an occupancy method, a
+     grid update every sixteenth); fails unless the path's kernels
+     launched (K-Planes: all four plane kernels; the hash-grid methods:
+     scatter_add_rows on every step), the loss and every gradient are
+     finite and the parameters, the camera optimizer's included, and an
+     occupancy method's grid moved.
      Prints ms per update and non-update step, train rays/s over the window
-     and its 12-step sub-windows, the process's CPU time per step and peak
-     memory, and traces one step of each kind with torch.profiler; for
-     K-Planes, each backward kernel's device time in a profiled step
-     beside the byte bound of the captured step's launches (the counts
-     must match), and for the hash-grid methods scatter_add_rows' the same
-     way.  The scatter's deferred range check
-     (``scatter_kernels.raise_if_out_of_range``) runs wherever a step's
-     loss is read on the host: after every synchronised step, and after
-     each step of the CPU checks.
+     and its sub-windows (12 steps; an occupancy method's 16), the
+     process's CPU time per step and peak memory, and traces one step of
+     each kind with torch.profiler; for K-Planes, each plane kernel's
+     device time in a profiled step beside the byte bound of the captured
+     step's launches (the counts must match), and for the hash-grid
+     methods scatter_add_rows' the same way.  The scatter's deferred range
+     check (``scatter_kernels.raise_if_out_of_range``) runs wherever a
+     step's loss is read on the host: after every synchronised step, and
+     after each step of the CPU checks.
   6. Train CPU checks: one 1024-ray step with the same params, batch and
      draws on the card and on the CPU; the loss terms and every gradient
      before the update agree (per leaf, in L2).  For K-Planes, three seeds
      and two more CPU steps, one with the card's PDF bins and one that also
      moves the ray directions by one ulp, which show what the resampling
-     adds and how far the step moves on the CPU alone.
+     adds and how far the step moves on the CPU alone.  For an occupancy
+     method, at step 272, whose grid update is a sampled one: the rays
+     whose samples differ are counted (at most 0.1 %), and both sides
+     update the same grid from the card's updated params with the same
+     draws; the grids agree within 1e-5 in L2.
 
 Prints a JSON line with the five kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -90,12 +103,19 @@ DEVICE = "cuda"
 MODEL = "k-planes"
 NERFACTO = "nerfacto"
 NERFPLAYER = "nerfplayer-nerfacto"
+INGP = "instant-ngp-bounded"
+NPNGP = "nerfplayer-ngp"
 AABB = [[-1.5] * 3, [1.5] * 3]
 TRAIN_CPU_RAYS = 1024
 TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
 NERFACTO_CPU_SEEDS = (2, 4)
 NERFPLAYER_CPU_SEEDS = (2, 4)
+OCC_CPU_SEEDS = (2,)
+OCC_CPU_STEP = 272               # a sampled grid update
 TRAIN_WINDOW = 60                # steps, 10 update cycles
+OCC_TRAIN_WINDOW = 64            # steps, 4 grid-update cycles
+SELECTION_TOL = 1e-3             # share of rays whose samples may differ
+OCCS_L2_TOL = 1e-5               # card vs CPU grid after an update, in L2
 SCATTER_MASS_TOL = 1e-6          # of the largest row's sum of |terms|
 BWD_PASSES = 5                   # timing passes per backward or scatter case
 
@@ -325,9 +345,10 @@ def bwd_random_cases(cfg, params, dev):
                "grid": torch.stack([pts[:, [c1, c2]] for c1, _ci in members])[:, None]}
 
 
-def make_trainer(method, tree, dev):
+def make_trainer(method, tree, dev, aux=None):
     """(TrainStep, its state) of a method as registered, on bench.py's
-    ring, the parameters loaded from ``tree``."""
+    ring, the parameters loaded from ``tree``; the model's state ``aux``
+    (moved to ``dev``) when given, else its ``init_aux``."""
     from soccernerfs_tpu_torch.configs.method_configs import (
         model_names, optimizer_configs)
     from soccernerfs_tpu_torch.convert import params_from_jax
@@ -337,7 +358,66 @@ def make_trainer(method, tree, dev):
     trainer = TrainStep(cfg, ring_cameras(dev), AABB, optimizer_configs[method],
                         device=dev, model=model_names[method],
                         camera_optimizer=camera_optimizer)
-    return trainer, trainer.init_state(params_from_jax(tree, device=dev))
+    if aux is not None:
+        aux = {k: v.to(dev) for k, v in aux.items()}
+    return trainer, trainer.init_state(params_from_jax(tree, device=dev), aux)
+
+
+def touched_table_bytes(name, tables, rowids, shape) -> int:
+    """Bytes of the table rows one forward plane launch needs: every
+    distinct row its points touch (the four corner rows of an unpacked
+    [h*w, F] table, the one quad-packed row of a packed table), read once."""
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    total = 0
+    for table, rowid in zip(tables, rowids):
+        if name.endswith("unpacked"):
+            rows = torch.cat(pk.corner_rows(rowid, h=shape[0], w=shape[1]))
+        else:
+            rows = torch.clamp(rowid.long(), 0, shape[0] - 1)
+        total += (int(torch.unique(rows).numel()) * table.shape[1]
+                  * table.element_size())
+    return total
+
+
+def fwd_step_bounds(tree, dev) -> dict:
+    """The forward plane launches of one K-Planes train step (step 0 of the
+    train phase: make_batch(0), the same draws), captured where the
+    wrappers launch: per kernel, (launches, their summed byte bound in ms,
+    the same with whole tables in ms).  A launch's bound: its points'
+    inputs and outputs (``group_bytes`` less the tables) and the table rows
+    its points touch (``touched_table_bytes``: a step's 4096 rays touch a
+    fraction of the finest planes), at the card's memory rate."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    trainer, state = make_trainer(MODEL, tree, dev)
+    launch = pk._launch
+    bounds = {"bilerp_fwd_unpacked": [0, 0.0, 0.0],
+              "bilerp_fwd_packed": [0, 0.0, 0.0]}
+
+    def capture(name, ins, rowids, txs, ty, outs, m, feat, *shape):
+        if name.startswith("snt_bilerp_fwd_"):
+            entry = bounds[name[len("snt_"):]]
+            whole = group_bytes(m, feat, ins)
+            tables = sum(t.numel() * t.element_size() for t in ins)
+            touched = touched_table_bytes(name, ins, rowids, shape)
+            entry[0] += 1
+            entry[1] += (whole - tables + touched) / H100_BYTES_PER_S * 1e3
+            entry[2] += whole / H100_BYTES_PER_S * 1e3
+        return launch(name, ins, rowids, txs, ty, outs, m, feat, *shape)
+
+    pk._launch = capture
+    try:
+        trainer.loss_and_grads(
+            state, make_batch(0, train_num_rays_per_batch[MODEL], dev),
+            train_proposal_networks=True,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+    finally:
+        pk._launch = launch
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {k: tuple(v) for k, v in bounds.items()}
 
 
 def bwd_step_cases(tree, dev):
@@ -597,17 +677,22 @@ def scatter_rows(gcfg) -> int:
     return rows * gcfg.row_channels if gcfg.temporal_dim else rows
 
 
-def scatter_step_cases(method, cfg, tree, dev):
+def field_samples(cfg) -> int:
+    """Samples per ray of a model's main field."""
+    return getattr(cfg, "num_nerf_samples_per_ray", None) or cfg.max_num_samples_per_ray
+
+
+def scatter_step_cases(method, cfg, tree, dev, aux=None):
     """The scatter_add_rows launches of one train step of a hash-grid method
     (step 0 of the train phase: an update step, make_batch(0), the same
-    draws), captured where the wrapper launches: the path's own operands,
-    samples flattened ray by ray.  Yields (label, grid, (g, idxs, ws,
-    rows)); the grid ("main", "proposal_0", ...) is told by its rows and
-    points."""
+    draws, the phase's starting state ``aux``), captured where the wrapper
+    launches: the path's own operands, samples flattened ray by ray.
+    Yields (label, grid, (g, idxs, ws, rows)); the grid ("main",
+    "proposal_0", ...) is told by its rows and points."""
     from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
-    trainer, state = make_trainer(method, tree, dev)
+    trainer, state = make_trainer(method, tree, dev, aux)
     launch = sk._launch
     record = []
 
@@ -630,9 +715,10 @@ def scatter_step_cases(method, cfg, tree, dev):
     rays = train_num_rays_per_batch[method]
     grids = {(scatter_rows(d.grid),
               rays * cfg.num_proposal_samples_per_ray[i]): f"proposal_{i}"
-             for i, (_idx, d) in enumerate(cfg.density_field_configs())}
+             for i, (_idx, d) in enumerate(cfg.density_field_configs())
+             } if hasattr(cfg, "density_field_configs") else {}
     grids[(scatter_rows(cfg.field_config().grid),
-           rays * cfg.num_nerf_samples_per_ray)] = "main"
+           rays * field_samples(cfg))] = "main"
     while record:
         g, idxs, ws, rows = record.pop(0)
         grid = grids[(rows, g.shape[0])]
@@ -711,13 +797,13 @@ def scatter_case(label, operands, layout, dev):
     }
 
 
-def scatter_step_phase(method, cfg, tree, dev):
+def scatter_step_phase(method, cfg, tree, dev, aux=None):
     """scatter_add_rows against its plain version on the launches of one
     train step of ``method`` (scatter_step_cases); returns the rows
     ("order": "ray", with the grid and the method)."""
     layout = scatter_layout(dev)
     results = []
-    for label, grid, operands in scatter_step_cases(method, cfg, tree, dev):
+    for label, grid, operands in scatter_step_cases(method, cfg, tree, dev, aux):
         row = {**scatter_case(label, operands, layout, dev), "order": "ray",
                "grid": grid, "method": method}
         log("kernel", "scatter_add_rows", json.dumps(row))
@@ -906,22 +992,53 @@ def make_batch(seed, rays, dev):
     }
 
 
-def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
+def is_update_step(module, cfg, state) -> bool:
+    """Whether the state's next step is an update step: an occupancy
+    model's grid update (``update_due``), else a proposal update
+    (``host_static_kwargs`` on a copy of the host counter)."""
+    if hasattr(module, "update_due"):
+        return module.update_due(cfg, state.step)
+    return module.host_static_kwargs(
+        cfg, state.step, {"steps_since_update": state.steps_since_update}
+    )["train_proposal_networks"]
+
+
+def set_step_kind(module, cfg, state, update: bool) -> None:
+    """Move the state so that its next step is an update step, or not."""
+    if hasattr(module, "update_due"):
+        every = cfg.occ.update_every
+        if update:
+            state.step = -(-state.step // every) * every
+        elif state.step % every == 0:
+            state.step += 1
+    else:
+        # the step after an update is a non-update one; after 5 non-update
+        # steps the next updates
+        state.steps_since_update = 5 if update else 0
+
+
+def train_phase(method, tree, dev, trace_dir, must_launch, every_step=(),
+                aux=None, window=None, sub=12):
     """A method's train main path, counted: steps 0-11 and a window of
-    TRAIN_WINDOW steps at step 10,000, with the method's registered
-    optimizers and camera optimizer.  Fails unless every kernel of
-    ``must_launch`` launched during it, and those of ``every_step`` on every
-    step.  Returns the launch counts and, for the profiled update and
-    non-update step, the device time per kernel and the launches."""
+    ``window`` steps (default TRAIN_WINDOW) at step 10,000 (sub-windows of
+    ``sub`` steps), with the
+    method's registered optimizers and camera optimizer, from the model
+    state ``aux`` (an occupancy model's grid; else its ``init_aux``).
+    Fails unless every kernel of ``must_launch`` launched during it, and
+    those of ``every_step`` on every step, and unless an occupancy model's
+    grid moved at step 0 and over the window.  Returns the launch counts
+    and, for the profiled update and non-update step, the device time per
+    kernel and the launches."""
     from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
     from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
     module, cfg, _camera_optimizer = method_parts(method)
-    host_static_kwargs = module.host_static_kwargs
+    occupancy = hasattr(module, "update_aux")
+    window = window or TRAIN_WINDOW
     tag = f"train {method}"
     rays = train_num_rays_per_batch[method]
-    trainer, state = make_trainer(method, tree, dev)
+    trainer, state = make_trainer(method, tree, dev, aux)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     batches = [make_batch(i, rays, dev) for i in range(8)]
     torch.cuda.synchronize()
@@ -942,10 +1059,17 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
         raise AssertionError("step 0 (an update step) left a leaf without "
                              "a gradient")
     trainer.apply_grads(state, grads)
+    if occupancy:
+        # and the grid update after it: over all cells at step 0
+        grid0 = state.aux["occs"]
+        state.aux = module.update_aux(cfg, state.params, trainer.aabb, 0,
+                                      state.aux, gen)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     sk.raise_if_out_of_range(dev)
     del grads
+    if occupancy and torch.equal(grid0, state.aux["occs"]):
+        raise AssertionError(f"{method}: the grid did not move at step 0")
     # the first leaf of every param group (the camera optimizer's too)
     watch = [tree_leaves(group)[0] for group in state.params.values()]
     before = [w.detach().clone() for w in watch]
@@ -955,9 +1079,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
         the host clock to a synchronised end and by the process's CPU
         time; appends (update step?, wall s, CPU s) to ``times``."""
         for _ in range(steps):
-            update = host_static_kwargs(
-                cfg, state.step, {"steps_since_update": state.steps_since_update}
-            )["train_proposal_networks"]
+            update = is_update_step(module, cfg, state)
             counts = launch_counts()
             t0, c0 = time.perf_counter(), time.process_time()
             m = trainer.train_iteration(state, batches[state.step % 8], gen)
@@ -993,23 +1115,24 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
         f"{ms(warm, False)}; loss {float(m['Train Loss']):.6f}, psnr "
         f"{float(m['psnr']):.4f}")
 
-    # the window: an update every sixth step, so each 12-step sub-window
-    # holds 2 update and 10 non-update steps
+    # the window: whole update cycles (a proposal update every sixth step,
+    # a grid update every sixteenth), so each sub-window holds the same mix
     state.step, state.steps_since_update = 10_000, 0
+    grid0 = state.aux.get("occs")
     times = []
     load, stat = os.getloadavg()[0], cpu_stat()
-    m = run(TRAIN_WINDOW, times)
+    m = run(window, times)
     stat = [b - a for a, b in zip(stat, cpu_stat())]
     wall = np.array([t for _u, t, _c in times])
     cpu = np.array([c for _u, _t, c in times])
-    sub = rays * 12 / wall.reshape(-1, 12).sum(1)
+    subs = rays * sub / wall.reshape(-1, sub).sum(1)
     launches = launch_counts()
-    log(f"{tag}: window steps 10000-{10000 + TRAIN_WINDOW - 1}: update steps "
+    log(f"{tag}: window steps 10000-{10000 + window - 1}: update steps "
         f"{ms(times, True)}; non-update steps {ms(times, False)}; "
-        f"{rays * TRAIN_WINDOW / wall.sum():.1f} train rays/s over the "
-        f"window; 12-step sub-windows {[round(float(r), 1) for r in sub]} "
-        f"train rays/s (median {np.median(sub):.1f}, min {sub.min():.1f}, "
-        f"max {sub.max():.1f}); process CPU time per step {cpu.mean() * 1e3:.3f} "
+        f"{rays * window / wall.sum():.1f} train rays/s over the "
+        f"window; {sub}-step sub-windows {[round(float(r), 1) for r in subs]} "
+        f"train rays/s (median {np.median(subs):.1f}, min {subs.min():.1f}, "
+        f"max {subs.max():.1f}); process CPU time per step {cpu.mean() * 1e3:.3f} "
         f"ms mean ({cpu.sum() / wall.sum():.4f} of the wall time; correlation "
         f"with the step's wall time {np.corrcoef(cpu, wall)[0, 1]:.4f}); "
         f"host: steal {stat[7] / max(sum(stat[:8]), 1):.4f} of the CPUs' time, load "
@@ -1021,6 +1144,13 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the {method} "
                                  f"train path")
+    if occupancy:
+        occs = state.aux["occs"]
+        if torch.equal(grid0, occs):
+            raise AssertionError(f"{method}: the grid did not move over the window")
+        log(f"{tag}: grid after the window: occupied "
+            f"{float(module.eval_kwargs(cfg, state.aux)['occ_binary'].float().mean()):.4f}"
+            f" of {occs.numel()} cells, mean {float(occs.mean()):.6e}")
 
     # where one non-update step's wall time goes: forward, losses and
     # backward, then the optimizer update (host clock, synchronised)
@@ -1040,9 +1170,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=()):
     in_step = {}
     for update in (True, False):
         label = "update step" if update else "non-update step"
-        # the step after an update is a non-update one; after 5 non-update
-        # steps the next updates
-        state.steps_since_update = 5 if update else 0
+        set_step_kind(module, cfg, state, update)
         reset_launch_counts()
         times = profile_device(
             f"{tag} {label}",
@@ -1115,7 +1243,24 @@ def one_ulp_directions():
         trainer.generate_rays = orig
 
 
-def train_cpu_check(method, tree, dev, seeds, witnesses):
+def tree_to(tree, device):
+    """A param tree's leaves, detached, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.detach().to(device)
+
+
+def selection_differs(a, b):
+    """[N] bool: the rays whose samples differ between two forwards (their
+    valid masks, or the probes they selected, read from the samples'
+    spacing starts); the outputs on the CPU."""
+    return ((a["valid"] != b["valid"]).any(-1)
+            | (a["spacing_starts"] != b["spacing_starts"]).any(-1))
+
+
+def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None):
     """One step of TRAIN_CPU_RAYS rays on the card and on the CPU (the
     kernels' plain versions), same params, batch and draws, proposal
     update on, the method's camera optimizer as registered, for each of
@@ -1123,16 +1268,21 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
     ``witnesses``, two more CPU steps show what sets the gradients' worst
     elements: one takes the card's PDF bins in place of its own, and one
     also moves the ray directions by one ulp (the CPU against itself: the
-    step's own sensitivity to rounding)."""
+    step's own sensitivity to rounding).
+
+    An occupancy model (its grid state ``aux``) steps at OCC_CPU_STEP,
+    whose grid update is a sampled one: the rays whose samples differ
+    between the two forwards are counted (at most SELECTION_TOL of them),
+    and both sides then update the same grid with the same draws from the
+    card's updated params; the grids agree within OCCS_L2_TOL in L2."""
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
     module, cfg, camera_optimizer = method_parts(method)
+    occupancy = hasattr(module, "update_aux")
+    step = OCC_CPU_STEP if occupancy else 300
     n = TRAIN_CPU_RAYS
     cpu = torch.device("cpu")
     trainers, states = {}, {}
-    for d in (dev, cpu):
-        trainers[d], states[d] = make_trainer(method, tree, d)
-    names = leaf_paths(states[cpu].params)
 
     def compare(a_run, b_run):
         """Loss terms |a - b| / |b|; per leaf, (|a - b| / |b| in L2,
@@ -1140,7 +1290,7 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
         terms = {k: abs(a_run[0][k] - v) / max(abs(v), 1e-30)
                  for k, v in b_run[0].items()}
         rows = []
-        for a, b, name in zip(a_run[1], b_run[1], names):
+        for a, b, name in zip(a_run[1], b_run[1], leaf_paths(states[cpu].params)):
             if (a is None) != (b is None):
                 raise AssertionError(f"{name}: gradient on one run only")
             if a is not None:
@@ -1157,14 +1307,32 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
     tag = f"train cpu check {method}"
     single = getattr(cfg, "use_single_jitter", False)
     for seed in seeds:
-        rng = np.random.default_rng(seed)
-        jitters = [rng.uniform(0, 1, (n, 1 if single else s + 1)).astype(np.float32)
-                   for s in module.sample_counts(cfg)]
-        background = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-        # the temporal TV's index_list rows, for the models that have it
-        tv_rows = ([int(rng.integers(0, g.temporal_dim - 1))
-                    for g in module.tv_grids(cfg)]
-                   if hasattr(module, "tv_grids") else None)
+        if occupancy or not trainers:
+            # an occupancy check applies the card's step: fresh states
+            for d in (dev, cpu):
+                trainers[d], states[d] = make_trainer(method, tree, d, aux)
+        if occupancy:
+            gen = torch.Generator().manual_seed(seed)
+            draws = module.train_draws(cfg, n, gen, cpu)
+            jitters, background = draws["jitters"], draws["background"]
+            tv_rows = [int(r) for r in draws.get("tv_rows", [])] or None
+            grid_draws = module.aux_draws(cfg, step, gen, cpu)
+        else:
+            rng = np.random.default_rng(seed)
+            jitters = [torch.from_numpy(rng.uniform(
+                0, 1, (n, 1 if single else s + 1)).astype(np.float32))
+                for s in module.sample_counts(cfg)]
+            background = torch.from_numpy(
+                rng.uniform(0, 1, (n, 3)).astype(np.float32))
+            # the temporal TV's index_list rows, for the models that have it
+            tv_rows = ([int(rng.integers(0, g.temporal_dim - 1))
+                        for g in module.tv_grids(cfg)]
+                       if hasattr(module, "tv_grids") else None)
+
+        def step_draws(d):
+            return {"jitters": [j.to(d) for j in jitters],
+                    "background": None if background is None else background.to(d)}
+
         bins = []
         out = {}
         runs = [("card", dev, [pdf_bins(record=bins)]), ("cpu", cpu, [])]
@@ -1174,17 +1342,15 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
                       [pdf_bins(replay=bins), one_ulp_directions()])]
         for where, d, patches in runs:
             state = states[d]
-            state.step = 300
+            state.step = step
             t0 = time.perf_counter()
             with contextlib.ExitStack() as stack:
                 for patch in patches:
                     stack.enter_context(patch)
                 loss, ld, _m, grads = trainers[d].loss_and_grads(
                     state, make_batch(seed + 1, n, d),
-                    train_proposal_networks=True,
-                    jitters=[torch.from_numpy(j).to(d) for j in jitters],
-                    background=torch.from_numpy(background).to(d),
-                    tv_rows=tv_rows)
+                    train_proposal_networks=True, tv_rows=tv_rows,
+                    **step_draws(d))
             loss = float(loss)
             sk.raise_if_out_of_range(d)
             out[where] = ({"Train Loss": loss,
@@ -1203,11 +1369,12 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
                             out["cpu, card's bins"]),
             })
         for label, (t, r) in pairs.items():
-            log(f"{tag}, seed {seed} ({n} rays, step 300, proposal "
+            log(f"{tag}, seed {seed} ({n} rays, step {step}, proposal "
                 f"update on), {label}: loss terms |a - b| / |b| max "
                 f"{max(t.values()):.3e} ({max(t, key=t.get)}); gradients "
                 f"|a - b| / |b| in L2, worst: {fmt(r[:3])}; max |a - b| / "
                 f"max |b|, worst: {fmt(sorted(r, key=lambda x: -x[1])[:3])}")
+        card_grads = out["card"][1]
         del out, bins
         # Loss terms: f32 sums in another order.  Gradients: when its inputs
         # move by one ulp, the step moves single elements of the finest
@@ -1229,16 +1396,71 @@ def train_cpu_check(method, tree, dev, seeds, witnesses):
             raise AssertionError(
                 f"card and CPU {method} train steps disagree, seed {seed}: {terms}, "
                 f"gradient {rows[0]}")
+        if occupancy:
+            occupancy_cpu_check(module, cfg, trainers, states, dev, seed,
+                                step_draws, card_grads, grid_draws, tag)
+        del card_grads
         results.append(pairs)
     del trainers, states
     return results
 
 
-def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=()):
+def occupancy_cpu_check(module, cfg, trainers, states, dev, seed, step_draws,
+                        card_grads, grid_draws, tag):
+    """The occupancy half of a train CPU check (train_cpu_check): the
+    forwards' selections on both sides, then the card's step applied and
+    the grid update from its params on both sides, same grid and draws."""
+    from soccernerfs_tpu_torch.core.cameras import generate_rays
+
+    cpu = torch.device("cpu")
+    n = TRAIN_CPU_RAYS
+    step = states[cpu].step
+    picked = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        batch = make_batch(seed + 1, n, d)
+        rays = generate_rays(trainers[d].cameras, batch["cam_idx"], batch["coords"])
+        with torch.no_grad():
+            o = module.get_outputs(cfg, states[d].params, trainers[d].aabb, rays,
+                                   train=True, **step_draws(d),
+                                   **module.schedules(cfg, step, states[d].aux))
+        picked[where] = {"valid": o["valid"].cpu(),
+                         "spacing_starts": o["ray_samples"].spacing_starts.cpu()}
+    differ = int(selection_differs(picked["card"], picked["cpu"]).sum())
+    alive = float(picked["cpu"]["valid"].any(-1).float().mean())
+    trainers[dev].apply_grads(states[dev], [None if g is None else g.to(dev)
+                                            for g in card_grads])
+    grids = {}
+    for where, d, params in (("card", dev, states[dev].params),
+                             ("cpu", cpu, tree_to(states[dev].params, cpu))):
+        t0 = time.perf_counter()
+        grids[where] = module.update_aux(
+            cfg, params, trainers[d].aabb, step, states[d].aux,
+            draws={k: v.to(d) for k, v in grid_draws.items()})["occs"].cpu()
+        torch.cuda.synchronize()
+        log(f"{tag}, seed {seed}: {where} grid update (step {step}, "
+            f"{grid_draws['jitter'].shape[0]} probes) "
+            f"{time.perf_counter() - t0:.3f} s")
+    a, b = grids["card"], grids["cpu"]
+    l2 = float((a - b).norm() / b.norm())
+    mx = float((a - b).abs().max() / b.abs().max())
+    moved = int((b != states[cpu].aux["occs"]).sum())
+    log(f"{tag}, seed {seed}: rays whose samples differ (valid mask or "
+        f"probes) {differ} of {n} (alive {alive:.4f}); grid after the "
+        f"update: |card - cpu| / |cpu| in L2 {l2:.3e}, max |card - cpu| / "
+        f"max |cpu| {mx:.3e}, {moved} cells moved")
+    # a probe on a cell's face may fall either way under the rays' last-bit
+    # differences; the grid's densities pass through the bf16 MLPs
+    if differ > SELECTION_TOL * n or l2 > OCCS_L2_TOL or moved == 0:
+        raise AssertionError(f"card and CPU {tag} disagree: {differ} rays "
+                             f"select differently, grid {l2} in L2")
+
+
+def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
+                 aux=None):
     """A method's render main path, counted: two whole frames through
-    ``render_camera``; then two timed frames and one profiled.  Returns the
-    counted frames' launches and the profiled frame's device time per
-    kernel."""
+    ``render_camera`` (with the model state ``aux``, an occupancy model's
+    grid); then two timed frames and one profiled.  Returns the counted
+    frames' launches and the profiled frame's device time per kernel."""
     from soccernerfs_tpu_torch.configs.method_configs import model_names
     from soccernerfs_tpu_torch.engine.render import render_camera
 
@@ -1247,7 +1469,7 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=()):
 
     def frame(i):
         return render_camera(cfg, params, cams, i, device=dev, aabb=aabb,
-                             model=model_names[method])
+                             model=model_names[method], aux=aux)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1295,40 +1517,59 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=()):
     return launches, in_frame
 
 
-def render_cpu_check(method, tree, params, cams, dev, aabb):
+def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None):
     """One 4096-ray chunk through the model on the card and on the CPU (the
-    kernels' plain versions)."""
+    kernels' plain versions); an occupancy model's on the card's binary
+    grid of ``aux`` on both sides, the rays whose samples differ counted
+    and left out of the comparison."""
     from soccernerfs_tpu_torch.convert import params_from_jax
     from soccernerfs_tpu_torch.core.cameras import generate_rays
 
     module, cfg, _camera_optimizer = method_parts(method)
-    pix = np.linspace(0, H * W - 1, 4096).astype(np.int64)
+    n = 4096
+    pix = np.linspace(0, H * W - 1, n).astype(np.int64)
     coords = np.stack([pix // W, pix % W], -1).astype(np.float32) + 0.5
     cpu = torch.device("cpu")
     params_cpu = params_from_jax(tree, device=cpu)
     if hasattr(module, "prepare_render_params"):
         params_cpu = module.prepare_render_params(cfg, params_cpu)
     # a random background: the same draws on both sides
-    background = (np.random.default_rng(SEED).uniform(0, 1, (4096, 3))
+    background = (np.random.default_rng(SEED).uniform(0, 1, (n, 3))
                   .astype(np.float32)
                   if getattr(cfg, "background_color", None) == "random" else None)
-    outs = {}
+    extra = {} if aux is None else module.eval_kwargs(cfg, aux)
+    outs, picked = {}, {}
     for where, d, p in (("card", dev, params), ("cpu", cpu, params_cpu)):
-        rays = generate_rays(cams.to(d), torch.zeros(4096, dtype=torch.int32,
+        rays = generate_rays(cams.to(d), torch.zeros(n, dtype=torch.int32,
                                                      device=d),
                              torch.from_numpy(coords).to(d))
         with torch.no_grad():
             o = module.get_outputs(
                 cfg, p, aabb.to(d), rays,
+                **{k: v.to(d) for k, v in extra.items()},
                 **({} if background is None
                    else {"background": torch.from_numpy(background).to(d)}))
         outs[where] = {k: o[k].cpu() for k in ("rgb", "accumulation", "depth")}
-    diffs = {k: float((outs["card"][k] - outs["cpu"][k]).abs().max())
+        if "valid" in o:
+            picked[where] = {"valid": o["valid"].cpu(),
+                             "spacing_starts": o["ray_samples"].spacing_starts.cpu()}
+    keep = torch.ones(n, dtype=torch.bool)
+    if picked:
+        keep = ~selection_differs(picked["card"], picked["cpu"])
+        alive = float(picked["cpu"]["valid"].any(-1).float().mean())
+        samples = float(picked["cpu"]["valid"].sum(-1).float().mean())
+        log(f"cpu check {method} ({n} rays): rays whose samples differ (valid "
+            f"mask or probes) {int((~keep).sum())} of {n}; alive "
+            f"{alive:.4f}, {samples:.3f} valid samples per ray")
+        if int((~keep).sum()) > SELECTION_TOL * n:
+            raise AssertionError(f"card and CPU select different samples on "
+                                 f"{int((~keep).sum())} rays of {method}")
+    diffs = {k: float((outs["card"][k] - outs["cpu"][k])[keep].abs().max())
              for k in outs["cpu"]}
     depth_rel = ((outs["card"]["depth"] - outs["cpu"]["depth"]).abs()
-                 / outs["cpu"]["depth"].abs().clamp(min=1e-6))
+                 / outs["cpu"]["depth"].abs().clamp(min=1e-6))[keep]
     depth_off = float((depth_rel > 1e-3).float().mean())
-    log(f"cpu check {method} (4096 rays): max |card - cpu| {diffs}, depth rays "
+    log(f"cpu check {method} ({n} rays): max |card - cpu| {diffs}, depth rays "
         f"off by >1e-3 rel: {depth_off}")
     # rgb/accumulation are continuous in every input: 2e-3 covers f32
     # reduction-order differences through the MLPs and the PDF resampling;
@@ -1336,6 +1577,87 @@ def render_cpu_check(method, tree, params, cams, dev, aabb):
     if diffs["rgb"] > 2e-3 or diffs["accumulation"] > 2e-3 or depth_off > 0.01:
         raise AssertionError(f"card and CPU disagree on {method}: {diffs}, "
                              f"{depth_off}")
+
+
+def occupancy_state(method, params, dev) -> dict:
+    """An occupancy model's grid state at ``params``: an empty grid's
+    all-cells update (``update_aux`` at step 0, its draws from a seeded
+    generator).  Prints its time, first and again (host clock,
+    synchronised), and its occupied share."""
+    module, cfg, _camera_optimizer = method_parts(method)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def update():
+        empty = module.init_aux(cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = module.update_aux(cfg, params, torch.tensor(AABB, device=dev), 0,
+                                empty, gen)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    aux, first_s = update()
+    _, again_s = update()
+    binary = module.eval_kwargs(cfg, aux)["occ_binary"]
+    occs = aux["occs"]
+    log(f"occupancy {method}: one all-cells update of the "
+        f"{cfg.occ.resolution}^3 grid in {first_s:.3f} s (first, with "
+        f"warm-up), {again_s:.4f} s (again); occupied "
+        f"{float(binary.float().mean()):.4f} of "
+        f"{occs.numel()} cells (seeded weights: a fog), occs mean "
+        f"{float(occs.mean()):.6e}, min {float(occs.min()):.6e}, max "
+        f"{float(occs.max()):.6e}")
+    return aux
+
+
+def make_params(method, dev, **seed_args):
+    """(numpy tree, params on the card, params staged for rendering) of a
+    method, the tree from ``seeded_params`` at SEED."""
+    from soccernerfs_tpu_torch.convert import params_from_jax, seeded_params
+    from soccernerfs_tpu_torch.utils.tree import tree_leaves
+
+    module, cfg, _camera_optimizer = method_parts(method)
+    t0 = time.perf_counter()
+    tree = seeded_params(cfg, SEED, **seed_args)
+    params = params_from_jax(tree, device=dev)
+    staged = (module.prepare_render_params(cfg, params)
+              if hasattr(module, "prepare_render_params") else params)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(a.shape)) for a in tree_leaves(tree))
+    log(f"params {method}: {n_params} ({n_params * 4 / 2**20:.1f} MiB f32), "
+        f"made and staged in {time.perf_counter() - t0:.3f} s")
+    return tree, params, staged
+
+
+def occupancy_method_phases(method, dev, cams, aabb, trace_dir, kernels,
+                            launches) -> None:
+    """An occupancy-grid method's phases: the grid state from one all-cells
+    update at the seeded weights; render with it and check a chunk on the
+    CPU; the scatter's launch of a train step from that state; train from
+    it (8192-ray batches, the grid updated every 16 steps) and check a
+    step on the CPU.  Adds to ``kernels`` and ``launches``."""
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    scatter = [k.__name__ for k in sk.KERNELS]
+    _module, cfg, _camera_optimizer = method_parts(method)
+    tree, params, _ = make_params(method, dev, num_train_data=20)
+    aux = occupancy_state(method, params, dev)
+    launches[f"render {method}"], _ = render_phase(
+        method, params, cams, dev, aabb, trace_dir, aux=aux)
+    render_cpu_check(method, tree, params, cams, dev, aabb, aux=aux)
+    del params
+    torch.cuda.empty_cache()
+    kernels["scatter_add_rows"] += scatter_step_phase(method, cfg, tree, dev, aux)
+    launches[f"train {method}"], in_step = train_phase(
+        method, tree, dev, trace_dir, must_launch=scatter, every_step=scatter,
+        aux=aux, window=OCC_TRAIN_WINDOW, sub=16)
+    for update, (times, _counts) in in_step.items():
+        log(f"in-step kernels, {method} ({'update' if update else 'non-update'}"
+            f" step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    scatter_in_step(method, kernels["scatter_add_rows"], in_step)
+    train_cpu_check(method, tree, dev, OCC_CPU_SEEDS, witnesses=False, aux=aux)
+    del tree, aux
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1355,11 +1677,9 @@ def main() -> int:
         print("chip_smoke: soccernerfs_tpu_torch is not beside this script",
               file=sys.stderr)
         return 1
-    from soccernerfs_tpu_torch.convert import params_from_jax, seeded_params
     from soccernerfs_tpu_torch.ops.kernels import build
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
-    from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -1379,23 +1699,9 @@ def main() -> int:
     cams = make_cameras(dev)
     kernels, launches = {}, {}
 
-    def make_params(method, **seed_args):
-        """(numpy tree, params on the card staged for rendering)."""
-        module, cfg, _camera_optimizer = method_parts(method)
-        t0 = time.perf_counter()
-        tree = seeded_params(cfg, SEED, **seed_args)
-        params = params_from_jax(tree, device=dev)
-        staged = (module.prepare_render_params(cfg, params)
-                  if hasattr(module, "prepare_render_params") else params)
-        torch.cuda.synchronize()
-        n_params = sum(int(np.prod(a.shape)) for a in tree_leaves(tree))
-        log(f"params {method}: {n_params} ({n_params * 4 / 2**20:.1f} MiB f32), "
-            f"made and staged in {time.perf_counter() - t0:.3f} s")
-        return tree, params, staged
-
     # ---- K-Planes: plane kernels, render, train
     _module, cfg, _camera_optimizer = method_parts(MODEL)
-    tree, params, staged = make_params(MODEL, time_noise=0.05)
+    tree, params, staged = make_params(MODEL, dev, time_noise=0.05)
     kernels.update(kernel_phase(cfg, staged, dev))
     kernels.update(bwd_kernel_phase(cfg, params, tree, dev))
     forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
@@ -1409,11 +1715,26 @@ def main() -> int:
     render_cpu_check(MODEL, tree, staged, cams, dev, aabb)
     del staged, params
     torch.cuda.empty_cache()
+    fwd_bounds = fwd_step_bounds(tree, dev)
     launches[f"train {MODEL}"], in_step = train_phase(
         MODEL, tree, dev, args.trace, must_launch=[k.__name__ for k in pk.KERNELS])
     for update, (times, _counts) in in_step.items():
         log(f"in-step kernels, {MODEL} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    # the forward kernels against the byte bound of the captured step's
+    # launches: every step runs all of them
+    for name, (step_launches, bound, whole) in fwd_bounds.items():
+        for update, (times, counts) in in_step.items():
+            if counts[name] != step_launches:
+                raise AssertionError(f"{name}: {counts[name]} launches in the "
+                                     f"profiled step, the captured step made "
+                                     f"{step_launches}")
+            log(f"in-step {name} ({'update' if update else 'non-update'} "
+                f"step): {times[name]:.3f} ms device in {counts[name]} "
+                f"launches, bound {bound:.3f} ms (bytes: the touched table "
+                f"rows; {whole:.3f} ms with whole tables), "
+                + (f"{bound / times[name]:.4f} of bound" if times[name]
+                   else "not measured"))
     # the backward kernels against the byte bound of the captured step's
     # launches: an update step launches all of them, a non-update step
     # the unpacked ones only
@@ -1437,7 +1758,7 @@ def main() -> int:
     # ---- nerfacto: the scatter kernel, render, train (camera optimizer on)
     _module, ncfg, _camera_optimizer = method_parts(NERFACTO)
     # an appearance embedding per training camera: the ring's 20
-    tree, params, _ = make_params(NERFACTO, num_train_data=20)
+    tree, params, _ = make_params(NERFACTO, dev, num_train_data=20)
     kernels.update(scatter_kernel_phase(ncfg, tree, dev))
     launches[f"render {NERFACTO}"], _ = render_phase(
         NERFACTO, params, cams, dev, aabb, args.trace)
@@ -1457,7 +1778,7 @@ def main() -> int:
     # ---- nerfplayer-nerfacto: temporal hash grids, render, train (camera
     # optimizer off, as registered); the scatter's width-1 launches
     _module, pcfg, _camera_optimizer = method_parts(NERFPLAYER)
-    tree, params, _ = make_params(NERFPLAYER, num_train_data=20)
+    tree, params, _ = make_params(NERFPLAYER, dev, num_train_data=20)
     launches[f"render {NERFPLAYER}"], _ = render_phase(
         NERFPLAYER, params, cams, dev, aabb, args.trace)
     render_cpu_check(NERFPLAYER, tree, params, cams, dev, aabb)
@@ -1472,6 +1793,11 @@ def main() -> int:
     scatter_in_step(NERFPLAYER, kernels["scatter_add_rows"], in_step)
     train_cpu_check(NERFPLAYER, tree, dev, NERFPLAYER_CPU_SEEDS, witnesses=False)
     del tree
+
+    # ---- the occupancy-grid methods
+    for method in (INGP, NPNGP):
+        occupancy_method_phases(method, dev, cams, aabb, args.trace, kernels,
+                                launches)
 
     pallas = "soccernerfs_tpu/ops/pallas/plane_kernels.py"
     replaces = {

@@ -10,9 +10,11 @@ from typing import Any, Dict
 from soccernerfs_tpu_torch.core.camera_optimizer import CameraOptimizerConfig
 from soccernerfs_tpu_torch.engine.optimizers import AdamOptimizerConfig
 from soccernerfs_tpu_torch.engine.schedulers import CosineDecaySchedulerConfig
+from soccernerfs_tpu_torch.models import instant_ngp as ingp_model
 from soccernerfs_tpu_torch.models import kplanes as kplanes_model
 from soccernerfs_tpu_torch.models import nerfacto as nerfacto_model
 from soccernerfs_tpu_torch.models import nerfplayer_nerfacto as npn_model
+from soccernerfs_tpu_torch.models import nerfplayer_ngp as npngp_model
 
 # K-Planes loss coefficients of the fork's methods
 _KPLANES_LOSS_COEF = (
@@ -66,11 +68,39 @@ model_configs: Dict[str, Any] = {
         temporal_dim=64,
         temporal_tv_weight=1.0,
     ),
+    # the occupancy-grid methods: upstream instant-NGP (static zline grid of
+    # 16 levels x 2 to 2048 at 2^19 rows, unbounded-sphere contraction, 24
+    # samples of 256 probes over a 128^3 grid, a random background) ...
+    "instant-ngp": ingp_model.Config(eval_num_rays_per_chunk=8192),
+    # ... the fork's bounded version (the scene box's normalisation, 48
+    # samples at a 0.001 step, a black background) ...
+    "instant-ngp-bounded": ingp_model.Config(
+        eval_num_rays_per_chunk=8192,
+        contraction_type="aabb",
+        render_step_size=0.001,
+        max_num_samples_per_ray=48,
+        near_plane=0.01,
+        background_color="black",
+    ),
+    # ... and NeRFPlayer on the NGP backbone (a temporal xor grid of 16
+    # levels x (2 + 64 temporal channels) to 2048 at 2^17 rows,
+    # view-independent, a random train and a white eval background)
+    "nerfplayer-ngp": npngp_model.Config(
+        eval_num_rays_per_chunk=8192,
+        contraction_type="aabb",
+        render_step_size=0.001,
+        max_num_samples_per_ray=48,
+        near_plane=0.01,
+        temporal_tv_weight=0.05,
+    ),
 }
 
 # method -> the model module's name in models/__init__.py
 model_names: Dict[str, str] = {"k-planes": "kplanes", "nerfacto": "nerfacto",
-                               "nerfplayer-nerfacto": "nerfplayer_nerfacto"}
+                               "nerfplayer-nerfacto": "nerfplayer_nerfacto",
+                               "instant-ngp": "instant_ngp",
+                               "instant-ngp-bounded": "instant_ngp",
+                               "nerfplayer-ngp": "nerfplayer_ngp"}
 
 # {group: {"optimizer": ..., "scheduler": ...}} per method, the groups being
 # the top-level keys of the params
@@ -87,6 +117,8 @@ _NERFPLAYER_GROUP = {
         warm_up_end=512, max_steps=30000, learning_rate_alpha=0
     ),
 }
+_NGP_GROUP = {"optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+              "scheduler": None}
 optimizer_configs: Dict[str, Dict[str, dict]] = {
     "k-planes": {"proposal_networks": _KPLANES_GROUP, "fields": _KPLANES_GROUP},
     "nerfacto": {
@@ -105,13 +137,21 @@ optimizer_configs: Dict[str, Dict[str, dict]] = {
     },
     "nerfplayer-nerfacto": {"proposal_networks": _NERFPLAYER_GROUP,
                             "fields": _NERFPLAYER_GROUP},
+    "instant-ngp": {"fields": _NGP_GROUP},
+    "instant-ngp-bounded": {"fields": _NGP_GROUP},
+    "nerfplayer-ngp": {"fields": {
+        "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12), "scheduler": None}},
 }
 
 camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
     "k-planes": CameraOptimizerConfig(mode="off"),
     "nerfacto": CameraOptimizerConfig(mode="SO3xR3"),
     "nerfplayer-nerfacto": CameraOptimizerConfig(mode="off"),
+    "instant-ngp": CameraOptimizerConfig(mode="off"),
+    "instant-ngp-bounded": CameraOptimizerConfig(mode="off"),
+    "nerfplayer-ngp": CameraOptimizerConfig(mode="off"),
 }
 
 train_num_rays_per_batch: Dict[str, int] = {
-    "k-planes": 4096, "nerfacto": 4096, "nerfplayer-nerfacto": 4096}
+    "k-planes": 4096, "nerfacto": 4096, "nerfplayer-nerfacto": 4096,
+    "instant-ngp": 8192, "instant-ngp-bounded": 8192, "nerfplayer-ngp": 8192}

@@ -1,12 +1,14 @@
 """Parameters between the JAX package and the port.
 
 ``params_from_jax`` takes the parameter pytree of a JAX model's ``init``
-(``models/kplanes``, ``models/nerfacto``, ``models/nerfplayer_nerfacto``;
-with the trainer's ``camera_opt``
-group or without), mapped to numpy arrays (``jax.tree_util.tree_map(
-np.asarray, params)``), and returns the port's params: the same nested
-dicts and lists, with torch tensors on a device.  Both packages then
-compute the same function.
+(``models/kplanes``, ``models/nerfacto``, ``models/nerfplayer_nerfacto``,
+``models/instant_ngp``, ``models/nerfplayer_ngp``; with the trainer's
+``camera_opt`` group or without), mapped to numpy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``), and returns the port's
+params: the same nested dicts and lists, with torch tensors on a device.
+Both packages then compute the same function.  ``aux_from_jax`` does the
+same for a model's non-trainable state (the occupancy models' ``{"occs":
+[R^3]}``).
 
 ``seeded_params`` makes such a numpy tree without JAX, from a numpy seed
 (for runs on machines that have no JAX).
@@ -18,10 +20,18 @@ import math
 import numpy as np
 import torch
 
+from soccernerfs_tpu_torch.fields import instant_ngp as ingp_field
 from soccernerfs_tpu_torch.fields import kplanes as kplanes_field
 from soccernerfs_tpu_torch.fields import nerfacto as nerfacto_field
 from soccernerfs_tpu_torch.fields import nerfplayer_nerfacto as npn_field
-from soccernerfs_tpu_torch.models import kplanes, nerfacto, nerfplayer_nerfacto
+from soccernerfs_tpu_torch.fields import nerfplayer_ngp as npngp_field
+from soccernerfs_tpu_torch.models import (
+    instant_ngp,
+    kplanes,
+    nerfacto,
+    nerfplayer_nerfacto,
+    nerfplayer_ngp,
+)
 from soccernerfs_tpu_torch.ops.hash_grid import level_layout
 from soccernerfs_tpu_torch.utils.device import resolve_device
 
@@ -43,6 +53,13 @@ def params_from_jax(np_tree, device=None):
     return conv(np_tree)
 
 
+def aux_from_jax(np_aux: dict, device=None) -> dict:
+    """A model's non-trainable state (the JAX ``TrainState.aux``, e.g. the
+    occupancy models' ``{"occs": [R^3]}``) from numpy arrays, on ``device``
+    (as ``params_from_jax``)."""
+    return params_from_jax(np_aux, device)
+
+
 def _seeded_mlp(rng, in_dim, hidden, layers, out_dim) -> dict:
     """Weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), as the JAX
     init draws them."""
@@ -60,15 +77,17 @@ def _seeded_mlp(rng, in_dim, hidden, layers, out_dim) -> dict:
 def seeded_params(cfg, seed: int, num_train_data: int = 0,
                   time_noise: float = 0.0, grid_std: float = 1e-4) -> dict:
     """A numpy param tree in the layout of the JAX package's
-    ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto or
-    nerfplayer-nerfacto config, drawn with numpy; MLPs as ``_seeded_mlp``,
-    appearance embeddings N(0, 1).
+    ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto,
+    nerfplayer-nerfacto, instant-NGP or NeRFPlayer-NGP config, drawn with
+    numpy; MLPs as ``_seeded_mlp``, appearance embeddings N(0, 1).
 
     K-Planes: space planes U(0.1, 0.5) (proposal planes U(0.1, 0.15)), time
-    planes 1 + U(-time_noise, time_noise).  Nerfacto, nerfplayer-nerfacto:
-    hash tables U(-grid_std, grid_std) (the JAX init's is 1e-4).
+    planes 1 + U(-time_noise, time_noise).  The hash-grid models: hash
+    tables U(-grid_std, grid_std) (the JAX init's is 1e-4).
     """
     rng = np.random.default_rng(seed)
+    if isinstance(cfg, (instant_ngp.Config, nerfplayer_ngp.Config)):
+        return _seeded_ngp(cfg, rng, num_train_data, grid_std)
     if isinstance(cfg, nerfacto.Config):
         return _seeded_nerfacto(cfg, rng, num_train_data, grid_std)
     if isinstance(cfg, nerfplayer_nerfacto.Config):
@@ -156,3 +175,19 @@ def _seeded_nerfplayer_nerfacto(cfg: nerfplayer_nerfacto.Config, rng,
                 "mlp": _seeded_mlp(rng, *npn_field.proposal_mlp_dims(dcfg)),
             }
     return {"fields": fields, "proposal_networks": props}
+
+
+def _seeded_ngp(cfg, rng, num_train_data: int, grid_std: float) -> dict:
+    """instant-NGP's and NeRFPlayer-NGP's tree: {"fields": {"grid",
+    "mlp_base", ["appearance_embedding"], "mlp_head"}}."""
+    fcfg = cfg.field_config(num_train_data)
+    field = ingp_field if isinstance(cfg, instant_ngp.Config) else npngp_field
+    dims = field.field_mlp_dims(fcfg)
+    fields = {"grid": _seeded_grid(fcfg.grid, rng, grid_std),
+              "mlp_base": _seeded_mlp(rng, *dims["mlp_base"])}
+    if fcfg.use_appearance_embedding:
+        fields["appearance_embedding"] = rng.standard_normal(
+            (max(fcfg.num_images, 1), fcfg.appearance_embedding_dim)
+        ).astype(np.float32)
+    fields["mlp_head"] = _seeded_mlp(rng, *dims["mlp_head"])
+    return {"fields": fields}

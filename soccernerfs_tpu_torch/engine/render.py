@@ -1,7 +1,8 @@
 """Whole-image rendering (counterpart of soccernerfs_tpu's
 ``Trainer.render_camera``): fixed-size chunks with a zero-padded tail; a
 model that stages tables for rendering (K-Planes' bf16 plane tables) does
-so once per parameter snapshot."""
+so once per parameter snapshot, and a model with non-trainable state (the
+occupancy grid) renders with its ``eval_kwargs``, made once per image."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -26,6 +27,7 @@ def render_camera(
     *,
     aabb,
     model: str = "kplanes",
+    aux: Optional[dict] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one camera's image.
 
@@ -43,6 +45,10 @@ def render_camera(
             did not ask for another device.
         aabb: [2, 3] scene box.
         model: the model's registry name (models/__init__.py).
+        aux: the model's non-trainable state on ``device`` (``TrainState.aux``,
+            e.g. ``{"occs": ...}``); every chunk's forward takes the model's
+            ``eval_kwargs`` of it.  None: the forward's defaults (an
+            occupancy model then treats every cell as occupied).
     Returns:
         {"rgb": [H, W, 3], "depth": [H, W], "accumulation": [H, W]} on
         ``device``.
@@ -65,12 +71,17 @@ def render_camera(
 
     if hasattr(module, "prepare_render_params"):
         params = module.prepare_render_params(cfg, params)
+    extra = {}
+    if aux is not None:
+        if not hasattr(module, "eval_kwargs"):
+            raise ValueError(f"model {model!r} takes no state (aux)")
+        extra = module.eval_kwargs(cfg, aux)
     outs = {k: [] for k in OUTPUT_KEYS}
     with torch.no_grad():
         for i in range(0, n_pad, chunk):
             rays = generate_rays(cameras, cam_idx[i:i + chunk],
                                  coords[i:i + chunk])
-            o = module.get_outputs(cfg, params, aabb, rays, train=False)
+            o = module.get_outputs(cfg, params, aabb, rays, train=False, **extra)
             for k in OUTPUT_KEYS:
                 outs[k].append(o[k])
     return {

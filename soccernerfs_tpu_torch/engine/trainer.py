@@ -4,11 +4,13 @@ soccernerfs_tpu's ``Trainer._build_step_fns`` jits, without a mesh).
 ``TrainStep`` holds what does not change between steps (the model and its
 config, cameras, scene box, per-group optimizer configs, the camera
 optimizer's config); ``TrainState`` holds what does (params, the optimizer
-state, the step and the host counter of the proposal-update schedule).
+state, the step, the host counter of the proposal-update schedule, and the
+model's non-trainable state, such as the occupancy grid).
 ``train_iteration`` decides the proposal update on the host, generates the
 batch's rays (through the camera optimizer's pose corrections when it is
-on), runs the forward, the losses and ``backward``, and applies one Adam
-update per param group.
+on), runs the forward, the losses and ``backward``, applies one Adam
+update per param group, then updates the model's state (``update_aux``)
+from the updated params.
 The batch comes from the caller in the layout of the JAX trainer's
 ``_device_batch``: ``cam_idx`` [N] int32, ``coords`` [N, 2] (row, col)
 pixel coordinates + 0.5, ``image`` [N, 3].
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import functools
 import operator
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -45,6 +47,7 @@ class TrainState:
     opt_state: Dict[str, AdamState]   # per top-level param group
     step: int = 0
     steps_since_update: int = 0       # host counter of host_static_kwargs
+    aux: dict = field(default_factory=dict)  # the model's non-trainable state
 
 
 class TrainStep:
@@ -82,11 +85,13 @@ class TrainStep:
             for name, g in optimizer_configs.items()
         }
 
-    def init_state(self, params: dict) -> TrainState:
+    def init_state(self, params: dict, aux: Optional[dict] = None) -> TrainState:
         """A state at step 0 over ``params`` (the model's param tree on
         this device; its leaves are made to require grad, in place).  With
         the camera optimizer on, a "camera_opt" group of zero adjustments
-        joins the params unless they bring one."""
+        joins the params unless they bring one.  The model's state is
+        ``aux`` when given, else its ``init_aux`` (none for a model without
+        one)."""
         if self.camera_optimizer.mode != "off" and "camera_opt" not in params:
             params["camera_opt"] = init_camera_optimizer(
                 self.camera_optimizer, self.cameras.num_cameras,
@@ -99,7 +104,10 @@ class TrainStep:
                 raise ValueError(f"params are on {leaf.device}, training on "
                                  f"{self.device}")
             leaf.requires_grad_(True)
-        return TrainState(params=params, opt_state={
+        if aux is None:
+            aux = (self.model.init_aux(self.cfg, self.device)
+                   if hasattr(self.model, "init_aux") else {})
+        return TrainState(params=params, aux=aux, opt_state={
             name: adam_init(self.optimizers[name][0], tree_leaves(group))
             for name, group in params.items()
         })
@@ -117,7 +125,9 @@ class TrainStep:
     ):
         """Loss, loss dict, metrics and the gradient of every leaf of
         ``state.params`` (``tree_leaves`` order; None for a leaf the loss
-        does not reach) at ``state.step``, before any update.  The draws
+        does not reach) at ``state.step``, before any update; the forward
+        also takes the model's ``schedules`` of ``state.aux`` (an
+        occupancy model's binarized grid).  The draws
         (the model's ``train_draws``: jitters, a random background, the
         temporal TV's rows) are ``jitters``/``background``/``tv_rows`` when
         any is given (those the model takes), else drawn from
@@ -139,6 +149,8 @@ class TrainStep:
             anneal=model.proposal_anneal(cfg, state.step),
             train_proposal_networks=train_proposal_networks,
             jitters=draws["jitters"], background=draws["background"],
+            **(model.schedules(cfg, state.step, state.aux)
+               if hasattr(model, "schedules") else {}),
         )
         metrics = model.get_metrics_dict(cfg, outputs, batch)
         loss_dict = model.get_loss_dict(
@@ -172,6 +184,11 @@ class TrainStep:
         ``generator``.  Returns {"Train Loss", **loss_dict, **metrics} as
         0-d tensors, still on the device: the step never waits for it.
 
+        A model with ``update_aux`` then updates ``state.aux`` from the
+        updated params at the step's own (pre-increment) number, its draws
+        from ``generator`` too; the host decides whether the step updates
+        and which update runs.
+
         On CUDA, ``scatter_add_rows`` (the hash grids' table gradient)
         checks its row indices without a host sync: an update outside the
         table is dropped and flagged on the device.  A caller that reads
@@ -184,7 +201,11 @@ class TrainStep:
         flag = self.model.host_static_kwargs(
             self.cfg, state.step, host)["train_proposal_networks"]
         state.steps_since_update = host["steps_since_update"]
+        step = state.step
         loss, loss_dict, metrics, grads = self.loss_and_grads(
             state, batch, train_proposal_networks=flag, generator=generator)
         self.apply_grads(state, grads)
+        if hasattr(self.model, "update_aux"):
+            state.aux = self.model.update_aux(self.cfg, state.params, self.aabb,
+                                              step, state.aux, generator)
         return {"Train Loss": loss, **loss_dict, **metrics}

@@ -1,7 +1,9 @@
 """Model registry: each model module exposes ``Config`` (a frozen
 dataclass), ``init``, ``get_outputs``, ``get_metrics_dict``,
 ``get_loss_dict``, ``proposal_anneal``, ``host_static_kwargs`` and
-``train_draws``, and optionally ``prepare_render_params``."""
+``train_draws``, and optionally ``prepare_render_params`` (staged render
+tables) and the non-trainable state's ``init_aux``, ``schedules``,
+``eval_kwargs`` and ``update_aux`` (the occupancy grid)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +12,8 @@ _MODEL_MODULES = {
     "kplanes": "soccernerfs_tpu_torch.models.kplanes",
     "nerfacto": "soccernerfs_tpu_torch.models.nerfacto",
     "nerfplayer_nerfacto": "soccernerfs_tpu_torch.models.nerfplayer_nerfacto",
+    "instant_ngp": "soccernerfs_tpu_torch.models.instant_ngp",
+    "nerfplayer_ngp": "soccernerfs_tpu_torch.models.nerfplayer_ngp",
 }
 
 

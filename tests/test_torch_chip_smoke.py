@@ -2,10 +2,11 @@
 
 The script needs a card; here its CUDA calls are stubbed, the kernel
 wrappers are made to count their plain versions as launches, and small
-K-Planes, nerfacto and nerfplayer-nerfacto configs stand in for the full
-widths, so every phase (the plane and scatter kernel checks, and per
-method two counted frames, the render CPU comparison, the counted train
-steps, the train CPU comparison; the JSON lines) runs in seconds.
+K-Planes, nerfacto, nerfplayer-nerfacto, instant-ngp-bounded and
+nerfplayer-ngp configs stand in for the full widths, so every phase (the
+plane and scatter kernel checks, and per method two counted frames, the
+render CPU comparison, the counted train steps, the train CPU comparison;
+the JSON lines) runs in seconds.
 Also checks that, without CUDA, the script exits non-zero and prints no
 result, both from the repository and alone in a directory.
 """
@@ -97,12 +98,24 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         num_proposal_samples_per_ray=(16, 8), num_nerf_samples_per_ray=8,
         eval_num_rays_per_chunk=512,
     )
+    occ = dict(grid_resolution=16, num_probes_per_ray=64,
+               max_num_samples_per_ray=8, eval_num_rays_per_chunk=512)
+    small_ingp = dataclasses.replace(
+        mc.model_configs["instant-ngp-bounded"], log2_hashmap_size=12,
+        max_res=64, **occ)
+    small_npngp = dataclasses.replace(
+        mc.model_configs["nerfplayer-ngp"], num_levels=3, temporal_dim=8,
+        log2_hashmap_size=12, max_res=64, **occ)
     for small_name, method, small_cfg in (("small", "k-planes", small),
                                           ("small-nerfacto", "nerfacto",
                                            small_nerfacto),
                                           ("small-nerfplayer",
                                            "nerfplayer-nerfacto",
-                                           small_nerfplayer)):
+                                           small_nerfplayer),
+                                          ("small-ingp", "instant-ngp-bounded",
+                                           small_ingp),
+                                          ("small-npngp", "nerfplayer-ngp",
+                                           small_npngp)):
         monkeypatch.setitem(mc.model_configs, small_name, small_cfg)
         for table in (mc.optimizer_configs, mc.model_names,
                       mc.camera_optimizer_configs):
@@ -111,6 +124,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "NERFPLAYER", "small-nerfplayer")
+    monkeypatch.setattr(cs, "INGP", "small-ingp")
+    monkeypatch.setattr(cs, "NPNGP", "small-npngp")
     # every range check the script makes, by the function that makes it
     checks = []
     check = sk.raise_if_out_of_range
@@ -119,6 +134,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                             sys._getframe(1).f_code.co_name), check(device)))
     monkeypatch.setattr(cs, "TRAIN_CPU_RAYS", 64)
     monkeypatch.setattr(cs, "TRAIN_WINDOW", 12)
+    monkeypatch.setattr(cs, "OCC_TRAIN_WINDOW", 16)
     monkeypatch.setattr(cs, "DEVICE", "cpu")
     monkeypatch.setattr(cs, "H", 24)
     monkeypatch.setattr(cs, "W", 40)
@@ -193,6 +209,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert [line.split(" (")[0] for line in in_step] == [
         "in-step bilerp_bwd_unpacked"] * 2 + ["in-step bilerp_bwd_packed"]
     assert all("of bound" in line for line in in_step)
+    # the forward kernels against the captured step's byte bound, in both
+    # kinds of step, with as many launches
+    in_step = [line for line in lines if line.startswith("in-step bilerp_fwd_")]
+    assert [line.split(" (")[0] for line in in_step] == [
+        "in-step bilerp_fwd_unpacked"] * 2 + ["in-step bilerp_fwd_packed"] * 2
+    assert all("of bound" in line and "launches, bound" in line
+               for line in in_step)
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "stub", "count": 1}}
     assert lines[-2] == "stub card, 0 W"
@@ -217,32 +240,37 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
         assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
     # scatter_add_rows: random cases, then the 3 launches of one nerfacto
-    # and of one nerfplayer-nerfacto update step captured at the wrapper
-    # (the temporal grids' at width 1 over their flattened tables), each
-    # with its L2 reductions; the kernels line sums the random cases only
+    # and of one nerfplayer-nerfacto update step and the one launch of an
+    # instant-ngp-bounded and of a nerfplayer-ngp step captured at the
+    # wrapper (the temporal grids' at width 1 over their flattened
+    # tables), each with its L2 reductions; the kernels line sums the
+    # random cases only
     scatter = [json.loads(line.split(" ", 2)[2]) for line in lines
                if line.startswith("kernel scatter_add_rows ")]
     ray = [r for r in scatter if r["order"] == "ray"]
     random = [r for r in scatter if r["order"] == "random"]
-    assert len(random) == 8 and len(ray) == 6
-    for method, c in (("small-nerfacto", 2), ("small-nerfplayer", 1)):
+    assert len(random) == 8 and len(ray) == 8
+    for method, c, grids in (
+            ("small-nerfacto", 2, ["main", "proposal_0", "proposal_1"]),
+            ("small-nerfplayer", 1, ["main", "proposal_0", "proposal_1"]),
+            ("small-ingp", 2, ["main"]), ("small-npngp", 1, ["main"])):
         mine = [r for r in ray if r["method"] == method]
-        assert sorted(r["grid"] for r in mine) == ["main", "proposal_0",
-                                                   "proposal_1"]
+        assert sorted(r["grid"] for r in mine) == grids
         assert all(f", c {c}, " in r["case"] for r in mine)
     assert all(r["l2_reductions"] > 0 and len(r["ms_passes"]) == cs.BWD_PASSES
                and r["ms"] == statistics.median(r["ms_passes"]) for r in scatter)
     assert all(r["updates_per_reduction"] >= 1.0 for r in ray)
     in_step = [line for line in lines if line.startswith("in-step scatter_add_rows")]
+    methods = ["small-nerfacto", "small-nerfplayer", "small-ingp", "small-npngp"]
     assert [line.split(" (")[1].split(":")[0] for line in in_step] == [
-        "update step) small-nerfacto", "non-update step) small-nerfacto",
-        "update step) small-nerfplayer", "non-update step) small-nerfplayer"]
+        f"{kind} step) {method}" for method in methods
+        for kind in ("update", "non-update")]
     assert all("of bound" in line for line in in_step)
-    assert all("in 3 launches" in line for line in in_step[::2])
-    assert all("in 1 launches" in line for line in in_step[1::2])
-    # the third method renders and trains, and the deferred range check runs
+    assert all("in 3 launches" in line for line in in_step[:4:2])
+    assert all("in 1 launches" in line for line in in_step[1:4:2] + in_step[4:])
+    # the later methods render and train, and the deferred range check runs
     # where each train phase and CPU check reads a step's loss
-    for method in ("small-nerfplayer",):
+    for method in methods[1:]:
         assert any(line.startswith(f"render {method}: steady") for line in lines)
         assert any(line.startswith(f"train {method}: window steps")
                    for line in lines)
@@ -251,17 +279,35 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     main_path = json.loads(next(line for line in lines if line.startswith(
         "main-path launches:")).split(":", 1)[1])
     # at least one launch per counted step: step 0, steps 1-11, the window
-    assert (main_path["train small-nerfplayer"]["scatter_add_rows"]
-            >= 1 + 11 + cs.TRAIN_WINDOW)
-    assert main_path["render small-nerfplayer"]["scatter_add_rows"] == 0
+    for method, window in (("small-nerfplayer", cs.TRAIN_WINDOW),
+                           ("small-ingp", cs.OCC_TRAIN_WINDOW),
+                           ("small-npngp", cs.OCC_TRAIN_WINDOW)):
+        assert (main_path[f"train {method}"]["scatter_add_rows"]
+                >= 1 + 11 + window)
+        assert main_path[f"render {method}"]["scatter_add_rows"] == 0
+    # the occupancy methods: the grid state's occupied share, the rays whose
+    # samples differ between card and CPU (none between CPU and CPU), the
+    # grid's update on both sides, and the grid moving over the window
+    for method in methods[2:]:
+        assert any(line.startswith(f"occupancy {method}: one all-cells update")
+                   for line in lines)
+        assert any(line.startswith(f"cpu check {method} (4096 rays): rays "
+                                   f"whose samples differ (valid mask or "
+                                   f"probes) 0 of 4096") for line in lines)
+        assert any(line.startswith(f"train cpu check {method}, seed 2: rays "
+                                   f"whose samples differ") and " 0 of 64 " in line
+                   and "in L2 0.000e+00" in line for line in lines)
+        assert any(line.startswith(f"train {method}: grid after the window")
+                   for line in lines)
     # per method's train phase: step 0, the split step and the 2 profiled
-    # steps, and every one of its 11 + TRAIN_WINDOW counted steps; per seed
-    # of the CPU checks, each step (K-Planes: 4 with its witnesses, else 2)
-    assert checks.count("train_phase") == 3 * 4
-    assert checks.count("run") == 3 * (11 + cs.TRAIN_WINDOW)
+    # steps, and every one of its 11 + window counted steps; per seed of the
+    # CPU checks, each step (K-Planes: 4 with its witnesses, else 2)
+    assert checks.count("train_phase") == 5 * 4
+    assert checks.count("run") == (3 * (11 + cs.TRAIN_WINDOW)
+                                   + 2 * (11 + cs.OCC_TRAIN_WINDOW))
     assert checks.count("train_cpu_check") == (
         4 * len(cs.TRAIN_CPU_SEEDS) + 2 * len(cs.NERFACTO_CPU_SEEDS)
-        + 2 * len(cs.NERFPLAYER_CPU_SEEDS))
+        + 2 * len(cs.NERFPLAYER_CPU_SEEDS) + 2 * 2 * len(cs.OCC_CPU_SEEDS))
     k = kernels[4]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))

@@ -440,7 +440,7 @@ def test_unported_branches_are_refused():
     with pytest.raises(NotImplementedError):
         tn.Config(background_color="random")
     with pytest.raises(KeyError):
-        get_model("instant_ngp")
+        get_model("nerfplayer")
     assert get_model("nerfacto") is tn
 
 
