@@ -13,8 +13,10 @@ from soccernerfs_tpu_torch.engine.schedulers import CosineDecaySchedulerConfig
 from soccernerfs_tpu_torch.models import instant_ngp as ingp_model
 from soccernerfs_tpu_torch.models import kplanes as kplanes_model
 from soccernerfs_tpu_torch.models import nerfacto as nerfacto_model
+from soccernerfs_tpu_torch.models import nerfplayer as np_model
 from soccernerfs_tpu_torch.models import nerfplayer_nerfacto as npn_model
 from soccernerfs_tpu_torch.models import nerfplayer_ngp as npngp_model
+from soccernerfs_tpu_torch.models import nerfplayer_ngp_complete as npngpc_model
 
 # K-Planes loss coefficients of the fork's methods
 _KPLANES_LOSS_COEF = (
@@ -93,6 +95,32 @@ model_configs: Dict[str, Any] = {
         near_plane=0.01,
         temporal_tv_weight=0.05,
     ),
+    # the full NeRFPlayer, a static / deforming / new decomposition: a
+    # deformation MLP, a static zline grid read at the point and at the
+    # deformed point, temporal newness and decomposition grids (16 levels x
+    # (2 + 64 temporal channels) to 1024 at 2^18 rows), view-independent,
+    # nerfplayer-nerfacto's proposal grids and the scene box as collider
+    "nerfplayer": np_model.Config(
+        disable_scene_contraction=True,
+        eval_num_rays_per_chunk=1 << 15,
+        log2_hashmap_size=18,
+        temporal_dim=64,
+        depth_weight=0.0,
+        depth_sigma=0.01,
+        prob_reg_loss_mult=0.1,
+        distortion_loss_mult=0.001,
+        temporal_tv_weight=1.0,
+    ),
+    # ... and the same field (at 2^17 rows) behind nerfplayer-ngp's
+    # occupancy-grid sampler
+    "nerfplayer-ngp-complete": npngpc_model.Config(
+        eval_num_rays_per_chunk=8192,
+        contraction_type="aabb",
+        render_step_size=0.001,
+        max_num_samples_per_ray=48,
+        near_plane=0.01,
+        temporal_tv_weight=0.05,
+    ),
 }
 
 # method -> the model module's name in models/__init__.py
@@ -100,7 +128,9 @@ model_names: Dict[str, str] = {"k-planes": "kplanes", "nerfacto": "nerfacto",
                                "nerfplayer-nerfacto": "nerfplayer_nerfacto",
                                "instant-ngp": "instant_ngp",
                                "instant-ngp-bounded": "instant_ngp",
-                               "nerfplayer-ngp": "nerfplayer_ngp"}
+                               "nerfplayer-ngp": "nerfplayer_ngp",
+                               "nerfplayer": "nerfplayer",
+                               "nerfplayer-ngp-complete": "nerfplayer_ngp_complete"}
 
 # {group: {"optimizer": ..., "scheduler": ...}} per method, the groups being
 # the top-level keys of the params
@@ -113,6 +143,12 @@ _KPLANES_GROUP = {
 }
 _NERFPLAYER_GROUP = {
     "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12),
+    "scheduler": CosineDecaySchedulerConfig(
+        warm_up_end=512, max_steps=30000, learning_rate_alpha=0
+    ),
+}
+_NERFPLAYER_FULL_GROUP = {
+    "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-6),
     "scheduler": CosineDecaySchedulerConfig(
         warm_up_end=512, max_steps=30000, learning_rate_alpha=0
     ),
@@ -141,6 +177,10 @@ optimizer_configs: Dict[str, Dict[str, dict]] = {
     "instant-ngp-bounded": {"fields": _NGP_GROUP},
     "nerfplayer-ngp": {"fields": {
         "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12), "scheduler": None}},
+    "nerfplayer": {"proposal_networks": _NERFPLAYER_FULL_GROUP,
+                   "fields": _NERFPLAYER_FULL_GROUP},
+    "nerfplayer-ngp-complete": {"fields": {
+        "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12), "scheduler": None}},
 }
 
 camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
@@ -150,8 +190,11 @@ camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
     "instant-ngp": CameraOptimizerConfig(mode="off"),
     "instant-ngp-bounded": CameraOptimizerConfig(mode="off"),
     "nerfplayer-ngp": CameraOptimizerConfig(mode="off"),
+    "nerfplayer": CameraOptimizerConfig(mode="off"),
+    "nerfplayer-ngp-complete": CameraOptimizerConfig(mode="off"),
 }
 
 train_num_rays_per_batch: Dict[str, int] = {
     "k-planes": 4096, "nerfacto": 4096, "nerfplayer-nerfacto": 4096,
-    "instant-ngp": 8192, "instant-ngp-bounded": 8192, "nerfplayer-ngp": 8192}
+    "instant-ngp": 8192, "instant-ngp-bounded": 8192, "nerfplayer-ngp": 8192,
+    "nerfplayer": 4096, "nerfplayer-ngp-complete": 8192}

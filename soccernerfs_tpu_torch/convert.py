@@ -2,7 +2,8 @@
 
 ``params_from_jax`` takes the parameter pytree of a JAX model's ``init``
 (``models/kplanes``, ``models/nerfacto``, ``models/nerfplayer_nerfacto``,
-``models/instant_ngp``, ``models/nerfplayer_ngp``; with the trainer's
+``models/instant_ngp``, ``models/nerfplayer_ngp``, ``models/nerfplayer``,
+``models/nerfplayer_ngp_complete``; with the trainer's
 ``camera_opt`` group or without), mapped to numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``), and returns the port's
 params: the same nested dicts and lists, with torch tensors on a device.
@@ -23,14 +24,17 @@ import torch
 from soccernerfs_tpu_torch.fields import instant_ngp as ingp_field
 from soccernerfs_tpu_torch.fields import kplanes as kplanes_field
 from soccernerfs_tpu_torch.fields import nerfacto as nerfacto_field
+from soccernerfs_tpu_torch.fields import nerfplayer as np_field
 from soccernerfs_tpu_torch.fields import nerfplayer_nerfacto as npn_field
 from soccernerfs_tpu_torch.fields import nerfplayer_ngp as npngp_field
 from soccernerfs_tpu_torch.models import (
     instant_ngp,
     kplanes,
     nerfacto,
+    nerfplayer,
     nerfplayer_nerfacto,
     nerfplayer_ngp,
+    nerfplayer_ngp_complete,
 )
 from soccernerfs_tpu_torch.ops.hash_grid import level_layout
 from soccernerfs_tpu_torch.utils.device import resolve_device
@@ -78,8 +82,9 @@ def seeded_params(cfg, seed: int, num_train_data: int = 0,
                   time_noise: float = 0.0, grid_std: float = 1e-4) -> dict:
     """A numpy param tree in the layout of the JAX package's
     ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto,
-    nerfplayer-nerfacto, instant-NGP or NeRFPlayer-NGP config, drawn with
-    numpy; MLPs as ``_seeded_mlp``, appearance embeddings N(0, 1).
+    nerfplayer-nerfacto, instant-NGP, NeRFPlayer-NGP, NeRFPlayer or
+    NeRFPlayer-NGP-complete config, drawn with numpy; MLPs as
+    ``_seeded_mlp``, appearance embeddings N(0, 1).
 
     K-Planes: space planes U(0.1, 0.5) (proposal planes U(0.1, 0.15)), time
     planes 1 + U(-time_noise, time_noise).  The hash-grid models: hash
@@ -92,6 +97,8 @@ def seeded_params(cfg, seed: int, num_train_data: int = 0,
         return _seeded_nerfacto(cfg, rng, num_train_data, grid_std)
     if isinstance(cfg, nerfplayer_nerfacto.Config):
         return _seeded_nerfplayer_nerfacto(cfg, rng, num_train_data, grid_std)
+    if isinstance(cfg, (nerfplayer.Config, nerfplayer_ngp_complete.Config)):
+        return _seeded_nerfplayer(cfg, rng, num_train_data, grid_std)
 
     def planes(feat, reso, a, b):
         out = []
@@ -165,7 +172,12 @@ def _seeded_nerfplayer_nerfacto(cfg: nerfplayer_nerfacto.Config, rng,
             (max(fcfg.num_images, 1), fcfg.appearance_embedding_dim)
         ).astype(np.float32)
     fields["mlp_head"] = _seeded_mlp(rng, *dims["mlp_head"])
+    return {"fields": fields,
+            "proposal_networks": _seeded_proposals(cfg, rng, grid_std)}
 
+
+def _seeded_proposals(cfg, rng, grid_std: float) -> dict:
+    """The temporal proposal fields of a NeRFPlayer model."""
     props = {}
     for idx, dcfg in cfg.density_field_configs():
         name = f"proposal_{idx}"
@@ -174,7 +186,21 @@ def _seeded_nerfplayer_nerfacto(cfg: nerfplayer_nerfacto.Config, rng,
                 "grid": _seeded_grid(dcfg.grid, rng, grid_std),
                 "mlp": _seeded_mlp(rng, *npn_field.proposal_mlp_dims(dcfg)),
             }
-    return {"fields": fields, "proposal_networks": props}
+    return props
+
+
+def _seeded_nerfplayer(cfg, rng, num_train_data: int, grid_std: float) -> dict:
+    """NeRFPlayer's and NeRFPlayer-NGP-complete's tree: the decomposition
+    field's three grids and five MLPs, and NeRFPlayer's proposal fields."""
+    fcfg = cfg.field_config(num_train_data)
+    fields = {name: _seeded_grid(grid, rng, grid_std)
+              for name, grid in np_field.field_grids(fcfg).items()}
+    for name, dims in np_field.field_mlp_dims(fcfg).items():
+        fields[name] = _seeded_mlp(rng, *dims)
+    if isinstance(cfg, nerfplayer_ngp_complete.Config):
+        return {"fields": fields}
+    return {"fields": fields,
+            "proposal_networks": _seeded_proposals(cfg, rng, grid_std)}
 
 
 def _seeded_ngp(cfg, rng, num_train_data: int, grid_std: float) -> dict:

@@ -51,7 +51,8 @@ def render_camera(
             occupancy model then treats every cell as occupied).
     Returns:
         {"rgb": [H, W, 3], "depth": [H, W], "accumulation": [H, W]} on
-        ``device``.
+        ``device``, and the model's further ``RENDER_OUTPUTS`` (NeRFPlayer's
+        component probabilities "probs" [H, W, 3]).
     """
     dev = resolve_device(device)
     module = get_model(model)
@@ -76,13 +77,14 @@ def render_camera(
         if not hasattr(module, "eval_kwargs"):
             raise ValueError(f"model {model!r} takes no state (aux)")
         extra = module.eval_kwargs(cfg, aux)
-    outs = {k: [] for k in OUTPUT_KEYS}
+    keys = getattr(module, "RENDER_OUTPUTS", OUTPUT_KEYS)
+    outs = {k: [] for k in keys}
     with torch.no_grad():
         for i in range(0, n_pad, chunk):
             rays = generate_rays(cameras, cam_idx[i:i + chunk],
                                  coords[i:i + chunk])
             o = module.get_outputs(cfg, params, aabb, rays, train=False, **extra)
-            for k in OUTPUT_KEYS:
+            for k in keys:
                 outs[k].append(o[k])
     return {
         k: torch.cat(v)[:n].reshape(h, w, *v[0].shape[1:])

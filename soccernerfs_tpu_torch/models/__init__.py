@@ -2,8 +2,10 @@
 dataclass), ``init``, ``get_outputs``, ``get_metrics_dict``,
 ``get_loss_dict``, ``proposal_anneal``, ``host_static_kwargs`` and
 ``train_draws``, and optionally ``prepare_render_params`` (staged render
-tables) and the non-trainable state's ``init_aux``, ``schedules``,
-``eval_kwargs`` and ``update_aux`` (the occupancy grid)."""
+tables), ``RENDER_OUTPUTS`` (the outputs ``render_camera`` returns, when
+more than rgb, depth and accumulation) and the non-trainable state's
+``init_aux``, ``schedules``, ``eval_kwargs`` and ``update_aux`` (the
+occupancy grid)."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +16,8 @@ _MODEL_MODULES = {
     "nerfplayer_nerfacto": "soccernerfs_tpu_torch.models.nerfplayer_nerfacto",
     "instant_ngp": "soccernerfs_tpu_torch.models.instant_ngp",
     "nerfplayer_ngp": "soccernerfs_tpu_torch.models.nerfplayer_ngp",
+    "nerfplayer": "soccernerfs_tpu_torch.models.nerfplayer",
+    "nerfplayer_ngp_complete": "soccernerfs_tpu_torch.models.nerfplayer_ngp_complete",
 }
 
 

@@ -180,6 +180,53 @@ def train_draws(cfg: Config, num_rays: int, generator: torch.Generator,
     return {"jitters": jitters, "background": background, "tv_rows": tv_rows}
 
 
+def proposal_samples(cfg, params: dict, aabb: torch.Tensor,
+                     ray_bundle: RayBundle, train: bool, anneal: float,
+                     train_proposal_networks: bool,
+                     jitters: Optional[Sequence[torch.Tensor]]):
+    """The field's samples of a temporal proposal model: nears and fars
+    from the scene box when contraction is off, else the config's planes;
+    then the proposal sampler over the temporal proposal fields
+    (``params["proposal_networks"]``), jittered by ``jitters`` in
+    training.  Returns (the rays with nears and fars, the field's
+    RaySamples, the proposal levels' weights and samples)."""
+    n = ray_bundle.num_rays
+    dev = ray_bundle.origins.device
+    if ray_bundle.nears is None or ray_bundle.fars is None:
+        if cfg.disable_scene_contraction:
+            nears, fars = intersect_aabb(ray_bundle.origins,
+                                         ray_bundle.directions, aabb)
+        else:
+            nears = torch.full((n,), cfg.near_plane, device=dev)
+            fars = torch.full((n,), cfg.far_plane, device=dev)
+        ray_bundle = ray_bundle.replace(nears=nears, fars=fars)
+
+    def make_density_fn(idx, dcfg):
+        def density_fn(ray_samples: RaySamples):
+            positions = ray_samples.get_positions()  # [N, S, 3]
+            s = positions.shape[1]
+            d = temporal_density_field_density(
+                dcfg, params["proposal_networks"][f"proposal_{idx}"], aabb,
+                positions.reshape(-1, 3),
+                torch.repeat_interleave(ray_samples.times, s))
+            return d.reshape(positions.shape[:2])
+
+        return density_fn
+
+    ray_samples, weights_list, ray_samples_list = proposal_sample(
+        ray_bundle,
+        [make_density_fn(i, d) for i, d in cfg.density_field_configs()],
+        num_proposal_samples_per_ray=cfg.num_proposal_samples_per_ray,
+        num_nerf_samples_per_ray=cfg.num_nerf_samples_per_ray,
+        initial_spacing=("uniform" if cfg.disable_scene_contraction
+                         else "piecewise"),
+        anneal=anneal,
+        jitters=jitters if train else None,
+        train_proposal_networks=train_proposal_networks,
+    )
+    return ray_bundle, ray_samples, weights_list, ray_samples_list
+
+
 def get_outputs(
     cfg: Config,
     params: dict,
@@ -207,14 +254,6 @@ def get_outputs(
         raise ValueError("nerfplayer-nerfacto needs ray times")
     n = ray_bundle.num_rays
     dev = ray_bundle.origins.device
-    if ray_bundle.nears is None or ray_bundle.fars is None:
-        if cfg.disable_scene_contraction:
-            nears, fars = intersect_aabb(ray_bundle.origins,
-                                         ray_bundle.directions, aabb)
-        else:
-            nears = torch.full((n,), cfg.near_plane, device=dev)
-            fars = torch.full((n,), cfg.far_plane, device=dev)
-        ray_bundle = ray_bundle.replace(nears=nears, fars=fars)
     random_bg = cfg.background_color == "random"
     if train:
         if jitters is None or (random_bg and background is None):
@@ -222,30 +261,9 @@ def get_outputs(
                              "draws (train_draws)")
     elif random_bg and background is None:
         background = random_background(n, dev)
-
-    def make_density_fn(idx, dcfg):
-        def density_fn(ray_samples: RaySamples):
-            positions = ray_samples.get_positions()  # [N, S, 3]
-            s = positions.shape[1]
-            d = temporal_density_field_density(
-                dcfg, params["proposal_networks"][f"proposal_{idx}"], aabb,
-                positions.reshape(-1, 3),
-                torch.repeat_interleave(ray_samples.times, s))
-            return d.reshape(positions.shape[:2])
-
-        return density_fn
-
-    ray_samples, weights_list, ray_samples_list = proposal_sample(
-        ray_bundle,
-        [make_density_fn(i, d) for i, d in cfg.density_field_configs()],
-        num_proposal_samples_per_ray=cfg.num_proposal_samples_per_ray,
-        num_nerf_samples_per_ray=cfg.num_nerf_samples_per_ray,
-        initial_spacing=("uniform" if cfg.disable_scene_contraction
-                         else "piecewise"),
-        anneal=anneal,
-        jitters=jitters if train else None,
-        train_proposal_networks=train_proposal_networks,
-    )
+    ray_bundle, ray_samples, weights_list, ray_samples_list = proposal_samples(
+        cfg, params, aabb, ray_bundle, train, anneal, train_proposal_networks,
+        jitters)
 
     fcfg = cfg.field_config()
     positions = ray_samples.get_positions()

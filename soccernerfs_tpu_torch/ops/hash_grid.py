@@ -7,9 +7,15 @@ every level of a ``tiled`` grid) is indexed by strides; the others hash
 the lattice corner: ``xor`` is the torch-ngp prime-XOR hash, ``zline``
 hashes the leading dimensions and adds the last one.  The row indices are
 those of the JAX package bit for bit (a snapshot's table is only
-meaningful under its hash), for lattice coordinates >= 0, which is what
-inputs in [0, 1] give; negative coordinates wrap through the modulo to
-rows in range, but not to the JAX package's rows.
+meaningful under its hash), for any lattice coordinate: inputs outside
+[0, 1] (a deformed point) give negative ones and ones beyond the
+resolution.  zline's last step is a truncating remainder, as the JAX
+package's ``lax.rem``, so a negative last coordinate can give a negative
+level-local row; the encoder then reads the row that the JAX package's
+CPU path reads, ``offset + row`` indexed into the whole table as Python
+indexes (from its end when negative), and its gradient goes there too.
+(The JAX package's TPU path clamps such a row to the level's first row
+in its forward and drops its updates in its backward.)
 
 Every level takes one path: the 2^D lattice corners of a point, their
 rows and multilinear weights, ``out = sum_k ws[k] * table[idxs[k]]``, with
@@ -175,7 +181,8 @@ def hash_index(coords, resolution, rows, cfg: HashGridConfig, strided: bool
         strided: stride indexing (dense and tiled levels), else the hash
             of ``cfg.hash_scheme``.
     Returns:
-        int64 [L, n_0 * ... * n_{D-1}, B] level-local rows in [0, rows),
+        int64 [L, n_0 * ... * n_{D-1}, B] level-local rows in [0, rows)
+        (zline: in (-rows, rows), negative where the last coordinate is),
         dimension 0's choice the most significant.
     """
     if strided:
@@ -189,7 +196,8 @@ def hash_index(coords, resolution, rows, cfg: HashGridConfig, strided: bool
         h = torch.zeros_like(coords[-1][:, :1])
         for d, c in enumerate(coords[:-1]):
             h = _outer(h, (c * _PRIMES[(d + 1) % 3]) & _MASK32, torch.bitwise_xor)
-        return torch.remainder(
+        # truncating, as lax.rem: a negative sum stays negative
+        return torch.fmod(
             _outer(torch.remainder(h, rows), coords[-1], torch.add), rows)
     # uint32 products wrap: int64 products masked to 32 bits are the same
     h = coords[0] & _MASK32
@@ -204,10 +212,12 @@ def grid_corners(cfg: HashGridConfig, xyz: torch.Tensor
 
     ``pos = x * scale + 0.5`` (0 with ``align_corners``), corners
     ``floor(pos) + {0, 1}^D`` with no clamp: a corner outside the grid
-    wraps through the modulo.
+    wraps through the modulo, and a negative zline row ``r`` of a level
+    at ``offset`` is the table's row ``offset + r``, from the table's end
+    when that is negative (the JAX package's CPU path's gather).
 
     Args:
-        xyz: [B, D] in [0, 1].
+        xyz: [B, D], in [0, 1] or (a deformed point) outside it.
     Returns:
         (idxs [L, 2^D, B] int32 rows of the whole table, ws [L, 2^D, B]
         f32 multilinear weights, differentiable w.r.t. ``xyz``); corner
@@ -230,11 +240,17 @@ def grid_corners(cfg: HashGridConfig, xyz: torch.Tensor
     parts = []
     if n_strided:
         parts.append(hash_index([c[:n_strided] for c in coords],
-                                resolutions[:n_strided], rows[:n_strided], cfg, True))
+                                resolutions[:n_strided], rows[:n_strided], cfg,
+                                True) + offsets[:n_strided])
     if n_strided < len(strided):
-        parts.append(hash_index([c[n_strided:] for c in coords],
-                                resolutions[n_strided:], rows[n_strided:], cfg, False))
-    idxs = (torch.cat(parts) + offsets).to(torch.int32)
+        hashed = hash_index([c[n_strided:] for c in coords],
+                            resolutions[n_strided:], rows[n_strided:], cfg,
+                            False) + offsets[n_strided:]
+        if cfg.hash_scheme == "zline":
+            # Python's indexing of a negative row: from the table's end
+            hashed = torch.remainder(hashed, level_layout(cfg)[0][-1])
+        parts.append(hashed)
+    idxs = torch.cat(parts).to(torch.int32)
 
     ws = None
     for d in range(cfg.input_dim):

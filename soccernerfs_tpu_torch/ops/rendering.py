@@ -85,3 +85,9 @@ def render_median_rgb(rgb: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     [N, S, 3], [N, S] -> [N, 3]."""
     idx = _median_index(weights)
     return torch.gather(rgb, -2, idx[:, None, None].expand(-1, 1, 3))[:, 0, :]
+
+
+def render_decomposition(probs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """NeRFPlayer's static / deforming / new probabilities composited along
+    rays: sum(w * probs).  [N, S, 3], [N, S] -> [N, 3]."""
+    return torch.sum(weights[..., None] * probs, dim=-2)

@@ -2,8 +2,9 @@
 
 The script needs a card; here its CUDA calls are stubbed, the kernel
 wrappers are made to count their plain versions as launches, and small
-K-Planes, nerfacto, nerfplayer-nerfacto, instant-ngp-bounded and
-nerfplayer-ngp configs stand in for the full widths, so every phase (the
+K-Planes, nerfacto, nerfplayer-nerfacto, nerfplayer, instant-ngp-bounded,
+nerfplayer-ngp and nerfplayer-ngp-complete configs stand in for the full
+widths, so every phase (the
 plane and scatter kernel checks, and per method two counted frames, the
 render CPU comparison, the counted train steps, the train CPU comparison;
 the JSON lines) runs in seconds.
@@ -106,6 +107,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     small_npngp = dataclasses.replace(
         mc.model_configs["nerfplayer-ngp"], num_levels=3, temporal_dim=8,
         log2_hashmap_size=12, max_res=64, **occ)
+    # the decomposition field: its stationary grid reads deformed points
+    # outside the cube
+    small_np = dataclasses.replace(
+        mc.model_configs["nerfplayer"], num_levels=3, log2_hashmap_size=12,
+        temporal_dim=8,
+        proposal_net_args_list=small_nerfplayer.proposal_net_args_list,
+        num_proposal_samples_per_ray=(16, 8), num_nerf_samples_per_ray=8,
+        eval_num_rays_per_chunk=512)
+    small_npngpc = dataclasses.replace(
+        mc.model_configs["nerfplayer-ngp-complete"], num_levels=3,
+        temporal_dim=8, log2_hashmap_size=12, **occ)
     for small_name, method, small_cfg in (("small", "k-planes", small),
                                           ("small-nerfacto", "nerfacto",
                                            small_nerfacto),
@@ -115,7 +127,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                                           ("small-ingp", "instant-ngp-bounded",
                                            small_ingp),
                                           ("small-npngp", "nerfplayer-ngp",
-                                           small_npngp)):
+                                           small_npngp),
+                                          ("small-np", "nerfplayer", small_np),
+                                          ("small-npngpc",
+                                           "nerfplayer-ngp-complete",
+                                           small_npngpc)):
         monkeypatch.setitem(mc.model_configs, small_name, small_cfg)
         for table in (mc.optimizer_configs, mc.model_names,
                       mc.camera_optimizer_configs):
@@ -126,6 +142,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "NERFPLAYER", "small-nerfplayer")
     monkeypatch.setattr(cs, "INGP", "small-ingp")
     monkeypatch.setattr(cs, "NPNGP", "small-npngp")
+    monkeypatch.setattr(cs, "NP", "small-np")
+    monkeypatch.setattr(cs, "NPNGPC", "small-npngpc")
     # every range check the script makes, by the function that makes it
     checks = []
     check = sk.raise_if_out_of_range
@@ -240,34 +258,46 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
         assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
     # scatter_add_rows: random cases, then the 3 launches of one nerfacto
-    # and of one nerfplayer-nerfacto update step and the one launch of an
-    # instant-ngp-bounded and of a nerfplayer-ngp step captured at the
-    # wrapper (the temporal grids' at width 1 over their flattened
-    # tables), each with its L2 reductions; the kernels line sums the
-    # random cases only
+    # and of one nerfplayer-nerfacto update step, the 6 of a nerfplayer
+    # update step (the stationary grid's two, one per encode, the newness
+    # and decomposition grids' and the proposal grids'), the one launch of
+    # an instant-ngp-bounded and of a nerfplayer-ngp step and the 4 of a
+    # nerfplayer-ngp-complete step captured at the wrapper (the temporal
+    # grids' at width 1 over their flattened tables), each with its L2
+    # reductions; the kernels line sums the random cases only
     scatter = [json.loads(line.split(" ", 2)[2]) for line in lines
                if line.startswith("kernel scatter_add_rows ")]
     ray = [r for r in scatter if r["order"] == "ray"]
     random = [r for r in scatter if r["order"] == "random"]
-    assert len(random) == 8 and len(ray) == 8
-    for method, c, grids in (
-            ("small-nerfacto", 2, ["main", "proposal_0", "proposal_1"]),
-            ("small-nerfplayer", 1, ["main", "proposal_0", "proposal_1"]),
-            ("small-ingp", 2, ["main"]), ("small-npngp", 1, ["main"])):
+    assert len(random) == 8 and len(ray) == 18
+    temporal = {"main": 1, "proposal_0": 1, "proposal_1": 1}
+    decomposition = {"static": 2, "temporal": 1, "proposal_0": 1,
+                     "proposal_1": 1}
+    for method, widths, grids in (
+            ("small-nerfacto", {}, ["main", "proposal_0", "proposal_1"]),
+            ("small-nerfplayer", temporal, ["main", "proposal_0", "proposal_1"]),
+            ("small-np", decomposition, ["proposal_0", "proposal_1", "static",
+                                         "static", "temporal", "temporal"]),
+            ("small-ingp", {}, ["main"]), ("small-npngp", temporal, ["main"]),
+            ("small-npngpc", decomposition, ["static", "static", "temporal",
+                                             "temporal"])):
         mine = [r for r in ray if r["method"] == method]
         assert sorted(r["grid"] for r in mine) == grids
-        assert all(f", c {c}, " in r["case"] for r in mine)
+        assert all(f", c {widths.get(r['grid'], 2)}, " in r["case"]
+                   for r in mine)
     assert all(r["l2_reductions"] > 0 and len(r["ms_passes"]) == cs.BWD_PASSES
                and r["ms"] == statistics.median(r["ms_passes"]) for r in scatter)
     assert all(r["updates_per_reduction"] >= 1.0 for r in ray)
     in_step = [line for line in lines if line.startswith("in-step scatter_add_rows")]
-    methods = ["small-nerfacto", "small-nerfplayer", "small-ingp", "small-npngp"]
+    methods = ["small-nerfacto", "small-nerfplayer", "small-np", "small-ingp",
+               "small-npngp", "small-npngpc"]
     assert [line.split(" (")[1].split(":")[0] for line in in_step] == [
         f"{kind} step) {method}" for method in methods
         for kind in ("update", "non-update")]
     assert all("of bound" in line for line in in_step)
-    assert all("in 3 launches" in line for line in in_step[:4:2])
-    assert all("in 1 launches" in line for line in in_step[1:4:2] + in_step[4:])
+    # launches per update and non-update step
+    for line, n in zip(in_step, (3, 1, 3, 1, 6, 4, 1, 1, 1, 1, 4, 4)):
+        assert f"in {n} launches" in line, (line, n)
     # the later methods render and train, and the deferred range check runs
     # where each train phase and CPU check reads a step's loss
     for method in methods[1:]:
@@ -280,15 +310,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         "main-path launches:")).split(":", 1)[1])
     # at least one launch per counted step: step 0, steps 1-11, the window
     for method, window in (("small-nerfplayer", cs.TRAIN_WINDOW),
+                           ("small-np", cs.TRAIN_WINDOW),
                            ("small-ingp", cs.OCC_TRAIN_WINDOW),
-                           ("small-npngp", cs.OCC_TRAIN_WINDOW)):
+                           ("small-npngp", cs.OCC_TRAIN_WINDOW),
+                           ("small-npngpc", cs.OCC_TRAIN_WINDOW)):
         assert (main_path[f"train {method}"]["scatter_add_rows"]
                 >= 1 + 11 + window)
         assert main_path[f"render {method}"]["scatter_add_rows"] == 0
     # the occupancy methods: the grid state's occupied share, the rays whose
     # samples differ between card and CPU (none between CPU and CPU), the
     # grid's update on both sides, and the grid moving over the window
-    for method in methods[2:]:
+    for method in methods[3:]:
         assert any(line.startswith(f"occupancy {method}: one all-cells update")
                    for line in lines)
         assert any(line.startswith(f"cpu check {method} (4096 rays): rays "
@@ -301,13 +333,26 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                    for line in lines)
     # per method's train phase: step 0, the split step and the 2 profiled
     # steps, and every one of its 11 + window counted steps; per seed of the
-    # CPU checks, each step (K-Planes: 4 with its witnesses, else 2)
-    assert checks.count("train_phase") == 5 * 4
-    assert checks.count("run") == (3 * (11 + cs.TRAIN_WINDOW)
-                                   + 2 * (11 + cs.OCC_TRAIN_WINDOW))
+    # CPU checks, each step (K-Planes and the decomposition field's
+    # methods: 4 with their witnesses, else 2)
+    assert checks.count("train_phase") == 7 * 4
+    assert checks.count("run") == (4 * (11 + cs.TRAIN_WINDOW)
+                                   + 3 * (11 + cs.OCC_TRAIN_WINDOW))
     assert checks.count("train_cpu_check") == (
         4 * len(cs.TRAIN_CPU_SEEDS) + 2 * len(cs.NERFACTO_CPU_SEEDS)
-        + 2 * len(cs.NERFPLAYER_CPU_SEEDS) + 2 * 2 * len(cs.OCC_CPU_SEEDS))
+        + (2 + 4) * len(cs.NERFPLAYER_CPU_SEEDS)
+        + (2 + 2 + 4) * len(cs.OCC_CPU_SEEDS))
+    # the deformation MLP's leaves, with the one-ulp witness beside them
+    for method in ("small-np", "small-npngpc"):
+        line = next(line for line in lines if line.startswith(
+            f"train cpu check {method}, seed 2: deformation MLP leaves"))
+        assert "cpu vs cpu, directions + 1 ulp" in line
+    # the NeRFPlayer methods' rendered component probabilities are held
+    # between card and CPU beside rgb
+    for method in ("small-np", "small-npngpc"):
+        line = next(line for line in lines
+                    if line.startswith(f"cpu check {method} (4096 rays): max"))
+        assert "'probs'" in line
     k = kernels[4]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))

@@ -191,6 +191,125 @@ def test_encode_matches_jax_pallas_interpret_path(name, monkeypatch):
     assert _rel(tgx, jgx) <= 2e-2
 
 
+# ---------------------------------------------------------------------------
+# lattice coordinates outside the grid: a deformed point leaves the cube
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,strided", [("dense", True), ("xor", False),
+                                          ("zline", False), ("tiled", True)])
+def test_hash_index_equals_jax_outside_the_grid(name, strided):
+    """Row indices of random lattice coordinates in [-70, 4100)^3, -1, 0
+    and the resolution's edges among them, per level kind, against
+    ``_hash_index``: equal, every one.  zline's truncating remainder makes
+    negative rows where the last coordinate is negative (JAX's too)."""
+    kw = CONFIGS["xor" if name == "dense" else name]
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+    rng = np.random.default_rng(8)
+    coords = rng.integers(-70, 4100, (6000, 3)).astype(np.int32)
+    coords[:8] = [[-1, -1, -1], [-1, 0, 0], [0, -1, 0], [0, 0, -1], [-70] * 3,
+                  [-70, 4099, -1], [300, -2, 301], [7, 23, -69]]
+    negative = 0
+    for resolution, rows in ((7, 344), (23, 12168), (300, 1 << 10),
+                             (2048, 1 << 19)):
+        if not strided and resolution**3 <= rows:
+            continue
+        want = np.asarray(jh._hash_index(jnp.asarray(coords), resolution, rows,
+                                         jc, strided and name != "tiled"))
+        per_dim = [_t(coords[:, d].astype(np.int64))[None, None] for d in range(3)]
+        got = th.hash_index(per_dim, torch.tensor([[[resolution]]]),
+                            torch.tensor([[[rows]]]), tc, strided)
+        np.testing.assert_array_equal(got[0, 0].numpy(), want)
+        assert want.max() < rows and want.min() > -rows
+        negative += int((want < 0).sum())
+    # only zline's rows go negative, and only by the last coordinate
+    assert (negative > 0) == (name == "zline")
+
+
+def _outside_inputs(kw, seed, n):
+    """Points in [-0.1, 1.1]^3 (about half of them outside the cube), a
+    table of U(-0.5, 0.5) and a cotangent."""
+    rng = np.random.default_rng(seed)
+    rows = th.level_layout(th.HashGridConfig(**kw))[0][-1]
+    table = rng.uniform(-0.5, 0.5, (rows, kw["level_dim"])).astype(np.float32)
+    x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    cot = rng.standard_normal((n, kw["num_levels"] * kw["level_dim"])
+                              ).astype(np.float32)
+    return x, table, cot
+
+
+def _negative_zline_rows(jc, x) -> np.ndarray:
+    """[B] bool: the points with a corner whose zline row is negative on
+    some hashed level (``_hash_index``, JAX's own rows)."""
+    offsets, scales, resolutions = jh.level_layout(jc)
+    out = np.zeros(x.shape[0], bool)
+    for lvl, (scale, res) in enumerate(zip(scales, resolutions)):
+        rows = offsets[lvl + 1] - offsets[lvl]
+        if res**3 <= rows:
+            continue
+        base = np.floor(x * scale + 0.5).astype(np.int32)
+        for off in np.stack(np.meshgrid(*([np.arange(2)] * 3), indexing="ij"),
+                            -1).reshape(-1, 3):
+            r = np.asarray(jh._hash_index(jnp.asarray(base + off), res, rows,
+                                          jc, False))
+            out |= r < 0
+    return out
+
+
+@pytest.mark.parametrize("path", ["cpu", "pallas_interpret"])
+def test_encode_outside_the_cube_matches_jax(path, monkeypatch):
+    """The decomposition field's static grid (zline, per-level scale
+    1.4473, 16 levels, here at 2^12 rows: level 0 dense, the rest hashed)
+    at points in [-0.1, 1.1]^3, as the deformed encode sees them: values,
+    table gradient and position gradient.
+
+    Against JAX's CPU path, every point, at that path's tolerances (values
+    1e-6 of the max, gradients 1e-5): the port reads a negative zline row
+    where that path's ``jnp.take`` reads it, from the whole table.  Against
+    the Pallas-interpret path at its bf16 tolerances (1e-2, 2e-2), every
+    point with no negative zline row, outside the cube or not.  The points
+    with one are held apart: there the JAX package's two paths disagree
+    with each other (the TPU path clamps the row to its level's first in
+    the forward and drops its updates in the backward), which the test
+    shows; the port keeps the CPU path's, whose gradient is the transpose
+    of its forward."""
+    from soccernerfs_tpu.fields import nerfplayer as jnf
+
+    jc = jnf.NerfplayerFieldConfig(log2_hashmap_size=12).static_grid
+    kw = {k: getattr(jc, k) for k in ("num_levels", "level_dim",
+                                      "base_resolution", "per_level_scale",
+                                      "log2_hashmap_size", "hash_scheme")}
+    assert kw["hash_scheme"] == "zline" and kw["num_levels"] == 16
+    x, table, cot = _outside_inputs(kw, 9, 400)
+    outside = ~np.all((x >= 0) & (x <= 1), axis=1)
+    assert outside.mean() > 0.3
+    held_apart = _negative_zline_rows(jc, x)
+    if path == "cpu":
+        (jout, jgt, jgx), (tout, tgt, tgx) = _encode_both(kw, x, table, cot)
+        assert held_apart.any()
+        assert _rel(tout, jout) <= 1e-6
+        assert _rel(tgt, jgt) <= 1e-5
+        assert _rel(tgx, jgx) <= 1e-5
+        return
+    monkeypatch.setattr(jh, "SCATTER_INTERPRET", True)
+    assert 0 < held_apart.sum() < 0.1 * len(x)
+    keep = ~held_apart
+    assert (keep & outside).sum() > 0.25 * len(x)
+    (jout, jgt, jgx), (tout, tgt, tgx) = _encode_both(kw, x[keep], table,
+                                                      cot[keep])
+    assert _rel(tout, jout) <= 1e-2
+    assert _rel(tgt, jgt) <= 2e-2
+    assert _rel(tgx, jgx) <= 2e-2
+    # the points held apart: the JAX package's TPU path against its own
+    # CPU path
+    apart = jnp.asarray(x[held_apart])
+    tpu_path = np.asarray(jh.hash_grid_encode(jc, {"embeddings": jnp.asarray(table)},
+                                              apart))
+    monkeypatch.setattr(jh, "SCATTER_INTERPRET", False)
+    cpu_path = np.asarray(jh.hash_grid_encode(jc, {"embeddings": jnp.asarray(table)},
+                                              apart))
+    assert _rel(tpu_path, cpu_path) > 2e-2
+
+
 def test_encode_without_position_gradient_skips_the_weight_gradient():
     """Positions that do not require grad: the table gradient is the same
     and no gradient comes back for the weights (autograd's own

@@ -440,7 +440,7 @@ def test_unported_branches_are_refused():
     with pytest.raises(NotImplementedError):
         tn.Config(background_color="random")
     with pytest.raises(KeyError):
-        get_model("nerfplayer")
+        get_model("no_such_model")
     assert get_model("nerfacto") is tn
 
 

@@ -350,7 +350,7 @@ def test_draws_and_refusals(setup):
     with pytest.raises(NotImplementedError):
         tf.TemporalHashMLPDensityFieldConfig(detached_inputs=False)
     with pytest.raises(KeyError):
-        get_model("nerfplayer")
+        get_model("no_such_model")
     assert get_model("nerfplayer_nerfacto") is tn
 
 
