@@ -78,6 +78,24 @@
      update the same grid from the card's updated params with the same
      draws; the grids agree within 1e-5 in L2.
 
+  7. Trainer phases, through ``Trainer(config).setup().train()`` with the
+     registered ``trainer_configs``, on fixtures the script writes to a
+     temporary directory: ``trainer_kplanes`` (k-planes at
+     full width on a broadcaststyle scene of 20 cameras x 10 steps at
+     540x960: the image cache picks 95 images every 16 steps, IST weights
+     computed on the card at each refresh, IST rays from step 8; 64 steps
+     with eval batches, an eval image and checkpoints; all four plane
+     kernels must launch; a fresh Trainer resumed from the final checkpoint
+     must hold a bit-equal state and runs to step 96), ``trainer_ingp_bounded``
+     (48 steps with ``dynamic_batch``, its bucket changes printed;
+     scatter_add_rows must launch) and ``convergence_kplanes_static``
+     (tests/test_convergence.py's run: k-planes-static on the blender
+     fixture, 300 steps; held-out PSNR > 20.5 and SSIM > 0.44).  Each prints
+     a JSON line: rays/s of the loop with its data path beside TrainStep's
+     window, the sampler's host ms per step before and after IST starts,
+     ms per cache refresh (decode, IST), checkpoint save and load ms, the
+     eval image's PSNR, peak memory, and 8 more steps split into sampler,
+     batch copy and train step, each synchronised.
 Prints a JSON line with the five kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -94,6 +112,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,6 +151,32 @@ DEFORM_PREFIX = "fields/deformation_field/"
 DEFORM_L2_TOL = 5e-2
 SCATTER_MASS_TOL = 1e-6          # of the largest row's sum of |terms|
 BWD_PASSES = 5                   # timing passes per backward or scatter case
+# the Trainer phases: a broadcaststyle scene of 20 cameras (Camera_1-19
+# train, Camera_20 eval) x 10 time steps at scene 2's working resolution
+STATIC = "k-planes-static"
+TRAINER_FIXTURE = {"num_cameras": 20, "num_steps": 10, "h": 540, "w": 960}
+# the cache picks 5 time steps of the 19 train cameras and keeps them 16
+# steps; IST weights from the first refresh, IST rays from step 8
+TRAINER_DATA = {"train_num_images_to_sample_from": 95,
+                "train_num_times_to_repeat_images": 16,
+                "iters_to_start_is": 8}
+# checkpoints are ~1.6 GB: keep the latest only
+TRAINER_LOOP = {"max_num_iterations": 64, "steps_per_save": 32,
+                "steps_per_eval_image": 32, "steps_per_eval_batch": 32,
+                "vis": "none", "save_only_latest_checkpoint": True}
+TRAINER_LOG_STEPS = 8
+TRAINER_RESUME_TO = 96
+INGP_TRAINER_STEPS = 48
+# tests/test_convergence.py's run: its model and batch overrides, 300 steps
+CONVERGENCE_MODEL = {"spacetime_resolution": (16, 16, 16),
+                     "multiscale_res": (1, 2), "feature_dim": 8,
+                     "num_proposal_samples_per_ray": (24, 16),
+                     "num_nerf_samples_per_ray": 16,
+                     "sigma_net_hidden_dim": 32, "rgb_net_hidden_dim": 32}
+CONVERGENCE_RAYS = 512
+CONVERGENCE_STEPS = 300
+CONVERGENCE_GATE = (20.5, 0.44)   # held-out PSNR and SSIM must exceed these
+WINDOW_RAYS_PER_S = {}            # train_phase's window rate per method
 
 
 def log(*a):
@@ -1153,6 +1198,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=(),
     wall = np.array([t for _u, t, _c in times])
     cpu = np.array([c for _u, _t, c in times])
     subs = rays * sub / wall.reshape(-1, sub).sum(1)
+    WINDOW_RAYS_PER_S[method] = rays * window / wall.sum()
     launches = launch_counts()
     log(f"{tag}: window steps 10000-{10000 + window - 1}: update steps "
         f"{ms(times, True)}; non-update steps {ms(times, False)}; "
@@ -1743,6 +1789,366 @@ def occupancy_method_phases(method, dev, cams, aabb, trace_dir, kernels,
     torch.cuda.empty_cache()
 
 
+def timed(fn, record, sync=False):
+    """``fn`` wrapped so that each call appends its host seconds to
+    ``record`` (after a synchronise when ``sync``)."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        record.append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def event_sink():
+    """A writer sink that keeps every scalar the Trainer logs, as
+    (name, step, value)."""
+    from soccernerfs_tpu_torch.utils import writer
+
+    class Events(writer.Writer):
+        def __init__(self):
+            self.scalars = []
+
+        def write_scalar(self, name, scalar, step):
+            self.scalars.append((name, step, scalar))
+
+    sink = Events()
+    writer._SINKS.append(sink)
+    return sink
+
+
+def trainer_config(method, dataparser, out_dir, name, data=(), loop=()):
+    """A copy of ``trainer_configs[method]`` reading ``dataparser``, writing
+    under ``out_dir``/…/``name``, with datamanager fields ``data`` and
+    trainer fields ``loop`` set."""
+    import copy
+
+    from soccernerfs_tpu_torch.configs.method_configs import trainer_configs
+
+    cfg = copy.deepcopy(trainer_configs[method])
+    cfg.pipeline.datamanager.dataparser = dataparser
+    for key, value in dict(data).items():
+        setattr(cfg.pipeline.datamanager, key, value)
+    for key, value in dict(loop).items():
+        setattr(cfg, key, value)
+    cfg.output_dir, cfg.experiment_name, cfg.timestamp = out_dir, method, name
+    return cfg
+
+
+def check_finite_events(sink, tag):
+    bad = [(n, s, v) for n, s, v in sink.scalars
+           if "Loss" in n and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tag}: non-finite losses {bad[:8]}")
+
+
+def trainer_kplanes_phase(dev, root, launches) -> None:
+    """``Trainer.train`` of K-Planes at full width on a broadcaststyle
+    fixture at 540x960 (the dynamic data path: the cache refreshing every
+    16 steps with IST weights computed on the card, the importance sampler
+    drawing IST rays from step 8), 64 steps with eval batches, an eval
+    image and checkpoints; then a fresh Trainer resumed from the final
+    checkpoint (its state bit-equal) runs to step 96.  Fails unless the
+    cache refreshed twice with IST weights, a batch held
+    floor(is_pixel_ratio * rays) IST rays, every loss was finite, every
+    param group moved and all four plane kernels launched in the loop."""
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+    from soccernerfs_tpu_torch.data.fixtures import make_broadcaststyle_fixture
+    from soccernerfs_tpu_torch.engine import checkpoints
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+    from soccernerfs_tpu_torch.utils.tree import tree_leaves
+
+    tag = f"trainer_kplanes {MODEL}"
+    t0 = time.perf_counter()
+    data = make_broadcaststyle_fixture(root / "broadcaststyle", **TRAINER_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    parser = DATAPARSERS["broadcaststyle-data"](data=data, fps_downsample=1.0)
+    cfg = trainer_config(MODEL, parser, root / "out", "first", TRAINER_DATA,
+                         TRAINER_LOOP)
+    cfg.logging.steps_per_log = TRAINER_LOG_STEPS
+    dm_cfg = cfg.pipeline.datamanager
+    log(json.dumps({"phase": "trainer_kplanes", "method": MODEL,
+                    "fixture": {**TRAINER_FIXTURE, "scene": "broadcaststyle",
+                                "written_s": fixture_s},
+                    "overrides": {**TRAINER_DATA, **TRAINER_LOOP,
+                                  "steps_per_log": TRAINER_LOG_STEPS,
+                                  "fps_downsample": 1.0,
+                                  "resume_to": TRAINER_RESUME_TO},
+                    "registered": {"train_num_rays_per_batch":
+                                   dm_cfg.train_num_rays_per_batch,
+                                   "is_pixel_ratio": dm_cfg.is_pixel_ratio,
+                                   "ist_range": dm_cfg.ist_range}}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sink = event_sink()
+    dm = trainer.datamanager
+    rays = dm.get_train_rays_per_batch()
+
+    # the data path's host time per step, the refreshes apart
+    decode_s, is_s, raw = [], [], []
+    dm.train_cache._collate = timed(dm.train_cache._collate, decode_s)
+    dm.train_dataset.compute_is = timed(dm.train_dataset.compute_is, is_s)
+    sampler = dm.train_pixel_sampler
+    drawn = [0]
+    weighted_choice = sampler._weighted_choice
+
+    def counted_choice(*args):
+        out = weighted_choice(*args)
+        drawn[0] += len(out)
+        return out
+
+    sampler._weighted_choice = counted_choice
+    next_train_raw = dm.next_train_raw
+
+    def timed_raw(step):
+        n_dec, n_is = len(decode_s), len(is_s)
+        drawn[0] = 0
+        t = time.perf_counter()
+        out = next_train_raw(step)
+        refresh = sum(decode_s[n_dec:]) + sum(is_s[n_is:])
+        raw.append((step, time.perf_counter() - t - refresh, drawn[0]))
+        return out
+
+    dm.next_train_raw = timed_raw
+    side_s, eval_psnr, save_s = [], [], []
+    trainer.eval_iteration = timed(trainer.eval_iteration, side_s)
+    eval_image = trainer.eval_image
+    trainer.eval_image = timed(lambda step: eval_psnr.append(eval_image(step)),
+                               side_s)
+    trainer.save_checkpoint = timed(trainer.save_checkpoint, save_s, sync=True)
+
+    watch = {name: tree_leaves(group)[0].detach().clone()
+             for name, group in trainer.state.params.items()}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches[f"trainer {MODEL}"] = counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_finite_events(sink, tag)
+    stuck = [name for name, before in watch.items()
+             if torch.equal(before, tree_leaves(trainer.state.params[name])[0])]
+    if stuck:
+        raise AssertionError(f"{tag}: param groups {stuck} did not move")
+    missing = [k.__name__ for k in pk.KERNELS if counts[k.__name__] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} not launched in the loop")
+    if len(is_s) < 2 or dm.train_cache.cached_batch.get("ist_weights") is None:
+        raise AssertionError(f"{tag}: {len(is_s)} cache refreshes with IST "
+                             f"weights (at least 2)")
+    want_ist = int(dm_cfg.is_pixel_ratio * rays)
+    ist_rays = [n for _s, _t, n in raw]
+    if want_ist not in ist_rays:
+        raise AssertionError(f"{tag}: no batch held {want_ist} IST rays "
+                             f"({sorted(set(ist_rays))})")
+
+    loop_s = train_s - sum(side_s) - sum(save_s)
+    steps = len(raw)
+    start_is = dm_cfg.iters_to_start_is
+    before_is = [t for s, t, _n in raw if s < start_is]
+    after_is = [t for s, t, _n in raw if s >= start_is]
+    rolling = [v for n, _s, v in sink.scalars if n == "Train Rays / Sec"]
+
+    # resume: a fresh Trainer from the final checkpoint
+    cfg2 = trainer_config(MODEL, parser, root / "out", "resumed", TRAINER_DATA,
+                          {**TRAINER_LOOP, "max_num_iterations": TRAINER_RESUME_TO})
+    cfg2.logging.steps_per_log = TRAINER_LOG_STEPS
+    cfg2.load_dir = trainer.base_dir
+    load_s = []
+    maybe_load = Trainer._maybe_load_checkpoint
+    Trainer._maybe_load_checkpoint = timed(maybe_load, load_s, sync=True)
+    try:
+        resumed = Trainer(cfg2, device=dev).setup()
+    finally:
+        Trainer._maybe_load_checkpoint = maybe_load
+    a, b = trainer.state, resumed.state
+    same = (a.step == b.step and a.steps_since_update == b.steps_since_update
+            and all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                       tree_leaves(b.params)))
+            and all(o.count == b.opt_state[n].count
+                    and all(torch.equal(x, y) for x, y in
+                            zip(o.mu + o.nu, b.opt_state[n].mu + b.opt_state[n].nu))
+                    for n, o in a.opt_state.items())
+            and all(torch.equal(a.aux[k], b.aux[k]) for k in a.aux))
+    if not same:
+        raise AssertionError(f"{tag}: the resumed state differs from the "
+                             f"checkpointed one")
+    mu_dtypes = sorted({str(m.dtype) for o in b.opt_state.values() for m in o.mu})
+    log(f"{tag}: resumed at step {b.step} (steps_since_update "
+        f"{b.steps_since_update}): params, opt_state (first moments "
+        f"{mu_dtypes}) and aux bit-equal")
+    resumed_from = b.step
+    del trainer, a
+    torch.cuda.empty_cache()
+    event_sink_resumed = event_sink()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed.train()
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    launches[f"trainer {MODEL} resumed"] = launch_counts()
+    check_finite_events(event_sink_resumed, tag)
+    last = checkpoints.latest_checkpoint_step(resumed.base_dir)
+    if last != TRAINER_RESUME_TO - 1 or resumed.state.step != TRAINER_RESUME_TO:
+        raise AssertionError(f"{tag}: resumed run ended at state step "
+                             f"{resumed.state.step}, checkpoint {last}")
+    # where a loop step's time goes (IST on): the sampler (a cache refresh
+    # in these steps left out), the batch's copy to the card, the train
+    # step; each part ends in a synchronise
+    split, refresh_s = [], []
+    dm = resumed.datamanager
+    dm.train_cache._collate = timed(dm.train_cache._collate, refresh_s)
+    dm.train_dataset.compute_is = timed(dm.train_dataset.compute_is, refresh_s)
+    for step in range(TRAINER_RESUME_TO, TRAINER_RESUME_TO + TRAINER_LOG_STEPS):
+        n_refresh = len(refresh_s)
+        t0 = time.perf_counter()
+        raw_batch = dm.next_train_raw(step)
+        t1 = time.perf_counter()
+        batch = resumed._device_batch(raw_batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        resumed.train_step.train_iteration(resumed.state, batch,
+                                           resumed._generator(step))
+        torch.cuda.synchronize()
+        split.append((t1 - t0 - sum(refresh_s[n_refresh:]), t2 - t1,
+                      time.perf_counter() - t2))
+    sk.raise_if_out_of_range(dev)
+    split_ms = {name: 1e3 * float(np.mean([row[i] for row in split]))
+                for i, name in enumerate(("sampler", "device_batch", "train_step"))}
+    log(json.dumps({
+        "phase": "trainer_kplanes", "method": MODEL, "card": card_line(),
+        "setup_s": setup_s, "train_s": train_s, "steps": steps,
+        "loop_rays_per_s": rays * steps / loop_s,
+        "trainstep_window_rays_per_s": WINDOW_RAYS_PER_S.get(MODEL),
+        "rolling_rays_per_s": rolling,
+        "sampler_ms_per_step_before_is": 1e3 * float(np.mean(before_is)),
+        "sampler_ms_per_step_after_is": 1e3 * float(np.mean(after_is)),
+        "sampler_ms_after_is_max": 1e3 * float(np.max(after_is)),
+        "refresh_decode_ms": [1e3 * t for t in decode_s],
+        "refresh_ist_ms": [1e3 * t for t in is_s],
+        "ist_rays_per_batch": sorted(set(ist_rays)),
+        "evals_and_image_s": sum(side_s), "eval_image_psnr":
+            [r["psnr"] for r in eval_psnr],
+        "save_ms": [1e3 * t for t in save_s], "load_ms": 1e3 * load_s[0],
+        "resumed_from": resumed_from, "resumed_s": resumed_s,
+        "final_checkpoint": last, "split_ms_per_step": split_ms,
+        "peak_gib": peak,
+        "launches": counts}))
+    del resumed, b
+    torch.cuda.empty_cache()
+
+
+def trainer_ingp_phase(dev, root, launches) -> None:
+    """``Trainer.train`` of instant-ngp-bounded (``dynamic_batch`` on, as
+    registered) on the same fixture for 48 steps; prints the rays per batch
+    after each bucket change and fails unless scatter_add_rows launched in
+    the loop."""
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+
+    tag = f"trainer_ingp_bounded {INGP}"
+    parser = DATAPARSERS["broadcaststyle-data"](
+        data=root / "broadcaststyle", fps_downsample=1.0)
+    cfg = trainer_config(INGP, parser, root / "out", "ingp", (),
+                         {"max_num_iterations": INGP_TRAINER_STEPS, "vis": "none"})
+    if not cfg.pipeline.dynamic_batch:
+        raise AssertionError(f"{tag}: dynamic_batch is off in the registry")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev).setup()
+    setup_s = time.perf_counter() - t0
+    sink = event_sink()
+    sampler = trainer.datamanager.train_pixel_sampler
+    batch_rays, changes = [], []
+    train_iteration = trainer.train_iteration
+
+    def counted(step):
+        batch_rays.append(sampler.num_rays_per_batch)
+        return train_iteration(step)
+
+    trainer.train_iteration = counted
+    set_rays = sampler.set_num_rays_per_batch
+
+    def logged_set(n):
+        changes.append({"after_step": len(batch_rays) - 1, "rays": n})
+        log(f"{tag}: step {len(batch_rays) - 1}: rays per batch "
+            f"{sampler.num_rays_per_batch} -> {n}")
+        set_rays(n)
+
+    sampler.set_num_rays_per_batch = logged_set
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches[f"trainer {INGP}"] = counts = launch_counts()
+    check_finite_events(sink, tag)
+    if counts["scatter_add_rows"] <= 0:
+        raise AssertionError(f"{tag}: scatter_add_rows not launched in the loop")
+    log(json.dumps({
+        "phase": "trainer_ingp_bounded", "method": INGP, "card": card_line(),
+        "setup_s": setup_s, "train_s": train_s, "steps": len(batch_rays),
+        "loop_rays_per_s": sum(batch_rays) / train_s,
+        "bucket_changes": changes, "final_rays_per_batch": sampler.num_rays_per_batch,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts}))
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def convergence_phase(dev, root, launches) -> None:
+    """ROADMAP A.6's gate on the card: k-planes-static on the blender
+    fixture through ``Trainer.train`` with tests/test_convergence.py's
+    overrides, then ``average_eval_image_metrics``; fails unless the
+    held-out PSNR and SSIM pass CONVERGENCE_GATE."""
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+    from soccernerfs_tpu_torch.data.fixtures import make_blender_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.pipelines import average_eval_image_metrics
+
+    import dataclasses
+
+    data = make_blender_fixture(root / "blender")
+    cfg = trainer_config(STATIC, DATAPARSERS["blender-data"](data=data),
+                         root / "out", "static",
+                         {"train_num_rays_per_batch": CONVERGENCE_RAYS},
+                         {"max_num_iterations": CONVERGENCE_STEPS,
+                          "steps_per_save": CONVERGENCE_STEPS, "vis": "none"})
+    cfg.pipeline.model = dataclasses.replace(cfg.pipeline.model,
+                                             **CONVERGENCE_MODEL)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev).setup()
+    reset_launch_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches[f"convergence {STATIC}"] = counts = launch_counts()
+    metrics = average_eval_image_metrics(trainer)
+    psnr_gate, ssim_gate = CONVERGENCE_GATE
+    log(json.dumps({"phase": "convergence_kplanes_static", "method": STATIC,
+                    "card": card_line(), "steps": CONVERGENCE_STEPS,
+                    "rays": CONVERGENCE_RAYS, "model": CONVERGENCE_MODEL,
+                    "psnr": metrics["psnr"], "ssim": metrics["ssim"],
+                    "lpips": metrics["lpips"], "gate": CONVERGENCE_GATE,
+                    "train_s": train_s, "launches": counts}))
+    if not (metrics["psnr"] > psnr_gate and metrics["ssim"] > ssim_gate):
+        raise AssertionError(f"convergence {STATIC}: PSNR {metrics['psnr']} "
+                             f"SSIM {metrics['ssim']}, the gate is "
+                             f"{CONVERGENCE_GATE}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
@@ -1869,6 +2275,14 @@ def main() -> int:
     for method in (INGP, NPNGP, NPNGPC):
         occupancy_method_phases(method, dev, cams, aabb, args.trace, kernels,
                                 launches)
+
+    # ---- the Trainer phases: the data path, checkpoints, the gate
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
+        for phase in (trainer_kplanes_phase, trainer_ingp_phase,
+                      convergence_phase):
+            t0 = time.perf_counter()
+            phase(dev, Path(root), launches)
+            log(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")
 
     pallas = "soccernerfs_tpu/ops/pallas/plane_kernels.py"
     replaces = {

@@ -24,6 +24,18 @@ class CameraType(enum.IntEnum):
     EQUIRECTANGULAR = 3
 
 
+# a transforms.json "camera_model" -> CameraType
+CAMERA_MODEL_TO_TYPE = {
+    "SIMPLE_PINHOLE": CameraType.PERSPECTIVE,
+    "PINHOLE": CameraType.PERSPECTIVE,
+    "SIMPLE_RADIAL": CameraType.PERSPECTIVE,
+    "RADIAL": CameraType.PERSPECTIVE,
+    "OPENCV": CameraType.PERSPECTIVE,
+    "OPENCV_FISHEYE": CameraType.FISHEYE,
+    "EQUIRECTANGULAR": CameraType.EQUIRECTANGULAR,
+}
+
+
 @dataclass
 class Cameras:
     """Batched cameras: per-camera scalars are [N], ``camera_to_worlds``
@@ -253,3 +265,16 @@ def generate_rays(
         times=times,
         directions_norm=norms[0, :, 0].detach(),
     )
+
+
+def generate_image_rays(cameras: Cameras, camera_index: int,
+                        camera_opt_to_camera=None) -> RayBundle:
+    """All rays of one camera's image, flattened row-major, on the cameras'
+    device."""
+    dev = cameras.camera_to_worlds.device
+    h = int(cameras.height[camera_index])
+    w = int(cameras.width[camera_index])
+    coords = get_image_coords(h, w, device=dev).reshape(-1, 2)
+    idx = torch.full((coords.shape[0],), camera_index, dtype=torch.int32,
+                     device=dev)
+    return generate_rays(cameras, idx, coords, camera_opt_to_camera)

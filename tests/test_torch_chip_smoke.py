@@ -3,14 +3,16 @@
 The script needs a card; here its CUDA calls are stubbed, the kernel
 wrappers are made to count their plain versions as launches, and small
 K-Planes, nerfacto, nerfplayer-nerfacto, nerfplayer, instant-ngp-bounded,
-nerfplayer-ngp and nerfplayer-ngp-complete configs stand in for the full
-widths, so every phase (the
+nerfplayer-ngp, nerfplayer-ngp-complete and k-planes-static configs stand
+in for the full widths, so every phase (the
 plane and scatter kernel checks, and per method two counted frames, the
 render CPU comparison, the counted train steps, the train CPU comparison;
-the JSON lines) runs in seconds.
+the Trainer phases on tiny fixtures with a few steps; the JSON lines)
+runs in about a minute.
 Also checks that, without CUDA, the script exits non-zero and prints no
 result, both from the repository and alone in a directory.
 """
+import copy
 import dataclasses
 import importlib.util
 import json
@@ -21,6 +23,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -137,6 +140,46 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                       mc.camera_optimizer_configs):
             monkeypatch.setitem(table, small_name, table[method])
         monkeypatch.setitem(mc.train_num_rays_per_batch, small_name, 256)
+    # the Trainer phases: the same small models behind the registered
+    # datamanagers, and a small k-planes-static
+    small_static = dataclasses.replace(
+        mc.model_configs["k-planes-static"], **cs.CONVERGENCE_MODEL,
+        proposal_net_args_list=(
+            {"feature_dim": 8, "resolution": (16, 16, 16)},
+            {"feature_dim": 8, "resolution": (32, 32, 32)},
+        ), eval_num_rays_per_chunk=512)
+    monkeypatch.setitem(mc.model_configs, "small-static", small_static)
+    for table in (mc.optimizer_configs, mc.model_names,
+                  mc.camera_optimizer_configs):
+        monkeypatch.setitem(table, "small-static", table["k-planes-static"])
+    monkeypatch.setitem(mc.train_num_rays_per_batch, "small-static", 256)
+    for small_name, method in (("small", "k-planes"),
+                               ("small-ingp", "instant-ngp-bounded"),
+                               ("small-static", "k-planes-static")):
+        tcfg = copy.deepcopy(mc.trainer_configs[method])
+        tcfg.pipeline.model = mc.model_configs[small_name]
+        tcfg.pipeline.datamanager.train_num_rays_per_batch = 256
+        monkeypatch.setitem(mc.trainer_configs, small_name, tcfg)
+    monkeypatch.setattr(cs, "STATIC", "small-static")
+    monkeypatch.setattr(cs, "TRAINER_FIXTURE", {"num_cameras": 4,
+                                                "num_steps": 4, "h": 12,
+                                                "w": 16})
+    # 3 train cameras: the cache picks 2 time steps of them
+    monkeypatch.setattr(cs, "TRAINER_DATA", {
+        "train_num_images_to_sample_from": 6,
+        "train_num_times_to_repeat_images": 4, "iters_to_start_is": 2})
+    monkeypatch.setattr(cs, "TRAINER_LOOP", {
+        **cs.TRAINER_LOOP, "max_num_iterations": 8, "steps_per_save": 4,
+        "steps_per_eval_image": 4, "steps_per_eval_batch": 4})
+    monkeypatch.setattr(cs, "TRAINER_LOG_STEPS", 2)
+    monkeypatch.setattr(cs, "TRAINER_RESUME_TO", 12)
+    monkeypatch.setattr(cs, "INGP_TRAINER_STEPS", 6)
+    monkeypatch.setattr(cs, "CONVERGENCE_STEPS", 3)
+    monkeypatch.setattr(cs, "CONVERGENCE_RAYS", 128)
+    # 3 steps learn nothing: the rehearsal checks the flow; the card and
+    # tests/test_torch_trainer.py::test_kplanes_static_converges check the
+    # gate itself
+    monkeypatch.setattr(cs, "CONVERGENCE_GATE", (-np.inf, -np.inf))
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "NERFPLAYER", "small-nerfplayer")
@@ -353,6 +396,39 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         line = next(line for line in lines
                     if line.startswith(f"cpu check {method} (4096 rays): max"))
         assert "'probs'" in line
+    # the Trainer phases: K-Planes through Trainer.train on the dynamic data
+    # path (IST refreshes, IST rays, checkpoints, a bit-equal resume),
+    # instant-ngp-bounded with dynamic_batch, and the convergence gate
+    phases = {}
+    for line in lines:
+        if line.startswith('{"phase"'):
+            row = json.loads(line)
+            phases.setdefault(row["phase"], []).append(row)
+    setup, run = phases["trainer_kplanes"]
+    assert setup["overrides"]["iters_to_start_is"] == 2
+    assert run["steps"] == 8 and run["final_checkpoint"] == 11
+    assert run["resumed_from"] == 8
+    assert set(run["split_ms_per_step"]) == {"sampler", "device_batch",
+                                             "train_step"}
+    assert run["loop_rays_per_s"] > 0 and run["load_ms"] > 0
+    assert len(run["refresh_ist_ms"]) >= 2 and len(run["save_ms"]) == 2
+    assert int(0.15 * 256) in run["ist_rays_per_batch"]
+    assert all(run["launches"][k.__name__] > 0 for k in pk.KERNELS)
+    assert any(line.startswith("trainer_kplanes small: resumed at step 8 ")
+               and "bit-equal" in line for line in lines)
+    (ingp,) = phases["trainer_ingp_bounded"]
+    assert ingp["steps"] == 6 and ingp["launches"]["scatter_add_rows"] >= 6
+    (conv,) = phases["convergence_kplanes_static"]
+    assert conv["steps"] == 3 and conv["lpips"] is None
+    assert 0 < conv["ssim"] < 1 and np.isfinite(conv["psnr"])
+    for path in ("trainer small", "trainer small resumed", "trainer small-ingp",
+                 "convergence small-static"):
+        assert sum(main_path[path].values()) > 0, path
+    # the Trainer reads a step's values on the host (logs, eval batches,
+    # dynamic_batch) and saves checkpoints only after the range check:
+    # 2 + 2 checkpoints of the K-Planes runs, one each of the others
+    assert checks.count("save_checkpoint") == 6
+    assert checks.count("_read") >= 4 + 2 + ingp["steps"]
     k = kernels[4]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
