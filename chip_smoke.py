@@ -96,6 +96,23 @@
      ms per cache refresh (decode, IST), checkpoint save and load ms, the
      eval image's PSNR, peak memory, and 8 more steps split into sampler,
      batch copy and train step, each synchronised.
+  8. The CLI phase, ``cli_kplanes``, on the same fixture and in process:
+     ``scripts.train.main`` trains k-planes at registry width from a
+     command line (the ``trainer_kplanes`` data overrides as flags, 16
+     steps, the checkpoint of step 15); ``scripts.eval.main`` writes
+     ns-eval's JSON, with DynMetric's boxes from a sidecar file (one around
+     the ball per eval image); the viewer's server
+     (``viewer.server.make_server`` on a free port of 127.0.0.1) answers
+     /scene, four /render requests (rgb and depth at 240x135 and 960x540),
+     three /keyframe and an /export_path; ``scripts.render.main`` renders
+     an 8-frame spiral (rgb, depth, accumulation side by side), an
+     interpolated path and the exported camera_path.json as PNG frames.
+     Fails unless all four plane kernels launched in training and both
+     forward kernels in eval, in the viewer's /render requests and in
+     render, and every JSON, PNG and frame has its keys and size.  Prints
+     the loop's rays/s, eval rays/s and fps, s/frame per trajectory, ms
+     per /render by size (the first apart), ``eval_setup`` ms and peak
+     memory.
 Prints a JSON line with the five kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -177,6 +194,15 @@ CONVERGENCE_RAYS = 512
 CONVERGENCE_STEPS = 300
 CONVERGENCE_GATE = (20.5, 0.44)   # held-out PSNR and SSIM must exceed these
 WINDOW_RAYS_PER_S = {}            # train_phase's window rate per method
+# the CLI phase, on the Trainer phases' fixture: snt-train's steps (one
+# checkpoint, at the last), the spiral's and interpolated path's frames,
+# the exported path's frames per keyframe transition, the viewer's
+# /render sizes (width, height), each asked for rgb and depth
+CLI_STEPS = 16
+CLI_RENDER_STEPS = 8
+CLI_PATH_STEPS = 2
+VIEWER_SIZES = ((240, 135), (960, 540))
+BALL_BOX_MIN = 8                  # px a side of a DynMetric box, at least
 
 
 def log(*a):
@@ -2149,6 +2175,259 @@ def convergence_phase(dev, root, launches) -> None:
     torch.cuda.empty_cache()
 
 
+def ball_boxes(data: Path) -> dict:
+    """DynMetric's sidecar boxes for the fixture's eval camera (Camera_20):
+    per image, the box of its ball's pixels (red), at least BALL_BOX_MIN
+    px a side, labelled a ball (37)."""
+    from PIL import Image
+
+    table = {}
+    for path in sorted(data.glob("images/*/Camera_20_*.png")):
+        img = np.asarray(Image.open(path))
+        ys, xs = np.nonzero((img[..., 0] > 128) & (img[..., 1] < 100))
+        if len(xs) == 0:
+            continue
+        cx, cy = (xs.min() + xs.max() + 1) / 2, (ys.min() + ys.max() + 1) / 2
+        half_w = max(xs.max() + 1 - xs.min(), BALL_BOX_MIN) / 2
+        half_h = max(ys.max() + 1 - ys.min(), BALL_BOX_MIN) / 2
+        table[path.name] = [{"box": [float(cx - half_w), float(cy - half_h),
+                                     float(cx + half_w), float(cy + half_h)],
+                             "label": 37}]
+    return table
+
+
+def post(url, payload) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=300) as reply:
+        return reply.read()
+
+
+def cli_phase(dev, root, launches) -> None:
+    """The user entry points on a trained K-Planes snapshot, in process so
+    that the launch counters see every kernel: ``scripts.train.main``
+    trains k-planes at registry width from a command line (the
+    ``trainer_kplanes`` fixture and data overrides as flags, CLI_STEPS
+    steps, one checkpoint); ``scripts.eval.main`` writes ns-eval's JSON
+    with DynMetric's boxes from a sidecar file (one around the ball per
+    eval image); the viewer's server (``viewer.server.make_server`` on
+    port 0 of 127.0.0.1) answers /scene, rgb and depth /render requests
+    at VIEWER_SIZES, three /keyframe and an /export_path;
+    ``scripts.render.main`` renders a spiral (rgb, depth and accumulation
+    side by side), an interpolated path and the exported camera_path.json
+    as PNG frames.  Fails unless all four plane kernels launched in
+    training and both forward kernels in eval, in the viewer's /render
+    requests and in render, the checkpoint and config exist, psnr, dpsnr
+    and dssim are finite, and every frame and PNG has its size."""
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from soccernerfs_tpu_torch.core.camera_paths import get_spiral_path
+    from soccernerfs_tpu_torch.engine import checkpoints
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.scripts import eval as eval_script
+    from soccernerfs_tpu_torch.scripts import render as render_script
+    from soccernerfs_tpu_torch.scripts import train as train_script
+    from soccernerfs_tpu_torch.utils import eval_utils
+    from soccernerfs_tpu_torch.viewer.server import make_server
+
+    tag = f"cli_kplanes {MODEL}"
+    forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
+
+    def require(path, names):
+        missing = [n for n in names if launches[path][n] <= 0]
+        if missing:
+            raise AssertionError(f"{tag}: {missing} not launched in {path!r}")
+
+    data = root / "broadcaststyle"
+    out = root / "cli"
+    argv = [MODEL, "--max-num-iterations", str(CLI_STEPS),
+            "--steps-per-save", str(CLI_STEPS), "--vis", "none",
+            "--output-dir", str(out)]
+    for key, value in TRAINER_DATA.items():
+        argv += [f"--pipeline.datamanager.{key.replace('_', '-')}", str(value)]
+    argv += ["broadcaststyle-data", "--fps-downsample", "1", "--data", str(data)]
+    log(f"{tag}: snt-train {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # snt-train: the loop's time without the checkpoint's save
+    loop_s, save_s = [], []
+    train, save = Trainer.train, Trainer.save_checkpoint
+    Trainer.train = timed(train, loop_s, sync=True)
+    Trainer.save_checkpoint = timed(save, save_s, sync=True)
+    reset_launch_counts()
+    try:
+        trainer = train_script.main(argv, device=dev)
+    finally:
+        Trainer.train, Trainer.save_checkpoint = train, save
+    launches[f"cli train {MODEL}"] = launch_counts()
+    require(f"cli train {MODEL}", [k.__name__ for k in pk.KERNELS])
+    rays = trainer.datamanager.get_train_rays_per_batch()
+    run_dir = trainer.base_dir
+    config = run_dir / "config.yml"
+    if not config.is_file() or not checkpoints.checkpoint_path(
+            run_dir, CLI_STEPS - 1).is_file():
+        raise AssertionError(f"{tag}: no config.yml or step-{CLI_STEPS - 1} "
+                             f"checkpoint under {run_dir}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # every eval_setup (the checkpoint's load included) by entry point
+    setup_ms = []
+
+    def timed_setup(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = eval_utils.eval_setup(*args, **kwargs)
+        torch.cuda.synchronize()
+        setup_ms.append(1e3 * (time.perf_counter() - t0))
+        return result
+
+    # snt-eval with DynMetric's boxes
+    boxes = root / "cli_boxes.json"
+    boxes.write_text(json.dumps(ball_boxes(data)))
+    saved_env = os.environ.get("SNT_DYNMETRIC_BOXES")
+    os.environ["SNT_DYNMETRIC_BOXES"] = str(boxes)
+    eval_script.eval_setup = timed_setup
+    reset_launch_counts()
+    try:
+        info = eval_script.main(["--load-config", str(config), "--output-path",
+                                 str(root / "cli_eval.json")], device=dev)
+    finally:
+        eval_script.eval_setup = eval_utils.eval_setup
+        if saved_env is None:
+            del os.environ["SNT_DYNMETRIC_BOXES"]
+        else:
+            os.environ["SNT_DYNMETRIC_BOXES"] = saved_env
+    launches[f"cli eval {MODEL}"] = launch_counts()
+    require(f"cli eval {MODEL}", forward)
+    results = info["results"]
+    if not ({"experiment_name", "method_name", "checkpoint", "results"} <= set(info)
+            and all(results.get(k) is not None and np.isfinite(results[k])
+                    for k in ("psnr", "ssim", "dpsnr", "dssim"))):
+        raise AssertionError(f"{tag}: eval JSON {info}")
+    torch.cuda.empty_cache()
+
+    # the viewer's server on a thread
+    _, trainer, _ = timed_setup(config, "inference", device=dev)
+    server = make_server(trainer, "127.0.0.1", 0, output_dir=run_dir)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{url}/scene", timeout=60) as reply:
+            scene = json.loads(reply.read())
+        if scene["num_cameras"] != len(trainer.datamanager.train_dataset):
+            raise AssertionError(f"{tag}: /scene {scene}")
+        cams = trainer.eval_cameras
+        c2w = cams.camera_to_worlds[0].tolist()
+        fov = float(np.rad2deg(2 * np.arctan(float(cams.height[0]) / 2
+                                             / float(cams.fy[0]))))
+        render_ms = []
+        reset_launch_counts()
+        for width, height in VIEWER_SIZES:
+            for output in ("rgb", "depth"):
+                t0 = time.perf_counter()
+                png = post(f"{url}/render", {"c2w": c2w, "fov": fov,
+                                              "width": width, "height": height,
+                                              "time": 0.5, "output": output})
+                render_ms.append((f"{width}x{height}", output,
+                                  1e3 * (time.perf_counter() - t0)))
+                size = Image.open(io.BytesIO(png)).size
+                if size != (width, height):
+                    raise AssertionError(f"{tag}: /render {output} at "
+                                         f"{width}x{height} gave {size}")
+        launches[f"viewer {MODEL}"] = launch_counts()
+        require(f"viewer {MODEL}", forward)
+        path = get_spiral_path(cams, steps=6)
+        for i, t in zip((0, 2, 4), (0.0, 0.5, 1.0)):
+            post(f"{url}/keyframe", {"c2w": path.camera_to_worlds[i].tolist(),
+                                     "fov": fov, "time": t})
+        width, height = VIEWER_SIZES[-1]
+        exported = json.loads(post(f"{url}/export_path", {
+            "width": width, "height": height,
+            "steps_per_transition": CLI_PATH_STEPS, "fps": 24}))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    camera_path = Path(exported["path"])
+    if len(exported["camera_path"]) != 2 * CLI_PATH_STEPS + 1 \
+            or not camera_path.is_file():
+        raise AssertionError(f"{tag}: /export_path wrote "
+                             f"{len(exported['camera_path'])} frames to "
+                             f"{camera_path}")
+    del trainer, server
+    torch.cuda.empty_cache()
+
+    # snt-render: the spiral, the interpolated path, the exported path
+    h, w = int(cams.height[0]), int(cams.width[0])
+    trajectories = {
+        "spiral": (["--traj", "spiral", "--rendered-output-names", "rgb",
+                    "depth", "accumulation"], CLI_RENDER_STEPS, (3 * w, h)),
+        "interpolate": (["--traj", "interpolate"],
+                        max(CLI_RENDER_STEPS // (cams.num_cameras - 1), 1)
+                        * (cams.num_cameras - 1), (w, h)),
+        "filename": (["--traj", "filename", "--camera-path-filename",
+                      str(camera_path)], 2 * CLI_PATH_STEPS + 1,
+                     VIEWER_SIZES[-1]),
+    }
+    s_per_frame = {}
+    render_script.eval_setup = timed_setup
+    reset_launch_counts()
+    try:
+        for name, (args, frames, size) in trajectories.items():
+            n_setup = len(setup_ms)
+            t0 = time.perf_counter()
+            written = render_script.main(
+                ["--load-config", str(config), "--interpolation-steps",
+                 str(CLI_RENDER_STEPS), "--output-format", "images",
+                 "--output-path", str(root / "cli_render" / f"{name}.mp4"),
+                 *args], device=dev)
+            s_per_frame[name] = ((time.perf_counter() - t0 - 1e-3 * sum(
+                setup_ms[n_setup:])) / frames)
+            pngs = sorted(written.glob("*.png"))
+            sizes = {Image.open(p).size for p in pngs}
+            if len(pngs) != frames or sizes != {size}:
+                raise AssertionError(f"{tag}: render {name}: {len(pngs)} "
+                                     f"frames of {sizes}, expected {frames} "
+                                     f"of {size}")
+            torch.cuda.empty_cache()
+    finally:
+        render_script.eval_setup = eval_utils.eval_setup
+    launches[f"cli render {MODEL}"] = launch_counts()
+    require(f"cli render {MODEL}", forward)
+
+    first = render_ms[0]
+    by_size = {}
+    for size, _output, ms in render_ms[1:]:
+        by_size.setdefault(size, []).append(ms)
+    log(json.dumps({
+        "phase": "cli_kplanes", "method": MODEL, "card": card_line(),
+        "train_argv": argv, "train_steps": CLI_STEPS,
+        "train_loop_rays_per_s": rays * CLI_STEPS / (loop_s[0] - sum(save_s)),
+        "train_loop_s": loop_s[0], "save_ms": [1e3 * t for t in save_s],
+        "eval": {k: results[k] for k in ("psnr", "ssim", "lpips", "dpsnr",
+                                         "dssim", "dlpips", "num_rays_per_sec",
+                                         "fps")},
+        "eval_images_with_a_box": len(json.loads(boxes.read_text())),
+        "render_s_per_frame": s_per_frame,
+        "render_frames": {k: v[1] for k, v in trajectories.items()},
+        "viewer_first_render_ms": {f"{first[0]} {first[1]}": first[2]},
+        "viewer_render_ms": by_size,
+        "eval_setup_ms": setup_ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": {k: launches[f"{k} {MODEL}"]
+                     for k in ("cli train", "cli eval", "viewer", "cli render")}}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
@@ -2279,7 +2558,7 @@ def main() -> int:
     # ---- the Trainer phases: the data path, checkpoints, the gate
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
         for phase in (trainer_kplanes_phase, trainer_ingp_phase,
-                      convergence_phase):
+                      convergence_phase, cli_phase):
             t0 = time.perf_counter()
             phase(dev, Path(root), launches)
             log(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")

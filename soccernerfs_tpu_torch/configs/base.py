@@ -2,7 +2,9 @@
 
 Typed dataclasses compose a method's config; ``TrainerConfig`` is the
 root.  Dataparser and datamanager configs build their objects with
-``.setup()``; models are named by their registry name.
+``.setup()``; models are named by their registry name.  ``save_config``
+writes a run's ``config.yml`` and ``load_config`` reads one back, building
+only the port's own classes.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import yaml
 
 from soccernerfs_tpu_torch.data.datamanager import VanillaDataManagerConfig
 
@@ -114,8 +117,6 @@ class TrainerConfig:
 
     def save_config(self) -> Path:
         """Write the whole config to ``{base_dir}/config.yml``."""
-        import yaml
-
         base_dir = self.get_base_dir()
         base_dir.mkdir(parents=True, exist_ok=True)
         path = base_dir / "config.yml"
@@ -128,3 +129,39 @@ class TrainerConfig:
         random.seed(seed)
         np.random.seed(seed)
         torch.manual_seed(seed)
+
+
+# the modules whose classes a config.yml may name: the port's, and pathlib's
+# paths; tuples and the plain types need no import
+_CONFIG_MODULES = ("soccernerfs_tpu_torch", "pathlib")
+
+
+class _ConfigLoader(yaml.UnsafeLoader):
+    """``yaml.dump``'s python tags, restricted to ``_CONFIG_MODULES``: a
+    config written by another package (the JAX package's names
+    ``soccernerfs_tpu.*``) is refused before anything is imported."""
+
+    def find_python_module(self, name, mark):
+        raise ValueError(f"config.yml names the module {name!r}; a config "
+                         f"builds only classes of {_CONFIG_MODULES}")
+
+    def find_python_name(self, name, mark):
+        module = name.rsplit(".", 1)[0] if "." in name else "builtins"
+        if module.split(".")[0] not in _CONFIG_MODULES:
+            raise ValueError(
+                f"config.yml names {name!r} of the module {module!r}; a config "
+                f"builds only classes of {_CONFIG_MODULES} (was it written "
+                f"by another package?)")
+        return super().find_python_name(name, mark)
+
+
+def load_config(path) -> TrainerConfig:
+    """The ``TrainerConfig`` of a ``config.yml`` that ``save_config`` wrote.
+
+    Raises ValueError, before importing it, on a class of any other module
+    (a config of the JAX package)."""
+    config = yaml.load(Path(path).read_text(), Loader=_ConfigLoader)
+    if not isinstance(config, TrainerConfig):
+        raise ValueError(f"{path} holds a {type(config).__name__}, not a "
+                         f"TrainerConfig")
+    return config

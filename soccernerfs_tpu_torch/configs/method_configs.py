@@ -372,3 +372,22 @@ trainer_configs: Dict[str, TrainerConfig] = {
         viewer=ViewerConfig(num_rays_per_chunk=64000), vis="viewer",
         **_SPARSE_EVAL),
 }
+
+# what `snt-train --help` prints beside each method
+descriptions: Dict[str, str] = {
+    "k-planes": "Dynamic NeRF on multiscale feature planes (fork default).",
+    "k-planes-static": "Static 3-plane K-Planes with ISG sampling.",
+    "nerfacto": "Hash-grid NeRF with proposal sampling (upstream default).",
+    "nerfplayer-nerfacto": "Temporal hash field on the nerfacto backbone.",
+    "nerfplayer": "Full NeRFPlayer: static/deform/new decomposition (fork).",
+    "nerfplayer-ngp": "NeRFPlayer with occupancy-grid NGP backbone.",
+    "instant-ngp": "Occupancy-grid volumetric NeRF (upstream).",
+    "instant-ngp-bounded": "Instant-NGP tuned for bounded dynamic scenes (fork).",
+    "nerfplayer-ngp-complete":
+        "NGP backbone with the full static/deform/new decomposition (fork).",
+}
+
+# methods of the JAX package's registry that the port does not run yet: the
+# CLI names them as such instead of calling them unknown
+not_ported = ("vanilla-nerf", "dnerf", "mipnerf", "tensorf", "depth-nerfacto",
+              "semantic-nerfw", "neus")

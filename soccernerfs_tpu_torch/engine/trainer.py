@@ -53,7 +53,7 @@ from soccernerfs_tpu_torch.engine.optimizers import (
 from soccernerfs_tpu_torch.engine.render import render_camera
 from soccernerfs_tpu_torch.models import get_model
 from soccernerfs_tpu_torch.ops.kernels import scatter_kernels
-from soccernerfs_tpu_torch.utils import writer
+from soccernerfs_tpu_torch.utils import profiler, writer
 from soccernerfs_tpu_torch.utils.device import resolve_device
 from soccernerfs_tpu_torch.utils.tree import tree_leaves
 from soccernerfs_tpu_torch.utils.writer import EventName
@@ -355,6 +355,7 @@ class Trainer:
             self.datamanager.train_dataparser_outputs.save_dataparser_transform(
                 self.base_dir / "dataparser_transforms.json")
             writer.setup_writers(config.vis, self.base_dir, config.experiment_name)
+            profiler.setup_profiler(config.logging.enable_profiler)
         return self
 
     def _generator(self, step: int) -> torch.Generator:
@@ -377,6 +378,7 @@ class Trainer:
         return {k: (torch.from_numpy(v).pin_memory() if pin else torch.from_numpy(v))
                 .to(self.device, non_blocking=pin) for k, v in host.items()}
 
+    @profiler.time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         """One training step at ``step`` (the state's step); the returned
         values stay on the device."""
@@ -388,6 +390,7 @@ class Trainer:
         return self.train_step.train_iteration(self.state, batch,
                                                self._generator(step))
 
+    @profiler.time_function
     def eval_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         """An eval batch's loss dict and metrics (on the device)."""
         batch = self._device_batch(self.datamanager.next_eval_raw(step))

@@ -1,7 +1,7 @@
 """Eval-image metrics averaged over the eval split, over a set-up Trainer
 (counterpart of ``average_eval_image_metrics`` in the JAX package's
-``scripts/eval.py``, without DynMetric).  ``DynamicBatchPipeline``'s behaviour is the trainer's
-``pipeline.dynamic_batch``.
+``scripts/eval.py``).  ``DynamicBatchPipeline``'s behaviour is the
+trainer's ``pipeline.dynamic_batch``.
 """
 from __future__ import annotations
 
@@ -10,12 +10,16 @@ import time
 import numpy as np
 
 from soccernerfs_tpu_torch.utils import metrics as M
+from soccernerfs_tpu_torch.utils.dynmetric import DynMetric
 
 
-def average_eval_image_metrics(trainer) -> dict:
+def average_eval_image_metrics(trainer, use_dynmetric: bool = False) -> dict:
     """psnr, ssim and lpips averaged over every eval image (computed on the
-    trainer's device), with the render rate.  A metric that is NaN on
-    every image (lpips without local weights) is reported as None."""
+    trainer's device), with the render rate; with ``use_dynmetric`` (as
+    snt-eval runs it) also DynMetric's dpsnr, dssim and dlpips.  A metric
+    that is NaN on every image (lpips without local weights, the D-metrics
+    without boxes) is reported as None."""
+    dynmetric = DynMetric(device=trainer.device) if use_dynmetric else None
     per_image = []
     num_rays = 0
     t0 = time.time()
@@ -24,8 +28,12 @@ def average_eval_image_metrics(trainer) -> dict:
         _, _, batch = dm.next_eval_image(idx)
         outputs = trainer.render_camera(trainer.eval_cameras, idx)
         gt = np.asarray(batch["image"], np.float32)
-        per_image.append(M.all_image_metrics(outputs["rgb"], gt,
-                                             device=trainer.device))
+        m = M.all_image_metrics(outputs["rgb"], gt, device=trainer.device)
+        if dynmetric is not None:
+            name = dm.eval_dataset.image_filenames[idx].name
+            _, dpsnr, dssim, dlpips = dynmetric(gt, outputs["rgb"], image_name=name)
+            m.update({"dpsnr": dpsnr, "dssim": dssim, "dlpips": dlpips})
+        per_image.append(m)
         num_rays += gt.shape[0] * gt.shape[1]
     dt = time.time() - t0
 

@@ -63,7 +63,12 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0
 
     Args:
         pred, target: [H, W, C] in [0, data_range].
+    Returns:
+        a 0-d tensor; NaN when no window fits (a side under 11 px), the
+        mean over no windows, as the JAX package's.
     """
+    if min(pred.shape[0], pred.shape[1]) < 11:
+        return torch.full((), float("nan"), device=pred.device)
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
     kernel = _gaussian_kernel(device=pred.device)[None, None]  # [1, 1, 11, 11]

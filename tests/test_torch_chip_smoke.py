@@ -161,9 +161,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         tcfg.pipeline.datamanager.train_num_rays_per_batch = 256
         monkeypatch.setitem(mc.trainer_configs, small_name, tcfg)
     monkeypatch.setattr(cs, "STATIC", "small-static")
+    # wide enough for the CLI phase's DynMetric boxes (the ball's, grown 7x
+    # wide and 2.5x high) to hold SSIM's 11x11 window
     monkeypatch.setattr(cs, "TRAINER_FIXTURE", {"num_cameras": 4,
-                                                "num_steps": 4, "h": 12,
-                                                "w": 16})
+                                                "num_steps": 4, "h": 32,
+                                                "w": 64})
     # 3 train cameras: the cache picks 2 time steps of them
     monkeypatch.setattr(cs, "TRAINER_DATA", {
         "train_num_images_to_sample_from": 6,
@@ -180,6 +182,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # tests/test_torch_trainer.py::test_kplanes_static_converges check the
     # gate itself
     monkeypatch.setattr(cs, "CONVERGENCE_GATE", (-np.inf, -np.inf))
+    monkeypatch.setattr(cs, "CLI_STEPS", 4)
+    monkeypatch.setattr(cs, "CLI_RENDER_STEPS", 3)
+    monkeypatch.setattr(cs, "VIEWER_SIZES", ((24, 16), (40, 24)))
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "NERFPLAYER", "small-nerfplayer")
@@ -426,9 +431,32 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert sum(main_path[path].values()) > 0, path
     # the Trainer reads a step's values on the host (logs, eval batches,
     # dynamic_batch) and saves checkpoints only after the range check:
-    # 2 + 2 checkpoints of the K-Planes runs, one each of the others
-    assert checks.count("save_checkpoint") == 6
+    # 2 + 2 checkpoints of the K-Planes runs, one each of the others (the
+    # CLI phase's training among them)
+    assert checks.count("save_checkpoint") == 7
     assert checks.count("_read") >= 4 + 2 + ingp["steps"]
+    # the CLI phase: snt-train from a command line, snt-eval with
+    # DynMetric's boxes, the viewer's /render requests, snt-render's three
+    # trajectories; each path launched its plane kernels
+    (cli,) = phases["cli_kplanes"]
+    argv = cli["train_argv"]
+    assert argv[0] == "small" and argv[argv.index("--max-num-iterations") + 1] == "4"
+    assert argv[argv.index("--pipeline.datamanager.iters-to-start-is") + 1] == "2"
+    assert cli["train_steps"] == 4 and cli["train_loop_rays_per_s"] > 0
+    assert all(np.isfinite(cli["eval"][k]) for k in ("psnr", "ssim", "dpsnr",
+                                                      "dssim"))
+    assert cli["eval"]["lpips"] is None and cli["eval"]["fps"] > 0
+    assert cli["render_frames"] == {"spiral": 3, "interpolate": 3, "filename": 5}
+    assert all(v > 0 for v in cli["render_s_per_frame"].values())
+    assert list(cli["viewer_first_render_ms"]) == ["24x16 rgb"]
+    assert {k: len(v) for k, v in cli["viewer_render_ms"].items()} == {
+        "24x16": 1, "40x24": 2}
+    assert len(cli["eval_setup_ms"]) == 5
+    forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
+    for path, names in (("cli train small", [k.__name__ for k in pk.KERNELS]),
+                        ("cli eval small", forward), ("viewer small", forward),
+                        ("cli render small", forward)):
+        assert all(main_path[path][n] > 0 for n in names), path
     k = kernels[4]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))

@@ -425,6 +425,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "soccernerfs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 50
+    # the entry points and their modules are among them
+    port = REPO / "soccernerfs_tpu_torch"
+    assert {port / name for name in (
+        "configs/cli.py", "scripts/train.py", "scripts/eval.py",
+        "scripts/render.py", "utils/eval_utils.py", "utils/dynmetric.py",
+        "utils/colormaps.py", "utils/profiler.py", "core/camera_paths.py",
+        "viewer/server.py")} <= set(files)
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                      "soccernerfs_tpu")]
