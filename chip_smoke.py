@@ -27,7 +27,8 @@
      temporal grid and nerfplayer-ngp-complete's 4; each with its L2
      reductions (scatter_plan) and their rate.  A case's time is the
      median of five passes of 20 launches.
-  4. Render phases, ``k-planes``, ``nerfacto``, ``nerfplayer-nerfacto``
+  4. Render phases, ``k-planes``, ``nerfacto``, ``depth-nerfacto`` (nerfacto's
+     forward), ``nerfplayer-nerfacto``
      (temporal hash grids), ``nerfplayer`` (the decomposition field), then
      the occupancy-grid methods ``instant-ngp-bounded``, ``nerfplayer-ngp``
      and ``nerfplayer-ngp-complete``, full registry width,
@@ -42,7 +43,10 @@
      at most 0.1 %, and left out of the comparison); a NeRFPlayer
      method's rendered component probabilities are compared beside rgb.
   5. Train phases, ``k-planes``, ``nerfacto`` (camera optimizer SO3xR3
-     on, as registered), ``nerfplayer-nerfacto`` (camera optimizer off,
+     on, as registered), ``depth-nerfacto`` (the same, its batches carrying
+     target depths, 10 % of them 0, for the DS-NeRF loss on every level;
+     scatter_add_rows must launch 3 times per update step and once per
+     other step), ``nerfplayer-nerfacto`` (camera optimizer off,
      the temporal TV over its three grids), ``nerfplayer`` (the TV over its
      four temporal grids, the probability regulariser), then
      ``instant-ngp-bounded``, ``nerfplayer-ngp`` and
@@ -69,10 +73,12 @@
      after each step of the CPU checks.
   6. Train CPU checks: one 1024-ray step with the same params, batch and
      draws on the card and on the CPU; the loss terms and every gradient
-     before the update agree (per leaf, in L2).  For K-Planes, three seeds
-     and two more CPU steps, one with the card's PDF bins and one that also
-     moves the ray directions by one ulp, which show what the resampling
-     adds and how far the step moves on the CPU alone.  For an occupancy
+     before the update agree (per leaf, in L2).  For K-Planes (TF32 turned
+     on before its steps, which must compute in f32 all the same and leave
+     it on) and depth-nerfacto, two more CPU steps per seed, one with the
+     card's PDF bins and one that also moves the ray directions by one
+     ulp, which show what the resampling adds and how far the step moves
+     on the CPU alone.  For an occupancy
      method, at step 272, whose grid update is a sampled one: the rays
      whose samples differ are counted (at most 0.1 %), and both sides
      update the same grid from the card's updated params with the same
@@ -86,7 +92,10 @@
      computed on the card at each refresh, IST rays from step 8; 64 steps
      with eval batches, an eval image and checkpoints; all four plane
      kernels must launch; a fresh Trainer resumed from the final checkpoint
-     must hold a bit-equal state and runs to step 96), ``trainer_ingp_bounded``
+     must hold a bit-equal state and runs to step 96),
+     ``trainer_kplanes_depth`` (k-planes on the same fixture's depth maps,
+     32 steps: depth_loss finite and positive at every log step, the depth
+     maps decoded at each refresh), ``trainer_ingp_bounded``
      (48 steps with ``dynamic_batch``, its bucket changes printed;
      scatter_add_rows must launch) and ``convergence_kplanes_static``
      (tests/test_convergence.py's run: k-planes-static on the blender
@@ -112,7 +121,12 @@
      render, and every JSON, PNG and frame has its keys and size.  Prints
      the loop's rays/s, eval rays/s and fps, s/frame per trajectory, ms
      per /render by size (the first apart), ``eval_setup`` ms and peak
-     memory.
+     memory.  Then ``cli_depth_nerfacto``: ``snt-train depth-nerfacto ...
+     nerfstudio-data`` on a 20-frame nerfstudio-format ring with depth maps
+     at 540x960, its registered live viewer on a free port answering
+     /render at 240x135 while the trainer lives, ``snt-eval`` and
+     ``snt-render``'s spiral; scatter_add_rows 3 launches per update step
+     and 1 per other step.
 Prints a JSON line with the five kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -145,6 +159,7 @@ H, W = 540, 960
 DEVICE = "cuda"
 MODEL = "k-planes"
 NERFACTO = "nerfacto"
+DEPTH = "depth-nerfacto"
 NERFPLAYER = "nerfplayer-nerfacto"
 INGP = "instant-ngp-bounded"
 NPNGP = "nerfplayer-ngp"
@@ -154,6 +169,8 @@ AABB = [[-1.5] * 3, [1.5] * 3]
 TRAIN_CPU_RAYS = 1024
 TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
 NERFACTO_CPU_SEEDS = (2, 4)
+DEPTH_CPU_SEEDS = (2, 4)
+DEPTH_ZEROS = 0.1                # share of a depth batch's rays without a target
 NERFPLAYER_CPU_SEEDS = (2, 4)    # both temporal proposal methods
 OCC_CPU_SEEDS = (2,)
 OCC_CPU_STEP = 272               # a sampled grid update
@@ -183,6 +200,10 @@ TRAINER_LOOP = {"max_num_iterations": 64, "steps_per_save": 32,
                 "vis": "none", "save_only_latest_checkpoint": True}
 TRAINER_LOG_STEPS = 8
 TRAINER_RESUME_TO = 96
+# k-planes on the same fixture with its depth maps (the depth loss's
+# targets), as experiments/depth_loss_coeff.py trains it
+TRAINER_DEPTH_STEPS = 32
+TRAINER_KPLANES = {}              # trainer_kplanes' loop rate and refreshes
 INGP_TRAINER_STEPS = 48
 # tests/test_convergence.py's run: its model and batch overrides, 300 steps
 CONVERGENCE_MODEL = {"spacetime_resolution": (16, 16, 16),
@@ -202,6 +223,9 @@ CLI_STEPS = 16
 CLI_RENDER_STEPS = 8
 CLI_PATH_STEPS = 2
 VIEWER_SIZES = ((240, 135), (960, 540))
+# the nerfacto family through the entry points: depth-nerfacto on a
+# nerfstudio-format ring of 20 frames (18 train, 2 eval) with depth maps
+NERFSTUDIO_FIXTURE = {"num_frames": 20, "h": 540, "w": 960}
 BALL_BOX_MIN = 8                  # px a side of a DynMetric box, at least
 
 
@@ -1078,16 +1102,23 @@ def ring_cameras(dev):
     )
 
 
-def make_batch(seed, rays, dev):
+def make_batch(seed, rays, dev, depth=False):
     """A batch in the JAX trainer's layout: random (camera, pixel) pairs of
-    the ring, pixel centres, random colours, from a numpy seed."""
+    the ring, pixel centres, random colours, from a numpy seed; with
+    ``depth``, target depths U(1.5, 4) (the ring's cameras are 2.5 from the
+    box's centre), DEPTH_ZEROS of them 0 (no target)."""
     r = np.random.default_rng(seed)
     coords = np.stack([r.integers(0, 540, rays), r.integers(0, 960, rays)], -1)
-    return {
+    batch = {
         "cam_idx": torch.from_numpy(r.integers(0, 20, rays).astype(np.int32)).to(dev),
         "coords": torch.from_numpy(coords.astype(np.float32) + 0.5).to(dev),
         "image": torch.from_numpy(r.uniform(0, 1, (rays, 3)).astype(np.float32)).to(dev),
     }
+    if depth:
+        target = r.uniform(1.5, 4.0, rays).astype(np.float32)
+        target[r.uniform(0, 1, rays) < DEPTH_ZEROS] = 0.0
+        batch["depth_image"] = torch.from_numpy(target).to(dev)
+    return batch
 
 
 def is_update_step(module, cfg, state) -> bool:
@@ -1138,7 +1169,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=(),
     rays = train_num_rays_per_batch[method]
     trainer, state = make_trainer(method, tree, dev, aux)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    batches = [make_batch(i, rays, dev) for i in range(8)]
+    batches = [make_batch(i, rays, dev, depth=method == DEPTH) for i in range(8)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1330,10 +1361,13 @@ def one_ulp_directions():
 
     def patched(*a, **k):
         rays = orig(*a, **k)
-        d = rays.directions.clone()
-        flat = d.view(-1)
-        flat[::2] = torch.nextafter(flat[::2], torch.full_like(flat[::2], 2.0))
-        return rays.replace(directions=d)
+        d = rays.directions
+        # d + (its next float up - d) is that float, and keeps d's gradient
+        # (the camera optimizer's)
+        up = torch.nextafter(d.detach(), torch.full_like(d, 2.0)) - d.detach()
+        every_other = (torch.arange(d.numel(), device=d.device) % 2 == 0)
+        return rays.replace(directions=d + torch.where(
+            every_other.reshape(d.shape), up, torch.zeros_like(up)))
 
     trainer.generate_rays = patched
     try:
@@ -1447,7 +1481,7 @@ def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None):
                 for patch in patches:
                     stack.enter_context(patch)
                 loss, ld, _m, grads = trainers[d].loss_and_grads(
-                    state, make_batch(seed + 1, n, d),
+                    state, make_batch(seed + 1, n, d, depth=method == DEPTH),
                     train_proposal_networks=True, tv_rows=tv_rows,
                     **step_draws(d))
             loss = float(loss)
@@ -1890,7 +1924,10 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
 
     tag = f"trainer_kplanes {MODEL}"
     t0 = time.perf_counter()
-    data = make_broadcaststyle_fixture(root / "broadcaststyle", **TRAINER_FIXTURE)
+    # the depth maps are for trainer_kplanes_depth: under the parser's
+    # default depth_maps="none" this run reads none of them
+    data = make_broadcaststyle_fixture(root / "broadcaststyle", with_depth=True,
+                                       **TRAINER_FIXTURE)
     fixture_s = time.perf_counter() - t0
     parser = DATAPARSERS["broadcaststyle-data"](data=data, fps_downsample=1.0)
     cfg = trainer_config(MODEL, parser, root / "out", "first", TRAINER_DATA,
@@ -1979,6 +2016,8 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
 
     loop_s = train_s - sum(side_s) - sum(save_s)
     steps = len(raw)
+    TRAINER_KPLANES.update(loop_rays_per_s=rays * steps / loop_s,
+                           refresh_decode_ms=[1e3 * t for t in decode_s])
     start_is = dm_cfg.iters_to_start_is
     before_is = [t for s, t, _n in raw if s < start_is]
     after_is = [t for s, t, _n in raw if s >= start_is]
@@ -2070,6 +2109,78 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
         "peak_gib": peak,
         "launches": counts}))
     del resumed, b
+    torch.cuda.empty_cache()
+
+
+def trainer_kplanes_depth_phase(dev, root, launches) -> None:
+    """``Trainer.train`` of K-Planes at full width on ``trainer_kplanes``'
+    fixture with its depth maps (``depth_maps="depth-maps"``: the masked
+    variant's files, 3 m at the parser's 0.01 unit), TRAINER_DEPTH_STEPS
+    steps with IST as ``trainer_kplanes`` sets it: each cache refresh
+    decodes the depth maps beside the images, and every batch carries
+    target depths.  Fails unless ``depth_loss`` is finite, positive and in
+    the writer's events at every log step, and all four plane kernels
+    launched in the loop."""
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    tag = f"trainer_kplanes_depth {MODEL}"
+    parser = DATAPARSERS["broadcaststyle-data"](
+        data=root / "broadcaststyle", fps_downsample=1.0, depth_maps="depth-maps")
+    cfg = trainer_config(MODEL, parser, root / "out", "depth", TRAINER_DATA,
+                         {**TRAINER_LOOP, "max_num_iterations": TRAINER_DEPTH_STEPS})
+    cfg.logging.steps_per_log = TRAINER_LOG_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sink = event_sink()
+    dm = trainer.datamanager
+    rays = dm.get_train_rays_per_batch()
+    decode_s, is_s, side_s, save_s = [], [], [], []
+    dm.train_cache._collate = timed(dm.train_cache._collate, decode_s)
+    dm.train_dataset.compute_is = timed(dm.train_dataset.compute_is, is_s)
+    trainer.eval_iteration = timed(trainer.eval_iteration, side_s)
+    trainer.eval_image = timed(trainer.eval_image, side_s)
+    trainer.save_checkpoint = timed(trainer.save_checkpoint, save_s, sync=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches[f"trainer {MODEL} depth"] = counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_finite_events(sink, tag)
+    missing = [k.__name__ for k in pk.KERNELS if counts[k.__name__] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} not launched in the loop")
+    depth = {step: v for n, step, v in sink.scalars
+             if n == "Train Loss Dict/depth_loss"}
+    log_steps = list(range(0, TRAINER_DEPTH_STEPS, TRAINER_LOG_STEPS))
+    if sorted(depth) != log_steps or not all(
+            np.isfinite(v) and v > 0 for v in depth.values()):
+        raise AssertionError(f"{tag}: depth_loss at the log steps {log_steps}: "
+                             f"{depth}")
+    if "depth_image" not in dm.train_cache.cached_batch:
+        raise AssertionError(f"{tag}: the cache holds no depth maps")
+    loop_s = train_s - sum(side_s) - sum(save_s) - sum(decode_s) - sum(is_s)
+    log(json.dumps({
+        "phase": "trainer_kplanes_depth", "method": MODEL, "card": card_line(),
+        "steps": TRAINER_DEPTH_STEPS, "setup_s": setup_s, "train_s": train_s,
+        "loop_rays_per_s": rays * TRAINER_DEPTH_STEPS
+        / (train_s - sum(side_s) - sum(save_s)),
+        "loop_rays_per_s_without_refreshes": rays * TRAINER_DEPTH_STEPS / loop_s,
+        "trainer_kplanes_loop_rays_per_s": TRAINER_KPLANES.get("loop_rays_per_s"),
+        "trainstep_window_rays_per_s": WINDOW_RAYS_PER_S.get(MODEL),
+        "refresh_decode_ms_with_depth": [1e3 * t for t in decode_s],
+        "trainer_kplanes_refresh_decode_ms": TRAINER_KPLANES.get(
+            "refresh_decode_ms"),
+        "refresh_ist_ms": [1e3 * t for t in is_s],
+        "depth_loss": depth, "peak_gib": peak, "launches": counts}))
+    del trainer
     torch.cuda.empty_cache()
 
 
@@ -2428,6 +2539,162 @@ def cli_phase(dev, root, launches) -> None:
                      for k in ("cli train", "cli eval", "viewer", "cli render")}}))
 
 
+def cli_depth_phase(dev, root, launches) -> None:
+    """The nerfacto family through the user entry points: ``snt-train
+    depth-nerfacto ... nerfstudio-data`` at registry width on a
+    nerfstudio-format ring (NERFSTUDIO_FIXTURE, with z-depth maps in
+    millimetres) for CLI_STEPS steps with its registered live viewer on a
+    free port (``--viewer.websocket-port 0``), which answers one /render
+    at VIEWER_SIZES[0] while the trainer lives and is then shut down;
+    ``snt-eval`` over the eval split; ``snt-render`` over a spiral of PNG
+    frames.  Fails unless scatter_add_rows launched 3 times per training
+    step that updates the proposals and once per other step,
+    ``depth_loss`` was finite and positive at every log step, psnr and
+    ssim are finite and every frame has its size."""
+    import io
+
+    from PIL import Image
+
+    from soccernerfs_tpu_torch.data.fixtures import make_nerfstudio_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.scripts import eval as eval_script
+    from soccernerfs_tpu_torch.scripts import render as render_script
+    from soccernerfs_tpu_torch.scripts import train as train_script
+    from soccernerfs_tpu_torch.utils import eval_utils, writer
+
+    tag = f"cli_depth_nerfacto {DEPTH}"
+    t0 = time.perf_counter()
+    data = make_nerfstudio_fixture(root / "nerfstudio", **NERFSTUDIO_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    out = root / "cli_depth"
+    argv = [DEPTH, "--max-num-iterations", str(CLI_STEPS), "--steps-per-save",
+            str(CLI_STEPS), "--viewer.websocket-port", "0",
+            "--output-dir", str(out),
+            "nerfstudio-data", "--data", str(data)]
+    log(f"{tag}: snt-train {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # snt-train, its events kept, the loop timed without the save
+    sink = event_sink()
+    setup_writers = writer.setup_writers
+
+    def with_sink(*args, **kwargs):
+        setup_writers(*args, **kwargs)
+        writer._SINKS.append(sink)
+
+    loop_s, save_s = [], []
+    train, save = Trainer.train, Trainer.save_checkpoint
+    Trainer.train = timed(train, loop_s, sync=True)
+    Trainer.save_checkpoint = timed(save, save_s, sync=True)
+    writer.setup_writers = with_sink
+    reset_launch_counts()
+    try:
+        trainer = train_script.main(argv, device=dev)
+    finally:
+        Trainer.train, Trainer.save_checkpoint = train, save
+        writer.setup_writers = setup_writers
+    launches[f"cli train {DEPTH}"] = counts = launch_counts()
+    # 3 launches per proposal-update step, 1 per other step
+    module, cfg, _camera_optimizer = method_parts(DEPTH)
+    host = {"steps_since_update": 0}
+    updates = sum(module.host_static_kwargs(cfg, step, host)["train_proposal_networks"]
+                  for step in range(CLI_STEPS))
+    if counts["scatter_add_rows"] != 3 * updates + (CLI_STEPS - updates):
+        raise AssertionError(f"{tag}: scatter_add_rows launched "
+                             f"{counts['scatter_add_rows']} times in {updates} "
+                             f"update and {CLI_STEPS - updates} other steps")
+    check_finite_events(sink, tag)
+    depth = {step: v for n, step, v in sink.scalars
+             if n == "Train Loss Dict/depth_loss"}
+    log_steps = list(range(0, CLI_STEPS, trainer.config.logging.steps_per_log))
+    if sorted(depth) != log_steps or not all(
+            np.isfinite(v) and v > 0 for v in depth.values()):
+        raise AssertionError(f"{tag}: depth_loss at the log steps {log_steps}: "
+                             f"{depth}")
+    rays = trainer.datamanager.get_train_rays_per_batch()
+
+    # the live viewer, while the trainer lives
+    server = trainer.viewer_server
+    if server is None:
+        raise AssertionError(f"{tag}: vis {trainer.config.vis!r} started no viewer")
+    cams = trainer.eval_cameras
+    width, height = VIEWER_SIZES[0]
+    fov = float(np.rad2deg(2 * np.arctan(float(cams.height[0]) / 2
+                                         / float(cams.fy[0]))))
+    try:
+        live_ms = []
+        reset_launch_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            png = post(f"http://127.0.0.1:{server.server_address[1]}/render",
+                       {"c2w": cams.camera_to_worlds[0].tolist(), "fov": fov,
+                        "width": width, "height": height})
+            live_ms.append(1e3 * (time.perf_counter() - t0))
+            size = Image.open(io.BytesIO(png)).size
+            if size != (width, height):
+                raise AssertionError(f"{tag}: live /render gave {size}")
+        launches[f"live viewer {DEPTH}"] = launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+    config = trainer.base_dir / "config.yml"
+    del trainer, server
+    torch.cuda.empty_cache()
+
+    setup_ms = []
+
+    def timed_setup(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = eval_utils.eval_setup(*args, **kwargs)
+        torch.cuda.synchronize()
+        setup_ms.append(1e3 * (time.perf_counter() - t0))
+        return result
+
+    eval_script.eval_setup = render_script.eval_setup = timed_setup
+    try:
+        reset_launch_counts()
+        info = eval_script.main(["--load-config", str(config), "--output-path",
+                                 str(root / "cli_depth_eval.json")], device=dev)
+        launches[f"cli eval {DEPTH}"] = launch_counts()
+        results = info["results"]
+        if not all(np.isfinite(results[k]) for k in ("psnr", "ssim")):
+            raise AssertionError(f"{tag}: eval JSON {info}")
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        written = render_script.main(
+            ["--load-config", str(config), "--traj", "spiral",
+             "--interpolation-steps", str(CLI_RENDER_STEPS), "--output-format",
+             "images", "--output-path", str(root / "cli_depth_render" / "s.mp4")],
+            device=dev)
+        s_per_frame = (time.perf_counter() - t0 - 1e-3 * setup_ms[-1]) / CLI_RENDER_STEPS
+        launches[f"cli render {DEPTH}"] = launch_counts()
+    finally:
+        eval_script.eval_setup = render_script.eval_setup = eval_utils.eval_setup
+    pngs = sorted(written.glob("*.png"))
+    sizes = {Image.open(f).size for f in pngs}
+    want = (int(cams.width[0]), int(cams.height[0]))
+    if len(pngs) != CLI_RENDER_STEPS or sizes != {want}:
+        raise AssertionError(f"{tag}: render: {len(pngs)} frames of {sizes}")
+    log(json.dumps({
+        "phase": "cli_depth_nerfacto", "method": DEPTH, "card": card_line(),
+        "fixture": {**NERFSTUDIO_FIXTURE, "written_s": fixture_s},
+        "train_argv": argv, "train_steps": CLI_STEPS,
+        "train_loop_rays_per_s": rays * CLI_STEPS / (loop_s[0] - sum(save_s)),
+        "train_loop_s": loop_s[0], "save_ms": [1e3 * t for t in save_s],
+        "depth_loss": depth,
+        "live_viewer_render_ms": {f"{width}x{height}": live_ms},
+        "eval": {k: results[k] for k in ("psnr", "ssim", "num_rays_per_sec",
+                                         "fps")},
+        "render_s_per_frame": s_per_frame, "render_frames": len(pngs),
+        "eval_setup_ms": setup_ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": {k: launches[f"{k} {DEPTH}"]
+                     for k in ("cli train", "live viewer", "cli eval",
+                               "cli render")}}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
@@ -2520,7 +2787,18 @@ def main() -> int:
                     f"launches, bound {bound:.3f} ms (bytes), "
                     + (f"{bound / times[name]:.4f} of bound" if times[name]
                        else "not measured"))
-    train_cpu_check(MODEL, tree, dev, TRAIN_CPU_SEEDS, witnesses=True)
+    # the caller's TF32 setting on: the step computes in full f32 all the
+    # same, and leaves the setting as it found it
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        train_cpu_check(MODEL, tree, dev, TRAIN_CPU_SEEDS, witnesses=True)
+        if torch.backends.cuda.matmul.allow_tf32 is not True:
+            raise AssertionError("a K-Planes step left TF32 off")
+        log(f"train cpu check {MODEL}: TF32 on before the steps; held, and "
+            f"still on after them")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     del tree
 
     # ---- nerfacto: the scatter kernel, render, train (camera optimizer on)
@@ -2543,6 +2821,28 @@ def main() -> int:
     train_cpu_check(NERFACTO, tree, dev, NERFACTO_CPU_SEEDS, witnesses=False)
     del tree
 
+    # ---- depth-nerfacto: nerfacto's render, and its step with the DS-NeRF
+    # loss on batches with target depths (camera optimizer on)
+    tree, params, _ = make_params(DEPTH, dev, num_train_data=20)
+    launches[f"render {DEPTH}"], _ = render_phase(DEPTH, params, cams, dev,
+                                                  aabb, args.trace)
+    del params
+    torch.cuda.empty_cache()
+    launches[f"train {DEPTH}"], in_step = train_phase(
+        DEPTH, tree, dev, args.trace, must_launch=scatter, every_step=scatter)
+    for update, (times, counts) in in_step.items():
+        want = 3 if update else 1
+        if counts["scatter_add_rows"] != want:
+            raise AssertionError(f"{DEPTH}: scatter_add_rows launched "
+                                 f"{counts['scatter_add_rows']} times in the "
+                                 f"profiled {'update' if update else 'non-update'}"
+                                 f" step, not {want}")
+        log(f"in-step kernels, {DEPTH} ({'update' if update else 'non-update'} "
+            f"step): scatter_add_rows {times['scatter_add_rows']:.3f} ms device "
+            f"in {want} launches")
+    train_cpu_check(DEPTH, tree, dev, DEPTH_CPU_SEEDS, witnesses=True)
+    del tree
+
     # ---- nerfplayer-nerfacto (temporal hash grids) and nerfplayer (the
     # decomposition field), camera optimizer off as registered; the
     # scatter's width-1 launches
@@ -2557,8 +2857,9 @@ def main() -> int:
 
     # ---- the Trainer phases: the data path, checkpoints, the gate
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
-        for phase in (trainer_kplanes_phase, trainer_ingp_phase,
-                      convergence_phase, cli_phase):
+        for phase in (trainer_kplanes_phase, trainer_kplanes_depth_phase,
+                      trainer_ingp_phase, convergence_phase, cli_phase,
+                      cli_depth_phase):
             t0 = time.perf_counter()
             phase(dev, Path(root), launches)
             log(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")

@@ -3,10 +3,6 @@ soccernerfs_tpu/configs/method_configs.py; the values are copied): the
 model and its registry name, the per-group optimizers and schedules, the
 camera optimizer, the rays per train batch, and ``trainer_configs``, the
 whole ``TrainerConfig`` of each method built from those tables.
-
-The JAX registry's nerfacto and instant-ngp read ``nerfstudio-data``,
-which the port has no parser for: their entries carry no dataparser, and
-a caller sets one of ``data.dataparsers.DATAPARSERS``.
 """
 from __future__ import annotations
 
@@ -22,9 +18,11 @@ from soccernerfs_tpu_torch.data.datamanager import (
     DynamicDataManagerConfig,
     VanillaDataManagerConfig,
 )
+from soccernerfs_tpu_torch.data.dataparsers.nerfstudio import NerfstudioDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.soccer import StadiumDataParserConfig
 from soccernerfs_tpu_torch.engine.optimizers import AdamOptimizerConfig
 from soccernerfs_tpu_torch.engine.schedulers import CosineDecaySchedulerConfig
+from soccernerfs_tpu_torch.models import depth_nerfacto as dn_model
 from soccernerfs_tpu_torch.models import instant_ngp as ingp_model
 from soccernerfs_tpu_torch.models import kplanes as kplanes_model
 from soccernerfs_tpu_torch.models import nerfacto as nerfacto_model
@@ -98,6 +96,9 @@ model_configs: Dict[str, Any] = {
     # the upstream default method: static hash grids, 16 levels of 2
     # features up to 2048 behind proposal fields of 5 levels up to 128, 256
     "nerfacto": nerfacto_model.Config(eval_num_rays_per_chunk=1 << 15),
+    # nerfacto with the DS-NeRF depth loss on every level, its sigma
+    # decaying from 0.2 to 0.01
+    "depth-nerfacto": dn_model.Config(eval_num_rays_per_chunk=1 << 15),
     # the fork's truncated NeRFPlayer: temporal hash grids (16 levels of 2
     # features + 64 temporal channels to 1024 at 2^19 rows, proposal grids
     # of 5 levels + 32 temporal channels to 64 and 256), the scene box as
@@ -166,6 +167,7 @@ model_configs: Dict[str, Any] = {
 model_names: Dict[str, str] = {"k-planes": "kplanes",
                                "k-planes-static": "kplanes",
                                "nerfacto": "nerfacto",
+                               "depth-nerfacto": "depth_nerfacto",
                                "nerfplayer-nerfacto": "nerfplayer_nerfacto",
                                "instant-ngp": "instant_ngp",
                                "instant-ngp-bounded": "instant_ngp",
@@ -203,24 +205,26 @@ _KPLANES_STATIC_GROUP = {
         warm_up_end=512, max_steps=20000, learning_rate_alpha=0
     ),
 }
+_NERFACTO_GROUPS = {
+    "proposal_networks": {
+        "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+        "scheduler": None,
+    },
+    "fields": {
+        "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+        "scheduler": None,
+    },
+    "camera_opt": {
+        "optimizer": AdamOptimizerConfig(lr=6e-4, eps=1e-8, weight_decay=1e-2),
+        "scheduler": None,
+    },
+}
 optimizer_configs: Dict[str, Dict[str, dict]] = {
     "k-planes": {"proposal_networks": _KPLANES_GROUP, "fields": _KPLANES_GROUP},
     "k-planes-static": {"proposal_networks": _KPLANES_STATIC_GROUP,
                         "fields": _KPLANES_STATIC_GROUP},
-    "nerfacto": {
-        "proposal_networks": {
-            "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
-            "scheduler": None,
-        },
-        "fields": {
-            "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
-            "scheduler": None,
-        },
-        "camera_opt": {
-            "optimizer": AdamOptimizerConfig(lr=6e-4, eps=1e-8, weight_decay=1e-2),
-            "scheduler": None,
-        },
-    },
+    "nerfacto": _NERFACTO_GROUPS,
+    "depth-nerfacto": _NERFACTO_GROUPS,
     "nerfplayer-nerfacto": {"proposal_networks": _NERFPLAYER_GROUP,
                             "fields": _NERFPLAYER_GROUP},
     "instant-ngp": {"fields": _NGP_GROUP},
@@ -237,6 +241,7 @@ camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
     "k-planes": CameraOptimizerConfig(mode="off"),
     "k-planes-static": CameraOptimizerConfig(mode="off"),
     "nerfacto": CameraOptimizerConfig(mode="SO3xR3"),
+    "depth-nerfacto": CameraOptimizerConfig(mode="SO3xR3"),
     "nerfplayer-nerfacto": CameraOptimizerConfig(mode="off"),
     "instant-ngp": CameraOptimizerConfig(mode="off"),
     "instant-ngp-bounded": CameraOptimizerConfig(mode="off"),
@@ -246,7 +251,8 @@ camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
 }
 
 train_num_rays_per_batch: Dict[str, int] = {
-    "k-planes": 4096, "k-planes-static": 8192, "nerfacto": 4096, "nerfplayer-nerfacto": 4096,
+    "k-planes": 4096, "k-planes-static": 8192, "nerfacto": 4096,
+    "depth-nerfacto": 4096, "nerfplayer-nerfacto": 4096,
     "instant-ngp": 8192, "instant-ngp-bounded": 8192, "nerfplayer-ngp": 8192,
     "nerfplayer": 4096, "nerfplayer-ngp-complete": 8192}
 
@@ -268,9 +274,10 @@ def _trainer(method: str, datamanager, *, dynamic_batch: bool = False,
     )
 
 
-def _dynamic(method: str, **datamanager) -> DynamicDataManagerConfig:
+def _dynamic(method: str, dataparser=None, **datamanager
+             ) -> DynamicDataManagerConfig:
     return DynamicDataManagerConfig(
-        dataparser=StadiumDataParserConfig(),
+        dataparser=dataparser or StadiumDataParserConfig(),
         train_num_rays_per_batch=train_num_rays_per_batch[method],
         camera_optimizer=camera_optimizer_configs[method],
         **datamanager,
@@ -279,6 +286,7 @@ def _dynamic(method: str, **datamanager) -> DynamicDataManagerConfig:
 
 def _vanilla(method: str, **datamanager) -> VanillaDataManagerConfig:
     return VanillaDataManagerConfig(
+        dataparser=NerfstudioDataParserConfig(),
         train_num_rays_per_batch=train_num_rays_per_batch[method],
         camera_optimizer=camera_optimizer_configs[method],
         **datamanager,
@@ -325,6 +333,13 @@ trainer_configs: Dict[str, TrainerConfig] = {
         viewer=ViewerConfig(num_rays_per_chunk=1 << 16), vis="wandb"),
     "nerfacto": _trainer(
         "nerfacto", _vanilla("nerfacto", eval_num_rays_per_batch=4096),
+        steps_per_eval_batch=500, steps_per_save=2000,
+        max_num_iterations=30000,
+        viewer=ViewerConfig(num_rays_per_chunk=1 << 15), vis="viewer"),
+    "depth-nerfacto": _trainer(
+        "depth-nerfacto",
+        _dynamic("depth-nerfacto", NerfstudioDataParserConfig(),
+                 eval_num_rays_per_batch=4096, use_importance_sampling=False),
         steps_per_eval_batch=500, steps_per_save=2000,
         max_num_iterations=30000,
         viewer=ViewerConfig(num_rays_per_chunk=1 << 15), vis="viewer"),
@@ -378,6 +393,7 @@ descriptions: Dict[str, str] = {
     "k-planes": "Dynamic NeRF on multiscale feature planes (fork default).",
     "k-planes-static": "Static 3-plane K-Planes with ISG sampling.",
     "nerfacto": "Hash-grid NeRF with proposal sampling (upstream default).",
+    "depth-nerfacto": "Nerfacto with DS-NeRF depth supervision.",
     "nerfplayer-nerfacto": "Temporal hash field on the nerfacto backbone.",
     "nerfplayer": "Full NeRFPlayer: static/deform/new decomposition (fork).",
     "nerfplayer-ngp": "NeRFPlayer with occupancy-grid NGP backbone.",
@@ -389,5 +405,5 @@ descriptions: Dict[str, str] = {
 
 # methods of the JAX package's registry that the port does not run yet: the
 # CLI names them as such instead of calling them unknown
-not_ported = ("vanilla-nerf", "dnerf", "mipnerf", "tensorf", "depth-nerfacto",
-              "semantic-nerfw", "neus")
+not_ported = ("vanilla-nerf", "dnerf", "mipnerf", "tensorf", "semantic-nerfw",
+              "neus")

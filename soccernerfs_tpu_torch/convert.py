@@ -1,7 +1,8 @@
 """Parameters between the JAX package and the port.
 
 ``params_from_jax`` takes the parameter pytree of a JAX model's ``init``
-(``models/kplanes``, ``models/nerfacto``, ``models/nerfplayer_nerfacto``,
+(``models/kplanes``, ``models/nerfacto`` and ``models/depth_nerfacto``,
+whose params are nerfacto's, ``models/nerfplayer_nerfacto``,
 ``models/instant_ngp``, ``models/nerfplayer_ngp``, ``models/nerfplayer``,
 ``models/nerfplayer_ngp_complete``; with the trainer's
 ``camera_opt`` group or without), mapped to numpy arrays
@@ -81,8 +82,8 @@ def _seeded_mlp(rng, in_dim, hidden, layers, out_dim) -> dict:
 def seeded_params(cfg, seed: int, num_train_data: int = 0,
                   time_noise: float = 0.0, grid_std: float = 1e-4) -> dict:
     """A numpy param tree in the layout of the JAX package's
-    ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto,
-    nerfplayer-nerfacto, instant-NGP, NeRFPlayer-NGP, NeRFPlayer or
+    ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto (a
+    depth-nerfacto config is one), nerfplayer-nerfacto, instant-NGP, NeRFPlayer-NGP, NeRFPlayer or
     NeRFPlayer-NGP-complete config, drawn with numpy; MLPs as
     ``_seeded_mlp``, appearance embeddings N(0, 1).
 

@@ -157,11 +157,14 @@ class VanillaDataManager:
 
     def next_eval_image(self, idx: int) -> Tuple[int, RayBundle, Dict]:
         """Eval image ``idx`` (modulo their count): its rays and its
-        {"image", "image_idx"}."""
+        {"image", "image_idx"} (and "depth_image" when it has one)."""
         idx = int(idx % len(self.eval_dataset))
         ray_bundle = generate_image_rays(self.eval_cameras, idx)
         data = self.eval_dataset[idx]
-        return idx, ray_bundle, {"image": data["image"], "image_idx": idx}
+        batch = {"image": data["image"], "image_idx": idx}
+        if "depth_image" in data:
+            batch["depth_image"] = data["depth_image"]
+        return idx, ray_bundle, batch
 
     def get_train_rays_per_batch(self) -> int:
         return self.config.train_num_rays_per_batch

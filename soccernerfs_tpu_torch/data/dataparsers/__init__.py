@@ -1,6 +1,7 @@
 """Dataparser registry: the names of the JAX package's ``DATAPARSERS``
 for the parsers the port has."""
 from soccernerfs_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
+from soccernerfs_tpu_torch.data.dataparsers.nerfstudio import NerfstudioDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.soccer import (
     BroadcaststyleDataParserConfig,
     CloseupDataParserConfig,
@@ -10,6 +11,7 @@ from soccernerfs_tpu_torch.data.dataparsers.soccer import (
 )
 
 DATAPARSERS = {
+    "nerfstudio-data": NerfstudioDataParserConfig,
     "blender-data": BlenderDataParserConfig,
     "stadium-data": StadiumDataParserConfig,
     "closeup-data": CloseupDataParserConfig,

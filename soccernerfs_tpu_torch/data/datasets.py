@@ -2,9 +2,9 @@
 soccernerfs_tpu/data/datasets.py).
 
 Images load to float32 numpy [H, W, 3] in [0, 1]; RGBA composites over
-the dataparser's alpha colour.  The dynamic dataset adds the IST/ISG/ISS
-importance weights, computed in torch on its device
-(``data/importance.py``).  Depth maps wait for the depth loss.
+the dataparser's alpha colour.  The dynamic dataset adds depth maps (the
+depth losses' targets) and the IST/ISG/ISS importance weights, computed
+in torch on its device (``data/importance.py``).
 """
 from __future__ import annotations
 
@@ -54,6 +54,22 @@ def get_mask(filename: Path, scale_factor: float = 1.0) -> np.ndarray:
     return mask > 0
 
 
+def get_depth_image_from_path(filepath: Path, height: int, width: int,
+                              scale_factor: float) -> np.ndarray:
+    """A depth map as float32 [height, width] in the scene's units: a
+    ``.npy`` array or an image (16-bit PNG, mode I, ...), times
+    ``scale_factor``, resized to the camera's size (nearest, in Pillow's
+    float mode)."""
+    if filepath.suffix == ".npy":
+        depth = np.load(filepath).astype(np.float64) * scale_factor
+    else:
+        with Image.open(filepath) as image:
+            depth = np.asarray(image).astype(np.float64) * scale_factor
+    image = Image.fromarray(depth).resize((width, height), resample=Image.NEAREST)
+    out = np.asarray(image, dtype=np.float32)
+    return out[..., 0] if out.ndim == 3 else out
+
+
 class InputDataset:
     """Index-addressable image dataset."""
 
@@ -77,12 +93,17 @@ class InputDataset:
         return get_image(self.image_filenames[image_idx], self.scale_factor,
                          self.alpha_color)
 
+    def get_metadata(self, data: Dict) -> Dict:
+        """What a subclass adds to an item beside its image and mask."""
+        return {}
+
     def __getitem__(self, image_idx: int) -> Dict:
         data = {"image_idx": image_idx, "image": self.get_image(image_idx)}
         if self._dataparser_outputs.mask_filenames is not None:
             data["mask"] = get_mask(
                 self._dataparser_outputs.mask_filenames[image_idx],
                 self.scale_factor)
+        data.update(self.get_metadata(data))
         return data
 
 
@@ -100,8 +121,8 @@ class ImportanceSamplingConfig:
 
 
 class DynamicDataset(InputDataset):
-    """InputDataset + importance-sampling weights, computed on ``device``
-    (default CUDA)."""
+    """InputDataset + depth maps (when the parser names depth files) +
+    importance-sampling weights, computed on ``device`` (default CUDA)."""
 
     def __init__(
         self,
@@ -112,17 +133,30 @@ class DynamicDataset(InputDataset):
         device=None,
     ):
         super().__init__(dataparser_outputs, scale_factor)
-        if dataparser_outputs.metadata.get("depth_filenames"):
-            raise NotImplementedError(
-                "depth maps feed the DS-NeRF depth loss, which the port does "
-                "not have yet; parse with depth_maps='none'")
         self.is_config = is_config or ImportanceSamplingConfig()
         self.eval_dataset = eval_dataset
         self.device = device
+        self.depth_enabled = bool(self.metadata.get("depth_filenames"))
+        if self.depth_enabled:
+            self.depth_filenames = self.metadata["depth_filenames"]
+            self.depth_unit_scale_factor = self.metadata["depth_unit_scale_factor"]
 
     @property
     def static(self) -> bool:
         return bool(self.metadata.get("static", False))
+
+    def get_metadata(self, data: Dict) -> Dict:
+        """The item's "depth_image" [H, W] at its camera's size, in the
+        scene's units (``depth_unit_scale_factor`` times the parser's
+        scale), when the parser names depth files."""
+        if not self.depth_enabled:
+            return {}
+        idx = data["image_idx"]
+        scale = (self.depth_unit_scale_factor
+                 * self._dataparser_outputs.dataparser_scale)
+        return {"depth_image": get_depth_image_from_path(
+            self.depth_filenames[idx], int(self.cameras.height[idx]),
+            int(self.cameras.width[idx]), scale)}
 
     def compute_is(self, batch: Dict, offline: bool = False) -> Optional[np.ndarray]:
         """Static ISS, ISG or IST weights of ``batch``: [B, H, W] float16

@@ -27,15 +27,19 @@ def _look_at_pose(origin, target=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)) -> np.ndar
     return pose
 
 
-def _render_ball_scene(h, w, pose, fx, fy, cx, cy, t: float) -> np.ndarray:
-    """Analytic render: red ball moving along x over a green floor."""
+def _trace_ball_scene(h, w, pose, fx, fy, cx, cy, t: float):
+    """Analytic render of a red ball moving along x over a green floor:
+    the image [h, w, 3], each pixel ray's distance along its unit
+    direction to the first hit (inf where it hits nothing) and the norm of
+    its camera-frame direction (x, y, -1) [h, w]."""
     ys, xs = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
     dirs_cam = np.stack(
         [(xs - cx) / fx, -(ys - cy) / fy, -np.ones_like(xs)], axis=-1
     )
     R = pose[:3, :3]
     dirs = dirs_cam @ R.T
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    norm = np.linalg.norm(dirs, axis=-1, keepdims=True)
+    dirs /= norm
     origin = pose[:3, 3]
 
     center = np.array([0.6 * (t - 0.5), 0.0, 0.15])
@@ -53,7 +57,13 @@ def _render_ball_scene(h, w, pose, fx, fy, cx, cy, t: float) -> np.ndarray:
     floor_vis = (t_floor < np.inf) & ~sphere_first & (t_floor > 0)
     img[sphere_first] = [0.9, 0.15, 0.1]
     img[floor_vis] = [0.1, 0.7, 0.2]
-    return img
+    dist = np.where(sphere_first, t_sphere, np.where(floor_vis, t_floor, np.inf))
+    return img, dist, norm[..., 0]
+
+
+def _render_ball_scene(h, w, pose, fx, fy, cx, cy, t: float) -> np.ndarray:
+    """The ball scene's image (``_trace_ball_scene``)."""
+    return _trace_ball_scene(h, w, pose, fx, fy, cx, cy, t)[0]
 
 
 def make_broadcaststyle_fixture(
@@ -63,15 +73,23 @@ def make_broadcaststyle_fixture(
     h: int = 24,
     w: int = 32,
     downscale: int = 2,
+    with_depth: bool = False,
 ) -> Path:
     """Write a tiny broadcaststyle-format dataset: ``Camera_{i}_{t:03d}.png``
     under ``images/{k}x/``, plus transforms.json with global intrinsics.
+    ``with_depth`` also writes a depth map per image under
+    ``depth-maps-mask/{k}x/`` (3 m everywhere at the parser's 0.01 unit,
+    a 16-bit PNG: the bytes of Pillow's mode "I" PNG) and names it in each
+    frame's ``depth_file_path``.
 
     Returns the dataset root (pass as ``--data``).
     """
     root = Path(root)
     img_dir = root / "images" / f"{downscale}x"
     img_dir.mkdir(parents=True, exist_ok=True)
+    if with_depth:
+        depth_dir = root / "depth-maps-mask" / f"{downscale}x"
+        depth_dir.mkdir(parents=True, exist_ok=True)
 
     fx = fy = 0.7 * w * downscale
     cx, cy = w * downscale / 2.0, h * downscale / 2.0
@@ -94,6 +112,10 @@ def make_broadcaststyle_fixture(
                 "file_path": f"images/{name}",
                 "transform_matrix": pose.tolist(),
             }
+            if with_depth:
+                Image.fromarray(np.full((h, w), 300, np.uint16)).save(
+                    depth_dir / name)
+                frame["depth_file_path"] = f"depth-maps/{name}"
             frames.append(frame)
 
     meta = {
@@ -110,6 +132,48 @@ def make_broadcaststyle_fixture(
         "p2": 0.0,
         "frames": frames,
     }
+    with open(root / "transforms.json", "w") as f:
+        json.dump(meta, f)
+    return root
+
+
+def make_nerfstudio_fixture(root: Path, num_frames: int = 20, h: int = 24,
+                            w: int = 32, downscale: int = 1) -> Path:
+    """A static nerfstudio-format scene: ``num_frames`` cameras on a ring
+    around the ball scene (the ball at rest in its middle, over the
+    floor), looking at it from a little above, so that the top of each
+    image sees no floor; ``transforms.json`` with global intrinsics (of
+    the full-size images, ``downscale`` times h x w), ``images/`` and
+    ``depths/`` at full size or, for ``downscale`` > 1, ``images_{k}/``
+    and ``depths_{k}/`` at h x w.  Depths are 16-bit PNGs of each pixel's
+    z-depth (along the camera's axis) in millimetres
+    (``depth_unit_scale_factor`` 1e-3), 0 where its ray hits nothing.
+
+    Returns the dataset root (pass as ``--data``)."""
+    root = Path(root)
+    suffix = f"_{downscale}" if downscale > 1 else ""
+    img_dir, depth_dir = root / f"images{suffix}", root / f"depths{suffix}"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    depth_dir.mkdir(parents=True, exist_ok=True)
+    fx = fy = 0.7 * w * downscale
+    cx, cy = w * downscale / 2.0, h * downscale / 2.0
+    frames = []
+    for i in range(num_frames):
+        theta = 2 * np.pi * i / num_frames
+        pose = _look_at_pose([2.5 * np.cos(theta), 2.5 * np.sin(theta), 0.5])
+        img, dist, norm = _trace_ball_scene(
+            h, w, pose, fx / downscale, fy / downscale, cx / downscale,
+            cy / downscale, 0.5)
+        depth_mm = np.where(np.isfinite(dist), np.round(dist / norm * 1e3), 0)
+        name = f"frame_{i:05d}.png"
+        Image.fromarray((img * 255).astype(np.uint8)).save(img_dir / name)
+        Image.fromarray(depth_mm.astype(np.uint16)).save(depth_dir / name)
+        frames.append({"file_path": f"images/{name}",
+                       "depth_file_path": f"depths/{name}",
+                       "transform_matrix": pose.tolist()})
+    meta = {"fl_x": fx, "fl_y": fy, "cx": cx, "cy": cy, "w": w * downscale,
+            "h": h * downscale, "camera_model": "OPENCV", "k1": 0.0,
+            "k2": 0.0, "p1": 0.0, "p2": 0.0, "frames": frames}
     with open(root / "transforms.json", "w") as f:
         json.dump(meta, f)
     return root

@@ -114,8 +114,9 @@ class ImageBatchCache:
             "image_idx": np.asarray([it["image_idx"] for it in items], np.int64),
             "image": np.stack([it["image"] for it in items]),
         }
-        if "mask" in items[0]:
-            batch["mask"] = np.stack([it["mask"] for it in items])
+        for key in ("mask", "depth_image"):
+            if key in items[0]:
+                batch[key] = np.stack([it[key] for it in items])
         return batch
 
     def next_batch(self) -> Dict:

@@ -2,7 +2,9 @@
 ``Trainer.render_camera``): fixed-size chunks with a zero-padded tail; a
 model that stages tables for rendering (K-Planes' bf16 plane tables) does
 so once per parameter snapshot, and a model with non-trainable state (the
-occupancy grid) renders with its ``eval_kwargs``, made once per image."""
+occupancy grid) renders with its ``eval_kwargs``, made once per image.
+Every matmul of a render runs in full f32 (TF32 off), whatever the
+caller's setting."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -11,7 +13,7 @@ import torch
 
 from soccernerfs_tpu_torch.core.cameras import Cameras, generate_rays, get_image_coords
 from soccernerfs_tpu_torch.models import get_model
-from soccernerfs_tpu_torch.utils.device import resolve_device
+from soccernerfs_tpu_torch.utils.device import full_f32, resolve_device
 from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
 OUTPUT_KEYS = ("rgb", "depth", "accumulation")
@@ -79,7 +81,7 @@ def render_camera(
         extra = module.eval_kwargs(cfg, aux)
     keys = getattr(module, "RENDER_OUTPUTS", OUTPUT_KEYS)
     outs = {k: [] for k in keys}
-    with torch.no_grad():
+    with torch.no_grad(), full_f32():
         for i in range(0, n_pad, chunk):
             rays = generate_rays(cameras, cam_idx[i:i + chunk],
                                  coords[i:i + chunk])

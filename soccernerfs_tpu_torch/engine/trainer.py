@@ -24,8 +24,10 @@ and resume from ``load_dir``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import operator
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -54,7 +56,7 @@ from soccernerfs_tpu_torch.engine.render import render_camera
 from soccernerfs_tpu_torch.models import get_model
 from soccernerfs_tpu_torch.ops.kernels import scatter_kernels
 from soccernerfs_tpu_torch.utils import profiler, writer
-from soccernerfs_tpu_torch.utils.device import resolve_device
+from soccernerfs_tpu_torch.utils.device import full_f32, resolve_device
 from soccernerfs_tpu_torch.utils.tree import tree_leaves
 from soccernerfs_tpu_torch.utils.writer import EventName
 
@@ -130,6 +132,7 @@ class TrainStep:
             for name, group in params.items()
         })
 
+    @full_f32()
     def loss_and_grads(
         self,
         state: TrainState,
@@ -170,7 +173,7 @@ class TrainStep:
             **(model.schedules(cfg, state.step, state.aux)
                if hasattr(model, "schedules") else {}),
         )
-        metrics = model.get_metrics_dict(cfg, outputs, batch)
+        metrics = model.get_metrics_dict(cfg, outputs, batch, state.step)
         loss_dict = model.get_loss_dict(
             cfg, state.params, outputs, batch, metrics,
             **({} if draws.get("tv_rows") is None
@@ -193,11 +196,14 @@ class TrainStep:
         state.step += 1
 
     @torch.no_grad()
+    @full_f32()
     def eval_losses(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                    cameras: Cameras, generator: torch.Generator) -> dict:
+                    cameras: Cameras, generator: torch.Generator,
+                    step: int) -> dict:
         """The loss dict and metrics of a batch of ``cameras`` (the eval
         split's) under the training forward, its draws from ``generator``,
-        at the state's params and model state; no gradient."""
+        at the state's params and model state, the metrics at loop step
+        ``step``; no gradient."""
         cfg, model = self.cfg, self.model
         draws = model.train_draws(cfg, batch["cam_idx"].shape[0], generator,
                                   self.device)
@@ -207,7 +213,7 @@ class TrainStep:
             jitters=draws["jitters"], background=draws["background"],
             **(model.schedules(cfg, state.step, state.aux)
                if hasattr(model, "schedules") else {}))
-        metrics = model.get_metrics_dict(cfg, outputs, batch)
+        metrics = model.get_metrics_dict(cfg, outputs, batch, step)
         loss_dict = model.get_loss_dict(
             cfg, state.params, outputs, batch, metrics,
             **({} if draws.get("tv_rows") is None
@@ -301,6 +307,10 @@ class Trainer:
     Wherever the loop reads a step's values on the host, and before every
     checkpoint, it calls ``scatter_kernels.raise_if_out_of_range``: a
     hash-grid step's table gradient is trusted only after that check.
+
+    A training run whose ``vis`` names "viewer" serves the viewer
+    (``viewer.server``) over the live trainer from ``setup`` on; see
+    ``_start_viewer``.
     """
 
     def __init__(self, config: TrainerConfig, test_mode: str = "val",
@@ -317,6 +327,9 @@ class Trainer:
                 f"model {config.pipeline.model_name!r} reshapes its params on "
                 f"the host (host_update), which the trainer does not support")
         config.seed_everything()
+        self.viewer_server = None
+        # held around each step while a viewer serves renders
+        self._step_lock = contextlib.nullcontext()
 
     def setup(self) -> "Trainer":
         """The datamanager, the initial params (``seeded_params`` of
@@ -356,7 +369,28 @@ class Trainer:
                 self.base_dir / "dataparser_transforms.json")
             writer.setup_writers(config.vis, self.base_dir, config.experiment_name)
             profiler.setup_profiler(config.logging.enable_profiler)
+            if "viewer" in config.vis:
+                self._start_viewer()
         return self
+
+    def _start_viewer(self) -> None:
+        """Serve the viewer over this trainer on a daemon thread, on port
+        ``config.viewer.websocket_port`` of every interface (0 picks a free
+        port: ``self.viewer_server.server_address[1]``); a caller may stop
+        it with ``self.viewer_server.shutdown()``.
+
+        The step updates the params and the optimizer state in place, so
+        ``train_iteration`` holds the server's render lock around each
+        step: a render waits for the step to end and never reads a
+        half-applied update."""
+        from soccernerfs_tpu_torch.viewer.server import make_server
+
+        server = make_server(self, "0.0.0.0", self.config.viewer.websocket_port,
+                             output_dir=self.base_dir)
+        self._step_lock = server.viewer_state.lock
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        self.viewer_server = server
+        print(f"[viewer] serving on http://localhost:{server.server_address[1]}")
 
     def _generator(self, step: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
@@ -387,8 +421,9 @@ class Trainer:
                              f"{self.state.step}")
         raw = self.datamanager.next_train_raw(step)
         batch = self._device_batch(raw)
-        return self.train_step.train_iteration(self.state, batch,
-                                               self._generator(step))
+        with self._step_lock:
+            return self.train_step.train_iteration(self.state, batch,
+                                                   self._generator(step))
 
     @profiler.time_function
     def eval_iteration(self, step: int) -> Dict[str, torch.Tensor]:
@@ -396,7 +431,7 @@ class Trainer:
         batch = self._device_batch(self.datamanager.next_eval_raw(step))
         return self.train_step.eval_losses(
             self.state, batch, self.eval_cameras,
-            self._generator(step + 1_000_000))
+            self._generator(step + 1_000_000), step)
 
     def render_camera(self, cameras: Cameras, camera_index: int,
                       chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
@@ -486,14 +521,19 @@ class Trainer:
                 writer.put_dict("Train Loss Dict", values, step)
                 writer.put_scalar("Train Loss", values["Train Loss"], step)
 
-            if config.steps_per_eval_batch and step_check(step, config.steps_per_eval_batch):
-                writer.put_dict("Eval Loss Dict",
-                                self._read(self.eval_iteration(step)), step)
-            if config.steps_per_eval_image and step_check(step, config.steps_per_eval_image):
-                self.eval_image(step)
-            if config.steps_per_eval_all_images and step_check(
-                    step, config.steps_per_eval_all_images):
-                self.eval_all_images(step)
+            # the evals' renders and the viewer's take turns: each sets
+            # the process's TF32 flags for its matmuls
+            with self._step_lock:
+                if config.steps_per_eval_batch and step_check(
+                        step, config.steps_per_eval_batch):
+                    writer.put_dict("Eval Loss Dict",
+                                    self._read(self.eval_iteration(step)), step)
+                if config.steps_per_eval_image and step_check(
+                        step, config.steps_per_eval_image):
+                    self.eval_image(step)
+                if config.steps_per_eval_all_images and step_check(
+                        step, config.steps_per_eval_all_images):
+                    self.eval_all_images(step)
             if config.steps_per_save and step_check(step, config.steps_per_save):
                 self.save_checkpoint(step)
             writer.write_out_storage()

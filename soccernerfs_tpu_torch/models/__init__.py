@@ -13,6 +13,7 @@ import importlib
 _MODEL_MODULES = {
     "kplanes": "soccernerfs_tpu_torch.models.kplanes",
     "nerfacto": "soccernerfs_tpu_torch.models.nerfacto",
+    "depth_nerfacto": "soccernerfs_tpu_torch.models.depth_nerfacto",
     "nerfplayer_nerfacto": "soccernerfs_tpu_torch.models.nerfplayer_nerfacto",
     "instant_ngp": "soccernerfs_tpu_torch.models.instant_ngp",
     "nerfplayer_ngp": "soccernerfs_tpu_torch.models.nerfplayer_ngp",

@@ -259,7 +259,7 @@ def get_outputs(
     return outputs
 
 
-def get_metrics_dict(cfg, outputs: dict, batch: dict) -> dict:
+def get_metrics_dict(cfg, outputs: dict, batch: dict, step: int = 0) -> dict:
     """PSNR of the batch and the samples it took (outside the autograd
     graph)."""
     mse = torch.mean((outputs["rgb"].detach() - batch["image"]) ** 2)

@@ -3,8 +3,8 @@
 Proposal-samples rays with the density fields, evaluates the main field
 and composites rgb / accumulation / depth; in training also the per-step
 schedules (proposal-weight anneal, the host-side proposal-update gate),
-the PSNR metric and the scaled loss dict.  The depth loss waits for the
-data path that brings depth images.
+the PSNR metric, the DS-NeRF / URF depth loss of a batch that carries
+target depths ("depth_image") and the scaled loss dict.
 """
 from __future__ import annotations
 
@@ -380,25 +380,59 @@ def get_outputs(
     return outputs
 
 
-def _needs_depth(cfg: Config, batch: dict) -> None:
-    if "depth_image" in batch and cfg.loss_coef.get("depth_loss", 0) > 0:
-        raise NotImplementedError(
-            "the depth loss is not ported yet (it comes with the data path)")
+def depth_sigma_for_step(cfg, step: int) -> float:
+    """The depth loss's sigma at ``step``: ``depth_sigma``, or with
+    ``should_decay_sigma`` ``max(starting_depth_sigma * sigma_decay_rate **
+    step, depth_sigma)``, from the f32-rounded constants (the JAX
+    version's operands), computed exactly and rounded to f32.  The JAX
+    version raises an f32 base to an int32 step in f32, which drifts from
+    this value by up to ~2e-4 relative by step 30,000."""
+    f32 = np.float32
+    floor = float(f32(cfg.depth_sigma))
+    if not cfg.should_decay_sigma:
+        return floor
+    decayed = (float(f32(cfg.starting_depth_sigma))
+               * float(f32(cfg.sigma_decay_rate)) ** int(step))
+    return float(f32(max(decayed, floor)))
 
 
-def get_metrics_dict(cfg: Config, outputs: dict, batch: dict) -> dict:
-    """PSNR of the batch, a 0-d tensor outside the autograd graph."""
-    _needs_depth(cfg, batch)
+def depth_metric(cfg, outputs: dict, batch: dict, step: int) -> torch.Tensor:
+    """``ops.losses.depth_loss`` of every level of ``outputs["weights_list"]``
+    (the proposals' and the field's) against ``batch["depth_image"]`` [N],
+    averaged over the levels, at ``step``'s sigma; inside the autograd
+    graph."""
+    target = batch["depth_image"]
+    sigma = torch.full((), depth_sigma_for_step(cfg, step),
+                       dtype=torch.float32, device=target.device)
+    dn = outputs.get("directions_norm")
+    if dn is None:
+        dn = torch.ones_like(target)
+    levels = list(zip(outputs["weights_list"], outputs["ray_samples_list"]))
+    total = 0.0
+    for weights, ray_samples in levels:
+        total = total + L.depth_loss(
+            weights, ray_samples, target, outputs["depth"], sigma, dn,
+            cfg.is_euclidean_depth, cfg.depth_loss_type) / len(levels)
+    return total
+
+
+def get_metrics_dict(cfg: Config, outputs: dict, batch: dict, step: int = 0
+                     ) -> dict:
+    """PSNR of the batch, a 0-d tensor outside the autograd graph, and
+    with a weighted depth loss and a batch that carries "depth_image" the
+    depth loss at ``step`` (the loss dict scales it)."""
     mse = torch.mean((outputs["rgb"].detach() - batch["image"]) ** 2)
-    return {"psnr": -10.0 * torch.log10(mse)}
+    metrics = {"psnr": -10.0 * torch.log10(mse)}
+    if "depth_image" in batch and cfg.loss_coef.get("depth_loss", 0) > 0:
+        metrics["depth_loss"] = depth_metric(cfg, outputs, batch, step)
+    return metrics
 
 
 def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
                   metrics_dict: Optional[dict] = None) -> dict:
     """The scaled training loss dict, in the JAX package's insertion order
-    (the total is summed in that order).  ``metrics_dict`` is the models'
-    common argument; this model's losses read nothing from it."""
-    _needs_depth(cfg, batch)
+    (the total is summed in that order); the depth loss is
+    ``metrics_dict``'s."""
     loss_coef = cfg.loss_coef
     loss_dict = {"rgb_loss": L.mse_loss(batch["image"], outputs["rgb"])}
     wl, rsl = outputs["weights_list"], outputs["ray_samples_list"]
@@ -427,4 +461,6 @@ def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
         if "time_smoothness_proposal_loss" in loss_coef and ms_grids_prop:
             loss_dict["time_smoothness_proposal_loss"] = (
                 L.time_smoothness_loss(ms_grids_prop))
+    if "depth_image" in batch and loss_coef.get("depth_loss", 0) > 0:
+        loss_dict["depth_loss"] = metrics_dict["depth_loss"]
     return L.scale_dict(loss_dict, loss_coef)

@@ -245,7 +245,8 @@ def get_outputs(
     return outputs
 
 
-def get_metrics_dict(cfg: Config, outputs: dict, batch: dict) -> dict:
+def get_metrics_dict(cfg: Config, outputs: dict, batch: dict, step: int = 0
+                     ) -> dict:
     """PSNR of the batch (outside the autograd graph) and the distortion,
     which the loss dict scales (inside it)."""
     mse = torch.mean((outputs["rgb"].detach() - batch["image"]) ** 2)

@@ -9,8 +9,8 @@ rendered probabilities.
 
 Randomness comes from explicit draws (``train_draws``): the samplers'
 jitters, the random background and one ``index_list`` row per temporal
-grid (``tv_grids``).  The DS-NeRF depth loss waits for the data path that
-brings depth images: a batch that carries them raises.
+grid (``tv_grids``).  A batch that carries target depths ("depth_image")
+adds the DS-NeRF depth loss, weighted by ``depth_weight``.
 """
 from __future__ import annotations
 
@@ -35,7 +35,6 @@ from soccernerfs_tpu_torch.models.kplanes import (  # noqa: F401  (protocol)
     sample_counts,
 )
 from soccernerfs_tpu_torch.models.nerfplayer_nerfacto import (  # noqa: F401
-    _needs_depth,
     get_metrics_dict,
     proposal_samples,
 )
@@ -238,13 +237,14 @@ def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
     total is summed in that order).  ``tv_rows`` are the temporal TV's
     draws, one ``index_list`` row per grid of ``tv_grids`` (train_draws);
     the TV is averaged over those grids."""
-    _needs_depth(cfg, batch)
     loss_dict = {
         "rgb_loss": L.mse_loss(batch["image"], outputs["rgb"]),
         "interlevel_loss": cfg.interlevel_loss_mult * L.interlevel_loss(
             outputs["weights_list"], outputs["ray_samples_list"]),
         "distortion_loss": cfg.distortion_loss_mult * metrics_dict["distortion"],
     }
+    if "depth_image" in batch and cfg.depth_weight > 0:
+        loss_dict["depth_loss"] = cfg.depth_weight * metrics_dict["depth_loss"]
     if cfg.temporal_tv_weight > 0:
         unique = dict(cfg.density_field_configs())
         if tv_rows is None or len(tv_rows) != 2 + len(unique):

@@ -6,8 +6,8 @@ protocol as models/kplanes.py, whose proposal schedules it shares.
 
 Randomness comes from explicit draws (``train_draws``): the samplers'
 jitters, the random background and one ``index_list`` row per grid for
-the temporal TV.  The DS-NeRF depth loss waits for the data path that
-brings depth images: a batch that carries them raises.
+the temporal TV.  A batch that carries target depths ("depth_image")
+adds the DS-NeRF depth loss, weighted by ``depth_weight``.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from soccernerfs_tpu_torch.fields.nerfplayer_nerfacto import (
     nerfplayer_nerfacto_rgb,
     temporal_density_field_density,
 )
+from soccernerfs_tpu_torch.models.kplanes import depth_metric
 from soccernerfs_tpu_torch.models.kplanes import (  # noqa: F401  (protocol)
     host_static_kwargs,
     proposal_anneal,
@@ -300,22 +301,20 @@ def get_outputs(
     return outputs
 
 
-def _needs_depth(cfg: Config, batch: dict) -> None:
-    if "depth_image" in batch and cfg.depth_weight > 0:
-        raise NotImplementedError(
-            "the depth loss is not ported yet (it comes with the data path)")
-
-
-def get_metrics_dict(cfg: Config, outputs: dict, batch: dict) -> dict:
-    """PSNR of the batch (outside the autograd graph) and the distortion,
-    which the loss dict scales (inside it)."""
-    _needs_depth(cfg, batch)
+def get_metrics_dict(cfg: Config, outputs: dict, batch: dict, step: int = 0
+                     ) -> dict:
+    """PSNR of the batch (outside the autograd graph), the distortion and,
+    for a batch that carries "depth_image", the DS-NeRF depth loss at
+    ``step`` (inside it: the loss dict scales both)."""
     mse = torch.mean((outputs["rgb"].detach() - batch["image"]) ** 2)
-    return {
+    metrics = {
         "psnr": -10.0 * torch.log10(mse),
         "distortion": L.distortion_loss(outputs["weights_list"],
                                         outputs["ray_samples_list"]),
     }
+    if "depth_image" in batch:
+        metrics["depth_loss"] = depth_metric(cfg, outputs, batch, step)
+    return metrics
 
 
 def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
@@ -324,13 +323,14 @@ def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
     """The training loss dict, in the JAX package's insertion order (the
     total is summed in that order).  ``tv_rows`` are the temporal TV's
     draws, one ``index_list`` row per grid of ``tv_grids`` (train_draws)."""
-    _needs_depth(cfg, batch)
     loss_dict = {
         "rgb_loss": L.mse_loss(batch["image"], outputs["rgb"]),
         "interlevel_loss": cfg.interlevel_loss_mult * L.interlevel_loss(
             outputs["weights_list"], outputs["ray_samples_list"]),
         "distortion_loss": cfg.distortion_loss_mult * metrics_dict["distortion"],
     }
+    if "depth_image" in batch and cfg.depth_weight > 0:
+        loss_dict["depth_loss"] = cfg.depth_weight * metrics_dict["depth_loss"]
     if cfg.temporal_tv_weight > 0:
         unique = dict(cfg.density_field_configs())
         if tv_rows is None or len(tv_rows) != 1 + len(unique):

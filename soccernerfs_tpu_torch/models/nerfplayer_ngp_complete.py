@@ -7,8 +7,9 @@ grids and the probability regulariser.
 
 The grid update probes the full decomposition density at one random time
 per update (``aux_draws``' "time"), under ``no_grad``, in chunks of
-``ops.occupancy.PROBE_CHUNK`` cells.  The depth loss waits for the data
-path that brings depth images: a batch that carries them raises.
+``ops.occupancy.PROBE_CHUNK`` cells.  A batch that carries target depths
+("depth_image", 0 where there is none) adds the L1 of the rendered depth,
+weighted by ``depth_weight``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from soccernerfs_tpu_torch.fields.nerfplayer import (
 from soccernerfs_tpu_torch.models.instant_ngp import (  # noqa: F401  (protocol)
     background_for,
     eval_kwargs,
-    get_metrics_dict as _ngp_metrics,
+    get_metrics_dict,
     host_static_kwargs,
     init_aux,
     masked_rgb_loss,
@@ -37,9 +38,9 @@ from soccernerfs_tpu_torch.models.instant_ngp import (  # noqa: F401  (protocol)
     update_due,
 )
 from soccernerfs_tpu_torch.models.nerfplayer import RENDER_OUTPUTS, prob_loss  # noqa: F401
-from soccernerfs_tpu_torch.models.nerfplayer_nerfacto import _needs_depth
 from soccernerfs_tpu_torch.models.nerfplayer_ngp import (  # noqa: F401
     aux_draws,
+    depth_l1,
     update_aux_at_a_time,
 )
 from soccernerfs_tpu_torch.ops.hash_grid import temporal_tables
@@ -186,22 +187,18 @@ def get_outputs(
     return outputs
 
 
-def get_metrics_dict(cfg: Config, outputs: dict, batch: dict) -> dict:
-    """instant-NGP's: PSNR of the batch and the samples it took (outside
-    the autograd graph)."""
-    _needs_depth(cfg, batch)
-    return _ngp_metrics(cfg, outputs, batch)
-
-
 def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
                   metrics_dict: Optional[dict] = None,
                   tv_rows: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
     """The training loss dict: the alive-ray-masked rgb loss, the temporal
     TV of the newness and decomposition grids at ``tv_rows`` (train_draws),
     averaged over the two and scaled by its weight, and the probability
-    regulariser."""
-    _needs_depth(cfg, batch)
+    regulariser; with a batch that carries "depth_image", the depth L1
+    after the rgb loss."""
     loss_dict = {"rgb_loss": masked_rgb_loss(outputs, batch)}
+    if "depth_image" in batch and cfg.depth_weight > 0:
+        loss_dict["depth_loss"] = (depth_l1(outputs, batch["depth_image"])
+                                   * cfg.depth_weight)
     if cfg.temporal_tv_weight > 0:
         if tv_rows is None or len(tv_rows) != 2:
             raise ValueError(f"the temporal TV takes 2 index_list rows "

@@ -7,13 +7,18 @@ gradients.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from soccernerfs_tpu_torch.core.rays import RaySamples
 
 EPS = 1.0e-7
+URF_SIGMA_SCALE_FACTOR = 3.0
+# sqrt(2 pi) as f32 arithmetic gives it (the JAX version's jnp.sqrt)
+_SQRT_2PI = float(np.sqrt(np.float32(2.0 * math.pi)))
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +150,67 @@ def sparse_transients_loss(multi_res_grids: Sequence[Sequence[torch.Tensor]]):
         for grid_id in time_ids:
             total = total + torch.mean(torch.abs(1.0 - grids[grid_id]))
     return torch.as_tensor(total)
+
+
+# ---------------------------------------------------------------------------
+# Depth supervision.  ``sigma`` is a 0-d f32 tensor, so every product with
+# it rounds as the JAX version's f32 arithmetic does.
+# ---------------------------------------------------------------------------
+
+def ds_nerf_depth_loss(weights, termination_depth, steps, lengths, sigma):
+    """Depth-supervised NeRF loss: the negative log of each sample's
+    weight under a Gaussian around the target depth (divisor 2 sigma, as
+    the reference has it), summed along the ray; rays without a target
+    (depth 0) count 0 in the mean.
+
+    Args:
+        weights, steps, lengths: [N, S]; termination_depth: [N].
+    """
+    depth_mask = termination_depth > 0
+    loss = (-torch.log(weights + EPS)
+            * torch.exp(-((steps - termination_depth[:, None]) ** 2)
+                        / (2 * sigma))
+            * lengths)
+    return torch.mean(torch.sum(loss, dim=-1) * depth_mask)
+
+
+def urban_radiance_field_depth_loss(weights, termination_depth,
+                                    predicted_depth, steps, sigma):
+    """Urban Radiance Fields' lidar loss: the expected depth's squared
+    error, the weights against a Gaussian of sigma / 3 within sigma of the
+    target, and the squared weights in front of it."""
+    depth_mask = termination_depth > 0
+    expected_depth_loss = (termination_depth - predicted_depth) ** 2
+    urf_sigma = sigma / URF_SIGMA_SCALE_FACTOR
+    td = termination_depth[:, None]
+    target_pdf = (torch.exp(-0.5 * ((steps - td) / urf_sigma) ** 2)
+                  / (urf_sigma * _SQRT_2PI))
+    near_mask = (steps <= td + sigma) & (steps >= td - sigma)
+    loss_near = torch.sum(near_mask * (weights - target_pdf) ** 2, dim=-1)
+    empty_mask = steps < td - sigma
+    loss_empty = torch.sum(empty_mask * weights ** 2, dim=-1)
+    return torch.mean((expected_depth_loss + loss_near + loss_empty)
+                      * depth_mask)
+
+
+def depth_loss(weights: torch.Tensor, ray_samples: RaySamples,
+               termination_depth: torch.Tensor, predicted_depth: torch.Tensor,
+               sigma: torch.Tensor, directions_norm: torch.Tensor,
+               is_euclidean: bool, depth_loss_type: str = "ds_nerf"
+               ) -> torch.Tensor:
+    """DS-NeRF ("ds_nerf") or URF ("urf") depth supervision of one level's
+    weights [N, S].  A target that is not euclidean (a z-depth) is turned
+    into a distance along the ray by ``directions_norm`` [N]."""
+    if not is_euclidean:
+        termination_depth = termination_depth * directions_norm
+    steps = ray_samples.midpoints()
+    if depth_loss_type == "ds_nerf":
+        return ds_nerf_depth_loss(weights, termination_depth, steps,
+                                  ray_samples.deltas, sigma)
+    if depth_loss_type == "urf":
+        return urban_radiance_field_depth_loss(
+            weights, termination_depth, predicted_depth, steps, sigma)
+    raise NotImplementedError(f"depth loss type {depth_loss_type}")
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ them in f32, which is what JAX's bf16 ``dot`` with
 ``preferred_element_type=f32`` computes.  A bf16 ``torch.matmul`` would
 round its output to bf16 as well, an extra rounding the reference does not
 make.  On the card, f32 matmuls must not use TF32, which would round the
-operands to 10 mantissa bits: ``mlp_apply`` turns it off for every CUDA
-input, and it stays off for the backward products that follow.
+operands to 10 mantissa bits: each layer's product, and its two backward
+products (which autograd runs after ``mlp_apply`` has returned), turn
+TF32 off and then restore the caller's setting.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import math
 from typing import Optional
 
 import torch
+
+from soccernerfs_tpu_torch.utils.device import full_f32
 
 Params = dict
 
@@ -40,6 +43,25 @@ def init_mlp(
     return {"w": ws, "b": bs}
 
 
+class _F32MatMul(torch.autograd.Function):
+    """``a @ b`` of f32 [M, K] and [K, N], and its backward products, with
+    TF32 off."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with full_f32():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with full_f32():
+            ga = g @ b.t() if ctx.needs_input_grad[0] else None
+            gb = a.t() @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def mlp_apply(
     params: Params,
     x: torch.Tensor,
@@ -55,12 +77,11 @@ def mlp_apply(
     Returns:
         [..., out_dim] float32.
     """
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    h = x.to(torch.bfloat16)
+    lead = x.shape[:-1]
+    h = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
     n = len(params["w"])
     for i, (w, b) in enumerate(zip(params["w"], params["b"])):
-        h = torch.matmul(h.float(), w.to(torch.bfloat16).float()) + b
+        h = _F32MatMul.apply(h.float(), w.to(torch.bfloat16).float()) + b
         is_last = i == n - 1
         act = output_activation if is_last else activation
         if act == "relu":
@@ -71,4 +92,4 @@ def mlp_apply(
             raise ValueError(f"unknown activation {act}")
         if not is_last:
             h = h.to(torch.bfloat16)
-    return h.float()
+    return h.float().reshape(*lead, h.shape[-1])

@@ -1,5 +1,8 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and full-f32 arithmetic
+on the card."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,3 +19,19 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for convolutions and matmuls inside the block, the
+    caller's flags restored after it.  The reference computes in f32; TF32
+    would round the operands to 10 mantissa bits."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

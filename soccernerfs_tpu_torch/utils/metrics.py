@@ -9,7 +9,6 @@ runs on CUDA unless the caller names a device.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Dict, Optional
 
@@ -17,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from soccernerfs_tpu_torch.utils.device import resolve_device
+from soccernerfs_tpu_torch.utils.device import full_f32, resolve_device
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0
@@ -33,21 +32,6 @@ def _gaussian_kernel(size: int = 11, sigma: float = 1.5, device=None
     g = torch.exp(-(x**2) / (2 * sigma**2))
     g = g / g.sum()
     return torch.outer(g, g)
-
-
-@contextlib.contextmanager
-def full_f32():
-    """TF32 off for convolutions and matmuls inside the block, the flags
-    restored after it."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0

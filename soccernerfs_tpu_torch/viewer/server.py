@@ -962,9 +962,12 @@ def make_server(trainer, host: str = "0.0.0.0", port: int = 7007,
     """The viewer's threaded HTTP server over ``trainer``, bound to
     (``host``, ``port``; 0 picks a free port, ``server.server_address``
     names it) and not yet serving: call ``serve_forever``, and
-    ``shutdown`` from another thread."""
+    ``shutdown`` from another thread.  ``server.viewer_state`` is its
+    ``ViewerState``, whose ``lock`` every render holds."""
     state = ViewerState(trainer, output_dir)
-    return ThreadingHTTPServer((host, port), make_handler(state))
+    server = ThreadingHTTPServer((host, port), make_handler(state))
+    server.viewer_state = state
+    return server
 
 
 def serve(trainer, port: int = 7007, output_dir=None):

@@ -121,9 +121,15 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     small_npngpc = dataclasses.replace(
         mc.model_configs["nerfplayer-ngp-complete"], num_levels=3,
         temporal_dim=8, log2_hashmap_size=12, **occ)
+    small_depth = dataclasses.replace(
+        mc.model_configs["depth-nerfacto"],
+        **{f.name: getattr(small_nerfacto, f.name)
+           for f in dataclasses.fields(small_nerfacto)})
     for small_name, method, small_cfg in (("small", "k-planes", small),
                                           ("small-nerfacto", "nerfacto",
                                            small_nerfacto),
+                                          ("small-depth", "depth-nerfacto",
+                                           small_depth),
                                           ("small-nerfplayer",
                                            "nerfplayer-nerfacto",
                                            small_nerfplayer),
@@ -154,6 +160,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         monkeypatch.setitem(table, "small-static", table["k-planes-static"])
     monkeypatch.setitem(mc.train_num_rays_per_batch, "small-static", 256)
     for small_name, method in (("small", "k-planes"),
+                               ("small-depth", "depth-nerfacto"),
                                ("small-ingp", "instant-ngp-bounded"),
                                ("small-static", "k-planes-static")):
         tcfg = copy.deepcopy(mc.trainer_configs[method])
@@ -174,6 +181,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         **cs.TRAINER_LOOP, "max_num_iterations": 8, "steps_per_save": 4,
         "steps_per_eval_image": 4, "steps_per_eval_batch": 4})
     monkeypatch.setattr(cs, "TRAINER_LOG_STEPS", 2)
+    monkeypatch.setattr(cs, "TRAINER_DEPTH_STEPS", 6)
+    # 9 train frames, 1 eval
+    monkeypatch.setattr(cs, "NERFSTUDIO_FIXTURE", {"num_frames": 10, "h": 24,
+                                                   "w": 32})
+    monkeypatch.setattr(cs, "TRAINER_KPLANES", {})
     monkeypatch.setattr(cs, "TRAINER_RESUME_TO", 12)
     monkeypatch.setattr(cs, "INGP_TRAINER_STEPS", 6)
     monkeypatch.setattr(cs, "CONVERGENCE_STEPS", 3)
@@ -187,6 +199,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "VIEWER_SIZES", ((24, 16), (40, 24)))
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
+    monkeypatch.setattr(cs, "DEPTH", "small-depth")
     monkeypatch.setattr(cs, "NERFPLAYER", "small-nerfplayer")
     monkeypatch.setattr(cs, "INGP", "small-ingp")
     monkeypatch.setattr(cs, "NPNGP", "small-npngp")
@@ -383,11 +396,12 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # steps, and every one of its 11 + window counted steps; per seed of the
     # CPU checks, each step (K-Planes and the decomposition field's
     # methods: 4 with their witnesses, else 2)
-    assert checks.count("train_phase") == 7 * 4
-    assert checks.count("run") == (4 * (11 + cs.TRAIN_WINDOW)
+    assert checks.count("train_phase") == 8 * 4
+    assert checks.count("run") == (5 * (11 + cs.TRAIN_WINDOW)
                                    + 3 * (11 + cs.OCC_TRAIN_WINDOW))
     assert checks.count("train_cpu_check") == (
         4 * len(cs.TRAIN_CPU_SEEDS) + 2 * len(cs.NERFACTO_CPU_SEEDS)
+        + 4 * len(cs.DEPTH_CPU_SEEDS)
         + (2 + 4) * len(cs.NERFPLAYER_CPU_SEEDS)
         + (2 + 2 + 4) * len(cs.OCC_CPU_SEEDS))
     # the deformation MLP's leaves, with the one-ulp witness beside them
@@ -431,13 +445,47 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert sum(main_path[path].values()) > 0, path
     # the Trainer reads a step's values on the host (logs, eval batches,
     # dynamic_batch) and saves checkpoints only after the range check:
-    # 2 + 2 checkpoints of the K-Planes runs, one each of the others (the
-    # CLI phase's training among them)
-    assert checks.count("save_checkpoint") == 7
+    # 2 + 2 + 2 checkpoints of the K-Planes runs (the depth run's 6 steps
+    # save at step 4 and at the end), one each of the others (the CLI
+    # phases' training among them)
+    assert checks.count("save_checkpoint") == 10
     assert checks.count("_read") >= 4 + 2 + ingp["steps"]
     # the CLI phase: snt-train from a command line, snt-eval with
     # DynMetric's boxes, the viewer's /render requests, snt-render's three
     # trajectories; each path launched its plane kernels
+    # depth supervision: depth-nerfacto's method phases (its batches carry
+    # target depths; 3 scatter launches per update step, 1 otherwise; TF32
+    # on before the K-Planes CPU check), k-planes through Trainer.train on
+    # the fixture's depth maps, depth-nerfacto through the entry points
+    # with its live viewer
+    assert any(line.startswith("render small-depth: steady") for line in lines)
+    assert any(line.startswith("train small-depth: window steps") for line in lines)
+    for kind, n in (("update", 3), ("non-update", 1)):
+        assert any(line.startswith(f"in-step kernels, small-depth ({kind} step): "
+                                   f"scatter_add_rows") and f"in {n} launches" in line
+                   for line in lines)
+    assert any(line.startswith("train cpu check small-depth, seed 2 ")
+               and "directions + 1 ulp" in line for line in lines)
+    assert any(line.startswith("train cpu check small: TF32 on before the steps")
+               for line in lines)
+    assert main_path["train small-depth"]["scatter_add_rows"] >= 1 + 11 + cs.TRAIN_WINDOW
+    (depth_run,) = phases["trainer_kplanes_depth"]
+    assert depth_run["steps"] == 6 and sorted(depth_run["depth_loss"]) == ["0", "2", "4"]
+    assert all(v > 0 for v in depth_run["depth_loss"].values())
+    assert depth_run["loop_rays_per_s"] > 0
+    assert depth_run["trainer_kplanes_loop_rays_per_s"] == run["loop_rays_per_s"]
+    assert len(depth_run["refresh_decode_ms_with_depth"]) >= 2
+    assert all(depth_run["launches"][k.__name__] > 0 for k in pk.KERNELS)
+    (cli_depth,) = phases["cli_depth_nerfacto"]
+    argv = cli_depth["train_argv"]
+    assert argv[0] == "small-depth" and "nerfstudio-data" in argv
+    assert argv[argv.index("--viewer.websocket-port") + 1] == "0"
+    assert list(cli_depth["depth_loss"]) == ["0"]
+    assert len(cli_depth["live_viewer_render_ms"]["24x16"]) == 2
+    assert all(np.isfinite(cli_depth["eval"][k]) for k in ("psnr", "ssim"))
+    assert cli_depth["render_frames"] == 3 and cli_depth["render_s_per_frame"] > 0
+    # steps 0-3 all update the proposals (the first non-update step is 10)
+    assert cli_depth["launches"]["cli train"]["scatter_add_rows"] == 3 * 4
     (cli,) = phases["cli_kplanes"]
     argv = cli["train_argv"]
     assert argv[0] == "small" and argv[argv.index("--max-num-iterations") + 1] == "4"

@@ -34,9 +34,8 @@ def _fields(x):
 
 def _assert_same_config(port, jax_cfg):
     """Every field the port's TrainerConfig has equals the JAX one's: the
-    trainer's own, the datamanager's, its dataparser's (type and fields;
-    JAX's nerfstudio-data has no port and the port names no parser
-    there) and the model's."""
+    trainer's own, the datamanager's, its dataparser's (type and fields)
+    and the model's."""
     for name, value in _fields(port).items():
         if name not in ("machine", "logging", "viewer", "pipeline", "optimizers"):
             assert value == getattr(jax_cfg, name), name
@@ -45,11 +44,8 @@ def _assert_same_config(port, jax_cfg):
     for name, value in _fields(pdm).items():
         if name == "dataparser":
             jdp = jdm.dataparser
-            if value is None:
-                assert type(jdp).__name__ == "NerfstudioDataParserConfig"
-            else:
-                assert type(value).__name__ == type(jdp).__name__
-                assert _fields(value) == _fields(jdp)
+            assert type(value).__name__ == type(jdp).__name__
+            assert _fields(value) == _fields(jdp)
         elif name == "camera_optimizer":
             assert _fields(value) == _fields(jdm.camera_optimizer)
         else:
@@ -89,10 +85,31 @@ CASES = {
         ["k-planes", "--data", "/tmp/y", "stadium-data"], {}),
     "loss_coefficient_dict_key": (
         ["k-planes", "--pipeline.model.loss-coefficients.space-tv-loss", "0.2"],
-        {"pipeline.model.loss_coef": None}),
+        {"pipeline.model.loss_coef": {"space_tv_loss": 0.2}}),
     "frozen_model_config_replace": (
         ["nerfacto", "--pipeline.model.num-nerf-samples-per-ray", "12"],
         {"pipeline.model.num_nerf_samples_per_ray": 12}),
+    # depth-nerfacto on a nerfstudio scene, its live viewer on a free port
+    "depth_nerfacto_nerfstudio": (
+        ["depth-nerfacto", "--max-num-iterations", "16",
+         "--viewer.websocket-port", "0",
+         "--pipeline.model.depth-loss-type", "urf",
+         "--pipeline.model.depth-sigma", "0.02",
+         "nerfstudio-data", "--downscale-factor", "2",
+         "--depth-unit-scale-factor", "0.001", "--data", "/tmp/ns"],
+        {"max_num_iterations": 16, "viewer.websocket_port": 0,
+         "pipeline.model.depth_loss_type": "urf",
+         "pipeline.model.depth_sigma": 0.02,
+         "pipeline.datamanager.dataparser.downscale_factor": 2,
+         "pipeline.datamanager.dataparser.depth_unit_scale_factor": 0.001,
+         "vis": "viewer"}),
+    # experiments/depth_loss_coeff.py's sweep of k-planes' depth weight
+    "depth_loss_coeff_sweep": (
+        ["k-planes", "--pipeline.model.loss-coefficients.depth-loss", "0.5",
+         "broadcaststyle-data", "--depth-maps", "depth-maps", "--data",
+         "/tmp/bstyle"],
+        {"pipeline.model.loss_coef": {"depth_loss": 0.5, "space_tv_loss": 0.02},
+         "pipeline.datamanager.dataparser.depth_maps": "depth-maps"}),
     "eval_render_e2e": (
         E2E_ARGV,
         {"max_num_iterations": 2, "steps_per_save": 2,
@@ -116,7 +133,8 @@ def test_cli_matches_jax(case):
     _assert_same_config(port, jax_cfg)
     for dotted, value in values.items():
         if dotted == "pipeline.model.loss_coef":
-            assert _get(port, dotted)["space_tv_loss"] == 0.2
+            coef = _get(port, dotted)
+            assert {k: coef[k] for k in value} == value
         else:
             assert _get(port, dotted) == value, dotted
     if "--data" in argv:

@@ -127,7 +127,8 @@ def test_broadcaststyle_parser_matches_jax(broadcast_root, split, fps):
 def test_dataparser_registry_names():
     from soccernerfs_tpu.data.dataparsers import DATAPARSERS as JAX_PARSERS
 
-    assert set(DATAPARSERS) == {"blender-data", "stadium-data", "closeup-data",
+    assert set(DATAPARSERS) == {"nerfstudio-data", "blender-data",
+                                "stadium-data", "closeup-data",
                                 "broadcaststyle-data", "stadiumwide-data",
                                 "dynamic-data"}
     for name, cls in DATAPARSERS.items():
@@ -147,18 +148,21 @@ def test_dataparser_transform_file(tmp_path, broadcast_root):
     assert td["scale"] == pytest.approx(jd["scale"], rel=1e-12)
 
 
-@pytest.mark.parametrize("kind", ["blender", "broadcaststyle"])
+@pytest.mark.parametrize("kind", ["blender", "broadcaststyle",
+                                  "broadcaststyle-depth"])
 def test_fixtures_match_jax(tmp_path, kind):
-    """The port writes the JAX fixture's JSON and pixels."""
+    """The port writes the JAX fixture's JSON and pixels; its depth maps
+    byte for byte."""
+    depth = dict(with_depth=True) if kind == "broadcaststyle-depth" else {}
     if kind == "blender":
         jroot = jfix.make_blender_fixture(tmp_path / "j", h=12, w=16)
         troot = tfix.make_blender_fixture(tmp_path / "t", h=12, w=16)
         names = ["transforms_train.json", "transforms_val.json"]
     else:
         jroot = jfix.make_broadcaststyle_fixture(tmp_path / "j", num_cameras=3,
-                                                 num_steps=2, h=12, w=16)
+                                                 num_steps=2, h=12, w=16, **depth)
         troot = tfix.make_broadcaststyle_fixture(tmp_path / "t", num_cameras=3,
-                                                 num_steps=2, h=12, w=16)
+                                                 num_steps=2, h=12, w=16, **depth)
         names = ["transforms.json"]
     for n in names:
         assert (json.loads((troot / n).read_text())
@@ -169,6 +173,10 @@ def test_fixtures_match_jax(tmp_path, kind):
         with Image.open(troot / rel) as t, Image.open(jroot / rel) as j:
             assert t.mode == j.mode
             np.testing.assert_array_equal(np.asarray(t), np.asarray(j))
+    depths = [rel for rel in pngs if rel.parts[0] == "depth-maps-mask"]
+    assert len(depths) == (6 if depth else 0)
+    for rel in depths:
+        assert (troot / rel).read_bytes() == (jroot / rel).read_bytes()
 
 
 @pytest.mark.parametrize("alpha", [None, "white", "black"])
@@ -199,11 +207,28 @@ def test_scaled_image_matches_jax(blender_root):
     np.testing.assert_array_equal(tds.get_image(f, 0.5), jds.get_image(f, 0.5))
 
 
-def test_depth_maps_are_refused(broadcast_root):
-    outputs = TBroadcast(data=broadcast_root).setup().get_dataparser_outputs("train")
-    outputs.metadata["depth_filenames"] = list(outputs.image_filenames)
-    with pytest.raises(NotImplementedError, match="depth loss"):
-        tds.DynamicDataset(outputs, device="cpu")
+def test_depth_maps_are_refused(tmp_path):
+    """Depth maps were refused before the depth losses came; now the
+    dynamic dataset reads them: each item's "depth_image" equals JAX's (the
+    parser's 0.01 unit times its scale, at the camera's size), and a
+    dataset without depth files adds none."""
+    root = jfix.make_broadcaststyle_fixture(tmp_path / "b", num_cameras=3,
+                                            num_steps=2, with_depth=True)
+    parser = dict(data=root, fps_downsample=1.0, depth_maps="depth-maps")
+    jo = JBroadcast(**parser).setup().get_dataparser_outputs("train")
+    to = TBroadcast(**parser).setup().get_dataparser_outputs("train")
+    assert to.metadata == jo.metadata
+    jd, td = jds.DynamicDataset(jo), tds.DynamicDataset(to, device="cpu")
+    for i in range(len(td)):
+        got, want = td[i], jd[i]
+        assert got.keys() == want.keys() and "depth_image" in got
+        np.testing.assert_array_equal(got["depth_image"], want["depth_image"])
+        assert got["depth_image"].shape == got["image"].shape[:2]
+        np.testing.assert_allclose(got["depth_image"],
+                                   3.0 * to.dataparser_scale, rtol=1e-6)
+    plain = TBroadcast(data=root, fps_downsample=1.0).setup()
+    assert "depth_image" not in tds.DynamicDataset(
+        plain.get_dataparser_outputs("train"), device="cpu")[0]
 
 
 # ---------------------------------------------------------------- importance

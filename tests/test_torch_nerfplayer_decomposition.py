@@ -35,6 +35,7 @@ import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
 from soccernerfs_tpu.core import cameras as jcam
+from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.engine import optimizers as jopt
 from soccernerfs_tpu.fields import nerfplayer as jf
 from soccernerfs_tpu.models import instant_ngp as jin
@@ -140,6 +141,22 @@ def _occs(seed=0, p=0.5):
                     0.0).astype(np.float32)
 
 
+def _jax_outputs(out):
+    """A forward's outputs as the JAX package's: arrays, samples, lists."""
+    def conv(x):
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        if isinstance(x, torch.Tensor):
+            return jnp.asarray(x.detach().numpy())
+        return jrays.RaySamples(**{
+            f.name: (getattr(x, f.name) if f.name == "spacing"
+                     else None if getattr(x, f.name) is None
+                     else jnp.asarray(getattr(x, f.name).detach().numpy()))
+            for f in dataclasses.fields(x)})
+
+    return {k: conv(v) for k, v in out.items()}
+
+
 def _walk(tree, fn, path=()):
     if isinstance(tree, dict):
         return {k: _walk(v, fn, path + (k,)) for k, v in tree.items()}
@@ -217,29 +234,33 @@ def setup(request):
     aabb = jnp.asarray(AABB)
     occupancy = method != "nerfplayer"
 
-    @functools.partial(jax.jit, static_argnums=(4,))
-    def jax_step(params, batch, key, key_loss, flag, step, binary):
-        """The loss_fn of the JAX Trainer's shard_loss_and_grads (camera
-        optimizer off) with the step's schedules: nerfplayer's anneal and
-        proposal flag, nerfplayer-ngp-complete's binarized grid."""
+    def make_jax_step(jcfg):
+        @functools.partial(jax.jit, static_argnums=(4,))
+        def jax_step(params, batch, key, key_loss, flag, step, binary):
+            """The loss_fn of the JAX Trainer's shard_loss_and_grads (camera
+            optimizer off) with the step's schedules: nerfplayer's anneal
+            and proposal flag, nerfplayer-ngp-complete's binarized grid."""
 
-        def loss_fn(p):
-            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"])
-            kw = ({"occ_binary": binary} if occupancy else
-                  {"anneal": jm._kp.proposal_anneal(jcfg, step),
-                   "train_proposal_networks": flag})
-            outputs = jm.get_outputs(jcfg, p, aabb, rays, rng=key, train=True,
-                                     **kw)
-            metrics = jm.get_metrics_dict(jcfg, outputs, batch, step)
-            loss_dict = jm.get_loss_dict(jcfg, p, outputs, batch, metrics,
-                                         train=True, rng=key_loss)
-            return functools.reduce(jnp.add, loss_dict.values()), (
-                loss_dict, metrics)
+            def loss_fn(p):
+                rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"])
+                kw = ({"occ_binary": binary} if occupancy else
+                      {"anneal": jm._kp.proposal_anneal(jcfg, step),
+                       "train_proposal_networks": flag})
+                outputs = jm.get_outputs(jcfg, p, aabb, rays, rng=key,
+                                         train=True, **kw)
+                metrics = jm.get_metrics_dict(jcfg, outputs, batch, step)
+                loss_dict = jm.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                             train=True, rng=key_loss)
+                return functools.reduce(jnp.add, loss_dict.values()), (
+                    loss_dict, metrics)
 
-        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+            return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+        return jax_step
 
     return dict(method=method, jm=jm, tm=tm, jcfg=jcfg, tcfg=tcfg,
-                np_tree=np_tree, jax_step=jax_step, jcams=jcams,
+                np_tree=np_tree, jax_step=make_jax_step(jcfg),
+                make_jax_step=make_jax_step, jcams=jcams,
                 occupancy=occupancy)
 
 
@@ -335,6 +356,56 @@ def test_train_step_matches_jax(setup, flag):
     proposal_mlps = 0 if flag or setup["occupancy"] else 8
     assert checked == n_leaves - proposal_mlps
     assert checked >= 24
+
+
+@pytest.mark.parametrize("kind", ["ds_nerf", "urf"])
+def test_train_step_with_depth_matches_jax(setup, kind):
+    """One train step as above (update on) with ``depth_weight`` 0.05 on a
+    batch with target depths in [2, 4] (~10 % of them 0, no target):
+    nerfplayer's DS-NeRF (or URF) loss over the three levels' weights,
+    nerfplayer-ngp-complete's L1 of the rendered depth (``kind`` inert),
+    beside every other term, and every gradient leaf, against
+    jax.value_and_grad.  Tolerances as above: loss terms 1e-4 relative,
+    leaves 1e-2 in L2."""
+    method = setup["method"]
+    depth = dict(depth_weight=0.05, depth_loss_type=kind)
+    if method != "nerfplayer":
+        depth = dict(depth_weight=0.05)
+    jcfg = dataclasses.replace(setup["jcfg"], **depth)
+    tcfg = dataclasses.replace(setup["tcfg"], **depth)
+    step = 272 if setup["occupancy"] else 300
+    batch = _batch()
+    rng = np.random.default_rng(9)
+    batch["depth_image"] = rng.uniform(2, 4, N_RAYS).astype(np.float32)
+    batch["depth_image"][rng.uniform(0, 1, N_RAYS) < 0.1] = 0.0
+    occs = _occs(1, p=0.3)
+    key, key_loss = jax.random.PRNGKey(11), jax.random.PRNGKey(12)
+    (jloss, (jld, jmet)), jgrads = setup["make_jax_step"](jcfg)(
+        jax.tree_util.tree_map(jnp.asarray, setup["np_tree"]),
+        {k: jnp.asarray(v) for k, v in batch.items()}, key, key_loss, True,
+        step, jin.occupancy_binary(jcfg.occ, jnp.asarray(occs))
+        if setup["occupancy"] else None)
+    trainer = _trainer(method, tcfg)
+    state = trainer.init_state(
+        convert.params_from_jax(setup["np_tree"], device=CPU),
+        aux=(convert.aux_from_jax({"occs": occs}, device=CPU)
+             if setup["occupancy"] else None))
+    state.step = step
+    draws = _jax_train_draws(method, tcfg, key, key_loss, N_RAYS)
+    loss, ld, met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=True, **draws)
+    assert list(ld)[:2] == (["rgb_loss", "depth_loss"] if setup["occupancy"]
+                            else ["rgb_loss", "interlevel_loss"])
+    assert "depth_loss" in ld and set(jld) == set(ld) and set(jmet) == set(met)
+    assert float(ld["depth_loss"]) > 0.0
+    assert _rel(loss, jloss) <= LOSS_TOL
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= LOSS_TOL, k
+    for k in jmet:
+        assert _rel(met[k], jmet[k]) <= LOSS_TOL, k
+    for name, g, jg in _grad_pairs(state, grads, jgrads):
+        assert g is not None and _l2(g, jg) <= GRAD_L2_TOL, (name, _l2(g, jg))
 
 
 @pytest.mark.parametrize("setup", ["nerfplayer-ngp-complete"], indirect=True)
@@ -596,9 +667,9 @@ def test_draws_and_refusals(setup):
     """train_draws gives the jitters, the [N, 3] random background and one
     index_list row per temporal grid (nerfplayer: the newness, the
     decomposition and two proposal grids; nerfplayer-ngp-complete: two);
-    a loss without them, a batch with depth images, rays without times, a
-    train forward without its draws and a field with position gradients
-    are refused."""
+    a loss without them, rays without times, a train forward without its
+    draws and a field with position gradients are refused; a batch with
+    target depths gets JAX's depth loss."""
     method, tcfg, tm = setup["method"], setup["tcfg"], setup["tm"]
     draws = tm.train_draws(tcfg, 5, torch.Generator().manual_seed(0), CPU)
     n_levels = 1 if setup["occupancy"] else 3
@@ -623,10 +694,22 @@ def test_draws_and_refusals(setup):
     metrics = tm.get_metrics_dict(tcfg, out, image)
     with pytest.raises(ValueError, match="index_list rows"):
         tm.get_loss_dict(tcfg, params, out, image, metrics)
-    deep = dataclasses.replace(tcfg, depth_weight=0.05)
-    with pytest.raises(NotImplementedError):
-        tm.get_loss_dict(deep, params, out, {**image, "depth_image": torch.ones(4)},
-                         metrics, tv_rows=draws["tv_rows"])
+    # a batch with target depths gets JAX's depth loss on the same outputs
+    # (the temporal TV off: it reads the params, not the outputs)
+    deep = dataclasses.replace(tcfg, depth_weight=0.05, temporal_tv_weight=0.0)
+    jdeep = dataclasses.replace(setup["jcfg"], depth_weight=0.05,
+                                temporal_tv_weight=0.0)
+    batch = {**image, "depth_image": torch.tensor([1.0, 0.0, 2.5, 3.0])}
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    jout = _jax_outputs(out)
+    jmetrics = setup["jm"].get_metrics_dict(jdeep, jout, jbatch, 300)
+    want = setup["jm"].get_loss_dict(jdeep, None, jout, jbatch, jmetrics,
+                                     train=True)
+    got = tm.get_loss_dict(deep, params, out, batch,
+                           tm.get_metrics_dict(deep, out, batch, 300))
+    assert set(got) == set(want) and float(got["depth_loss"]) > 0.0
+    for k in want:
+        assert _rel(got[k], want[k]) <= 1e-5, k
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tcfg, detached_inputs=False).field_config()
     assert get_model(tmc.model_names[method]) is tm

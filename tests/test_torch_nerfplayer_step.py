@@ -27,10 +27,12 @@ import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
 from soccernerfs_tpu.core import cameras as jcam
+from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.engine import optimizers as jopt
 from soccernerfs_tpu.fields import nerfplayer_nerfacto as jf
 from soccernerfs_tpu.models import nerfplayer_nerfacto as jn
 from soccernerfs_tpu.ops import hash_grid as jh
+from soccernerfs_tpu.ops import losses as jL
 from soccernerfs_tpu_torch import convert
 from soccernerfs_tpu_torch.configs import method_configs as tmc
 from soccernerfs_tpu_torch.core import cameras as tcam
@@ -126,6 +128,15 @@ def _jax_draws(cfg, key, key_loss, n):
     return jitters, background, rows
 
 
+def _jax_samples(rs):
+    """The port's RaySamples as the JAX package's."""
+    return jrays.RaySamples(**{
+        f.name: (getattr(rs, f.name) if f.name == "spacing"
+                 else None if getattr(rs, f.name) is None
+                 else jnp.asarray(getattr(rs, f.name).detach().numpy()))
+        for f in dataclasses.fields(rs)})
+
+
 def _walk(tree, fn, path=()):
     if isinstance(tree, dict):
         return {k: _walk(v, fn, path + (k,)) for k, v in tree.items()}
@@ -149,27 +160,31 @@ def setup():
     jcams = jcam.Cameras.create(**_camera_args())
     aabb = jnp.asarray(AABB)
 
-    @functools.partial(jax.jit, static_argnums=(4,))
-    def jax_step(params, batch, key, key_loss, flag, step):
-        """The loss_fn of the JAX Trainer's shard_loss_and_grads (camera
-        optimizer off), with the step's schedules (anneal traced, the
-        proposal flag static)."""
+    def make_jax_step(jcfg):
+        @functools.partial(jax.jit, static_argnums=(4,))
+        def jax_step(params, batch, key, key_loss, flag, step):
+            """The loss_fn of the JAX Trainer's shard_loss_and_grads (camera
+            optimizer off), with the step's schedules (anneal traced, the
+            proposal flag static)."""
 
-        def loss_fn(p):
-            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"])
-            outputs = jn.get_outputs(
-                jcfg, p, aabb, rays, rng=key, train=True,
-                anneal=jn._kp.proposal_anneal(jcfg, step),
-                train_proposal_networks=flag)
-            metrics = jn.get_metrics_dict(jcfg, outputs, batch, step)
-            loss_dict = jn.get_loss_dict(jcfg, p, outputs, batch, metrics,
-                                         train=True, rng=key_loss)
-            return functools.reduce(jnp.add, loss_dict.values()), (loss_dict,
-                                                                   metrics)
+            def loss_fn(p):
+                rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"])
+                outputs = jn.get_outputs(
+                    jcfg, p, aabb, rays, rng=key, train=True,
+                    anneal=jn._kp.proposal_anneal(jcfg, step),
+                    train_proposal_networks=flag)
+                metrics = jn.get_metrics_dict(jcfg, outputs, batch, step)
+                loss_dict = jn.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                             train=True, rng=key_loss)
+                return functools.reduce(jnp.add, loss_dict.values()), (
+                    loss_dict, metrics)
 
-        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+            return jax.value_and_grad(loss_fn, has_aux=True)(params)
 
-    return dict(jcfg=jcfg, tcfg=tcfg, np_tree=np_tree, jax_step=jax_step,
+        return jax_step
+
+    return dict(jcfg=jcfg, tcfg=tcfg, np_tree=np_tree,
+                jax_step=make_jax_step(jcfg), make_jax_step=make_jax_step,
                 jcams=jcams)
 
 
@@ -251,6 +266,56 @@ def test_train_step_matches_jax(setup, flag):
     assert checked == (len(jflat) if flag else len(jflat) - 8)
 
 
+@pytest.mark.parametrize("kind", ["ds_nerf", "urf"])
+def test_train_step_with_depth_matches_jax(setup, kind):
+    """One train step at step 300, proposal update on, on a batch with
+    target depths in [2, 4] (~10 % of them 0, no target): the depth loss
+    over the three levels' weights (z-depths, ``depth_weight`` 0.05 as
+    registered) beside every other term, the metrics, and every gradient
+    before the update, against jax.value_and_grad of the JAX step with the
+    same params, batch and draws.  Loss terms within 1e-4 relative;
+    gradients within 1e-2 per leaf in L2 (the DS-NeRF term's 1 / (w + eps)
+    weighs the rays' emptiest samples, whose bf16-rounded MLP inputs move
+    single elements, so leaves are held in L2)."""
+    jcfg = dataclasses.replace(setup["jcfg"], depth_loss_type=kind)
+    tcfg = dataclasses.replace(setup["tcfg"], depth_loss_type=kind)
+    step = 300
+    batch = _batch()
+    rng = np.random.default_rng(9)
+    batch["depth_image"] = rng.uniform(2, 4, N_RAYS).astype(np.float32)
+    batch["depth_image"][rng.uniform(0, 1, N_RAYS) < 0.1] = 0.0
+    key, key_loss = jax.random.PRNGKey(11), jax.random.PRNGKey(12)
+    (jloss, (jld, jmet)), jgrads = setup["make_jax_step"](jcfg)(
+        jax.tree_util.tree_map(jnp.asarray, setup["np_tree"]),
+        {k: jnp.asarray(v) for k, v in batch.items()}, key, key_loss, True,
+        step)
+    trainer = _trainer(tcfg)
+    state = trainer.init_state(convert.params_from_jax(setup["np_tree"],
+                                                       device=CPU))
+    state.step = step
+    jitters, background, rows = _jax_draws(tcfg, key, key_loss, N_RAYS)
+    loss, ld, met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=True, jitters=jitters, background=background,
+        tv_rows=rows)
+    assert list(ld) == ["rgb_loss", "interlevel_loss", "distortion_loss",
+                        "depth_loss", "temporal_tv_loss"]
+    assert set(jld) == set(ld) and set(jmet) == set(met)
+    assert float(ld["depth_loss"]) > 0.0
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    for k in jmet:
+        assert _rel(met[k], jmet[k]) <= 1e-4, k
+    names = []
+    _walk(state.params, lambda path, x: names.append(path))
+    tgrads = dict(zip(names, grads))
+    for path, jg in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g, jg = tgrads[name].numpy(), np.asarray(jg)
+        assert np.linalg.norm(g - jg) <= 1e-2 * np.linalg.norm(jg), name
+
+
 def test_scatter_runs_every_step_and_proposals_only_on_update_steps(
         setup, monkeypatch):
     """A short loop through train_iteration from step 0 (every step updates
@@ -318,8 +383,9 @@ def test_training_lowers_the_loss(setup):
 def test_draws_and_refusals(setup):
     """train_draws gives a single jitter per level, a [N, 3] background and
     one index_list row per grid; a train forward that gets jitters without
-    the random background, a loss without the TV rows, a batch with depth
-    images and a field with position or time gradients are refused."""
+    the random background, a loss without the TV rows and a field with
+    position or time gradients are refused; a batch with target depths
+    gets JAX's depth loss."""
     tcfg = setup["tcfg"]
     draws = tn.train_draws(tcfg, 5, torch.Generator().manual_seed(0), CPU)
     assert [tuple(j.shape) for j in draws["jitters"]] == [(5, 1)] * 3
@@ -342,9 +408,21 @@ def test_draws_and_refusals(setup):
     metrics = tn.get_metrics_dict(tcfg, out, {"image": torch.zeros(4, 3)})
     with pytest.raises(ValueError, match="index_list rows"):
         tn.get_loss_dict(tcfg, params, out, {"image": torch.zeros(4, 3)}, metrics)
-    with pytest.raises(NotImplementedError):
-        tn.get_metrics_dict(tcfg, out, {"image": torch.zeros(4, 3),
-                                        "depth_image": torch.ones(4)})
+    # a batch with target depths: the DS-NeRF loss over the three levels
+    # (z-depths as registered: times the directions' norms), JAX's function
+    # on the same weights and samples
+    depth = torch.tensor([1.0, 0.0, 2.5, 3.0])
+    met = tn.get_metrics_dict(tcfg, out, {"image": torch.zeros(4, 3),
+                                          "depth_image": depth}, step=300)
+    want = sum(
+        jL.depth_loss(jnp.asarray(w.numpy()), _jax_samples(rs),
+                      jnp.asarray(depth.numpy()), jnp.asarray(out["depth"].numpy()),
+                      jn._kp.depth_sigma_for_step(setup["jcfg"], 300),
+                      jnp.asarray(out["directions_norm"].numpy()),
+                      tcfg.is_euclidean_depth, tcfg.depth_loss_type)
+        for w, rs in zip(out["weights_list"], out["ray_samples_list"])) / 3
+    assert float(met["depth_loss"]) > 0.0
+    assert _rel(met["depth_loss"], want) <= 1e-5
     with pytest.raises(NotImplementedError):
         tn.Config(detached_inputs=False).field_config()
     with pytest.raises(NotImplementedError):

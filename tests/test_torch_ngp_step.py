@@ -32,6 +32,7 @@ import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
 from soccernerfs_tpu.core import cameras as jcam
+from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.engine import optimizers as jopt
 from soccernerfs_tpu.fields import instant_ngp as jif
 from soccernerfs_tpu.fields import nerfplayer_ngp as jpf
@@ -184,25 +185,29 @@ def setup(request):
     jcams = jcam.Cameras.create(**_camera_args())
     aabb = jnp.asarray(AABB)
 
-    @jax.jit
-    def jax_step(params, batch, key, key_loss, binary, step):
-        """The loss_fn of the JAX Trainer's shard_loss_and_grads with the
-        step's schedules (the binarized grid)."""
+    def make_jax_step(jcfg):
+        @jax.jit
+        def jax_step(params, batch, key, key_loss, binary, step):
+            """The loss_fn of the JAX Trainer's shard_loss_and_grads with the
+            step's schedules (the binarized grid)."""
 
-        def loss_fn(p):
-            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"])
-            outputs = jm.get_outputs(jcfg, p, aabb, rays, rng=key, train=True,
-                                     occ_binary=binary)
-            metrics = jm.get_metrics_dict(jcfg, outputs, batch, step)
-            loss_dict = jm.get_loss_dict(jcfg, p, outputs, batch, metrics,
-                                         train=True, rng=key_loss)
-            return functools.reduce(jnp.add, loss_dict.values()), (
-                loss_dict, metrics, outputs["valid"])
+            def loss_fn(p):
+                rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"])
+                outputs = jm.get_outputs(jcfg, p, aabb, rays, rng=key,
+                                         train=True, occ_binary=binary)
+                metrics = jm.get_metrics_dict(jcfg, outputs, batch, step)
+                loss_dict = jm.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                             train=True, rng=key_loss)
+                return functools.reduce(jnp.add, loss_dict.values()), (
+                    loss_dict, metrics, outputs["valid"])
 
-        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+            return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+        return jax_step
 
     return dict(method=method, jm=jm, tm=tm, jcfg=jcfg, tcfg=tcfg,
-                np_tree=np_tree, jax_step=jax_step, jcams=jcams)
+                np_tree=np_tree, jax_step=make_jax_step(jcfg),
+                make_jax_step=make_jax_step, jcams=jcams)
 
 
 def _trainer(method, tcfg):
@@ -285,6 +290,51 @@ def test_train_step_matches_jax(setup):
         assert g is not None and tuple(g.shape) == jg.shape, name
         assert np.abs(np.asarray(jg)).max() > 0.0, name
         assert _rel(g, jg) <= 2e-2, (name, _rel(g, jg))
+
+
+@pytest.mark.parametrize("setup", ["nerfplayer-ngp"], indirect=True)
+def test_train_step_with_depth_matches_jax(setup):
+    """nerfplayer-ngp's step as above on a batch with target depths in
+    [2, 4] (~10 % of them 0, no target), ``depth_weight`` 0.05 as
+    registered: the depth loss (the rendered depth's L1 over the rays with
+    a target plus 1e-2 of the mean squared density of the valid samples
+    more than 3/128 in front of it) beside the other terms, and every
+    gradient leaf, against jax.value_and_grad.  Loss terms within 1e-4
+    relative; leaves within 1e-2 in L2 (a flipped bf16 rounding of an MLP
+    operand moves single elements)."""
+    jcfg, tcfg, method = setup["jcfg"], setup["tcfg"], setup["method"]
+    step = 272
+    batch = _batch()
+    rng = np.random.default_rng(9)
+    batch["depth_image"] = rng.uniform(2, 4, N_RAYS).astype(np.float32)
+    batch["depth_image"][rng.uniform(0, 1, N_RAYS) < 0.1] = 0.0
+    occs = _occs(1, p=0.1)
+    key, key_loss = jax.random.PRNGKey(11), jax.random.PRNGKey(12)
+    (jloss, (jld, jmet, _jvalid)), jgrads = setup["make_jax_step"](jcfg)(
+        jax.tree_util.tree_map(jnp.asarray, setup["np_tree"]),
+        {k: jnp.asarray(v) for k, v in batch.items()}, key, key_loss,
+        _jax_binary(jcfg, occs), step)
+    trainer = _trainer(method, tcfg)
+    state = trainer.init_state(
+        convert.params_from_jax(setup["np_tree"], device=CPU),
+        aux=convert.aux_from_jax({"occs": occs}, device=CPU))
+    state.step = step
+    loss, ld, met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=False,
+        **_jax_train_draws(key, key_loss, N_RAYS, tcfg))
+    assert list(ld) == ["rgb_loss", "depth_loss", "temporal_tv_loss"]
+    assert set(jld) == set(ld) and float(ld["depth_loss"]) > 0.0
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    names = []
+    _walk(state.params, lambda path, x: names.append(path))
+    tgrads = dict(zip(names, grads))
+    for path, jg in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g, jg = tgrads[name].numpy(), np.asarray(jg)
+        assert np.linalg.norm(g - jg) <= 1e-2 * np.linalg.norm(jg), name
 
 
 @pytest.mark.parametrize("step", [16, 272])
@@ -555,9 +605,10 @@ def test_draws_and_refusals(setup):
     (none for a fixed colour) and, for nerfplayer-ngp, one index_list row;
     aux_draws the update's draws; update_aux leaves the state on a step
     that does not update.  A train forward without the draws, a
-    nerfplayer-ngp loss without its TV row or with depth images, rays
-    without times and a field with position or time gradients are
-    refused; the protocol's proposal schedules are inert."""
+    nerfplayer-ngp loss without its TV row, rays without times and a field
+    with position or time gradients are refused, and a batch with target
+    depths gets JAX's depth loss; the protocol's proposal schedules are
+    inert."""
     method, tcfg, tm = setup["method"], setup["tcfg"], setup["tm"]
     gen = torch.Generator().manual_seed(0)
     draws = tm.train_draws(tcfg, 5, gen, CPU)
@@ -595,10 +646,26 @@ def test_draws_and_refusals(setup):
                              background=torch.rand(4, 3))
     with pytest.raises(ValueError, match="index_list row"):
         tm.get_loss_dict(tcfg, params, out, {"image": torch.zeros(4, 3)})
-    with pytest.raises(NotImplementedError):
-        tm.get_loss_dict(tcfg, params, out, {"image": torch.zeros(4, 3),
-                                             "depth_image": torch.ones(4)},
-                         tv_rows=[0])
+    # a batch with target depths gets JAX's depth loss on the same outputs
+    # (the temporal TV off: it reads the params, not the outputs)
+    quiet = dataclasses.replace(tcfg, temporal_tv_weight=0.0)
+    jquiet = dataclasses.replace(setup["jcfg"], temporal_tv_weight=0.0)
+    batch = {"image": torch.zeros(4, 3),
+             "depth_image": torch.tensor([1.0, 0.0, 2.5, 3.0])}
+    jout = {k: (jrays.RaySamples(**{
+                f.name: (getattr(v, f.name) if f.name == "spacing"
+                         else None if getattr(v, f.name) is None
+                         else jnp.asarray(getattr(v, f.name).numpy()))
+                for f in dataclasses.fields(v)})
+                if k == "ray_samples" else jnp.asarray(v.numpy()))
+            for k, v in out.items()}
+    want = setup["jm"].get_loss_dict(
+        jquiet, None, jout, {k: jnp.asarray(v.numpy()) for k, v in batch.items()},
+        None, train=True)
+    got = tm.get_loss_dict(quiet, params, out, batch)
+    assert set(got) == set(want) == {"rgb_loss", "depth_loss"}
+    for k in want:
+        assert _rel(got[k], want[k]) <= 1e-5, k
     with pytest.raises(ValueError, match="ray times"):
         tm.get_outputs(tcfg, params, _t(AABB), rays.replace(times=None))
     with pytest.raises(NotImplementedError):

@@ -369,6 +369,49 @@ def test_one_ulp_sensitivity_comes_from_the_bf16_mlp(setup, monkeypatch):
     assert worst["f32"] < 1e-5 and worst["bf16"] > 30 * worst["f32"], worst
 
 
+def test_mlp_restores_the_callers_tf32_setting(monkeypatch):
+    """``mlp_apply`` turns TF32 off for each layer's product and for both
+    products of its backward, which autograd runs after ``mlp_apply`` has
+    returned, and leaves the caller's setting as it found it; values and
+    gradients are those of plain f32 matmuls."""
+    from soccernerfs_tpu_torch.ops import mlp
+
+    seen = []
+    matmul = torch.Tensor.__matmul__
+
+    def spy(a, b):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return matmul(a, b)
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for caller in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = caller
+            params = mlp.init_mlp(5, 8, 1, 3, torch.Generator().manual_seed(0))
+            leaves = [x.requires_grad_(True) for x in params["w"] + params["b"]]
+            x = torch.randn(2, 7, 5, generator=torch.Generator().manual_seed(1),
+                            requires_grad=True)
+            with monkeypatch.context() as m:
+                m.setattr(torch.Tensor, "__matmul__", spy)
+                del seen[:]
+                y = mlp.mlp_apply(params, x, output_activation="sigmoid")
+                forward = len(seen)
+                grads = torch.autograd.grad(y.square().sum(), [x, *leaves])
+            assert forward == 2 and len(seen) == 2 + 4 and not any(seen)
+            assert torch.backends.cuda.matmul.allow_tf32 is caller
+            # the same function with autograd's own matmul
+            h = x.reshape(-1, 5).to(torch.bfloat16).float()
+            for i, (w, b) in enumerate(zip(params["w"], params["b"])):
+                h = torch.matmul(h, w.to(torch.bfloat16).float()) + b
+                h = torch.relu(h).to(torch.bfloat16).float() if i == 0 else torch.sigmoid(h)
+            want = torch.autograd.grad(h.square().sum(), [x, *leaves])
+            assert torch.equal(y.reshape(-1, 3), h)
+            for g, w in zip(grads, want):
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def test_training_lowers_the_loss(setup):
     """Eighty steps past the warm-up (lr ~1e-2) on one batch whose target
     is one colour: the rgb loss falls below a third of its start (the

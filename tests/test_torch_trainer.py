@@ -381,13 +381,8 @@ def test_trainer_configs_match_jax_registry(method):
     assert pdm.keys() == jdm.keys()
     for name in pdm:
         if name == "dataparser":
-            # nerfstudio-data has no port: such entries name no parser
-            jname = type(jdm[name]).__name__
-            if jname == "NerfstudioDataParserConfig":
-                assert pdm[name] is None
-            else:
-                assert type(pdm[name]).__name__ == jname
-                assert _fields(pdm[name]) == _fields(jdm[name])
+            assert type(pdm[name]).__name__ == type(jdm[name]).__name__
+            assert _fields(pdm[name]) == _fields(jdm[name])
         elif name == "camera_optimizer":
             assert _fields(pdm[name]) == _fields(jdm[name])
         else:

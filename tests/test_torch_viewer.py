@@ -311,3 +311,98 @@ def test_make_server_answers_render_requests(tmp_path):
         srv.server_close()
         thread.join(timeout=60)
     assert not thread.is_alive()
+
+
+def _live_trainer(tmp_path, vis):
+    """A narrow depth-nerfacto Trainer on a nerfstudio scene, set up for
+    training with ``vis``, its viewer (if any) on a free port."""
+    import copy
+
+    from soccernerfs_tpu_torch.configs.method_configs import trainer_configs
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+    from soccernerfs_tpu_torch.data.fixtures import make_nerfstudio_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+
+    data = make_nerfstudio_fixture(tmp_path / "ns", num_frames=10, h=12, w=16)
+    cfg = copy.deepcopy(trainer_configs["depth-nerfacto"])
+    cfg.pipeline.model = dataclasses.replace(
+        cfg.pipeline.model, num_levels=3, max_res=32, log2_hashmap_size=11,
+        hidden_dim=8, hidden_dim_color=8, num_proposal_samples_per_ray=(8, 6),
+        num_nerf_samples_per_ray=4, eval_num_rays_per_chunk=128,
+        proposal_net_args_list=(
+            {"hidden_dim": 8, "log2_hashmap_size": 10, "num_levels": 2, "max_res": 16},
+            {"hidden_dim": 8, "log2_hashmap_size": 10, "num_levels": 2, "max_res": 32},
+        ))
+    dm = cfg.pipeline.datamanager
+    dm.dataparser = DATAPARSERS["nerfstudio-data"](data=data)
+    dm.train_num_rays_per_batch = dm.eval_num_rays_per_batch = 64
+    cfg.vis, cfg.viewer.websocket_port = vis, 0
+    cfg.output_dir, cfg.timestamp = tmp_path / "out", "t"
+    return Trainer(cfg, device="cpu").setup()
+
+
+def test_live_viewer_renders_between_training_steps(tmp_path, monkeypatch):
+    """A Trainer whose vis names the viewer serves it from ``setup`` on:
+    while another thread runs 12 ``train_iteration`` steps, four client
+    threads each get three /render PNGs.  No render overlaps a step (the
+    step holds the viewer's render lock around its in-place update), the
+    renders leave the step count alone, and ``shutdown`` stops the server.
+    Without "viewer" in vis, no server starts."""
+    import sys
+    import time
+
+    assert _live_trainer(tmp_path / "plain", "none").viewer_server is None
+    trainer = _live_trainer(tmp_path / "live", "viewer")
+    srv = trainer.viewer_server
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    spans = {"step": [], "render": []}
+    step_fn, render_fn = trainer.train_step.train_iteration, trainer.render_camera
+
+    def timed(kind, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[kind].append((t0, time.perf_counter()))
+        return wrapper
+
+    monkeypatch.setattr(trainer.train_step, "train_iteration",
+                        timed("step", step_fn))
+    monkeypatch.setattr(trainer, "render_camera", timed("render", render_fn))
+    c2w = trainer.train_cameras.camera_to_worlds[0].tolist()
+    pngs, errors = [], []
+
+    def client():
+        try:
+            for _ in range(3):
+                png, _ = _post(f"{url}/render", {"c2w": c2w, "fov": 50.0,
+                                                 "width": 16, "height": 12})
+                pngs.append(np.asarray(Image.open(io.BytesIO(png))))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    def train():
+        for step in range(12):
+            trainer.train_iteration(step)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=train)] + [
+            threading.Thread(target=client) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        srv.shutdown()
+        srv.server_close()
+    assert not errors, errors
+    assert len(pngs) == 12 and all(p.shape == (12, 16, 3) for p in pngs)
+    assert trainer.state.step == 12 and len(spans["step"]) == 12
+    assert len(spans["render"]) == 12
+    for a0, a1 in spans["render"]:
+        assert all(a1 <= b0 or b1 <= a0 for b0, b1 in spans["step"])
