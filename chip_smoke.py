@@ -19,7 +19,8 @@
      the whole-grid launches the train path makes, a wider row, a 2-row
      table with 100,000 updates, an empty update list; then on the
      launches of one train step of each hash-grid method, captured at the
-     wrapper: nerfacto's 3, nerfplayer-nerfacto's 3 width-1 launches over
+     wrapper: nerfacto's 3, depth-nerfacto's 3 (on a batch with target
+     depths), nerfplayer-nerfacto's 3 width-1 launches over
      the flattened temporal tables, nerfplayer's 6 (its stationary grid's
      two, one per encode, the newness and decomposition grids' width-1
      launches and the two proposal grids'), instant-ngp-bounded's one over
@@ -83,6 +84,14 @@
      whose samples differ are counted (at most 0.1 %), and both sides
      update the same grid from the card's updated params with the same
      draws; the grids agree within 1e-5 in L2.
+     The classic methods, ``tensorf`` (VM tables at their final
+     300^3), ``vanilla-nerf`` and ``mipnerf``, whose paths run no
+     hand-written kernel: render (TensoRF two counted frames, a timed and a
+     profiled one; the NeRF methods one counted frame), a chunk against the
+     CPU, the train phase above at the registry's batches, and a CPU check
+     of one step (1024 rays for TensoRF, 256 for the NeRF methods) with
+     the witnesses, each leaf held with the card's bins on both sides
+     within 1e-2 or twice its one-ulp witness.
 
   7. Trainer phases, through ``Trainer(config).setup().train()`` with the
      registered ``trainer_configs``, on fixtures the script writes to a
@@ -127,6 +136,21 @@
      /render at 240x135 while the trainer lives, ``snt-eval`` and
      ``snt-render``'s spiral; scatter_add_rows 3 launches per update step
      and 1 per other step.
+  9. The classic methods', HyperNeRF data's and the occupancy entry
+     points' Trainer and CLI phases: ``trainer_tensorf`` (tensorf at
+     registry width on a blender fixture, 48 steps, its five upsampling
+     steps compressed to 8-40: the tables reach 300^3, every optimizer
+     state restarts at each, the final checkpoint reloads through
+     ``eval_setup`` and renders what the trainer rendered; each upsample's
+     time), ``trainer_kplanes_hypernerf`` (k-planes with ``bounded``
+     false on a HyperNeRF capture it writes, 2 sides x 20 times at
+     540x960 with distortion, 32 steps with IST from 16, one eval image;
+     all four plane kernels), ``cli_ingp_bounded`` (snt-train
+     instant-ngp-bounded with its live viewer answering mid-run, the
+     snapshot's grid and render equal to the trainer's, snt-eval,
+     snt-render's spiral, the viewer on the snapshot; scatter_add_rows)
+     and ``cli_dnerf`` (snt-train dnerf on a D-NeRF layout it writes,
+     snt-eval, a 4-frame spiral).
 Prints a JSON line with the five kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -226,6 +250,26 @@ VIEWER_SIZES = ((240, 135), (960, 540))
 # the nerfacto family through the entry points: depth-nerfacto on a
 # nerfstudio-format ring of 20 frames (18 train, 2 eval) with depth maps
 NERFSTUDIO_FIXTURE = {"num_frames": 20, "h": 540, "w": 960}
+# the classic methods: no hand-written kernel on their paths
+TENSORF = "tensorf"
+VNERF = "vanilla-nerf"
+MIPNERF = "mipnerf"
+DNERF = "dnerf"
+CLASSIC_STEP = 10_000             # the windows' step: past every upsample
+CLASSIC_CPU_RAYS = {TENSORF: 1024, VNERF: 256, MIPNERF: 256}
+CLASSIC_CPU_SEEDS = (2,)
+# counted render frames (cameras), timed ones, and whether one is profiled
+CLASSIC_FRAMES = {TENSORF: ((0, 1), (1,), True), VNERF: ((1,), (), False),
+                  MIPNERF: ((1,), (), False)}
+TENSORF_FIXTURE = {"num_frames": 8, "h": 200, "w": 200}
+TENSORF_TRAINER_ITERS = (8, 16, 24, 32, 40)   # the registry's 2000-7000
+TENSORF_TRAINER_STEPS = 48
+HYPERNERF_FIXTURE = {"num_times": 20, "h": 540, "w": 960}
+HYPERNERF_STEPS = 32
+HYPERNERF_IST_FROM = 16
+DNERF_FIXTURE = {"num_frames": 4, "h": 400, "w": 400}
+DNERF_STEPS = 8
+DNERF_RENDER_STEPS = 4
 BALL_BOX_MIN = 8                  # px a side of a DynMetric box, at least
 
 
@@ -826,7 +870,8 @@ def scatter_step_cases(method, cfg, tree, dev, aux=None):
     sk._launch = capture
     try:
         trainer.loss_and_grads(
-            state, make_batch(0, train_num_rays_per_batch[method], dev),
+            state, make_batch(0, train_num_rays_per_batch[method], dev,
+                              depth=method == DEPTH),
             train_proposal_networks=True,
             generator=torch.Generator(device=dev).manual_seed(SEED))
     finally:
@@ -1332,6 +1377,11 @@ def pdf_bins(record=None, replay=None):
     from soccernerfs_tpu_torch.ops import samplers
 
     orig = samplers.pdf_samples
+    # the modules that call it: the samplers' own proposal sampler, and
+    # the models that import it by name
+    users = [samplers] + [m for name, m in list(sys.modules.items())
+                          if name.startswith("soccernerfs_tpu_torch.models.")
+                          and getattr(m, "pdf_samples", None) is orig]
     it = iter(replay or ())
 
     def patched(*a, **k):
@@ -1344,11 +1394,13 @@ def pdf_bins(record=None, replay=None):
             f: getattr(rec, f).to(out.starts.device)
             for f in ("starts", "ends", "spacing_starts", "spacing_ends")})
 
-    samplers.pdf_samples = patched
+    for module in users:
+        module.pdf_samples = patched
     try:
         yield
     finally:
-        samplers.pdf_samples = orig
+        for module in users:
+            module.pdf_samples = orig
 
 
 @contextlib.contextmanager
@@ -1393,15 +1445,29 @@ def selection_differs(a, b):
             | (a["spacing_starts"] != b["spacing_starts"]).any(-1))
 
 
-def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None):
-    """One step of TRAIN_CPU_RAYS rays on the card and on the CPU (the
-    kernels' plain versions), same params, batch and draws, proposal
-    update on, the method's camera optimizer as registered, for each of
-    ``seeds``: the loss terms and every gradient before the update.  With
-    ``witnesses``, two more CPU steps show what sets the gradients' worst
-    elements: one takes the card's PDF bins in place of its own, and one
-    also moves the ray directions by one ulp (the CPU against itself: the
-    step's own sensitivity to rounding).
+def is_classic(module) -> bool:
+    """Whether a model module is one of the classic methods' (vanilla NeRF,
+    mip-NeRF, TensoRF): coarse and PDF samplers, no hand-written kernel."""
+    return module.__name__.rsplit(".", 1)[-1] in ("vanilla_nerf", "mipnerf",
+                                                  "tensorf")
+
+
+def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None, rays=None):
+    """One step of ``rays`` (default TRAIN_CPU_RAYS) rays on the card and on
+    the CPU (the kernels' plain versions), same params, batch and draws,
+    proposal update on, the method's camera optimizer as registered, for
+    each of ``seeds``: the loss terms and every gradient before the update.
+    With ``witnesses``, two more CPU steps show what sets the gradients'
+    worst elements: one takes the card's PDF bins in place of its own, and
+    one also moves the ray directions by one ulp (the CPU against itself:
+    the step's own sensitivity to rounding).
+
+    A classic method (``is_classic``; run with the witnesses) holds its
+    leaves with the card's bins on both sides, each within GRAD_L2_TOL or
+    twice its one-ulp witness where that is larger: vanilla NeRF's first
+    layers move by ~0.1 in L2 under one ulp of the directions (the top
+    frequency of its encoding and ten bf16 layers; see
+    tests/test_torch_classic_methods.py).
 
     An occupancy model (its grid state ``aux``) steps at OCC_CPU_STEP,
     whose grid update is a sampled one: the rays whose samples differ
@@ -1412,8 +1478,9 @@ def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None):
 
     module, cfg, camera_optimizer = method_parts(method)
     occupancy = hasattr(module, "update_aux")
+    classic = is_classic(module)
     step = OCC_CPU_STEP if occupancy else 300
-    n = TRAIN_CPU_RAYS
+    n = rays or TRAIN_CPU_RAYS
     cpu = torch.device("cpu")
     trainers, states = {}, {}
 
@@ -1444,12 +1511,13 @@ def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None):
             # an occupancy check applies the card's step: fresh states
             for d in (dev, cpu):
                 trainers[d], states[d] = make_trainer(method, tree, d, aux)
-        if occupancy:
+        if occupancy or classic:
             gen = torch.Generator().manual_seed(seed)
             draws = module.train_draws(cfg, n, gen, cpu)
             jitters, background = draws["jitters"], draws["background"]
             tv_rows = [int(r) for r in draws.get("tv_rows", [])] or None
-            grid_draws = module.aux_draws(cfg, step, gen, cpu)
+            grid_draws = (module.aux_draws(cfg, step, gen, cpu) if occupancy
+                          else None)
         else:
             rng = np.random.default_rng(seed)
             jitters = [torch.from_numpy(rng.uniform(
@@ -1533,6 +1601,26 @@ def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None):
         if not any(name == "camera_opt/pose_adjustment" for _l, _m, name in rows
                    ) and camera_optimizer.mode != "off":
             raise AssertionError("the camera optimizer got no gradient")
+        if classic:
+            witness = {name: l2 for l2, _m, name in pairs[
+                "cpu vs cpu, directions + 1 ulp, both the card's bins"][1]}
+            shared = pairs["card vs cpu, both the card's bins"][1]
+            bounds = {name: max(GRAD_L2_TOL, 2 * witness[name])
+                      for _l, _m, name in shared}
+            bad = [r for r in shared if r[0] > bounds[r[2]]]
+            held = sorted(name for name, b in bounds.items() if b > GRAD_L2_TOL)
+            log(f"{tag}, seed {seed}: leaves held with the card's bins on "
+                f"both sides, at {GRAD_L2_TOL} or twice their one-ulp "
+                f"witness: {len(held)} of {len(bounds)} at their witness"
+                + (f" ({', '.join(held[:4])}{', ...' if len(held) > 4 else ''})"
+                   if held else ""))
+            if max(terms.values()) > 1e-4 or bad:
+                raise AssertionError(
+                    f"card and CPU {method} train steps disagree, seed "
+                    f"{seed}: {terms}, gradients {bad}")
+            del card_grads
+            results.append(pairs)
+            continue
         deform = [r for r in rows if r[2].startswith(DEFORM_PREFIX)]
         if deform:
             log(f"{tag}, seed {seed}: deformation MLP leaves in L2, "
@@ -1605,11 +1693,14 @@ def occupancy_cpu_check(module, cfg, trainers, states, dev, seed, step_draws,
 
 
 def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
-                 aux=None):
-    """A method's render main path, counted: two whole frames through
-    ``render_camera`` (with the model state ``aux``, an occupancy model's
-    grid); then two timed frames and one profiled.  Returns the counted
-    frames' launches and the profiled frame's device time per kernel."""
+                 aux=None, frames=(0, 1), steady=(0, 1), profile=True):
+    """A method's render main path, counted: whole frames of the cameras
+    ``frames`` through ``render_camera`` (with the model state ``aux``, an
+    occupancy model's grid); then timed frames of the cameras ``steady``
+    (none: the counted frames' times stand for them) and, with
+    ``profile``, one profiled frame.  Returns the counted frames' launches
+    and the profiled frame's device time per kernel (empty without
+    one)."""
     from soccernerfs_tpu_torch.configs.method_configs import model_names
     from soccernerfs_tpu_torch.engine.render import render_camera
 
@@ -1622,14 +1713,15 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    counted = list(frames)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames = [frame(i) for i in (0, 1)]
+    frames = [frame(i) for i in counted]
     torch.cuda.synchronize()
-    first_two_s = time.perf_counter() - t0
+    first_s = time.perf_counter() - t0
     launches = launch_counts()
-    log(f"{tag}: 2 frames {W}x{H} in {first_two_s:.3f} s (first frames), "
-        f"launches {launches}")
+    log(f"{tag}: {len(frames)} frames {W}x{H} in {first_s:.3f} s (first "
+        f"frames), launches {launches}")
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the {method} "
@@ -1653,16 +1745,21 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
 
     # steady-state frame time
     times = []
-    for i in (0, 1):
+    for i in steady:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         frame(i)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    if not times:
+        times = [first_s / len(counted)]
     per_frame = sum(times) / len(times)
-    log(f"{tag}: steady {per_frame:.4f} s/frame ({times}), "
+    log(f"{tag}: steady {per_frame:.4f} s/frame ({times}"
+        f"{'' if steady else ', the counted frames'}), "
         f"{H * W / per_frame:.1f} test rays/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not profile:
+        return launches, {}
     reset_launch_counts()
     in_frame = profile_device(
         f"{tag} frame", lambda: frame(1),
@@ -1671,16 +1768,15 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
     return launches, in_frame
 
 
-def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None):
-    """One 4096-ray chunk through the model on the card and on the CPU (the
-    kernels' plain versions); an occupancy model's on the card's binary
-    grid of ``aux`` on both sides, the rays whose samples differ counted
-    and left out of the comparison."""
+def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096):
+    """One chunk of ``n`` rays through the model on the card and on the CPU
+    (the kernels' plain versions); an occupancy model's on the card's
+    binary grid of ``aux`` on both sides, the rays whose samples differ
+    counted and left out of the comparison."""
     from soccernerfs_tpu_torch.convert import params_from_jax
     from soccernerfs_tpu_torch.core.cameras import generate_rays
 
     module, cfg, _camera_optimizer = method_parts(method)
-    n = 4096
     pix = np.linspace(0, H * W - 1, n).astype(np.int64)
     coords = np.stack([pix // W, pix % W], -1).astype(np.float32) + 0.5
     cpu = torch.device("cpu")
@@ -1846,6 +1942,30 @@ def occupancy_method_phases(method, dev, cams, aabb, trace_dir, kernels,
     train_cpu_check(method, tree, dev, OCC_CPU_SEEDS, witnesses=method == NPNGPC,
                     aux=aux)
     del tree, aux
+    torch.cuda.empty_cache()
+
+
+def classic_method_phases(method, dev, cams, aabb, trace_dir, launches) -> None:
+    """A classic method's phases (tensorf, vanilla-nerf, mipnerf), its
+    weights seeded as at CLASSIC_STEP (TensoRF's tables at their final
+    300^3): render CLASSIC_FRAMES and check a chunk of CLASSIC_CPU_RAYS on
+    the CPU; train (the registry's batches) and check a step of
+    CLASSIC_CPU_RAYS on the CPU, with the witnesses.  Adds to
+    ``launches``."""
+    tree, params, _ = make_params(method, dev, step=CLASSIC_STEP)
+    counted, steady, profile = CLASSIC_FRAMES[method]
+    launches[f"render {method}"], _ = render_phase(
+        method, params, cams, dev, aabb, trace_dir, frames=counted,
+        steady=steady, profile=profile)
+    render_cpu_check(method, tree, params, cams, dev, aabb,
+                     n=CLASSIC_CPU_RAYS[method])
+    del params
+    torch.cuda.empty_cache()
+    launches[f"train {method}"], _ = train_phase(method, tree, dev, trace_dir,
+                                                 must_launch=())
+    train_cpu_check(method, tree, dev, CLASSIC_CPU_SEEDS, witnesses=True,
+                    rays=CLASSIC_CPU_RAYS[method])
+    del tree
     torch.cuda.empty_cache()
 
 
@@ -2286,6 +2406,188 @@ def convergence_phase(dev, root, launches) -> None:
     torch.cuda.empty_cache()
 
 
+def trainer_tensorf_phase(dev, root, launches) -> None:
+    """``Trainer.train`` of tensorf at registry width on a blender fixture
+    (TENSORF_FIXTURE) for TENSORF_TRAINER_STEPS steps, its upsampling steps
+    compressed to TENSORF_TRAINER_ITERS (the registry's resolutions, 128 to
+    300).  Fails unless the tables grow at each of those steps to the
+    schedule's resolution (300 at the last), each upsample rebuilt every
+    group's optimizer state (count 0, zero moments), the losses stay
+    finite, and the final checkpoint (past the last upsample) reloads
+    through ``eval_setup`` with its 300^3 tables and renders an eval
+    image equal to the trainer's own render.  Prints each upsample's
+    time (host clock, synchronised)."""
+    import dataclasses
+
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+    from soccernerfs_tpu_torch.data.fixtures import make_blender_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.utils.eval_utils import eval_setup
+
+    tag = f"trainer_tensorf {TENSORF}"
+    t0 = time.perf_counter()
+    data = make_blender_fixture(root / "blender_tensorf", **TENSORF_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    cfg = trainer_config(TENSORF, DATAPARSERS["blender-data"](data=data),
+                         root / "out", "tensorf", (),
+                         {"max_num_iterations": TENSORF_TRAINER_STEPS,
+                          "vis": "none"})
+    cfg.pipeline.model = dataclasses.replace(
+        cfg.pipeline.model, upsampling_iters=TENSORF_TRAINER_ITERS)
+    schedule = cfg.pipeline.model.upsampling_resolutions()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device=dev).setup()
+    sink = event_sink()
+    module = trainer.model
+    host_update = module.host_update
+    upsamples = []
+
+    def recorded(model_cfg, state, step, init_opt_state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = host_update(model_cfg, state, step, init_opt_state)
+        torch.cuda.synchronize()
+        if new is not None:
+            upsamples.append({
+                "step": step, "ms": 1e3 * (time.perf_counter() - t0),
+                "resolution": int(new.params["encodings"]["density"]
+                                  ["plane_coef"].shape[1]),
+                "counts_before": {k: o.count for k, o in state.opt_state.items()},
+                "counts_after": {k: o.count for k, o in new.opt_state.items()},
+                "moments_zero": all(float(m.abs().max()) == 0.0
+                                    for o in new.opt_state.values()
+                                    for m in o.mu + o.nu)})
+        return new
+
+    module.host_update = recorded
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+        torch.cuda.synchronize()
+    finally:
+        module.host_update = host_update
+    train_s = time.perf_counter() - t0
+    launches[f"trainer {TENSORF}"] = launch_counts()
+    check_finite_events(sink, tag)
+    if [u["step"] for u in upsamples] != list(schedule) or [
+            u["resolution"] for u in upsamples] != list(schedule.values()):
+        raise AssertionError(f"{tag}: upsamples {upsamples}, schedule {schedule}")
+    if upsamples[-1]["resolution"] != cfg.pipeline.model.final_resolution:
+        raise AssertionError(f"{tag}: the tables ended at "
+                             f"{upsamples[-1]['resolution']}")
+    for u in upsamples:
+        if (set(u["counts_after"].values()) != {0} or not u["moments_zero"]
+                or min(u["counts_before"].values()) <= 0):
+            raise AssertionError(f"{tag}: the optimizer state was not rebuilt "
+                                 f"at step {u['step']}: {u}")
+    since = TENSORF_TRAINER_STEPS - TENSORF_TRAINER_ITERS[-1]
+    counts = {k: o.count for k, o in trainer.state.opt_state.items()}
+    if set(counts.values()) != {since}:
+        raise AssertionError(f"{tag}: optimizer counts {counts} at the end, "
+                             f"not {since}")
+    rays = trainer.datamanager.get_train_rays_per_batch()
+    cams = trainer.eval_cameras
+    mine = trainer.render_camera(cams, 0)
+    config = trainer.base_dir / "config.yml"
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, loaded, step = eval_setup(config, device=dev)
+    torch.cuda.synchronize()
+    setup_ms = 1e3 * (time.perf_counter() - t0)
+    res = loaded.state.params["encodings"]["color"]["plane_coef"].shape[1]
+    reset_launch_counts()
+    theirs = loaded.render_camera(cams, 0)
+    if step != TENSORF_TRAINER_STEPS or res != cfg.pipeline.model.final_resolution:
+        raise AssertionError(f"{tag}: eval_setup at step {step}, tables {res}")
+    for k in mine:
+        if not (np.isfinite(theirs[k]).all() and np.array_equal(theirs[k], mine[k])):
+            raise AssertionError(f"{tag}: the reloaded snapshot's {k} differs")
+    log(json.dumps({
+        "phase": "trainer_tensorf", "method": TENSORF, "card": card_line(),
+        "fixture": {**TENSORF_FIXTURE, "written_s": fixture_s},
+        "steps": TENSORF_TRAINER_STEPS, "upsampling_iters": TENSORF_TRAINER_ITERS,
+        "upsamples": upsamples, "train_s": train_s,
+        "loop_rays_per_s": rays * TENSORF_TRAINER_STEPS / train_s,
+        "final_loss": [v for n, st, v in sink.scalars if n == "Train Loss"][-1:],
+        "eval_setup_ms": setup_ms, "eval_image_psnr": loaded.eval_image(0)["psnr"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches[f"trainer {TENSORF}"]}))
+    del loaded
+    torch.cuda.empty_cache()
+
+
+def trainer_kplanes_hypernerf_phase(dev, root, launches) -> None:
+    """``Trainer.train`` of k-planes at registry width with ``bounded``
+    false (experiments/hypernerf_kplanes.py's setting: constant near and
+    far planes, piecewise spacing, scene contraction) on a HyperNeRF
+    capture of HYPERNERF_FIXTURE (two sides, distorted cameras) for
+    HYPERNERF_STEPS steps, IST from HYPERNERF_IST_FROM; then one eval
+    image.  Fails unless all four plane kernels launched in training and
+    both forward kernels in the eval image, the losses stay finite and the
+    image is finite."""
+    import dataclasses
+
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+    from soccernerfs_tpu_torch.data.fixtures import make_hypernerf_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    tag = f"trainer_kplanes_hypernerf {MODEL}"
+    t0 = time.perf_counter()
+    data = make_hypernerf_fixture(root / "hypernerf", **HYPERNERF_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    cfg = trainer_config(MODEL, DATAPARSERS["hypernerf-data"](data=data),
+                         root / "out", "kplanes_hypernerf",
+                         {"iters_to_start_is": HYPERNERF_IST_FROM},
+                         {"max_num_iterations": HYPERNERF_STEPS, "vis": "none"})
+    cfg.pipeline.model = dataclasses.replace(cfg.pipeline.model, bounded=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev).setup()
+    setup_s = time.perf_counter() - t0
+    sink = event_sink()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches[f"trainer {MODEL} hypernerf"] = counts = launch_counts()
+    check_finite_events(sink, tag)
+    missing = [k.__name__ for k in pk.KERNELS if counts[k.__name__] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} not launched in training")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    image = trainer.eval_image(HYPERNERF_STEPS)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    launches[f"eval image {MODEL} hypernerf"] = counts = launch_counts()
+    if (counts["bilerp_fwd_unpacked"] <= 0 or counts["bilerp_fwd_packed"] <= 0
+            or not np.isfinite(image["psnr"])):
+        raise AssertionError(f"{tag}: eval image {image}, launches {counts}")
+    cams = trainer.train_cameras
+    rays = trainer.datamanager.get_train_rays_per_batch()
+    log(json.dumps({
+        "phase": "trainer_kplanes_hypernerf", "method": MODEL,
+        "card": card_line(), "bounded": False,
+        "fixture": {**HYPERNERF_FIXTURE, "written_s": fixture_s},
+        "train_images": len(trainer.datamanager.train_dataset),
+        "distortion_max": float(cams.distortion_params.abs().max()),
+        "setup_s": setup_s, "steps": HYPERNERF_STEPS, "train_s": train_s,
+        "loop_rays_per_s": rays * HYPERNERF_STEPS / train_s,
+        "losses": {str(st): v for n, st, v in sink.scalars if n == "Train Loss"},
+        "eval_image": {"psnr": image["psnr"], "s": image_s},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": {k: launches[f"{k} {MODEL} hypernerf"]
+                     for k in ("trainer", "eval image")}}))
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def ball_boxes(data: Path) -> dict:
     """DynMetric's sidecar boxes for the fixture's eval camera (Camera_20):
     per image, the box of its ball's pixels (red), at least BALL_BOX_MIN
@@ -2695,6 +2997,274 @@ def cli_depth_phase(dev, root, launches) -> None:
                                "cli render")}}))
 
 
+def cli_ingp_phase(dev, root, launches) -> None:
+    """An occupancy method through the user entry points: ``snt-train
+    instant-ngp-bounded`` at registry width on the Trainer phases'
+    broadcaststyle fixture for CLI_STEPS steps with its registered live
+    viewer on a free port, which answers a /render at VIEWER_SIZES[0]
+    mid-run; the trainer's own render of an eval camera, then
+    ``eval_setup``'s of the snapshot, which must hold the grid exactly and
+    render the same image; ``snt-eval``; an 8-frame ``snt-render`` spiral;
+    the viewer's /render at VIEWER_SIZES on the snapshot.  Fails unless
+    scatter_add_rows launched on every training step."""
+    import io
+    import threading
+
+    from PIL import Image
+
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.scripts import eval as eval_script
+    from soccernerfs_tpu_torch.scripts import render as render_script
+    from soccernerfs_tpu_torch.scripts import train as train_script
+    from soccernerfs_tpu_torch.utils import eval_utils, writer
+    from soccernerfs_tpu_torch.viewer.server import make_server
+
+    tag = f"cli_ingp_bounded {INGP}"
+    data = root / "broadcaststyle"
+    out = root / "cli_ingp"
+    argv = [INGP, "--max-num-iterations", str(CLI_STEPS), "--steps-per-save",
+            str(CLI_STEPS), "--viewer.websocket-port", "0",
+            "--output-dir", str(out),
+            "broadcaststyle-data", "--fps-downsample", "1", "--data", str(data)]
+    log(f"{tag}: snt-train {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sink = event_sink()
+    setup_writers = writer.setup_writers
+
+    def with_sink(*args, **kwargs):
+        setup_writers(*args, **kwargs)
+        writer._SINKS.append(sink)
+
+    def view(port, cams, size, output="rgb"):
+        """One /render of eval camera 0 at ``size``: its client ms."""
+        width, height = size
+        fov = float(np.rad2deg(2 * np.arctan(float(cams.height[0]) / 2
+                                             / float(cams.fy[0]))))
+        t0 = time.perf_counter()
+        png = post(f"http://127.0.0.1:{port}/render",
+                   {"c2w": cams.camera_to_worlds[0].tolist(), "fov": fov,
+                    "width": width, "height": height, "time": 0.5,
+                    "output": output})
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = Image.open(io.BytesIO(png)).size
+        if got != (width, height):
+            raise AssertionError(f"{tag}: /render at {size} gave {got}")
+        return ms
+
+    live_ms, loop_s, save_s = [], [], []
+    iteration = Trainer.train_iteration
+
+    def with_live_request(self, step):
+        if step == CLI_STEPS // 2 and self.viewer_server is not None:
+            live_ms.append(view(self.viewer_server.server_address[1],
+                                self.eval_cameras, VIEWER_SIZES[0]))
+        return iteration(self, step)
+
+    train, save = Trainer.train, Trainer.save_checkpoint
+    Trainer.train = timed(train, loop_s, sync=True)
+    Trainer.save_checkpoint = timed(save, save_s, sync=True)
+    Trainer.train_iteration = with_live_request
+    writer.setup_writers = with_sink
+    reset_launch_counts()
+    try:
+        trainer = train_script.main(argv, device=dev)
+    finally:
+        Trainer.train, Trainer.save_checkpoint = train, save
+        Trainer.train_iteration = iteration
+        writer.setup_writers = setup_writers
+    launches[f"cli train {INGP}"] = counts = launch_counts()
+    check_finite_events(sink, tag)
+    if counts["scatter_add_rows"] < CLI_STEPS or len(live_ms) != 1:
+        raise AssertionError(f"{tag}: scatter_add_rows launched "
+                             f"{counts['scatter_add_rows']} times in {CLI_STEPS} "
+                             f"steps; {len(live_ms)} live /render")
+    server = trainer.viewer_server
+    server.shutdown()
+    server.server_close()
+    # the trainer's own render of the state it saved, then the snapshot's
+    cams = trainer.eval_cameras
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mine = trainer.render_camera(cams, 0)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    occs = trainer.state.aux["occs"]
+    occupied = float(trainer.model.eval_kwargs(
+        trainer.model_cfg, trainer.state.aux)["occ_binary"].float().mean())
+    config = trainer.base_dir / "config.yml"
+    rays = trainer.datamanager.get_train_rays_per_batch()
+    del trainer, server
+    torch.cuda.empty_cache()
+    setup_ms = []
+
+    def timed_setup(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = eval_utils.eval_setup(*args, **kwargs)
+        torch.cuda.synchronize()
+        setup_ms.append(1e3 * (time.perf_counter() - t0))
+        return result
+
+    _, loaded, _ = timed_setup(config, "inference", device=dev)
+    got = loaded.state.aux["occs"]
+    if not (got.dtype == occs.dtype and got.device == occs.device
+            and torch.equal(got, occs)):
+        raise AssertionError(f"{tag}: eval_setup's grid differs from the "
+                             f"trained one")
+    theirs = loaded.render_camera(cams, 0)
+    for k in mine:
+        if not np.array_equal(theirs[k], mine[k]):
+            raise AssertionError(f"{tag}: the snapshot's {k} differs from the "
+                                 f"trainer's render")
+    launches[f"cli renders {INGP}"] = launch_counts()
+    # the viewer on the snapshot
+    server = make_server(loaded, "127.0.0.1", 0, output_dir=config.parent)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    viewer_ms = {}
+    try:
+        reset_launch_counts()
+        for size in VIEWER_SIZES:
+            viewer_ms[f"{size[0]}x{size[1]}"] = [
+                view(server.server_address[1], cams, size) for _ in range(2)]
+        launches[f"viewer {INGP}"] = launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    del loaded, server
+    torch.cuda.empty_cache()
+    eval_script.eval_setup = render_script.eval_setup = timed_setup
+    try:
+        reset_launch_counts()
+        info = eval_script.main(["--load-config", str(config), "--output-path",
+                                 str(root / "cli_ingp_eval.json")], device=dev)
+        launches[f"cli eval {INGP}"] = launch_counts()
+        results = info["results"]
+        if not all(np.isfinite(results[k]) for k in ("psnr", "ssim")):
+            raise AssertionError(f"{tag}: eval JSON {info}")
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        written = render_script.main(
+            ["--load-config", str(config), "--traj", "spiral",
+             "--interpolation-steps", str(CLI_RENDER_STEPS), "--output-format",
+             "images", "--output-path", str(root / "cli_ingp_render" / "s.mp4")],
+            device=dev)
+        s_per_frame = (time.perf_counter() - t0 - 1e-3 * setup_ms[-1]) / CLI_RENDER_STEPS
+        launches[f"cli render {INGP}"] = launch_counts()
+    finally:
+        eval_script.eval_setup = render_script.eval_setup = eval_utils.eval_setup
+    pngs = sorted(written.glob("*.png"))
+    sizes = {Image.open(f).size for f in pngs}
+    if len(pngs) != CLI_RENDER_STEPS or sizes != {(int(cams.width[0]),
+                                                   int(cams.height[0]))}:
+        raise AssertionError(f"{tag}: render: {len(pngs)} frames of {sizes}")
+    log(json.dumps({
+        "phase": "cli_ingp_bounded", "method": INGP, "card": card_line(),
+        "train_argv": argv, "train_steps": CLI_STEPS,
+        "train_loop_rays_per_s": rays * CLI_STEPS / (loop_s[0] - sum(save_s)),
+        "train_loop_s": loop_s[0], "save_ms": [1e3 * t for t in save_s],
+        "live_viewer_render_ms": {f"{VIEWER_SIZES[0][0]}x{VIEWER_SIZES[0][1]}":
+                                  live_ms},
+        "trainer_frame_s": frame_s, "grid_occupied": occupied,
+        "snapshot_equals_trainer_render": True,
+        "viewer_render_ms": viewer_ms,
+        "eval": {k: results[k] for k in ("psnr", "ssim", "num_rays_per_sec",
+                                         "fps")},
+        "render_s_per_frame": s_per_frame, "render_frames": len(pngs),
+        "eval_setup_ms": setup_ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": {k: launches[f"{k} {INGP}"]
+                     for k in ("cli train", "cli renders", "viewer", "cli eval",
+                               "cli render")}}))
+
+
+def cli_dnerf_phase(dev, root, launches) -> None:
+    """dnerf through the user entry points: ``snt-train dnerf ...
+    dnerf-data`` at registry width on a D-NeRF layout (the blender fixture
+    with per-frame times, DNERF_FIXTURE) for DNERF_STEPS steps; ``snt-eval``
+    over its test split; a DNERF_RENDER_STEPS-frame ``snt-render`` spiral.
+    Fails unless the cameras carry the times, the losses are finite, psnr
+    and ssim are finite and every frame has its size."""
+    from PIL import Image
+
+    from soccernerfs_tpu_torch.data.fixtures import make_blender_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.scripts import eval as eval_script
+    from soccernerfs_tpu_torch.scripts import render as render_script
+    from soccernerfs_tpu_torch.scripts import train as train_script
+    from soccernerfs_tpu_torch.utils import writer
+
+    tag = f"cli_dnerf {DNERF}"
+    t0 = time.perf_counter()
+    data = make_blender_fixture(root / "dnerf", with_times=True, **DNERF_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    argv = [DNERF, "--max-num-iterations", str(DNERF_STEPS), "--steps-per-save",
+            str(DNERF_STEPS), "--vis", "none", "--output-dir",
+            str(root / "cli_dnerf"), "dnerf-data", "--data", str(data)]
+    log(f"{tag}: snt-train {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sink = event_sink()
+    setup_writers = writer.setup_writers
+
+    def with_sink(*args, **kwargs):
+        setup_writers(*args, **kwargs)
+        writer._SINKS.append(sink)
+
+    loop_s, save_s = [], []
+    train, save = Trainer.train, Trainer.save_checkpoint
+    Trainer.train = timed(train, loop_s, sync=True)
+    Trainer.save_checkpoint = timed(save, save_s, sync=True)
+    writer.setup_writers = with_sink
+    try:
+        trainer = train_script.main(argv, device=dev)
+    finally:
+        Trainer.train, Trainer.save_checkpoint = train, save
+        writer.setup_writers = setup_writers
+    check_finite_events(sink, tag)
+    if not [n for n, _st, _v in sink.scalars if n == "Train Loss"]:
+        raise AssertionError(f"{tag}: no loss was logged")
+    times = trainer.train_cameras.times
+    if times is None or float(times.max()) != 1.0:
+        raise AssertionError(f"{tag}: the cameras' times are {times}")
+    rays = trainer.datamanager.get_train_rays_per_batch()
+    config = trainer.base_dir / "config.yml"
+    cams = trainer.eval_cameras
+    del trainer
+    torch.cuda.empty_cache()
+    info = eval_script.main(["--load-config", str(config), "--output-path",
+                             str(root / "cli_dnerf_eval.json")], device=dev)
+    results = info["results"]
+    if not all(np.isfinite(results[k]) for k in ("psnr", "ssim")):
+        raise AssertionError(f"{tag}: eval JSON {info}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    written = render_script.main(
+        ["--load-config", str(config), "--traj", "spiral",
+         "--interpolation-steps", str(DNERF_RENDER_STEPS), "--output-format",
+         "images", "--output-path", str(root / "cli_dnerf_render" / "s.mp4")],
+        device=dev)
+    render_s = time.perf_counter() - t0
+    pngs = sorted(written.glob("*.png"))
+    sizes = {Image.open(f).size for f in pngs}
+    if len(pngs) != DNERF_RENDER_STEPS or sizes != {(int(cams.width[0]),
+                                                     int(cams.height[0]))}:
+        raise AssertionError(f"{tag}: render: {len(pngs)} frames of {sizes}")
+    log(json.dumps({
+        "phase": "cli_dnerf", "method": DNERF, "card": card_line(),
+        "fixture": {**DNERF_FIXTURE, "written_s": fixture_s},
+        "train_argv": argv, "train_steps": DNERF_STEPS,
+        "train_loop_rays_per_s": rays * DNERF_STEPS / (loop_s[0] - sum(save_s)),
+        "train_loop_s": loop_s[0],
+        "losses": {str(st): v for n, st, v in sink.scalars if n == "Train Loss"},
+        "eval": {k: results[k] for k in ("psnr", "ssim", "num_rays_per_sec",
+                                         "fps")},
+        "render_s": render_s, "render_frames": len(pngs),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
@@ -2822,24 +3392,19 @@ def main() -> int:
     del tree
 
     # ---- depth-nerfacto: nerfacto's render, and its step with the DS-NeRF
-    # loss on batches with target depths (camera optimizer on)
+    # loss on batches with target depths (camera optimizer on); the
+    # scatter's launches of one such step, captured, bound its in-step time
+    _module, dcfg, _camera_optimizer = method_parts(DEPTH)
     tree, params, _ = make_params(DEPTH, dev, num_train_data=20)
     launches[f"render {DEPTH}"], _ = render_phase(DEPTH, params, cams, dev,
                                                   aabb, args.trace)
     del params
     torch.cuda.empty_cache()
+    kernels["scatter_add_rows"] += scatter_step_phase(DEPTH, dcfg, tree, dev)
     launches[f"train {DEPTH}"], in_step = train_phase(
         DEPTH, tree, dev, args.trace, must_launch=scatter, every_step=scatter)
-    for update, (times, counts) in in_step.items():
-        want = 3 if update else 1
-        if counts["scatter_add_rows"] != want:
-            raise AssertionError(f"{DEPTH}: scatter_add_rows launched "
-                                 f"{counts['scatter_add_rows']} times in the "
-                                 f"profiled {'update' if update else 'non-update'}"
-                                 f" step, not {want}")
-        log(f"in-step kernels, {DEPTH} ({'update' if update else 'non-update'} "
-            f"step): scatter_add_rows {times['scatter_add_rows']:.3f} ms device "
-            f"in {want} launches")
+    # 3 launches per update step, 1 per other step
+    scatter_in_step(DEPTH, kernels["scatter_add_rows"], in_step)
     train_cpu_check(DEPTH, tree, dev, DEPTH_CPU_SEEDS, witnesses=True)
     del tree
 
@@ -2855,11 +3420,19 @@ def main() -> int:
         occupancy_method_phases(method, dev, cams, aabb, args.trace, kernels,
                                 launches)
 
+    # ---- the classic methods: TensoRF, vanilla NeRF, mip-NeRF
+    for method in (TENSORF, VNERF, MIPNERF):
+        t0 = time.perf_counter()
+        classic_method_phases(method, dev, cams, aabb, args.trace, launches)
+        log(f"classic_method_phases {method}: {time.perf_counter() - t0:.3f} s")
+
     # ---- the Trainer phases: the data path, checkpoints, the gate
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
         for phase in (trainer_kplanes_phase, trainer_kplanes_depth_phase,
-                      trainer_ingp_phase, convergence_phase, cli_phase,
-                      cli_depth_phase):
+                      trainer_ingp_phase, convergence_phase,
+                      trainer_tensorf_phase, trainer_kplanes_hypernerf_phase,
+                      cli_phase, cli_depth_phase, cli_ingp_phase,
+                      cli_dnerf_phase):
             t0 = time.perf_counter()
             phase(dev, Path(root), launches)
             log(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")

@@ -18,18 +18,29 @@ from soccernerfs_tpu_torch.data.datamanager import (
     DynamicDataManagerConfig,
     VanillaDataManagerConfig,
 )
+from soccernerfs_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
+from soccernerfs_tpu_torch.data.dataparsers.dnerf import DNeRFDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.nerfstudio import NerfstudioDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.soccer import StadiumDataParserConfig
-from soccernerfs_tpu_torch.engine.optimizers import AdamOptimizerConfig
-from soccernerfs_tpu_torch.engine.schedulers import CosineDecaySchedulerConfig
+from soccernerfs_tpu_torch.engine.optimizers import (
+    AdamOptimizerConfig,
+    RAdamOptimizerConfig,
+)
+from soccernerfs_tpu_torch.engine.schedulers import (
+    CosineDecaySchedulerConfig,
+    ExponentialDecaySchedulerConfig,
+)
 from soccernerfs_tpu_torch.models import depth_nerfacto as dn_model
 from soccernerfs_tpu_torch.models import instant_ngp as ingp_model
 from soccernerfs_tpu_torch.models import kplanes as kplanes_model
+from soccernerfs_tpu_torch.models import mipnerf as mipnerf_model
 from soccernerfs_tpu_torch.models import nerfacto as nerfacto_model
 from soccernerfs_tpu_torch.models import nerfplayer as np_model
 from soccernerfs_tpu_torch.models import nerfplayer_nerfacto as npn_model
 from soccernerfs_tpu_torch.models import nerfplayer_ngp as npngp_model
 from soccernerfs_tpu_torch.models import nerfplayer_ngp_complete as npngpc_model
+from soccernerfs_tpu_torch.models import tensorf as tensorf_model
+from soccernerfs_tpu_torch.models import vanilla_nerf as vnerf_model
 
 # K-Planes loss coefficients of the fork's methods
 _KPLANES_LOSS_COEF = (
@@ -161,6 +172,16 @@ model_configs: Dict[str, Any] = {
         near_plane=0.01,
         temporal_tv_weight=0.05,
     ),
+    # the classic methods: NeRF's coarse and fine 8 x 256 MLPs (64 + 128
+    # samples between planes at 2 and 6) ...
+    "vanilla-nerf": vnerf_model.Config(),
+    # ... which dnerf runs on D-NeRF data (no temporal distortion) ...
+    "dnerf": vnerf_model.Config(),
+    # ... mip-NeRF's one field over integrated encodings (128 + 128) ...
+    "mipnerf": mipnerf_model.Config(eval_num_rays_per_chunk=1024),
+    # ... and TensoRF's VM tables (16 density and 48 colour components)
+    # upsampled from 128 to 300 over steps 2000-7000, 200 + 50 samples
+    "tensorf": tensorf_model.Config(),
 }
 
 # method -> the model module's name in models/__init__.py
@@ -173,7 +194,11 @@ model_names: Dict[str, str] = {"k-planes": "kplanes",
                                "instant-ngp-bounded": "instant_ngp",
                                "nerfplayer-ngp": "nerfplayer_ngp",
                                "nerfplayer": "nerfplayer",
-                               "nerfplayer-ngp-complete": "nerfplayer_ngp_complete"}
+                               "nerfplayer-ngp-complete": "nerfplayer_ngp_complete",
+                               "vanilla-nerf": "vanilla_nerf",
+                               "dnerf": "vanilla_nerf",
+                               "mipnerf": "mipnerf",
+                               "tensorf": "tensorf"}
 
 # {group: {"optimizer": ..., "scheduler": ...}} per method, the groups being
 # the top-level keys of the params
@@ -205,6 +230,8 @@ _KPLANES_STATIC_GROUP = {
         warm_up_end=512, max_steps=20000, learning_rate_alpha=0
     ),
 }
+_RADAM_GROUPS = {"fields": {"optimizer": RAdamOptimizerConfig(lr=5e-4, eps=1e-08),
+                             "scheduler": None}}
 _NERFACTO_GROUPS = {
     "proposal_networks": {
         "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
@@ -235,6 +262,21 @@ optimizer_configs: Dict[str, Dict[str, dict]] = {
                    "fields": _NERFPLAYER_FULL_GROUP},
     "nerfplayer-ngp-complete": {"fields": {
         "optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-12), "scheduler": None}},
+    "vanilla-nerf": _RADAM_GROUPS,
+    "dnerf": _RADAM_GROUPS,
+    "mipnerf": _RADAM_GROUPS,
+    "tensorf": {
+        "fields": {
+            "optimizer": AdamOptimizerConfig(lr=0.001),
+            "scheduler": ExponentialDecaySchedulerConfig(lr_final=0.0001,
+                                                         max_steps=30000),
+        },
+        "encodings": {
+            "optimizer": AdamOptimizerConfig(lr=0.02),
+            "scheduler": ExponentialDecaySchedulerConfig(lr_final=0.002,
+                                                         max_steps=30000),
+        },
+    },
 }
 
 camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
@@ -248,21 +290,26 @@ camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
     "nerfplayer-ngp": CameraOptimizerConfig(mode="off"),
     "nerfplayer": CameraOptimizerConfig(mode="off"),
     "nerfplayer-ngp-complete": CameraOptimizerConfig(mode="off"),
+    "vanilla-nerf": CameraOptimizerConfig(mode="off"),
+    "dnerf": CameraOptimizerConfig(mode="off"),
+    "mipnerf": CameraOptimizerConfig(mode="off"),
+    "tensorf": CameraOptimizerConfig(mode="off"),
 }
 
 train_num_rays_per_batch: Dict[str, int] = {
     "k-planes": 4096, "k-planes-static": 8192, "nerfacto": 4096,
     "depth-nerfacto": 4096, "nerfplayer-nerfacto": 4096,
     "instant-ngp": 8192, "instant-ngp-bounded": 8192, "nerfplayer-ngp": 8192,
-    "nerfplayer": 4096, "nerfplayer-ngp-complete": 8192}
+    "nerfplayer": 4096, "nerfplayer-ngp-complete": 8192,
+    "vanilla-nerf": 1024, "dnerf": 1024, "mipnerf": 1024, "tensorf": 4096}
 
 
 def _trainer(method: str, datamanager, *, dynamic_batch: bool = False,
-             **trainer) -> TrainerConfig:
+             mixed_precision: bool = True, **trainer) -> TrainerConfig:
     """A method's TrainerConfig from the tables above."""
     return TrainerConfig(
         method_name=method,
-        mixed_precision=True,
+        mixed_precision=mixed_precision,
         pipeline=PipelineConfig(
             datamanager=datamanager,
             model_name=model_names[method],
@@ -284,9 +331,10 @@ def _dynamic(method: str, dataparser=None, **datamanager
     )
 
 
-def _vanilla(method: str, **datamanager) -> VanillaDataManagerConfig:
+def _vanilla(method: str, dataparser=None, **datamanager
+             ) -> VanillaDataManagerConfig:
     return VanillaDataManagerConfig(
-        dataparser=NerfstudioDataParserConfig(),
+        dataparser=dataparser or NerfstudioDataParserConfig(),
         train_num_rays_per_batch=train_num_rays_per_batch[method],
         camera_optimizer=camera_optimizer_configs[method],
         **datamanager,
@@ -386,6 +434,20 @@ trainer_configs: Dict[str, TrainerConfig] = {
         dynamic_batch=True, steps_per_save=5000, max_num_iterations=30000,
         viewer=ViewerConfig(num_rays_per_chunk=64000), vis="viewer",
         **_SPARSE_EVAL),
+    "vanilla-nerf": _trainer(
+        "vanilla-nerf", _vanilla("vanilla-nerf", BlenderDataParserConfig()),
+        mixed_precision=False, vis="viewer"),
+    "dnerf": _trainer(
+        "dnerf", _vanilla("dnerf", DNeRFDataParserConfig()),
+        mixed_precision=False, vis="viewer"),
+    "mipnerf": _trainer("mipnerf", _vanilla("mipnerf"), mixed_precision=False,
+                        vis="viewer"),
+    "tensorf": _trainer(
+        "tensorf",
+        _vanilla("tensorf", BlenderDataParserConfig(),
+                 eval_num_rays_per_batch=4096),
+        mixed_precision=False, max_num_iterations=30000,
+        viewer=ViewerConfig(num_rays_per_chunk=1 << 15), vis="viewer"),
 }
 
 # what `snt-train --help` prints beside each method
@@ -401,9 +463,12 @@ descriptions: Dict[str, str] = {
     "instant-ngp-bounded": "Instant-NGP tuned for bounded dynamic scenes (fork).",
     "nerfplayer-ngp-complete":
         "NGP backbone with the full static/deform/new decomposition (fork).",
+    "vanilla-nerf": "Original NeRF with coarse/fine MLPs.",
+    "mipnerf": "mip-NeRF with integrated positional encoding.",
+    "tensorf": "TensoRF factorized-grid NeRF with coarse-to-fine upsampling.",
+    "dnerf": "Vanilla NeRF on the D-NeRF dynamic blender format.",
 }
 
 # methods of the JAX package's registry that the port does not run yet: the
 # CLI names them as such instead of calling them unknown
-not_ported = ("vanilla-nerf", "dnerf", "mipnerf", "tensorf", "semantic-nerfw",
-              "neus")
+not_ported = ("semantic-nerfw", "neus")

@@ -4,7 +4,8 @@
 (``models/kplanes``, ``models/nerfacto`` and ``models/depth_nerfacto``,
 whose params are nerfacto's, ``models/nerfplayer_nerfacto``,
 ``models/instant_ngp``, ``models/nerfplayer_ngp``, ``models/nerfplayer``,
-``models/nerfplayer_ngp_complete``; with the trainer's
+``models/nerfplayer_ngp_complete``, ``models/vanilla_nerf``,
+``models/mipnerf``, ``models/tensorf``; with the trainer's
 ``camera_opt`` group or without), mapped to numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``), and returns the port's
 params: the same nested dicts and lists, with torch tensors on a device.
@@ -28,17 +29,25 @@ from soccernerfs_tpu_torch.fields import nerfacto as nerfacto_field
 from soccernerfs_tpu_torch.fields import nerfplayer as np_field
 from soccernerfs_tpu_torch.fields import nerfplayer_nerfacto as npn_field
 from soccernerfs_tpu_torch.fields import nerfplayer_ngp as npngp_field
+from soccernerfs_tpu_torch.fields import vanilla_nerf as vnerf_field
 from soccernerfs_tpu_torch.models import (
     instant_ngp,
     kplanes,
+    mipnerf,
     nerfacto,
     nerfplayer,
     nerfplayer_nerfacto,
     nerfplayer_ngp,
     nerfplayer_ngp_complete,
+    tensorf,
+    vanilla_nerf,
 )
 from soccernerfs_tpu_torch.ops.hash_grid import level_layout
 from soccernerfs_tpu_torch.utils.device import resolve_device
+
+
+# the seeded NeRF fields' density bias: a fog of ~0.3 per unit length
+NERF_DENSITY_BIAS = 0.3
 
 
 def params_from_jax(np_tree, device=None):
@@ -80,18 +89,32 @@ def _seeded_mlp(rng, in_dim, hidden, layers, out_dim) -> dict:
 
 
 def seeded_params(cfg, seed: int, num_train_data: int = 0,
-                  time_noise: float = 0.0, grid_std: float = 1e-4) -> dict:
+                  time_noise: float = 0.0, grid_std: float = 1e-4,
+                  step: int = 0) -> dict:
     """A numpy param tree in the layout of the JAX package's
     ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto (a
-    depth-nerfacto config is one), nerfplayer-nerfacto, instant-NGP, NeRFPlayer-NGP, NeRFPlayer or
-    NeRFPlayer-NGP-complete config, drawn with numpy; MLPs as
-    ``_seeded_mlp``, appearance embeddings N(0, 1).
+    depth-nerfacto config is one), nerfplayer-nerfacto, instant-NGP,
+    NeRFPlayer-NGP, NeRFPlayer, NeRFPlayer-NGP-complete, vanilla NeRF,
+    mip-NeRF or TensoRF config, drawn with numpy; MLPs as ``_seeded_mlp``,
+    appearance embeddings N(0, 1).
 
     K-Planes: space planes U(0.1, 0.5) (proposal planes U(0.1, 0.15)), time
     planes 1 + U(-time_noise, time_noise).  The hash-grid models: hash
-    tables U(-grid_std, grid_std) (the JAX init's is 1e-4).
+    tables U(-grid_std, grid_std) (the JAX init's is 1e-4).  TensoRF: its
+    tables N(0, 0.1^2), as the JAX init draws them, at their resolution
+    while training step ``step`` runs (past every upsampling step they
+    are ``final_resolution``), the basis ``B`` as an MLP weight.  The NeRF
+    fields (vanilla NeRF, mip-NeRF): the density head's bias
+    ``NERF_DENSITY_BIAS``.
     """
     rng = np.random.default_rng(seed)
+    if isinstance(cfg, tensorf.Config):
+        return _seeded_tensorf(cfg, rng, cfg.resolution_at(step))
+    if isinstance(cfg, vanilla_nerf.Config):
+        return {"fields": {level: _seeded_nerf_field(cfg.field_config(), rng)
+                           for level in ("coarse", "fine")}}
+    if isinstance(cfg, mipnerf.Config):
+        return {"fields": _seeded_nerf_field(cfg.field_config(), rng)}
     if isinstance(cfg, (instant_ngp.Config, nerfplayer_ngp.Config)):
         return _seeded_ngp(cfg, rng, num_train_data, grid_std)
     if isinstance(cfg, nerfacto.Config):
@@ -218,3 +241,33 @@ def _seeded_ngp(cfg, rng, num_train_data: int, grid_std: float) -> dict:
         ).astype(np.float32)
     fields["mlp_head"] = _seeded_mlp(rng, *dims["mlp_head"])
     return {"fields": fields}
+
+
+def _seeded_nerf_field(fcfg, rng) -> dict:
+    """A NeRF field's four MLPs (fields/vanilla_nerf.py), the density
+    head's bias NERF_DENSITY_BIAS: with the init's own bias the ReLU
+    density is 0 almost everywhere, and no gradient reaches the field."""
+    field = {name: _seeded_mlp(rng, *dims)
+             for name, dims in vnerf_field.field_mlp_dims(fcfg).items()}
+    field["density_head"]["b"][-1][:] = NERF_DENSITY_BIAS
+    return field
+
+
+def _seeded_tensorf(cfg, rng, resolution: int) -> dict:
+    """TensoRF's tree at table resolution ``resolution``."""
+    r = resolution
+
+    def tables(c):
+        shapes = {"vm": {"plane_coef": (3, r, r, c), "line_coef": (3, r, c)},
+                  "cp": {"line_coef": (3, r, c)},
+                  "triplane": {"plane_coef": (3, r, r, c)}}[cfg.tensorf_encoding]
+        return {k: (0.1 * rng.standard_normal(shape)).astype(np.float32)
+                for k, shape in shapes.items()}
+
+    encodings = {"density": tables(cfg.num_den_components),
+                 "color": tables(cfg.num_color_components)}
+    basis = _seeded_mlp(rng, tensorf.color_dim(cfg), 1, 0,
+                        cfg.appearance_dim)["w"][0]
+    return {"encodings": encodings,
+            "fields": {"B": basis,
+                       "mlp_head": _seeded_mlp(rng, *tensorf.head_dims(cfg))}}

@@ -1,6 +1,8 @@
 """Dataparser registry: the names of the JAX package's ``DATAPARSERS``
 for the parsers the port has."""
 from soccernerfs_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
+from soccernerfs_tpu_torch.data.dataparsers.dnerf import DNeRFDataParserConfig
+from soccernerfs_tpu_torch.data.dataparsers.hypernerf import HyperNeRFDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.nerfstudio import NerfstudioDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.soccer import (
     BroadcaststyleDataParserConfig,
@@ -18,4 +20,6 @@ DATAPARSERS = {
     "broadcaststyle-data": BroadcaststyleDataParserConfig,
     "stadiumwide-data": StadiumwideDataParserConfig,
     "dynamic-data": DynamicDataParserConfig,
+    "hypernerf-data": HyperNeRFDataParserConfig,
+    "dnerf-data": DNeRFDataParserConfig,
 }

@@ -1,6 +1,7 @@
 """Synthetic on-disk datasets for tests and smoke training (counterpart
 of soccernerfs_tpu/data/fixtures.py: the same scenes, file names and
-JSON, the same pixels).
+JSON, the same pixels), and the port's own HyperNeRF capture
+(``make_hypernerf_fixture``), which the JAX package has no fixture for.
 """
 from __future__ import annotations
 
@@ -214,4 +215,67 @@ def make_blender_fixture(
             frames.append(frame)
         with open(root / f"transforms_{split}.json", "w") as f:
             json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)
+    return root
+
+
+def _hypernerf_camera_json(c2w: np.ndarray, center, scale: float,
+                          focal: float, principal_point, image_size,
+                          radial, tangential) -> dict:
+    """The nerfies camera file whose pose the HyperNeRF parser reads back as
+    ``c2w`` (3 x 4, in the parser's output frame): the inverse of its axis
+    flips, recentring and scaling."""
+    final = np.asarray(c2w, np.float64)[:3]
+    # the parser's rows are (pose0[0], -pose0[2], pose0[1])
+    pose0 = np.stack([final[0], final[2], -final[1]])
+    flips = np.array([[1, -1, -1], [-1, 1, 1], [-1, 1, 1]], np.float64)
+    orientation = (pose0[:, :3] * flips).T
+    position = pose0[:, 3] * np.array([1, -1, -1]) / scale + np.asarray(center)
+    return {"orientation": orientation.tolist(), "position": position.tolist(),
+            "focal_length": focal, "principal_point": list(principal_point),
+            "image_size": list(image_size), "skew": 0.0, "pixel_aspect_ratio": 1.0,
+            "radial_distortion": list(radial),
+            "tangential_distortion": list(tangential)}
+
+
+def make_hypernerf_fixture(root: Path, num_times: int = 6, h: int = 24,
+                           w: int = 32, downscale: int = 2, seed: int = 0
+                           ) -> Path:
+    """A HyperNeRF (nerfies) capture of the ball scene: two cameras, "left"
+    and "right" (0.3 apart), moving along an arc around the moving ball
+    over ``num_times`` steps; ``scene.json`` (a center and scale that the
+    parser undoes), ``camera/{side}_{t:05d}.json`` at the full size
+    (``downscale`` times h x w) with small nonzero radial and tangential
+    distortions drawn from ``seed``, and ``rgb/{downscale}x/{side}_{t:05d}.png``
+    at h x w, rendered as pinhole images with the poses the parser returns.
+    The ball is at time t / (num_times - 1).
+
+    Returns the dataset root (pass as ``--data``)."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    img_dir = root / "rgb" / f"{downscale}x"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    (root / "camera").mkdir(parents=True, exist_ok=True)
+    center, scale = [0.1, -0.2, 0.05], 0.8
+    with open(root / "scene.json", "w") as f:
+        json.dump({"center": center, "scale": scale, "near": 0.05, "far": 10.0}, f)
+    focal = 0.8 * w * downscale
+    pp = (w * downscale / 2.0, h * downscale / 2.0)
+    for t in range(num_times):
+        theta = 0.6 * t / max(num_times - 1, 1) - 0.3
+        for side, offset in (("left", -0.15), ("right", 0.15)):
+            origin = np.array([2.5 * np.cos(theta) + offset * np.sin(theta),
+                               2.5 * np.sin(theta) - offset * np.cos(theta), 0.8])
+            pose = _look_at_pose(origin)
+            radial = rng.uniform(-0.02, 0.02, 3) * np.array([1.0, 0.5, 0.1])
+            tangential = rng.uniform(-0.002, 0.002, 2)
+            name = f"{side}_{t:05d}"
+            with open(root / "camera" / f"{name}.json", "w") as f:
+                json.dump(_hypernerf_camera_json(
+                    pose[:3], center, scale, focal, pp,
+                    (w * downscale, h * downscale), radial, tangential), f)
+            img = _render_ball_scene(h, w, pose, focal / downscale,
+                                     focal / downscale, pp[0] / downscale,
+                                     pp[1] / downscale,
+                                     t / max(num_times - 1, 1))
+            Image.fromarray((img * 255).astype(np.uint8)).save(img_dir / f"{name}.png")
     return root

@@ -49,7 +49,7 @@ from soccernerfs_tpu_torch.engine.optimizers import (
     AdamOptimizerConfig,
     AdamState,
     adam_init,
-    adam_update,
+    group_update,
     schedule_fn,
 )
 from soccernerfs_tpu_torch.engine.render import render_camera
@@ -127,10 +127,14 @@ class TrainStep:
         if aux is None:
             aux = (self.model.init_aux(self.cfg, self.device)
                    if hasattr(self.model, "init_aux") else {})
-        return TrainState(params=params, aux=aux, opt_state={
-            name: adam_init(self.optimizers[name][0], tree_leaves(group))
-            for name, group in params.items()
-        })
+        return TrainState(params=params, aux=aux,
+                          opt_state=self.init_opt_state(params))
+
+    def init_opt_state(self, params: dict) -> Dict[str, AdamState]:
+        """A fresh optimizer state (count 0, zero moments) for every param
+        group of ``params``."""
+        return {name: adam_init(self.optimizers[name][0], tree_leaves(group))
+                for name, group in params.items()}
 
     @full_f32()
     def loss_and_grads(
@@ -185,13 +189,14 @@ class TrainStep:
                 {k: v.detach() for k, v in metrics.items()}, list(grads))
 
     def apply_grads(self, state: TrainState, grads: List) -> None:
-        """One optimizer update per param group, in place; step + 1."""
+        """One optimizer update per param group (Adam or RAdam), in place;
+        step + 1."""
         i = 0
         for name, group in state.params.items():
             leaves = tree_leaves(group)
             opt, schedule = self.optimizers[name]
-            adam_update(opt, schedule, state.opt_state[name], leaves,
-                        grads[i:i + len(leaves)])
+            group_update(opt, schedule, state.opt_state[name], leaves,
+                         grads[i:i + len(leaves)])
             i += len(leaves)
         state.step += 1
 
@@ -322,10 +327,6 @@ class Trainer:
         self.base_dir = config.get_base_dir()
         self.model = get_model(config.pipeline.model_name)
         self.model_cfg = config.pipeline.model
-        if hasattr(self.model, "host_update"):
-            raise NotImplementedError(
-                f"model {config.pipeline.model_name!r} reshapes its params on "
-                f"the host (host_update), which the trainer does not support")
         config.seed_everything()
         self.viewer_server = None
         # held around each step while a viewer serves renders
@@ -415,13 +416,24 @@ class Trainer:
     @profiler.time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         """One training step at ``step`` (the state's step); the returned
-        values stay on the device."""
+        values stay on the device.
+
+        A model with ``host_update`` (TensoRF's upsampling) first gets the
+        chance to replace the state on the host, as the JAX Trainer's loop
+        gives it before each step: ``host_update(cfg, state, step,
+        init_opt_state)`` returns the new state or None."""
         if step != self.state.step:
             raise ValueError(f"train_iteration({step}) on a state at step "
                              f"{self.state.step}")
         raw = self.datamanager.next_train_raw(step)
         batch = self._device_batch(raw)
         with self._step_lock:
+            if hasattr(self.model, "host_update"):
+                state = self.model.host_update(
+                    self.model_cfg, self.state, step,
+                    self.train_step.init_opt_state)
+                if state is not None:
+                    self.state = state
             return self.train_step.train_iteration(self.state, batch,
                                                    self._generator(step))
 

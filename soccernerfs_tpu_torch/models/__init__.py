@@ -3,9 +3,10 @@ dataclass), ``init``, ``get_outputs``, ``get_metrics_dict``,
 ``get_loss_dict``, ``proposal_anneal``, ``host_static_kwargs`` and
 ``train_draws``, and optionally ``prepare_render_params`` (staged render
 tables), ``RENDER_OUTPUTS`` (the outputs ``render_camera`` returns, when
-more than rgb, depth and accumulation) and the non-trainable state's
+more than rgb, depth and accumulation), the non-trainable state's
 ``init_aux``, ``schedules``, ``eval_kwargs`` and ``update_aux`` (the
-occupancy grid)."""
+occupancy grid) and ``host_update`` (params reshaped on the host between
+steps: TensoRF's upsampling)."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +20,9 @@ _MODEL_MODULES = {
     "nerfplayer_ngp": "soccernerfs_tpu_torch.models.nerfplayer_ngp",
     "nerfplayer": "soccernerfs_tpu_torch.models.nerfplayer",
     "nerfplayer_ngp_complete": "soccernerfs_tpu_torch.models.nerfplayer_ngp_complete",
+    "vanilla_nerf": "soccernerfs_tpu_torch.models.vanilla_nerf",
+    "mipnerf": "soccernerfs_tpu_torch.models.mipnerf",
+    "tensorf": "soccernerfs_tpu_torch.models.tensorf",
 }
 
 

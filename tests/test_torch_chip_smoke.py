@@ -3,8 +3,9 @@
 The script needs a card; here its CUDA calls are stubbed, the kernel
 wrappers are made to count their plain versions as launches, and small
 K-Planes, nerfacto, nerfplayer-nerfacto, nerfplayer, instant-ngp-bounded,
-nerfplayer-ngp, nerfplayer-ngp-complete and k-planes-static configs stand
-in for the full widths, so every phase (the
+nerfplayer-ngp, nerfplayer-ngp-complete, k-planes-static, tensorf,
+vanilla-nerf (dnerf) and mipnerf configs stand in for the full widths (the
+NeRF fields keep theirs over a few samples), so every phase (the
 plane and scatter kernel checks, and per method two counted frames, the
 render CPU comparison, the counted train steps, the train CPU comparison;
 the Trainer phases on tiny fixtures with a few steps; the JSON lines)
@@ -125,6 +126,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         mc.model_configs["depth-nerfacto"],
         **{f.name: getattr(small_nerfacto, f.name)
            for f in dataclasses.fields(small_nerfacto)})
+    # the classic methods: TensoRF's tables at 16^3 growing to 24^3, the
+    # NeRF fields at their registry width over a few samples
+    small_tensorf = dataclasses.replace(
+        mc.model_configs["tensorf"], init_resolution=16, final_resolution=24,
+        upsampling_iters=(2, 4), num_den_components=4, num_color_components=6,
+        num_uniform_samples=16, num_samples=8, eval_num_rays_per_chunk=512)
+    nerf_samples = dict(num_coarse_samples=8, num_importance_samples=8,
+                        eval_num_rays_per_chunk=512)
+    small_vnerf = dataclasses.replace(mc.model_configs["vanilla-nerf"],
+                                      **nerf_samples)
+    small_mip = dataclasses.replace(mc.model_configs["mipnerf"], **nerf_samples)
     for small_name, method, small_cfg in (("small", "k-planes", small),
                                           ("small-nerfacto", "nerfacto",
                                            small_nerfacto),
@@ -140,7 +152,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                                           ("small-np", "nerfplayer", small_np),
                                           ("small-npngpc",
                                            "nerfplayer-ngp-complete",
-                                           small_npngpc)):
+                                           small_npngpc),
+                                          ("small-tensorf", "tensorf",
+                                           small_tensorf),
+                                          ("small-vnerf", "vanilla-nerf",
+                                           small_vnerf),
+                                          ("small-mip", "mipnerf", small_mip),
+                                          ("small-dnerf", "dnerf", small_vnerf)):
         monkeypatch.setitem(mc.model_configs, small_name, small_cfg)
         for table in (mc.optimizer_configs, mc.model_names,
                       mc.camera_optimizer_configs):
@@ -162,7 +180,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     for small_name, method in (("small", "k-planes"),
                                ("small-depth", "depth-nerfacto"),
                                ("small-ingp", "instant-ngp-bounded"),
-                               ("small-static", "k-planes-static")):
+                               ("small-static", "k-planes-static"),
+                               ("small-tensorf", "tensorf"),
+                               ("small-dnerf", "dnerf")):
         tcfg = copy.deepcopy(mc.trainer_configs[method])
         tcfg.pipeline.model = mc.model_configs[small_name]
         tcfg.pipeline.datamanager.train_num_rays_per_batch = 256
@@ -197,6 +217,27 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "CLI_STEPS", 4)
     monkeypatch.setattr(cs, "CLI_RENDER_STEPS", 3)
     monkeypatch.setattr(cs, "VIEWER_SIZES", ((24, 16), (40, 24)))
+    monkeypatch.setattr(cs, "TENSORF", "small-tensorf")
+    monkeypatch.setattr(cs, "VNERF", "small-vnerf")
+    monkeypatch.setattr(cs, "MIPNERF", "small-mip")
+    monkeypatch.setattr(cs, "DNERF", "small-dnerf")
+    monkeypatch.setattr(cs, "CLASSIC_CPU_RAYS", {"small-tensorf": 64,
+                                                 "small-vnerf": 32,
+                                                 "small-mip": 32})
+    monkeypatch.setattr(cs, "CLASSIC_FRAMES", {
+        "small-tensorf": cs.CLASSIC_FRAMES["tensorf"],
+        "small-vnerf": cs.CLASSIC_FRAMES["vanilla-nerf"],
+        "small-mip": cs.CLASSIC_FRAMES["mipnerf"]})
+    monkeypatch.setattr(cs, "TENSORF_FIXTURE", {"num_frames": 3, "h": 16, "w": 16})
+    monkeypatch.setattr(cs, "TENSORF_TRAINER_ITERS", (2, 4))
+    monkeypatch.setattr(cs, "TENSORF_TRAINER_STEPS", 6)
+    monkeypatch.setattr(cs, "HYPERNERF_FIXTURE", {"num_times": 4, "h": 12,
+                                                  "w": 16})
+    monkeypatch.setattr(cs, "HYPERNERF_STEPS", 4)
+    monkeypatch.setattr(cs, "HYPERNERF_IST_FROM", 2)
+    monkeypatch.setattr(cs, "DNERF_FIXTURE", {"num_frames": 3, "h": 16, "w": 16})
+    monkeypatch.setattr(cs, "DNERF_STEPS", 2)
+    monkeypatch.setattr(cs, "DNERF_RENDER_STEPS", 2)
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "DEPTH", "small-depth")
@@ -318,8 +359,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert k["bound_ms"] == pytest.approx(
             sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
         assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
-    # scatter_add_rows: random cases, then the 3 launches of one nerfacto
-    # and of one nerfplayer-nerfacto update step, the 6 of a nerfplayer
+    # scatter_add_rows: random cases, then the 3 launches of one nerfacto,
+    # one depth-nerfacto (for its in-step bound) and one
+    # nerfplayer-nerfacto update step, the 6 of a nerfplayer
     # update step (the stationary grid's two, one per encode, the newness
     # and decomposition grids' and the proposal grids'), the one launch of
     # an instant-ngp-bounded and of a nerfplayer-ngp step and the 4 of a
@@ -330,12 +372,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                if line.startswith("kernel scatter_add_rows ")]
     ray = [r for r in scatter if r["order"] == "ray"]
     random = [r for r in scatter if r["order"] == "random"]
-    assert len(random) == 8 and len(ray) == 18
+    assert len(random) == 8 and len(ray) == 21
     temporal = {"main": 1, "proposal_0": 1, "proposal_1": 1}
     decomposition = {"static": 2, "temporal": 1, "proposal_0": 1,
                      "proposal_1": 1}
     for method, widths, grids in (
             ("small-nerfacto", {}, ["main", "proposal_0", "proposal_1"]),
+            ("small-depth", {}, ["main", "proposal_0", "proposal_1"]),
             ("small-nerfplayer", temporal, ["main", "proposal_0", "proposal_1"]),
             ("small-np", decomposition, ["proposal_0", "proposal_1", "static",
                                          "static", "temporal", "temporal"]),
@@ -353,11 +396,12 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     methods = ["small-nerfacto", "small-nerfplayer", "small-np", "small-ingp",
                "small-npngp", "small-npngpc"]
     assert [line.split(" (")[1].split(":")[0] for line in in_step] == [
-        f"{kind} step) {method}" for method in methods
+        f"{kind} step) {method}" for method in ["small-nerfacto", "small-depth",
+                                                *methods[1:]]
         for kind in ("update", "non-update")]
     assert all("of bound" in line for line in in_step)
     # launches per update and non-update step
-    for line, n in zip(in_step, (3, 1, 3, 1, 6, 4, 1, 1, 1, 1, 4, 4)):
+    for line, n in zip(in_step, (3, 1, 3, 1, 3, 1, 6, 4, 1, 1, 1, 1, 4, 4)):
         assert f"in {n} launches" in line, (line, n)
     # the later methods render and train, and the deferred range check runs
     # where each train phase and CPU check reads a step's loss
@@ -396,14 +440,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # steps, and every one of its 11 + window counted steps; per seed of the
     # CPU checks, each step (K-Planes and the decomposition field's
     # methods: 4 with their witnesses, else 2)
-    assert checks.count("train_phase") == 8 * 4
-    assert checks.count("run") == (5 * (11 + cs.TRAIN_WINDOW)
+    # (the classic methods: 3 more train phases, their CPU checks with the
+    # witnesses)
+    assert checks.count("train_phase") == 11 * 4
+    assert checks.count("run") == (8 * (11 + cs.TRAIN_WINDOW)
                                    + 3 * (11 + cs.OCC_TRAIN_WINDOW))
     assert checks.count("train_cpu_check") == (
         4 * len(cs.TRAIN_CPU_SEEDS) + 2 * len(cs.NERFACTO_CPU_SEEDS)
         + 4 * len(cs.DEPTH_CPU_SEEDS)
         + (2 + 4) * len(cs.NERFPLAYER_CPU_SEEDS)
-        + (2 + 2 + 4) * len(cs.OCC_CPU_SEEDS))
+        + (2 + 2 + 4) * len(cs.OCC_CPU_SEEDS)
+        + 3 * 4 * len(cs.CLASSIC_CPU_SEEDS))
     # the deformation MLP's leaves, with the one-ulp witness beside them
     for method in ("small-np", "small-npngpc"):
         line = next(line for line in lines if line.startswith(
@@ -447,8 +494,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # dynamic_batch) and saves checkpoints only after the range check:
     # 2 + 2 + 2 checkpoints of the K-Planes runs (the depth run's 6 steps
     # save at step 4 and at the end), one each of the others (the CLI
-    # phases' training among them)
-    assert checks.count("save_checkpoint") == 10
+    # phases' training among them, and TensoRF's, k-planes on
+    # HyperNeRF data's, instant-ngp-bounded's and dnerf's through the CLI)
+    assert checks.count("save_checkpoint") == 14
     assert checks.count("_read") >= 4 + 2 + ingp["steps"]
     # the CLI phase: snt-train from a command line, snt-eval with
     # DynMetric's boxes, the viewer's /render requests, snt-render's three
@@ -461,9 +509,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert any(line.startswith("render small-depth: steady") for line in lines)
     assert any(line.startswith("train small-depth: window steps") for line in lines)
     for kind, n in (("update", 3), ("non-update", 1)):
-        assert any(line.startswith(f"in-step kernels, small-depth ({kind} step): "
-                                   f"scatter_add_rows") and f"in {n} launches" in line
-                   for line in lines)
+        assert any(line.startswith(f"in-step scatter_add_rows ({kind} step) "
+                                   f"small-depth:") and f"in {n} launches" in line
+                   and "of bound" in line for line in lines)
     assert any(line.startswith("train cpu check small-depth, seed 2 ")
                and "directions + 1 ulp" in line for line in lines)
     assert any(line.startswith("train cpu check small: TF32 on before the steps")
@@ -505,6 +553,62 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                         ("cli eval small", forward), ("viewer small", forward),
                         ("cli render small", forward)):
         assert all(main_path[path][n] > 0 for n in names), path
+    # the classic methods: render (TensoRF two counted frames and one
+    # profiled, the NeRF methods one), a chunk and a step held against the
+    # CPU, the step's leaves with the card's bins beside their witness
+    for method, n_frames in (("small-tensorf", 2), ("small-vnerf", 1),
+                             ("small-mip", 1)):
+        assert any(line.startswith(f"render {method}: {n_frames} frames")
+                   for line in lines), method
+        assert any(line.startswith(f"render {method}: steady") for line in lines)
+        assert any(line.startswith(f"cpu check {method} (") for line in lines)
+        assert any(line.startswith(f"train {method}: window steps")
+                   for line in lines)
+        assert any(line.startswith(f"train cpu check {method}, seed 2: leaves "
+                                   f"held with the card's bins") for line in lines)
+        assert sum(main_path[f"train {method}"].values()) == 0
+    assert any(line.startswith("render small-tensorf: launches per frame")
+               for line in lines)
+    assert not any(line.startswith("render small-vnerf: launches per frame")
+                   for line in lines)
+    # TensoRF through Trainer.train: the tables grow at each compressed
+    # upsampling step, every optimizer state restarts there, the snapshot
+    # reloads at the final resolution
+    (tensorf,) = phases["trainer_tensorf"]
+    assert [u["step"] for u in tensorf["upsamples"]] == [2, 4]
+    assert [u["resolution"] for u in tensorf["upsamples"]] == [20, 24]
+    assert all(set(u["counts_after"].values()) == {0} and u["moments_zero"]
+               and u["ms"] > 0 for u in tensorf["upsamples"])
+    assert tensorf["upsamples"][0]["counts_before"] == {"encodings": 2,
+                                                        "fields": 2}
+    assert np.isfinite(tensorf["eval_image_psnr"])
+    # k-planes, unbounded, on HyperNeRF data: all four plane kernels
+    (hyper,) = phases["trainer_kplanes_hypernerf"]
+    assert hyper["bounded"] is False and hyper["steps"] == 4
+    assert hyper["train_images"] == 4 and hyper["distortion_max"] > 0
+    assert all(hyper["launches"]["trainer"][k.__name__] > 0 for k in pk.KERNELS)
+    assert all(hyper["launches"]["eval image"][k] > 0 for k in forward)
+    # instant-ngp-bounded through the entry points: the live viewer mid-run,
+    # the snapshot's grid and render equal to the trainer's, eval, render,
+    # the viewer on the snapshot; scatter_add_rows on every step
+    (cli_ingp,) = phases["cli_ingp_bounded"]
+    argv = cli_ingp["train_argv"]
+    assert argv[0] == "small-ingp"
+    assert argv[argv.index("--viewer.websocket-port") + 1] == "0"
+    assert len(cli_ingp["live_viewer_render_ms"]["24x16"]) == 1
+    assert cli_ingp["snapshot_equals_trainer_render"] is True
+    assert {k: len(v) for k, v in cli_ingp["viewer_render_ms"].items()} == {
+        "24x16": 2, "40x24": 2}
+    assert cli_ingp["render_frames"] == 3
+    assert all(np.isfinite(cli_ingp["eval"][k]) for k in ("psnr", "ssim"))
+    assert cli_ingp["launches"]["cli train"]["scatter_add_rows"] >= 4
+    assert main_path["cli train small-ingp"]["scatter_add_rows"] >= 4
+    # dnerf on a D-NeRF layout through the entry points
+    (cli_dnerf,) = phases["cli_dnerf"]
+    assert cli_dnerf["train_argv"][0] == "small-dnerf"
+    assert "dnerf-data" in cli_dnerf["train_argv"]
+    assert cli_dnerf["render_frames"] == 2 and list(cli_dnerf["losses"]) == ["0"]
+    assert all(np.isfinite(cli_dnerf["eval"][k]) for k in ("psnr", "ssim"))
     k = kernels[4]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))

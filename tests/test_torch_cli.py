@@ -110,6 +110,29 @@ CASES = {
          "/tmp/bstyle"],
         {"pipeline.model.loss_coef": {"depth_loss": 0.5, "space_tv_loss": 0.02},
          "pipeline.datamanager.dataparser.depth_maps": "depth-maps"}),
+    # experiments/hypernerf_kplanes.py's unbounded k-planes on HyperNeRF data
+    "hypernerf_kplanes_unbounded": (
+        ["k-planes", "--pipeline.model.bounded", "false", "hypernerf-data",
+         "--downscale-factor", "2", "--data", "/tmp/hn"],
+        {"pipeline.model.bounded": False,
+         "pipeline.datamanager.dataparser.downscale_factor": 2}),
+    # TensoRF with its upsampling steps compressed
+    "tensorf_upsampling_iters": (
+        ["tensorf", "--max-num-iterations", "48",
+         "--pipeline.model.upsampling-iters", "8", "16", "24", "32", "40",
+         "blender-data", "--data", "/tmp/blender"],
+        {"max_num_iterations": 48,
+         "pipeline.model.upsampling_iters": (8, 16, 24, 32, 40),
+         "mixed_precision": False}),
+    "dnerf_on_dnerf_data": (
+        ["dnerf", "--max-num-iterations", "8", "dnerf-data", "--data",
+         "/tmp/dnerf"],
+        {"max_num_iterations": 8, "pipeline.model_name": "vanilla_nerf"}),
+    "mipnerf_nerfstudio": (
+        ["mipnerf", "--pipeline.model.num-importance-samples", "64",
+         "nerfstudio-data", "--data", "/tmp/ns"],
+        {"pipeline.model.num_importance_samples": 64,
+         "pipeline.datamanager.train_num_rays_per_batch": 1024}),
     "eval_render_e2e": (
         E2E_ARGV,
         {"max_num_iterations": 2, "steps_per_save": 2,

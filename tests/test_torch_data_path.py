@@ -130,7 +130,8 @@ def test_dataparser_registry_names():
     assert set(DATAPARSERS) == {"nerfstudio-data", "blender-data",
                                 "stadium-data", "closeup-data",
                                 "broadcaststyle-data", "stadiumwide-data",
-                                "dynamic-data"}
+                                "dynamic-data", "hypernerf-data",
+                                "dnerf-data"}
     for name, cls in DATAPARSERS.items():
         jcls = JAX_PARSERS[name]
         assert cls.__name__ == jcls.__name__

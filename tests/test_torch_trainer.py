@@ -302,15 +302,36 @@ def test_more_than_one_device_is_refused(tmp_path, blender_root, field, value):
 
 def test_cuda_by_default_and_host_update_refused(tmp_path, blender_root,
                                                  monkeypatch):
+    """CUDA by default (raises without it); a model's ``host_update`` is
+    called before each step with the step and the optimizer-state
+    factory, and a state it returns is the one the step trains (no longer
+    refused: TensoRF upsamples through it)."""
     cfg = _config(tmp_path, blender_root, "dev")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(cfg)
     from soccernerfs_tpu_torch.models import nerfacto
 
-    monkeypatch.setattr(nerfacto, "host_update", lambda *a: None, raising=False)
-    with pytest.raises(NotImplementedError, match="host_update"):
-        Trainer(cfg, device="cpu")
+    calls, replaced = [], []
+
+    def host_update(model_cfg, state, step, init_opt_state):
+        calls.append(step)
+        if step != 1:
+            return None
+        params = {k: {n: v for n, v in g.items()} if isinstance(g, dict) else g
+                  for k, g in state.params.items()}
+        new = dataclasses.replace(state, params=params,
+                                  opt_state=init_opt_state(params))
+        replaced.append(new)
+        return new
+
+    monkeypatch.setattr(nerfacto, "host_update", host_update, raising=False)
+    trainer = Trainer(cfg, device="cpu").setup()
+    _run_steps(trainer, range(3))
+    assert calls == [0, 1, 2]
+    assert trainer.state is replaced[0] and trainer.state.step == 3
+    # the fresh optimizer state counted the two steps after the swap
+    assert {o.count for o in trainer.state.opt_state.values()} == {2}
 
 
 def test_setup_writes_config_and_transform(tmp_path, blender_root):
