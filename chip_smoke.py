@@ -151,6 +151,25 @@
      snt-render's spiral, the viewer on the snapshot; scatter_add_rows)
      and ``cli_dnerf`` (snt-train dnerf on a D-NeRF layout it writes,
      snt-eval, a 4-frame spiral).
+ 10. The last two methods and the exporter.  ``semantic-nerfw``'s method
+     phases after depth-nerfacto's: nerfacto's forward plus the semantic
+     head (100 classes, chunk 2^16), render and its CPU check with the
+     composited logits beside rgb, the scatter's launches of a step,
+     train on batches with random labels (3 scatter launches per update
+     step, 1 otherwise), a 1024-ray CPU check.  ``neus``'s after the
+     classic methods: one counted 960x540 frame at chunk 1024 (the SDF's
+     normals inside the render's no_grad), a 256-ray chunk against the
+     CPU with its normals, train (1024 rays, the eikonal loss's double
+     backward), a 256-ray CPU check of the step with the card's sampler
+     bins on both sides and the witnesses.  Among the Trainer phases:
+     ``trainer_semantic_nerfw`` (Trainer.train on a Sitcoms3D capture it
+     writes, 20 x 270x480 with labels, 24 steps, then snt-eval),
+     ``cli_neus`` (snt-train neus 16 steps on a 10-frame 270x480
+     nerfstudio ring, snt-eval, a 2-frame spiral) and ``cli_export``
+     (``scripts.exporter``'s pointcloud, cameras, marching-cubes, tsdf
+     and poisson at their defaults on ``cli_kplanes``' snapshot, and
+     marching-cubes at the density's median on a 32^3 grid, each timed,
+     with the forward plane kernels it launched counted).
 Prints a JSON line with the five kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -271,6 +290,25 @@ DNERF_FIXTURE = {"num_frames": 4, "h": 400, "w": 400}
 DNERF_STEPS = 8
 DNERF_RENDER_STEPS = 4
 BALL_BOX_MIN = 8                  # px a side of a DynMetric box, at least
+SEMANTIC = "semantic-nerfw"
+SEMANTIC_CPU_SEEDS = (2,)
+NEUS = "neus"
+NEUS_FRAMES = ((1,), (), False)  # render_phase's counted, timed, profiled
+NEUS_CPU_RAYS = 256
+NEUS_CPU_SEEDS = (2,)
+NORMALS_TOL = 1e-2                # the rendered normals, card against CPU
+NEUS_REL_TOL = 1e-2               # NeuS rgb/accumulation, of their max
+SITCOMS_FIXTURE = {"num_cameras": 20, "h": 270, "w": 480}
+SEMANTIC_TRAINER_STEPS = 24
+NEUS_CLI_STEPS = 16
+# cli_neus' ring: a quarter of NERFSTUDIO_FIXTURE's pixels (a NeuS frame
+# at 960x540 takes ~36 s), 9 train frames and 1 eval frame
+NEUS_FIXTURE = {"num_frames": 10, "h": 270, "w": 480}
+NEUS_RENDER_STEPS = 2
+# the exporter's arguments beyond --load-config and --output-dir: its
+# defaults on the card
+EXPORT_ARGS = {"pointcloud": [], "cameras": [], "marching-cubes": [],
+               "tsdf": [], "poisson": []}
 
 
 def log(*a):
@@ -870,8 +908,8 @@ def scatter_step_cases(method, cfg, tree, dev, aux=None):
     sk._launch = capture
     try:
         trainer.loss_and_grads(
-            state, make_batch(0, train_num_rays_per_batch[method], dev,
-                              depth=method == DEPTH),
+            state, method_batch(0, train_num_rays_per_batch[method], dev,
+                                method),
             train_proposal_networks=True,
             generator=torch.Generator(device=dev).manual_seed(SEED))
     finally:
@@ -1147,11 +1185,12 @@ def ring_cameras(dev):
     )
 
 
-def make_batch(seed, rays, dev, depth=False):
+def make_batch(seed, rays, dev, depth=False, classes=0):
     """A batch in the JAX trainer's layout: random (camera, pixel) pairs of
     the ring, pixel centres, random colours, from a numpy seed; with
     ``depth``, target depths U(1.5, 4) (the ring's cameras are 2.5 from the
-    box's centre), DEPTH_ZEROS of them 0 (no target)."""
+    box's centre), DEPTH_ZEROS of them 0 (no target); with ``classes``,
+    "semantics" labels uniform in [0, classes), int32."""
     r = np.random.default_rng(seed)
     coords = np.stack([r.integers(0, 540, rays), r.integers(0, 960, rays)], -1)
     batch = {
@@ -1163,7 +1202,18 @@ def make_batch(seed, rays, dev, depth=False):
         target = r.uniform(1.5, 4.0, rays).astype(np.float32)
         target[r.uniform(0, 1, rays) < DEPTH_ZEROS] = 0.0
         batch["depth_image"] = torch.from_numpy(target).to(dev)
+    if classes:
+        batch["semantics"] = torch.from_numpy(
+            r.integers(0, classes, rays).astype(np.int32)).to(dev)
     return batch
+
+
+def method_batch(seed, rays, dev, method):
+    """``make_batch`` with what ``method`` trains on: target depths for
+    depth-nerfacto, class labels for a semantic model."""
+    _module, cfg, _camera_optimizer = method_parts(method)
+    return make_batch(seed, rays, dev, depth=method == DEPTH,
+                      classes=getattr(cfg, "num_semantic_classes", 0))
 
 
 def is_update_step(module, cfg, state) -> bool:
@@ -1214,7 +1264,7 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=(),
     rays = train_num_rays_per_batch[method]
     trainer, state = make_trainer(method, tree, dev, aux)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    batches = [make_batch(i, rays, dev, depth=method == DEPTH) for i in range(8)]
+    batches = [method_batch(i, rays, dev, method) for i in range(8)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1378,9 +1428,11 @@ def pdf_bins(record=None, replay=None):
 
     orig = samplers.pdf_samples
     # the modules that call it: the samplers' own proposal sampler, and
-    # the models that import it by name
+    # the models and the NeuS sampler, which import it by name
     users = [samplers] + [m for name, m in list(sys.modules.items())
-                          if name.startswith("soccernerfs_tpu_torch.models.")
+                          if name.startswith(("soccernerfs_tpu_torch.models.",
+                                              "soccernerfs_tpu_torch.ops."))
+                          and m is not samplers
                           and getattr(m, "pdf_samples", None) is orig]
     it = iter(replay or ())
 
@@ -1447,9 +1499,10 @@ def selection_differs(a, b):
 
 def is_classic(module) -> bool:
     """Whether a model module is one of the classic methods' (vanilla NeRF,
-    mip-NeRF, TensoRF): coarse and PDF samplers, no hand-written kernel."""
+    mip-NeRF, TensoRF) or NeuS: PDF samplers over MLP fields, no
+    hand-written kernel."""
     return module.__name__.rsplit(".", 1)[-1] in ("vanilla_nerf", "mipnerf",
-                                                  "tensorf")
+                                                  "tensorf", "neus")
 
 
 def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None, rays=None):
@@ -1549,7 +1602,7 @@ def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None, rays=None):
                 for patch in patches:
                     stack.enter_context(patch)
                 loss, ld, _m, grads = trainers[d].loss_and_grads(
-                    state, make_batch(seed + 1, n, d, depth=method == DEPTH),
+                    state, method_batch(seed + 1, n, d, method),
                     train_proposal_networks=True, tv_rows=tv_rows,
                     **step_draws(d))
             loss = float(loss)
@@ -1800,7 +1853,8 @@ def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096):
                 **({} if background is None
                    else {"background": torch.from_numpy(background).to(d)}))
         outs[where] = {k: o[k].cpu() for k in ("rgb", "accumulation", "depth",
-                                               "probs") if k in o}
+                                               "probs", "semantics", "normals")
+                       if k in o}
         if "valid" in o:
             picked[where] = {"valid": o["valid"].cpu(),
                              "spacing_starts": o["ray_samples"].spacing_starts.cpu()}
@@ -1822,14 +1876,30 @@ def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096):
     depth_off = float((depth_rel > 1e-3).float().mean())
     log(f"cpu check {method} ({n} rays): max |card - cpu| {diffs}, depth rays "
         f"off by >1e-3 rel: {depth_off}")
-    # rgb/accumulation (and NeRFPlayer's rendered probabilities) are
-    # continuous in every input: 2e-3 covers f32 reduction-order
-    # differences through the MLPs and the PDF resampling; the median depth
-    # jumps where the cumulative weight sits at 0.5
-    if (max(v for k, v in diffs.items() if k != "depth") > 2e-3
-            or depth_off > 0.01):
+    # rgb/accumulation (and NeRFPlayer's rendered probabilities,
+    # semantic-NeRF-W's composited logits) are continuous in every input:
+    # 2e-3 covers f32 reduction-order differences through the MLPs and the
+    # PDF resampling; the median depth jumps where the cumulative weight
+    # sits at 0.5.  NeuS composites with the reference's ~1e-5 alphas
+    # (ROADMAP C.25), in which p + 1e-5 nearly cancels: its accumulation
+    # stays below 1e-3, so its rgb and accumulation are held relative to
+    # their largest value (NEUS_REL_TOL), its unit normals at NORMALS_TOL,
+    # and its depth, which never reaches the cumulative weight 0.5 and is
+    # the last midpoint on both sides, carries nothing
+    absolute = {k: v for k, v in diffs.items() if k not in ("depth", "normals")}
+    rel = {}
+    if method == NEUS:
+        rel = {k: absolute.pop(k) / max(float(outs["cpu"][k].abs().max()), 1e-30)
+               for k in ("rgb", "accumulation")}
+        log(f"cpu check {method} ({n} rays): max |card - cpu| / max |cpu| {rel}, "
+            f"max accumulation {float(outs['cpu']['accumulation'].max())}")
+        if not float(outs["cpu"]["accumulation"].max()) > 0.0:
+            raise AssertionError(f"{method} renders nothing: zero accumulation")
+    if (max(absolute.values(), default=0.0) > 2e-3
+            or max(rel.values(), default=0.0) > NEUS_REL_TOL
+            or diffs.get("normals", 0.0) > NORMALS_TOL or depth_off > 0.01):
         raise AssertionError(f"card and CPU disagree on {method}: {diffs}, "
-                             f"{depth_off}")
+                             f"{rel}, {depth_off}")
 
 
 def occupancy_state(method, params, dev) -> dict:
@@ -2898,10 +2968,7 @@ def cli_depth_phase(dev, root, launches) -> None:
         writer.setup_writers = setup_writers
     launches[f"cli train {DEPTH}"] = counts = launch_counts()
     # 3 launches per proposal-update step, 1 per other step
-    module, cfg, _camera_optimizer = method_parts(DEPTH)
-    host = {"steps_since_update": 0}
-    updates = sum(module.host_static_kwargs(cfg, step, host)["train_proposal_networks"]
-                  for step in range(CLI_STEPS))
+    updates = proposal_updates(DEPTH, CLI_STEPS)
     if counts["scatter_add_rows"] != 3 * updates + (CLI_STEPS - updates):
         raise AssertionError(f"{tag}: scatter_add_rows launched "
                              f"{counts['scatter_add_rows']} times in {updates} "
@@ -3265,6 +3332,312 @@ def cli_dnerf_phase(dev, root, launches) -> None:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
 
 
+def semantic_method_phases(dev, cams, aabb, trace_dir, kernels, launches) -> None:
+    """semantic-nerfw's phases: render (two counted frames, two timed, one
+    profiled: nerfacto's forward and the semantic head's 100 classes at
+    chunk 2^16) and check a chunk on the CPU, the composited logits
+    beside rgb; the scatter's launches of a train step; train (4096-ray
+    batches with random labels of the 100 classes) and check a 1024-ray
+    step on the CPU.  The head reads detached geo features, so
+    scatter_add_rows must launch as for nerfacto: 3 times per update step,
+    once per other step.  Adds to ``kernels`` and ``launches``."""
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    scatter = [k.__name__ for k in sk.KERNELS]
+    _module, cfg, _camera_optimizer = method_parts(SEMANTIC)
+    tree, params, _ = make_params(SEMANTIC, dev, num_train_data=20)
+    launches[f"render {SEMANTIC}"], _ = render_phase(
+        SEMANTIC, params, cams, dev, aabb, trace_dir)
+    render_cpu_check(SEMANTIC, tree, params, cams, dev, aabb)
+    del params
+    torch.cuda.empty_cache()
+    kernels["scatter_add_rows"] += scatter_step_phase(SEMANTIC, cfg, tree, dev)
+    launches[f"train {SEMANTIC}"], in_step = train_phase(
+        SEMANTIC, tree, dev, trace_dir, must_launch=scatter, every_step=scatter)
+    scatter_in_step(SEMANTIC, kernels["scatter_add_rows"], in_step)
+    train_cpu_check(SEMANTIC, tree, dev, SEMANTIC_CPU_SEEDS, witnesses=False)
+    del tree
+    torch.cuda.empty_cache()
+
+
+def neus_method_phases(dev, cams, aabb, trace_dir, launches) -> None:
+    """NeuS's phases, its SDF field seeded with the geometric init: one
+    counted 960x540 frame at chunk 1024 (the SDF's normals under the
+    render's no_grad) and a chunk of NEUS_CPU_RAYS checked on the CPU, the
+    rendered normals beside rgb; train (1024-ray batches, the eikonal
+    loss through a double backward); a CPU check of one step of
+    NEUS_CPU_RAYS with the witnesses, each leaf held with the card's
+    sampler bins on both sides.  The path runs no hand-written kernel.
+    Adds to ``launches``."""
+    tree, params, _ = make_params(NEUS, dev)
+    counted, steady, profile = NEUS_FRAMES
+    launches[f"render {NEUS}"], _ = render_phase(
+        NEUS, params, cams, dev, aabb, trace_dir, frames=counted,
+        steady=steady, profile=profile)
+    render_cpu_check(NEUS, tree, params, cams, dev, aabb, n=NEUS_CPU_RAYS)
+    del params
+    torch.cuda.empty_cache()
+    launches[f"train {NEUS}"], _ = train_phase(NEUS, tree, dev, trace_dir,
+                                               must_launch=())
+    train_cpu_check(NEUS, tree, dev, NEUS_CPU_SEEDS, witnesses=True,
+                    rays=NEUS_CPU_RAYS)
+    del tree
+    torch.cuda.empty_cache()
+
+
+def proposal_updates(method, steps) -> int:
+    """How many of the first ``steps`` steps update the proposals."""
+    module, cfg, _camera_optimizer = method_parts(method)
+    host = {"steps_since_update": 0}
+    return sum(module.host_static_kwargs(cfg, step, host)["train_proposal_networks"]
+               for step in range(steps))
+
+
+def trainer_semantic_phase(dev, root, launches) -> None:
+    """``Trainer.train`` of semantic-nerfw at registry width on a Sitcoms3D
+    capture it writes (SITCOMS_FIXTURE: 20 cameras at 270x480, the layout
+    of the real scenes' quarter-size images, with their "thing" labels),
+    SEMANTIC_TRAINER_STEPS steps, an eval batch half way; then ``snt-eval``
+    on the snapshot.  Fails unless the cache holds the labels, every train
+    batch carries them (``semantics_loss`` finite and positive at every log
+    step), scatter_add_rows launched 3 times per proposal-update step and
+    once per other step, and psnr and ssim are finite."""
+    from soccernerfs_tpu_torch.data.dataparsers.sitcoms3d import Sitcoms3DDataParserConfig
+    from soccernerfs_tpu_torch.data.fixtures import make_sitcoms3d_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.scripts import eval as eval_script
+
+    tag = f"trainer_semantic_nerfw {SEMANTIC}"
+    t0 = time.perf_counter()
+    data = make_sitcoms3d_fixture(root / "sitcoms3d", **SITCOMS_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    steps = SEMANTIC_TRAINER_STEPS
+    cfg = trainer_config(SEMANTIC, Sitcoms3DDataParserConfig(data=data),
+                         root / "out", "semantic", loop={
+                             "max_num_iterations": steps, "steps_per_save": steps,
+                             "steps_per_eval_batch": steps // 2,
+                             "steps_per_eval_image": 0,
+                             "steps_per_eval_all_images": 0, "vis": "none"})
+    cfg.logging.steps_per_log = TRAINER_LOG_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev).setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sink = event_sink()
+    if "semantics" not in trainer.datamanager.train_cache.cached_batch:
+        raise AssertionError(f"{tag}: the cache holds no labels")
+    side_s, save_s = [], []
+    trainer.eval_iteration = timed(trainer.eval_iteration, side_s, sync=True)
+    trainer.save_checkpoint = timed(trainer.save_checkpoint, save_s, sync=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches[f"trainer {SEMANTIC}"] = counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_finite_events(sink, tag)
+    updates = proposal_updates(SEMANTIC, steps)
+    if counts["scatter_add_rows"] != 3 * updates + (steps - updates):
+        raise AssertionError(f"{tag}: scatter_add_rows launched "
+                             f"{counts['scatter_add_rows']} times in {updates} "
+                             f"update and {steps - updates} other steps")
+    sem = {step: v for n, step, v in sink.scalars
+           if n == "Train Loss Dict/semantics_loss"}
+    log_steps = list(range(0, steps, TRAINER_LOG_STEPS))
+    if sorted(sem) != log_steps or not all(np.isfinite(v) and v > 0
+                                           for v in sem.values()):
+        raise AssertionError(f"{tag}: semantics_loss at the log steps "
+                             f"{log_steps}: {sem}")
+    eval_sem = [v for n, _st, v in sink.scalars
+                if n == "Eval Loss Dict/semantics_loss"]
+    if len(eval_sem) != 1 or not np.isfinite(eval_sem[0]):
+        raise AssertionError(f"{tag}: the eval batch's semantics_loss {eval_sem}")
+    rays = trainer.datamanager.get_train_rays_per_batch()
+    config = trainer.base_dir / "config.yml"
+    del trainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    info = eval_script.main(["--load-config", str(config), "--output-path",
+                             str(root / "semantic_eval.json")], device=dev)
+    eval_s = time.perf_counter() - t0
+    launches[f"cli eval {SEMANTIC}"] = launch_counts()
+    results = info["results"]
+    if not all(np.isfinite(results[k]) for k in ("psnr", "ssim")):
+        raise AssertionError(f"{tag}: eval JSON {info}")
+    log(json.dumps({
+        "phase": "trainer_semantic_nerfw", "method": SEMANTIC, "card": card_line(),
+        "fixture": {**SITCOMS_FIXTURE, "written_s": fixture_s},
+        "steps": steps, "proposal_update_steps": updates, "setup_s": setup_s,
+        "train_s": train_s,
+        "loop_rays_per_s": rays * steps / (train_s - sum(side_s) - sum(save_s)),
+        "trainstep_window_rays_per_s": WINDOW_RAYS_PER_S.get(SEMANTIC),
+        "semantics_loss": sem, "eval_batch_semantics_loss": eval_sem[0],
+        "save_ms": [1e3 * t for t in save_s], "peak_gib": peak,
+        "eval": {k: results[k] for k in ("psnr", "ssim", "num_rays_per_sec",
+                                         "fps")},
+        "eval_s": eval_s,
+        "eval_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": {"trainer": counts,
+                     "cli eval": launches[f"cli eval {SEMANTIC}"]}}))
+
+
+def cli_neus_phase(dev, root, launches) -> None:
+    """NeuS through the user entry points: ``snt-train neus ...
+    nerfstudio-data`` at registry width on a nerfstudio ring it writes
+    (NEUS_FIXTURE) for NEUS_CLI_STEPS steps; ``snt-eval`` over its eval
+    split; a NEUS_RENDER_STEPS-frame ``snt-render`` spiral.  Fails unless the losses
+    (the eikonal term among them) are finite at every log step, psnr and
+    ssim are finite and every frame has its size."""
+    from PIL import Image
+
+    from soccernerfs_tpu_torch.data.fixtures import make_nerfstudio_fixture
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.scripts import eval as eval_script
+    from soccernerfs_tpu_torch.scripts import render as render_script
+    from soccernerfs_tpu_torch.scripts import train as train_script
+    from soccernerfs_tpu_torch.utils import writer
+
+    tag = f"cli_neus {NEUS}"
+    t0 = time.perf_counter()
+    data = make_nerfstudio_fixture(root / "nerfstudio_neus", **NEUS_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    argv = [NEUS, "--max-num-iterations", str(NEUS_CLI_STEPS), "--steps-per-save",
+            str(NEUS_CLI_STEPS), "--vis", "none", "--output-dir",
+            str(root / "cli_neus"), "nerfstudio-data", "--data", str(data)]
+    log(f"{tag}: snt-train {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sink = event_sink()
+    setup_writers = writer.setup_writers
+
+    def with_sink(*args, **kwargs):
+        setup_writers(*args, **kwargs)
+        writer._SINKS.append(sink)
+
+    loop_s, save_s = [], []
+    train, save = Trainer.train, Trainer.save_checkpoint
+    Trainer.train = timed(train, loop_s, sync=True)
+    Trainer.save_checkpoint = timed(save, save_s, sync=True)
+    writer.setup_writers = with_sink
+    try:
+        trainer = train_script.main(argv, device=dev)
+    finally:
+        Trainer.train, Trainer.save_checkpoint = train, save
+        writer.setup_writers = setup_writers
+    check_finite_events(sink, tag)
+    eikonal = {str(st): v for n, st, v in sink.scalars
+               if n == "Train Loss Dict/eikonal_loss"}
+    log_steps = range(0, NEUS_CLI_STEPS, trainer.config.logging.steps_per_log)
+    if sorted(map(int, eikonal)) != list(log_steps):
+        raise AssertionError(f"{tag}: eikonal_loss at {sorted(eikonal)}")
+    rays = trainer.datamanager.get_train_rays_per_batch()
+    config = trainer.base_dir / "config.yml"
+    cams = trainer.eval_cameras
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    info = eval_script.main(["--load-config", str(config), "--output-path",
+                             str(root / "cli_neus_eval.json")], device=dev)
+    eval_s = time.perf_counter() - t0
+    results = info["results"]
+    if not all(np.isfinite(results[k]) for k in ("psnr", "ssim")):
+        raise AssertionError(f"{tag}: eval JSON {info}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    written = render_script.main(
+        ["--load-config", str(config), "--traj", "spiral",
+         "--interpolation-steps", str(NEUS_RENDER_STEPS), "--output-format",
+         "images", "--output-path", str(root / "cli_neus_render" / "s.mp4")],
+        device=dev)
+    render_s = time.perf_counter() - t0
+    pngs = sorted(written.glob("*.png"))
+    sizes = {Image.open(f).size for f in pngs}
+    if len(pngs) != NEUS_RENDER_STEPS or sizes != {(int(cams.width[0]),
+                                                    int(cams.height[0]))}:
+        raise AssertionError(f"{tag}: render: {len(pngs)} frames of {sizes}")
+    log(json.dumps({
+        "phase": "cli_neus", "method": NEUS, "card": card_line(),
+        "fixture": {**NEUS_FIXTURE, "written_s": fixture_s},
+        "train_argv": argv, "train_steps": NEUS_CLI_STEPS,
+        "train_loop_rays_per_s": rays * NEUS_CLI_STEPS / (loop_s[0] - sum(save_s)),
+        "train_loop_s": loop_s[0], "eikonal_loss": eikonal,
+        "losses": {str(st): v for n, st, v in sink.scalars if n == "Train Loss"},
+        "train_peak_gib": peak,
+        "eval": {k: results[k] for k in ("psnr", "ssim", "num_rays_per_sec",
+                                         "fps")},
+        "eval_s": eval_s, "render_s": render_s, "render_frames": len(pngs)}))
+
+
+def cli_export_phase(dev, root, launches) -> None:
+    """The exporter's five subcommands (``scripts.exporter.main``, at
+    EXPORT_ARGS: its defaults on the card) on ``cli_kplanes``' K-Planes
+    snapshot: pointcloud, cameras, marching-cubes, tsdf and poisson, each
+    timed, with the plane kernels it launched counted; then marching-cubes
+    once more at the density's median on a 32^3 grid (the seeded
+    snapshot's density stays below the default level 5, whose mesh is
+    empty; at 128^3 the median's surface of this noisy field has ~12.7 M
+    faces, which ``write_ply`` writes one Python call each, ~86 s).
+    Fails unless each writes a non-empty PLY or JSON (a PLY's header, a
+    JSON with both splits' cameras), the point cloud, the Poisson mesh and
+    the median's mesh have vertices, and the forward plane kernels
+    launched in every subcommand but cameras."""
+    from soccernerfs_tpu_torch.scripts import exporter
+    from soccernerfs_tpu_torch.utils.eval_utils import eval_setup
+
+    tag = f"cli_export {MODEL}"
+    configs = sorted((root / "cli").glob("**/config.yml"))
+    if len(configs) != 1:
+        raise AssertionError(f"{tag}: cli_kplanes' snapshot: {configs}")
+    out = root / "exports"
+    _, trainer, _ = eval_setup(configs[0], "inference", device=dev)
+    median = float(np.median(exporter.density_volume(trainer, 32, None)[0]))
+    del trainer
+    torch.cuda.empty_cache()
+    runs = [(cmd, cmd, extra) for cmd, extra in EXPORT_ARGS.items()]
+    runs.append(("marching-cubes at the median", "marching-cubes",
+                 ["--resolution", "32", "--iso-level", repr(median)]))
+    rows = {}
+    for label, cmd, extra in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        path = exporter.main([cmd, "--load-config", str(configs[0]),
+                              "--output-dir", str(out / label.replace(" ", "_")),
+                              *extra], device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[f"cli export {label} {MODEL}"] = counts = launch_counts()
+        raw = path.read_bytes()
+        if path.suffix == ".json":
+            cams = json.loads(raw)
+            if not (cams.get("train") and cams.get("eval")):
+                raise AssertionError(f"{tag}: {cmd} wrote {sorted(cams)}")
+            sizes = {k: len(v) for k, v in cams.items()}
+        else:
+            head = raw.split(b"end_header\n")[0].decode().splitlines()
+            sizes = {ln.split()[1]: int(ln.split()[2]) for ln in head
+                     if ln.startswith("element")}
+            if label != "marching-cubes" and not sizes.get("vertex"):
+                raise AssertionError(f"{tag}: {label} wrote {sizes}")
+        forward = counts["bilerp_fwd_unpacked"] + counts["bilerp_fwd_packed"]
+        if cmd != "cameras" and forward <= 0:
+            raise AssertionError(f"{tag}: {cmd} launched no forward plane kernel")
+        rows[label] = {"s": seconds, "bytes": len(raw), "elements": sizes,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "args": extra, "launches": counts}
+        log(f"{tag}: {label} {seconds:.3f} s, {path.name} {len(raw)} bytes "
+            f"{sizes}, launches {counts}")
+    log(json.dumps({"phase": "cli_export", "method": MODEL, "card": card_line(),
+                    "density_median": median, "subcommands": rows}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
@@ -3408,6 +3781,11 @@ def main() -> int:
     train_cpu_check(DEPTH, tree, dev, DEPTH_CPU_SEEDS, witnesses=True)
     del tree
 
+    # ---- semantic-nerfw: nerfacto with the semantic head
+    t0 = time.perf_counter()
+    semantic_method_phases(dev, cams, aabb, args.trace, kernels, launches)
+    log(f"semantic_method_phases {SEMANTIC}: {time.perf_counter() - t0:.3f} s")
+
     # ---- nerfplayer-nerfacto (temporal hash grids) and nerfplayer (the
     # decomposition field), camera optimizer off as registered; the
     # scatter's width-1 launches
@@ -3426,13 +3804,19 @@ def main() -> int:
         classic_method_phases(method, dev, cams, aabb, args.trace, launches)
         log(f"classic_method_phases {method}: {time.perf_counter() - t0:.3f} s")
 
+    # ---- NeuS: the SDF field, its sampler and the eikonal double backward
+    t0 = time.perf_counter()
+    neus_method_phases(dev, cams, aabb, args.trace, launches)
+    log(f"neus_method_phases {NEUS}: {time.perf_counter() - t0:.3f} s")
+
     # ---- the Trainer phases: the data path, checkpoints, the gate
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
         for phase in (trainer_kplanes_phase, trainer_kplanes_depth_phase,
                       trainer_ingp_phase, convergence_phase,
                       trainer_tensorf_phase, trainer_kplanes_hypernerf_phase,
                       cli_phase, cli_depth_phase, cli_ingp_phase,
-                      cli_dnerf_phase):
+                      cli_dnerf_phase, trainer_semantic_phase, cli_neus_phase,
+                      cli_export_phase):
             t0 = time.perf_counter()
             phase(dev, Path(root), launches)
             log(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")

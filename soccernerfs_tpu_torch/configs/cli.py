@@ -122,9 +122,8 @@ def _collect_values(argv: Sequence[str], i: int, subcommands) -> tuple:
 def parse_train_cli(argv: Optional[Sequence[str]] = None) -> TrainerConfig:
     """A TrainerConfig from the command line (``sys.argv[1:]`` by default).
 
-    Exits with a message on an unknown method, a method of the JAX
-    package's registry that the port does not run yet, an unknown flag or
-    a flag without a value; ``--help`` prints the methods and dataparsers."""
+    Exits with a message on an unknown method, an unknown flag or a flag
+    without a value; ``--help`` prints the methods and dataparsers."""
     from soccernerfs_tpu_torch.configs import method_configs as mc
     from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
 
@@ -134,14 +133,10 @@ def parse_train_cli(argv: Optional[Sequence[str]] = None) -> TrainerConfig:
         print("methods:")
         for name in sorted(mc.trainer_configs):
             print(f"  {name:<26s}{mc.descriptions.get(name, '')}")
-        print("not ported yet:", ", ".join(mc.not_ported))
         print("dataparsers:", ", ".join(sorted(DATAPARSERS)))
         raise SystemExit(0)
 
     method = argv[0]
-    if method in mc.not_ported:
-        raise SystemExit(f"method {method!r} is not ported yet; the port runs "
-                         f"{sorted(mc.trainer_configs)}")
     if method not in mc.trainer_configs:
         raise SystemExit(f"unknown method {method!r}; known: "
                          f"{sorted(mc.trainer_configs)}")

@@ -16,11 +16,13 @@ from soccernerfs_tpu_torch.configs.base import (
 from soccernerfs_tpu_torch.core.camera_optimizer import CameraOptimizerConfig
 from soccernerfs_tpu_torch.data.datamanager import (
     DynamicDataManagerConfig,
+    SemanticDataManagerConfig,
     VanillaDataManagerConfig,
 )
 from soccernerfs_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.dnerf import DNeRFDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.nerfstudio import NerfstudioDataParserConfig
+from soccernerfs_tpu_torch.data.dataparsers.sitcoms3d import Sitcoms3DDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.soccer import StadiumDataParserConfig
 from soccernerfs_tpu_torch.engine.optimizers import (
     AdamOptimizerConfig,
@@ -39,6 +41,8 @@ from soccernerfs_tpu_torch.models import nerfplayer as np_model
 from soccernerfs_tpu_torch.models import nerfplayer_nerfacto as npn_model
 from soccernerfs_tpu_torch.models import nerfplayer_ngp as npngp_model
 from soccernerfs_tpu_torch.models import nerfplayer_ngp_complete as npngpc_model
+from soccernerfs_tpu_torch.models import neus as neus_model
+from soccernerfs_tpu_torch.models import semantic_nerfw as semantic_model
 from soccernerfs_tpu_torch.models import tensorf as tensorf_model
 from soccernerfs_tpu_torch.models import vanilla_nerf as vnerf_model
 
@@ -182,6 +186,12 @@ model_configs: Dict[str, Any] = {
     # ... and TensoRF's VM tables (16 density and 48 colour components)
     # upsampled from 128 to 300 over steps 2000-7000, 200 + 50 samples
     "tensorf": tensorf_model.Config(),
+    # nerfacto with a semantic head (geo features -> 64 x 1 -> 100 classes)
+    # on Sitcoms3D's panoptic labels
+    "semantic-nerfw": semantic_model.Config(eval_num_rays_per_chunk=1 << 16),
+    # NeuS: an 8 x 256 SDF MLP behind 64 uniform samples and 4 upsampling
+    # steps of 16, the eikonal loss
+    "neus": neus_model.Config(eval_num_rays_per_chunk=1024),
 }
 
 # method -> the model module's name in models/__init__.py
@@ -198,7 +208,9 @@ model_names: Dict[str, str] = {"k-planes": "kplanes",
                                "vanilla-nerf": "vanilla_nerf",
                                "dnerf": "vanilla_nerf",
                                "mipnerf": "mipnerf",
-                               "tensorf": "tensorf"}
+                               "tensorf": "tensorf",
+                               "semantic-nerfw": "semantic_nerfw",
+                               "neus": "neus"}
 
 # {group: {"optimizer": ..., "scheduler": ...}} per method, the groups being
 # the top-level keys of the params
@@ -246,6 +258,9 @@ _NERFACTO_GROUPS = {
         "scheduler": None,
     },
 }
+_SEMANTIC_GROUPS = {name: {"optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+                           "scheduler": None}
+                    for name in ("proposal_networks", "fields")}
 optimizer_configs: Dict[str, Dict[str, dict]] = {
     "k-planes": {"proposal_networks": _KPLANES_GROUP, "fields": _KPLANES_GROUP},
     "k-planes-static": {"proposal_networks": _KPLANES_STATIC_GROUP,
@@ -277,6 +292,11 @@ optimizer_configs: Dict[str, Dict[str, dict]] = {
                                                          max_steps=30000),
         },
     },
+    "semantic-nerfw": _SEMANTIC_GROUPS,
+    "neus": {"fields": {
+        "optimizer": AdamOptimizerConfig(lr=5e-4, eps=1e-15),
+        "scheduler": CosineDecaySchedulerConfig(
+            warm_up_end=500, learning_rate_alpha=0.05, max_steps=300000)}},
 }
 
 camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
@@ -294,6 +314,8 @@ camera_optimizer_configs: Dict[str, CameraOptimizerConfig] = {
     "dnerf": CameraOptimizerConfig(mode="off"),
     "mipnerf": CameraOptimizerConfig(mode="off"),
     "tensorf": CameraOptimizerConfig(mode="off"),
+    "semantic-nerfw": CameraOptimizerConfig(mode="off"),
+    "neus": CameraOptimizerConfig(mode="off"),
 }
 
 train_num_rays_per_batch: Dict[str, int] = {
@@ -301,7 +323,8 @@ train_num_rays_per_batch: Dict[str, int] = {
     "depth-nerfacto": 4096, "nerfplayer-nerfacto": 4096,
     "instant-ngp": 8192, "instant-ngp-bounded": 8192, "nerfplayer-ngp": 8192,
     "nerfplayer": 4096, "nerfplayer-ngp-complete": 8192,
-    "vanilla-nerf": 1024, "dnerf": 1024, "mipnerf": 1024, "tensorf": 4096}
+    "vanilla-nerf": 1024, "dnerf": 1024, "mipnerf": 1024, "tensorf": 4096,
+    "semantic-nerfw": 4096, "neus": 1024}
 
 
 def _trainer(method: str, datamanager, *, dynamic_batch: bool = False,
@@ -448,6 +471,21 @@ trainer_configs: Dict[str, TrainerConfig] = {
                  eval_num_rays_per_batch=4096),
         mixed_precision=False, max_num_iterations=30000,
         viewer=ViewerConfig(num_rays_per_chunk=1 << 15), vis="viewer"),
+    "semantic-nerfw": _trainer(
+        "semantic-nerfw",
+        SemanticDataManagerConfig(
+            dataparser=Sitcoms3DDataParserConfig(),
+            train_num_rays_per_batch=train_num_rays_per_batch["semantic-nerfw"],
+            eval_num_rays_per_batch=8192,
+            camera_optimizer=camera_optimizer_configs["semantic-nerfw"]),
+        steps_per_eval_batch=500, steps_per_save=2000,
+        max_num_iterations=30000,
+        viewer=ViewerConfig(num_rays_per_chunk=1 << 16), vis="viewer"),
+    "neus": _trainer(
+        "neus", _vanilla("neus", eval_num_rays_per_batch=1024),
+        mixed_precision=False, steps_per_eval_batch=500, steps_per_save=2000,
+        max_num_iterations=100000,
+        viewer=ViewerConfig(num_rays_per_chunk=1 << 12), vis="viewer"),
 }
 
 # what `snt-train --help` prints beside each method
@@ -467,8 +505,6 @@ descriptions: Dict[str, str] = {
     "mipnerf": "mip-NeRF with integrated positional encoding.",
     "tensorf": "TensoRF factorized-grid NeRF with coarse-to-fine upsampling.",
     "dnerf": "Vanilla NeRF on the D-NeRF dynamic blender format.",
+    "semantic-nerfw": "Nerfacto with a semantic segmentation head (Sitcoms3D).",
+    "neus": "NeuS SDF surface reconstruction with eikonal regularization.",
 }
-
-# methods of the JAX package's registry that the port does not run yet: the
-# CLI names them as such instead of calling them unknown
-not_ported = ("semantic-nerfw", "neus")

@@ -5,7 +5,9 @@
 whose params are nerfacto's, ``models/nerfplayer_nerfacto``,
 ``models/instant_ngp``, ``models/nerfplayer_ngp``, ``models/nerfplayer``,
 ``models/nerfplayer_ngp_complete``, ``models/vanilla_nerf``,
-``models/mipnerf``, ``models/tensorf``; with the trainer's
+``models/mipnerf``, ``models/tensorf``, ``models/semantic_nerfw`` (with
+its ``fields.mlp_semantics``), ``models/neus`` (the SDF field's
+``sdf_mlp``, ``color_mlp`` and the scalar ``deviation``); with the trainer's
 ``camera_opt`` group or without), mapped to numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``), and returns the port's
 params: the same nested dicts and lists, with torch tensors on a device.
@@ -29,6 +31,7 @@ from soccernerfs_tpu_torch.fields import nerfacto as nerfacto_field
 from soccernerfs_tpu_torch.fields import nerfplayer as np_field
 from soccernerfs_tpu_torch.fields import nerfplayer_nerfacto as npn_field
 from soccernerfs_tpu_torch.fields import nerfplayer_ngp as npngp_field
+from soccernerfs_tpu_torch.fields import sdf as sdf_field
 from soccernerfs_tpu_torch.fields import vanilla_nerf as vnerf_field
 from soccernerfs_tpu_torch.models import (
     instant_ngp,
@@ -39,6 +42,8 @@ from soccernerfs_tpu_torch.models import (
     nerfplayer_nerfacto,
     nerfplayer_ngp,
     nerfplayer_ngp_complete,
+    neus,
+    semantic_nerfw,
     tensorf,
     vanilla_nerf,
 )
@@ -93,10 +98,10 @@ def seeded_params(cfg, seed: int, num_train_data: int = 0,
                   step: int = 0) -> dict:
     """A numpy param tree in the layout of the JAX package's
     ``init(rng, cfg, num_train_data)`` for a K-Planes, nerfacto (a
-    depth-nerfacto config is one), nerfplayer-nerfacto, instant-NGP,
-    NeRFPlayer-NGP, NeRFPlayer, NeRFPlayer-NGP-complete, vanilla NeRF,
-    mip-NeRF or TensoRF config, drawn with numpy; MLPs as ``_seeded_mlp``,
-    appearance embeddings N(0, 1).
+    depth-nerfacto config is one), semantic-NeRF-W, nerfplayer-nerfacto,
+    instant-NGP, NeRFPlayer-NGP, NeRFPlayer, NeRFPlayer-NGP-complete,
+    vanilla NeRF, mip-NeRF, TensoRF or NeuS config, drawn with numpy; MLPs
+    as ``_seeded_mlp``, appearance embeddings N(0, 1).
 
     K-Planes: space planes U(0.1, 0.5) (proposal planes U(0.1, 0.15)), time
     planes 1 + U(-time_noise, time_noise).  The hash-grid models: hash
@@ -105,7 +110,10 @@ def seeded_params(cfg, seed: int, num_train_data: int = 0,
     while training step ``step`` runs (past every upsampling step they
     are ``final_resolution``), the basis ``B`` as an MLP weight.  The NeRF
     fields (vanilla NeRF, mip-NeRF): the density head's bias
-    ``NERF_DENSITY_BIAS``.
+    ``NERF_DENSITY_BIAS``.  semantic-NeRF-W: nerfacto's tree and the
+    semantic head.  NeuS: the SDF field's geometric init
+    (``fields.sdf.geometric_init``), the distribution of the JAX init, so
+    that the seeded field is its initial SDF.
     """
     rng = np.random.default_rng(seed)
     if isinstance(cfg, tensorf.Config):
@@ -117,6 +125,13 @@ def seeded_params(cfg, seed: int, num_train_data: int = 0,
         return {"fields": _seeded_nerf_field(cfg.field_config(), rng)}
     if isinstance(cfg, (instant_ngp.Config, nerfplayer_ngp.Config)):
         return _seeded_ngp(cfg, rng, num_train_data, grid_std)
+    if isinstance(cfg, neus.Config):
+        return {"fields": _seeded_sdf_field(cfg.sdf_field, rng)}
+    if isinstance(cfg, semantic_nerfw.Config):
+        params = _seeded_nerfacto(cfg, rng, num_train_data, grid_std)
+        params["fields"]["mlp_semantics"] = _seeded_mlp(
+            rng, *semantic_nerfw.semantic_mlp_dims(cfg))
+        return params
     if isinstance(cfg, nerfacto.Config):
         return _seeded_nerfacto(cfg, rng, num_train_data, grid_std)
     if isinstance(cfg, nerfplayer_nerfacto.Config):
@@ -271,3 +286,23 @@ def _seeded_tensorf(cfg, rng, resolution: int) -> dict:
     return {"encodings": encodings,
             "fields": {"B": basis,
                        "mlp_head": _seeded_mlp(rng, *tensorf.head_dims(cfg))}}
+
+
+def _seeded_sdf_field(fcfg, rng) -> dict:
+    """The SDF field's tree, ``geometric_init`` drawn with numpy, f32."""
+    def normal(shape):
+        return rng.standard_normal(shape)
+
+    def uniform(shape, lo, hi):
+        return rng.uniform(lo, hi, shape)
+
+    field = sdf_field.geometric_init(fcfg, normal, uniform, np.zeros)
+
+    def f32(x):
+        if isinstance(x, dict):
+            return {k: f32(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [f32(v) for v in x]
+        return np.asarray(x, np.float32)
+
+    return f32(field)

@@ -158,3 +158,18 @@ class RaySamples(_Replace):
         )
         transmittance = torch.exp(-torch.cumsum(shifted, dim=-1))
         return torch.nan_to_num(alphas * transmittance)
+
+
+def get_weights_and_transmittance_from_alphas(alphas: torch.Tensor,
+                                              weights_only: bool = False):
+    """Weights from per-sample alphas [N, S]: w_i = alpha_i * T_i with
+    T = cumprod([1, 1 - alpha + 1e-7]) (the 1e-7 inside the product, as
+    the JAX version has it).  Returns weights [N, S], or (weights,
+    transmittance [N, S + 1])."""
+    transmittance = torch.cumprod(
+        torch.cat([torch.ones_like(alphas[..., :1]), 1.0 - alphas + 1e-7],
+                  dim=-1), dim=-1)
+    weights = alphas * transmittance[..., :-1]
+    if weights_only:
+        return weights
+    return weights, transmittance

@@ -28,6 +28,7 @@ from soccernerfs_tpu_torch.data.datasets import (
     DynamicDataset,
     ImportanceSamplingConfig,
     InputDataset,
+    SemanticDataset,
 )
 from soccernerfs_tpu_torch.data.image_cache import ImageBatchCache
 from soccernerfs_tpu_torch.data.pixel_samplers import (
@@ -205,3 +206,19 @@ class DynamicDataManager(VanillaDataManager):
                 seed=seed,
             )
         return super()._make_pixel_sampler(dataset, num_rays, seed)
+
+
+@dataclass
+class SemanticDataManagerConfig(VanillaDataManagerConfig):
+    """The vanilla datamanager over the semantic dataset."""
+
+    def setup(self, **kwargs) -> "SemanticDataManager":
+        return SemanticDataManager(self, **kwargs)
+
+
+class SemanticDataManager(VanillaDataManager):
+    """The vanilla datamanager whose datasets carry per-pixel labels: the
+    cache and the pixel sampler carry them beside the images, and a train
+    batch has "semantics" [N] int32."""
+
+    dataset_cls = SemanticDataset

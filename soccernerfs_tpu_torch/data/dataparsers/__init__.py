@@ -4,6 +4,7 @@ from soccernerfs_tpu_torch.data.dataparsers.blender import BlenderDataParserConf
 from soccernerfs_tpu_torch.data.dataparsers.dnerf import DNeRFDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.hypernerf import HyperNeRFDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.nerfstudio import NerfstudioDataParserConfig
+from soccernerfs_tpu_torch.data.dataparsers.sitcoms3d import Sitcoms3DDataParserConfig
 from soccernerfs_tpu_torch.data.dataparsers.soccer import (
     BroadcaststyleDataParserConfig,
     CloseupDataParserConfig,
@@ -22,4 +23,5 @@ DATAPARSERS = {
     "dynamic-data": DynamicDataParserConfig,
     "hypernerf-data": HyperNeRFDataParserConfig,
     "dnerf-data": DNeRFDataParserConfig,
+    "sitcoms3d-data": Sitcoms3DDataParserConfig,
 }

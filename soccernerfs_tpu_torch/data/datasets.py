@@ -4,7 +4,8 @@ soccernerfs_tpu/data/datasets.py).
 Images load to float32 numpy [H, W, 3] in [0, 1]; RGBA composites over
 the dataparser's alpha colour.  The dynamic dataset adds depth maps (the
 depth losses' targets) and the IST/ISG/ISS importance weights, computed
-in torch on its device (``data/importance.py``).
+in torch on its device (``data/importance.py``); the semantic dataset
+adds per-pixel class labels.
 """
 from __future__ import annotations
 
@@ -105,6 +106,37 @@ class InputDataset:
                 self.scale_factor)
         data.update(self.get_metadata(data))
         return data
+
+
+class SemanticDataset(InputDataset):
+    """InputDataset + per-pixel semantic labels, from the files, classes
+    and colours of the dataparser's ``semantics`` metadata."""
+
+    def __init__(self, dataparser_outputs: DataparserOutputs,
+                 scale_factor: float = 1.0):
+        super().__init__(dataparser_outputs, scale_factor)
+        sem = dataparser_outputs.metadata.get("semantics")
+        if sem is None:
+            raise ValueError("SemanticDataset needs the parser's semantics "
+                             "metadata (include_semantics)")
+        self.semantic_filenames = sem["filenames"]
+        self.semantic_classes = sem["classes"]
+        self.semantic_colors = sem["colors"]
+
+    def get_metadata(self, data: Dict) -> Dict:
+        """The item's "semantics" [H, W] int32: the label image read with
+        Pillow, resized nearest at the scale factor, its first channel
+        where it has several."""
+        sem = Image.open(self.semantic_filenames[data["image_idx"]])
+        if self.scale_factor != 1.0:
+            w, h = sem.size
+            sem = sem.resize(
+                (int(w * self.scale_factor), int(h * self.scale_factor)),
+                resample=Image.NEAREST)
+        labels = np.asarray(sem)
+        if labels.ndim == 3:
+            labels = labels[..., 0]
+        return {"semantics": labels.astype(np.int32)}
 
 
 @dataclass

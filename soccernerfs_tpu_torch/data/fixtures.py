@@ -180,6 +180,51 @@ def make_nerfstudio_fixture(root: Path, num_frames: int = 20, h: int = 24,
     return root
 
 
+def make_sitcoms3d_fixture(root: Path, num_cameras: int = 4, h: int = 24,
+                           w: int = 32, downscale: int = 4) -> Path:
+    """A Sitcoms3D-format scene for semantic-nerfw: ``cameras.json`` with
+    per-frame intrinsics (of the full-size images, ``downscale`` times
+    h x w) and camtoworld and the scene bbox, ``images_{d}/`` JPEGs of the
+    ball scene at rest from a ring of cameras, ``segmentations_{d}/thing/``
+    label PNGs (0 background, 1 ball, 2 floor) and
+    ``panoptic_classes.json``.  Poses and bbox are written rotated by the
+    inverse of the parser's z-up rotation, so that the parsed scene is the
+    ball scene."""
+    root = Path(root)
+    img_dir = root / f"images_{downscale}"
+    seg_dir = root / f"segmentations_{downscale}" / "thing"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    seg_dir.mkdir(parents=True, exist_ok=True)
+    rot = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float64)
+    fx = fy = 0.7 * w * downscale
+    cx, cy = w * downscale / 2.0, h * downscale / 2.0
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
+    frames = []
+    for ci in range(num_cameras):
+        theta = 2 * np.pi * ci / num_cameras
+        pose = _look_at_pose([2.2 * np.cos(theta), 2.2 * np.sin(theta), 1.0])
+        name = f"frame_{ci:04d}.jpg"
+        img = _render_ball_scene(h, w, pose, fx / downscale, fy / downscale,
+                                 cx / downscale, cy / downscale, 0.0)
+        Image.fromarray((img * 255).astype(np.uint8)).save(img_dir / name)
+        # the floor first, so that a ball pixel keeps its label
+        labels = np.zeros((h, w), np.uint8)
+        labels[img[..., 1] > 0.5] = 2
+        labels[img[..., 0] > 0.5] = 1
+        Image.fromarray(labels).save(seg_dir / name.replace(".jpg", ".png"))
+        c2w_file = np.concatenate([rot.T @ pose[:3, :4], [[0.0, 0.0, 0.0, 1.0]]],
+                                  axis=0)
+        frames.append({"image_name": name, "intrinsics": K.tolist(),
+                       "camtoworld": c2w_file.tolist()})
+    bbox = np.array([[-1.5, -1.5, -0.2], [1.5, 1.5, 1.5]], np.float64)
+    with open(root / "cameras.json", "w") as f:
+        json.dump({"frames": frames, "bbox": (bbox @ rot).tolist()}, f)
+    with open(root / "panoptic_classes.json", "w") as f:
+        json.dump({"thing": ["class_0", "class_1", "class_2"],
+                   "thing_colors": (np.eye(3) * 255).astype(int).tolist()}, f)
+    return root
+
+
 def make_blender_fixture(
     root: Path, num_frames: int = 3, h: int = 20, w: int = 20,
     with_times: bool = False,

@@ -114,7 +114,7 @@ class ImageBatchCache:
             "image_idx": np.asarray([it["image_idx"] for it in items], np.int64),
             "image": np.stack([it["image"] for it in items]),
         }
-        for key in ("mask", "depth_image"):
+        for key in ("mask", "depth_image", "semantics"):
             if key in items[0]:
                 batch[key] = np.stack([it[key] for it in items])
         return batch

@@ -399,7 +399,8 @@ class Trainer:
 
     def _device_batch(self, raw: Dict) -> Dict[str, torch.Tensor]:
         """A sampler batch on the device: cam_idx [N] int32, coords [N, 2]
-        pixel centres, image [N, 3]; copied from pinned host memory
+        pixel centres, image [N, 3] (and depth_image [N], semantics [N]
+        int32 where the batch has them); copied from pinned host memory
         without waiting on a CUDA device."""
         indices = raw["indices"]
         host = {
@@ -409,6 +410,8 @@ class Trainer:
         }
         if "depth_image" in raw:
             host["depth_image"] = raw["depth_image"].astype(np.float32)
+        if "semantics" in raw:
+            host["semantics"] = raw["semantics"].astype(np.int32)
         pin = self.device.type == "cuda"
         return {k: (torch.from_numpy(v).pin_memory() if pin else torch.from_numpy(v))
                 .to(self.device, non_blocking=pin) for k, v in host.items()}

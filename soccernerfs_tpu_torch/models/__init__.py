@@ -23,6 +23,8 @@ _MODEL_MODULES = {
     "vanilla_nerf": "soccernerfs_tpu_torch.models.vanilla_nerf",
     "mipnerf": "soccernerfs_tpu_torch.models.mipnerf",
     "tensorf": "soccernerfs_tpu_torch.models.tensorf",
+    "semantic_nerfw": "soccernerfs_tpu_torch.models.semantic_nerfw",
+    "neus": "soccernerfs_tpu_torch.models.neus",
 }
 
 

@@ -87,6 +87,23 @@ def render_median_rgb(rgb: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.gather(rgb, -2, idx[:, None, None].expand(-1, 1, 3))[:, 0, :]
 
 
+def render_semantics(semantics: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Semantic logits composited along rays: sum(w * logits).
+    [N, S, C], [N, S] -> [N, C]."""
+    return torch.sum(weights[..., None] * semantics, dim=-2)
+
+
+def render_normals(normals: torch.Tensor, weights: torch.Tensor,
+                   normalize: bool = True) -> torch.Tensor:
+    """Normals composited along rays, sum(w * n), then scaled to unit
+    length (+ 1e-10) unless ``normalize`` is False.  [N, S, 3], [N, S] ->
+    [N, 3]."""
+    n = torch.sum(weights[..., None] * normals, dim=-2)
+    if normalize:
+        n = n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-10)
+    return n
+
+
 def render_decomposition(probs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """NeRFPlayer's static / deforming / new probabilities composited along
     rays: sum(w * probs).  [N, S, 3], [N, S] -> [N, 3]."""

@@ -796,8 +796,11 @@ class ViewerState:
 
     def export_commands(self, crop: dict | None = None) -> dict:
         """Shell commands for this run (the page's export panel): the
-        render of the exported camera path; the exporter is not ported
-        yet, so its two entries say so."""
+        render of the exported camera path, the point cloud and the
+        Poisson mesh.  A crop box adds ``--bbox-min/--bbox-max`` to the
+        exports, as the JAX server writes them; neither exporter takes
+        those flags (a trap shared with the reference), so only a command
+        without a crop runs as written."""
         config = self.output_dir / "config.yml"
         path_json = self.output_dir / "camera_path.json"
         crop_args = ""
@@ -816,11 +819,13 @@ class ViewerState:
                 f"--output-path renders/output.mp4"
             ),
             "export_pointcloud": (
-                f"not ported yet: export pointcloud --load-config {config} "
+                f"python -m soccernerfs_tpu_torch.scripts.exporter pointcloud "
+                f"--load-config {config} "
                 f"--output-dir exports/pcd{crop_args}"
             ),
             "export_mesh": (
-                f"not ported yet: export poisson --load-config {config} "
+                f"python -m soccernerfs_tpu_torch.scripts.exporter poisson "
+                f"--load-config {config} "
                 f"--output-dir exports/mesh{crop_args}"
             ),
         }

@@ -2,14 +2,15 @@
 
 The script needs a card; here its CUDA calls are stubbed, the kernel
 wrappers are made to count their plain versions as launches, and small
-K-Planes, nerfacto, nerfplayer-nerfacto, nerfplayer, instant-ngp-bounded,
-nerfplayer-ngp, nerfplayer-ngp-complete, k-planes-static, tensorf,
-vanilla-nerf (dnerf) and mipnerf configs stand in for the full widths (the
-NeRF fields keep theirs over a few samples), so every phase (the
+K-Planes, nerfacto, semantic-nerfw, nerfplayer-nerfacto, nerfplayer,
+instant-ngp-bounded, nerfplayer-ngp, nerfplayer-ngp-complete,
+k-planes-static, tensorf, vanilla-nerf (dnerf), mipnerf and neus configs
+stand in for the full widths (the NeRF fields keep theirs over a few
+samples), so every phase (the
 plane and scatter kernel checks, and per method two counted frames, the
 render CPU comparison, the counted train steps, the train CPU comparison;
-the Trainer phases on tiny fixtures with a few steps; the JSON lines)
-runs in about a minute.
+the Trainer phases on tiny fixtures with a few steps, the exporter's five
+subcommands at small resolutions; the JSON lines) runs in a minute or two.
 Also checks that, without CUDA, the script exits non-zero and prints no
 result, both from the repository and alone in a directory.
 """
@@ -137,6 +138,18 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     small_vnerf = dataclasses.replace(mc.model_configs["vanilla-nerf"],
                                       **nerf_samples)
     small_mip = dataclasses.replace(mc.model_configs["mipnerf"], **nerf_samples)
+    small_semantic = dataclasses.replace(
+        mc.model_configs["semantic-nerfw"], num_semantic_classes=7,
+        **{f.name: getattr(small_nerfacto, f.name)
+           for f in dataclasses.fields(small_nerfacto)})
+    # NeuS's sampler over the registry's planes (0.05 to 1000), a narrow
+    # SDF field
+    small_neus = dataclasses.replace(
+        mc.model_configs["neus"], num_samples=8, num_samples_importance=8,
+        eval_num_rays_per_chunk=512,
+        sdf_field=dataclasses.replace(
+            mc.model_configs["neus"].sdf_field, num_layers=3, hidden_dim=32,
+            geo_feat_dim=16, num_layers_color=2, hidden_dim_color=16))
     for small_name, method, small_cfg in (("small", "k-planes", small),
                                           ("small-nerfacto", "nerfacto",
                                            small_nerfacto),
@@ -158,7 +171,10 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                                           ("small-vnerf", "vanilla-nerf",
                                            small_vnerf),
                                           ("small-mip", "mipnerf", small_mip),
-                                          ("small-dnerf", "dnerf", small_vnerf)):
+                                          ("small-dnerf", "dnerf", small_vnerf),
+                                          ("small-semantic", "semantic-nerfw",
+                                           small_semantic),
+                                          ("small-neus", "neus", small_neus)):
         monkeypatch.setitem(mc.model_configs, small_name, small_cfg)
         for table in (mc.optimizer_configs, mc.model_names,
                       mc.camera_optimizer_configs):
@@ -182,7 +198,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                                ("small-ingp", "instant-ngp-bounded"),
                                ("small-static", "k-planes-static"),
                                ("small-tensorf", "tensorf"),
-                               ("small-dnerf", "dnerf")):
+                               ("small-dnerf", "dnerf"),
+                               ("small-semantic", "semantic-nerfw"),
+                               ("small-neus", "neus")):
         tcfg = copy.deepcopy(mc.trainer_configs[method])
         tcfg.pipeline.model = mc.model_configs[small_name]
         tcfg.pipeline.datamanager.train_num_rays_per_batch = 256
@@ -238,6 +256,20 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "DNERF_FIXTURE", {"num_frames": 3, "h": 16, "w": 16})
     monkeypatch.setattr(cs, "DNERF_STEPS", 2)
     monkeypatch.setattr(cs, "DNERF_RENDER_STEPS", 2)
+    monkeypatch.setattr(cs, "SEMANTIC", "small-semantic")
+    monkeypatch.setattr(cs, "NEUS", "small-neus")
+    monkeypatch.setattr(cs, "NEUS_CPU_RAYS", 32)
+    monkeypatch.setattr(cs, "SITCOMS_FIXTURE", {"num_cameras": 3, "h": 12,
+                                                "w": 16})
+    monkeypatch.setattr(cs, "SEMANTIC_TRAINER_STEPS", 4)
+    monkeypatch.setattr(cs, "NEUS_CLI_STEPS", 2)
+    monkeypatch.setattr(cs, "NEUS_FIXTURE", {"num_frames": 10, "h": 12, "w": 16})
+    monkeypatch.setattr(cs, "NEUS_RENDER_STEPS", 2)
+    monkeypatch.setattr(cs, "EXPORT_ARGS", {
+        "pointcloud": ["--num-cameras", "2"], "cameras": [],
+        "marching-cubes": ["--resolution", "12"],
+        "tsdf": ["--resolution", "12", "--num-cameras", "2"],
+        "poisson": ["--resolution", "16", "--num-cameras", "2"]})
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "DEPTH", "small-depth")
@@ -372,13 +404,14 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                if line.startswith("kernel scatter_add_rows ")]
     ray = [r for r in scatter if r["order"] == "ray"]
     random = [r for r in scatter if r["order"] == "random"]
-    assert len(random) == 8 and len(ray) == 21
+    assert len(random) == 8 and len(ray) == 24
     temporal = {"main": 1, "proposal_0": 1, "proposal_1": 1}
     decomposition = {"static": 2, "temporal": 1, "proposal_0": 1,
                      "proposal_1": 1}
     for method, widths, grids in (
             ("small-nerfacto", {}, ["main", "proposal_0", "proposal_1"]),
             ("small-depth", {}, ["main", "proposal_0", "proposal_1"]),
+            ("small-semantic", {}, ["main", "proposal_0", "proposal_1"]),
             ("small-nerfplayer", temporal, ["main", "proposal_0", "proposal_1"]),
             ("small-np", decomposition, ["proposal_0", "proposal_1", "static",
                                          "static", "temporal", "temporal"]),
@@ -397,11 +430,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                "small-npngp", "small-npngpc"]
     assert [line.split(" (")[1].split(":")[0] for line in in_step] == [
         f"{kind} step) {method}" for method in ["small-nerfacto", "small-depth",
-                                                *methods[1:]]
+                                                "small-semantic", *methods[1:]]
         for kind in ("update", "non-update")]
     assert all("of bound" in line for line in in_step)
     # launches per update and non-update step
-    for line, n in zip(in_step, (3, 1, 3, 1, 3, 1, 6, 4, 1, 1, 1, 1, 4, 4)):
+    for line, n in zip(in_step, (3, 1, 3, 1, 3, 1, 3, 1, 6, 4, 1, 1, 1, 1, 4, 4)):
         assert f"in {n} launches" in line, (line, n)
     # the later methods render and train, and the deferred range check runs
     # where each train phase and CPU check reads a step's loss
@@ -440,17 +473,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # steps, and every one of its 11 + window counted steps; per seed of the
     # CPU checks, each step (K-Planes and the decomposition field's
     # methods: 4 with their witnesses, else 2)
-    # (the classic methods: 3 more train phases, their CPU checks with the
-    # witnesses)
-    assert checks.count("train_phase") == 11 * 4
-    assert checks.count("run") == (8 * (11 + cs.TRAIN_WINDOW)
+    # (the classic methods and NeuS: 4 more train phases, their CPU checks
+    # with the witnesses; semantic-nerfw one more, its check without them)
+    assert checks.count("train_phase") == 13 * 4
+    assert checks.count("run") == (10 * (11 + cs.TRAIN_WINDOW)
                                    + 3 * (11 + cs.OCC_TRAIN_WINDOW))
     assert checks.count("train_cpu_check") == (
         4 * len(cs.TRAIN_CPU_SEEDS) + 2 * len(cs.NERFACTO_CPU_SEEDS)
-        + 4 * len(cs.DEPTH_CPU_SEEDS)
+        + 4 * len(cs.DEPTH_CPU_SEEDS) + 2 * len(cs.SEMANTIC_CPU_SEEDS)
         + (2 + 4) * len(cs.NERFPLAYER_CPU_SEEDS)
         + (2 + 2 + 4) * len(cs.OCC_CPU_SEEDS)
-        + 3 * 4 * len(cs.CLASSIC_CPU_SEEDS))
+        + 3 * 4 * len(cs.CLASSIC_CPU_SEEDS) + 4 * len(cs.NEUS_CPU_SEEDS))
     # the deformation MLP's leaves, with the one-ulp witness beside them
     for method in ("small-np", "small-npngpc"):
         line = next(line for line in lines if line.startswith(
@@ -495,8 +528,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # 2 + 2 + 2 checkpoints of the K-Planes runs (the depth run's 6 steps
     # save at step 4 and at the end), one each of the others (the CLI
     # phases' training among them, and TensoRF's, k-planes on
-    # HyperNeRF data's, instant-ngp-bounded's and dnerf's through the CLI)
-    assert checks.count("save_checkpoint") == 14
+    # HyperNeRF data's, instant-ngp-bounded's and dnerf's through the CLI,
+    # semantic-nerfw's through Trainer.train and neus' through the CLI)
+    assert checks.count("save_checkpoint") == 16
     assert checks.count("_read") >= 4 + 2 + ingp["steps"]
     # the CLI phase: snt-train from a command line, snt-eval with
     # DynMetric's boxes, the viewer's /render requests, snt-render's three
@@ -609,6 +643,51 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert "dnerf-data" in cli_dnerf["train_argv"]
     assert cli_dnerf["render_frames"] == 2 and list(cli_dnerf["losses"]) == ["0"]
     assert all(np.isfinite(cli_dnerf["eval"][k]) for k in ("psnr", "ssim"))
+    # semantic-nerfw: render with the CPU check of its composited logits,
+    # train on batches with labels (3 scatter launches per update step, 1
+    # otherwise), the CPU check of a step; Trainer.train over a Sitcoms3D
+    # capture it writes, then snt-eval
+    assert any(line.startswith("render small-semantic: steady") for line in lines)
+    assert any(line.startswith("cpu check small-semantic (4096 rays): max")
+               and "'semantics'" in line for line in lines)
+    assert any(line.startswith("train small-semantic: window steps") for line in lines)
+    assert any(line.startswith("train cpu check small-semantic, seed 2 ")
+               for line in lines)
+    assert main_path["train small-semantic"]["scatter_add_rows"] >= 1 + 11 + cs.TRAIN_WINDOW
+    (sem,) = phases["trainer_semantic_nerfw"]
+    assert sem["steps"] == 4 and sorted(sem["semantics_loss"]) == ["0", "2"]
+    assert all(v > 0 for v in sem["semantics_loss"].values())
+    assert np.isfinite(sem["eval_batch_semantics_loss"])
+    assert sem["launches"]["trainer"]["scatter_add_rows"] == 3 * 4
+    assert all(np.isfinite(sem["eval"][k]) for k in ("psnr", "ssim"))
+    # neus: one counted frame and a chunk held with its normals, train, the
+    # CPU check of a step with the card's bins and the witnesses; the CLI
+    assert any(line.startswith("render small-neus: 1 frames") for line in lines)
+    assert any(line.startswith("cpu check small-neus (32 rays): max")
+               and "'normals'" in line for line in lines)
+    assert any(line.startswith("train small-neus: window steps") for line in lines)
+    assert any(line.startswith("train cpu check small-neus, seed 2: leaves held "
+                               "with the card's bins") for line in lines)
+    assert sum(main_path["train small-neus"].values()) == 0
+    (cli_neus,) = phases["cli_neus"]
+    assert cli_neus["train_argv"][0] == "small-neus"
+    assert "nerfstudio-data" in cli_neus["train_argv"]
+    assert list(cli_neus["eikonal_loss"]) == ["0"] and cli_neus["render_frames"] == 2
+    assert all(np.isfinite(cli_neus["eval"][k]) for k in ("psnr", "ssim"))
+    # the exporter's five subcommands on cli_kplanes' snapshot, each with
+    # its forward plane kernels counted (cameras renders nothing)
+    (export,) = phases["cli_export"]
+    subs = export["subcommands"]
+    assert list(subs) == ["pointcloud", "cameras", "marching-cubes", "tsdf",
+                          "poisson", "marching-cubes at the median"]
+    assert subs["marching-cubes at the median"]["elements"]["face"] > 0
+    assert all(r["bytes"] > 0 and r["s"] > 0 for r in subs.values())
+    assert subs["pointcloud"]["elements"]["vertex"] > 0
+    assert subs["poisson"]["elements"]["face"] > 0
+    assert set(subs["cameras"]["elements"]) == {"train", "eval"}
+    for cmd in ("pointcloud", "marching-cubes", "tsdf", "poisson",
+                "marching-cubes at the median"):
+        assert sum(main_path[f"cli export {cmd} small"][f] for f in forward) > 0
     k = kernels[4]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))

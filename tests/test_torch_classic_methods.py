@@ -727,10 +727,14 @@ def test_registry_copies(method):
     if method == "tensorf":
         late = convert.seeded_params(small, 0, step=10_000)
         assert late["encodings"]["color"]["plane_coef"].shape[1] == 24
-    assert method not in tmc.not_ported
+    assert method in tmc.trainer_configs
 
 
 def test_not_ported_is_the_rest():
-    assert tmc.not_ported == ("semantic-nerfw", "neus")
-    assert set(tmc.trainer_configs) | set(tmc.not_ported) >= {
-        "vanilla-nerf", "dnerf", "mipnerf", "tensorf", "semantic-nerfw", "neus"}
+    """Nothing of the JAX registry is left: the port's registry is the JAX
+    registry, every table of it included."""
+    assert set(tmc.trainer_configs) == set(method_configs)
+    for table in (tmc.model_configs, tmc.model_names, tmc.optimizer_configs,
+                  tmc.camera_optimizer_configs, tmc.train_num_rays_per_batch,
+                  tmc.descriptions):
+        assert set(method_configs) <= set(table)

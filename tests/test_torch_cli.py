@@ -1,14 +1,23 @@
 """The port's ``snt-train`` command line (``configs/cli.py``) against the JAX
 package's: every argv of tests/test_cli.py and of
 tests/test_eval_render_e2e.py gives the same field values through both
-parsers; the refusals (unknown method or flag, a method not ported yet, a
-flag without a value); ``--help``'s registry; ``--load-config``.
+parsers; the refusals (unknown method or flag, a flag without a value);
+``--help``'s registry; ``--load-config``; the last two methods ported,
+semantic-nerfw and neus, trained through ``snt-train`` and reloaded.
 """
 import copy
 import dataclasses
 
 import pytest
 import torch
+
+from soccernerfs_tpu_torch.data.fixtures import (
+    make_nerfstudio_fixture,
+    make_sitcoms3d_fixture,
+)
+from soccernerfs_tpu_torch.scripts import train as train_script
+from soccernerfs_tpu_torch.utils.eval_utils import eval_setup
+from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
 from soccernerfs_tpu.configs.cli import parse_train_cli as jax_parse
 from soccernerfs_tpu.configs.method_configs import descriptions as jax_descriptions
@@ -52,7 +61,10 @@ def _assert_same_config(port, jax_cfg):
             assert value == getattr(jdm, name), name
     jm = _fields(jax_cfg.pipeline.model)
     for name, value in _fields(port.pipeline.model).items():
-        assert value == jm[name], name
+        if dataclasses.is_dataclass(value):  # neus's SDF field config
+            assert _fields(value) == _fields(jm[name]), name
+        else:
+            assert value == jm[name], name
 
 
 E2E_ARGV = [
@@ -133,6 +145,23 @@ CASES = {
          "nerfstudio-data", "--data", "/tmp/ns"],
         {"pipeline.model.num_importance_samples": 64,
          "pipeline.datamanager.train_num_rays_per_batch": 1024}),
+    # semantic-nerfw on Sitcoms3D, a narrower semantic head's classes
+    "semantic_nerfw_sitcoms3d": (
+        ["semantic-nerfw", "--pipeline.model.num-semantic-classes", "12",
+         "sitcoms3d-data", "--downscale-factor", "2", "--data", "/tmp/sc"],
+        {"pipeline.model.num_semantic_classes": 12,
+         "pipeline.datamanager.dataparser.downscale_factor": 2,
+         "pipeline.datamanager.dataparser.include_semantics": True,
+         "pipeline.model_name": "semantic_nerfw"}),
+    # neus on a nerfstudio scene, its SDF field's width through the nested
+    # frozen config
+    "neus_nerfstudio": (
+        ["neus", "--pipeline.model.sdf-field.hidden-dim", "64",
+         "--pipeline.model.far-plane", "6.0", "nerfstudio-data", "--data",
+         "/tmp/ns"],
+        {"pipeline.model.sdf_field.hidden_dim": 64,
+         "pipeline.model.far_plane": 6.0, "mixed_precision": False,
+         "pipeline.datamanager.train_num_rays_per_batch": 1024}),
     "eval_render_e2e": (
         E2E_ARGV,
         {"max_num_iterations": 2, "steps_per_save": 2,
@@ -175,19 +204,90 @@ def test_cli_matches_jax(case):
      "unknown key"),
     (["k-planes", "--max-num-iterations"], "needs a value"),
     (["k-planes", "stray"], "unexpected token"),
-    *[([method], "not ported yet") for method in mc.not_ported],
 ])
 def test_cli_exits(argv, message):
     with pytest.raises(SystemExit, match=message):
         parse_train_cli(argv)
 
 
+# the last two methods the port took on: each trains a few steps through
+# snt-train at narrow widths, and eval_setup reloads the run
+TRAINS = {
+    "semantic-nerfw": (
+        ["--pipeline.model.num-levels", "3", "--pipeline.model.max-res", "64",
+         "--pipeline.model.log2-hashmap-size", "12",
+         "--pipeline.model.hidden-dim", "16",
+         "--pipeline.model.hidden-dim-color", "16",
+         "--pipeline.model.num-proposal-samples-per-ray", "12", "8",
+         "--pipeline.model.num-nerf-samples-per-ray", "6",
+         "--pipeline.model.num-semantic-classes", "3",
+         "--pipeline.model.eval-num-rays-per-chunk", "256",
+         "--pipeline.datamanager.train-num-rays-per-batch", "128",
+         "--pipeline.datamanager.eval-num-rays-per-batch", "128",
+         "sitcoms3d-data"],
+        lambda root: make_sitcoms3d_fixture(root, num_cameras=3, h=12, w=16)),
+    "neus": (
+        ["--pipeline.model.sdf-field.num-layers", "3",
+         "--pipeline.model.sdf-field.hidden-dim", "32",
+         "--pipeline.model.sdf-field.geo-feat-dim", "16",
+         "--pipeline.model.sdf-field.num-layers-color", "2",
+         "--pipeline.model.sdf-field.hidden-dim-color", "16",
+         "--pipeline.model.num-samples", "16",
+         "--pipeline.model.num-samples-importance", "16",
+         "--pipeline.model.near-plane", "1.0", "--pipeline.model.far-plane", "4.0",
+         "--pipeline.model.eval-num-rays-per-chunk", "256",
+         "--pipeline.datamanager.train-num-rays-per-batch", "128",
+         "nerfstudio-data"],
+        lambda root: make_nerfstudio_fixture(root, num_frames=10, h=12, w=16)),
+}
+
+
+@pytest.mark.parametrize("method", sorted(TRAINS))
+def test_cli_trains_and_reloads(method, tmp_path, monkeypatch):
+    """Three steps through snt-train on the CPU (a finite loss at every
+    logged step, a checkpoint at the end); eval_setup reloads the run with
+    the trainer's params bit for bit."""
+    from soccernerfs_tpu_torch.utils import writer
+
+    flags, fixture = TRAINS[method]
+    data = fixture(tmp_path / "data")
+    seen = []
+
+    class Sink(writer.Writer):
+        def write_scalar(self, name, scalar, step):
+            seen.append((name, step, scalar))
+
+    sink = Sink()
+    setup_writers = writer.setup_writers
+
+    def with_sink(*args, **kwargs):
+        setup_writers(*args, **kwargs)
+        writer._SINKS.append(sink)
+
+    monkeypatch.setattr(writer, "setup_writers", with_sink)
+    trainer = train_script.main(
+        [method, "--max-num-iterations", "3", "--steps-per-save", "3",
+         "--vis", "none", "--logging.steps-per-log", "1",
+         "--output-dir", str(tmp_path / "out"), *flags, "--data", str(data)],
+        device="cpu")
+    writer._SINKS.remove(sink)
+    losses = [v for n, _s, v in seen if n == "Train Loss"]
+    assert len(losses) == 3 and all(torch.isfinite(torch.tensor(losses)))
+    if method == "semantic-nerfw":
+        assert [n for n, _s, _v in seen if n.endswith("/semantics_loss")]
+    else:
+        assert [n for n, _s, _v in seen if n.endswith("/eikonal_loss")]
+    config, loaded, step = eval_setup(trainer.base_dir / "config.yml", device="cpu")
+    assert config.method_name == method and step == 3
+    for a, b in zip(tree_leaves(loaded.state.params), tree_leaves(trainer.state.params)):
+        assert torch.equal(a, b)
+
+
 def test_cli_registry_and_help(capsys):
-    """The port's methods and the ones not ported yet make up the JAX
-    registry; the descriptions are JAX's; --help lists them and exits 0."""
+    """The port's methods are the JAX registry; the descriptions are JAX's;
+    --help lists them and exits 0."""
     assert set(mc.descriptions) == set(mc.trainer_configs)
-    assert set(mc.trainer_configs) | set(mc.not_ported) == set(jax_registry)
-    assert not set(mc.trainer_configs) & set(mc.not_ported)
+    assert set(mc.trainer_configs) == set(jax_registry)
     assert mc.descriptions == {k: jax_descriptions[k] for k in mc.descriptions}
     for argv in (["--help"], ["k-planes", "--help"]):
         with pytest.raises(SystemExit) as exit_info:

@@ -131,7 +131,7 @@ def test_dataparser_registry_names():
                                 "stadium-data", "closeup-data",
                                 "broadcaststyle-data", "stadiumwide-data",
                                 "dynamic-data", "hypernerf-data",
-                                "dnerf-data"}
+                                "dnerf-data", "sitcoms3d-data"}
     for name, cls in DATAPARSERS.items():
         jcls = JAX_PARSERS[name]
         assert cls.__name__ == jcls.__name__

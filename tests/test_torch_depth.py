@@ -576,7 +576,7 @@ def test_depth_nerfacto_registry_copy():
     assert type(dm.dataparser).__name__ == type(jdm.dataparser).__name__
     assert not dm.use_importance_sampling and dm.camera_optimizer.mode == "SO3xR3"
     assert get_model("depth_nerfacto") is tdn
-    assert "depth-nerfacto" not in tmc.not_ported
+    assert "depth-nerfacto" in tmc.trainer_configs
     small = tdn.Config(**NERFACTO_SMALL)
     tree = convert.seeded_params(small, 0, N_CAMS)
     jtree = jdn.init(jax.random.PRNGKey(0), jdn.Config(**NERFACTO_SMALL), N_CAMS)

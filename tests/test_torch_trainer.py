@@ -373,6 +373,9 @@ def _same_config(port, jax_cfg, where):
     pf, jf = _fields(port), _fields(jax_cfg)
     for name, value in pf.items():
         assert name in jf, f"{where}.{name}"
+        if dataclasses.is_dataclass(value):  # a nested config (neus's SDF field)
+            _same_config(value, jf[name], f"{where}.{name}")
+            continue
         assert value == jf[name], f"{where}.{name}: {value} != {jf[name]}"
     defaults = {f.name: f.default for f in dataclasses.fields(jax_cfg)}
     for name in set(jf) - set(pf):
