@@ -27,7 +27,14 @@
      its static grid, nerfplayer-ngp's one width-1 launch over its
      temporal grid and nerfplayer-ngp-complete's 4; each with its L2
      reductions (scatter_plan) and their rate.  A case's time is the
-     median of five passes of 20 launches.
+     median of five passes of 20 launches.  The render path's fused plane
+     kernel (kplanes_fwd_fused, one launch per K-Planes scale) on its own
+     operands: chunk 0 of camera 0's frame, captured at the wrapper for
+     the main field's five scales and proposal_0, bit-equal to its plain
+     version (within 1e-5 relative), timed beside the per-plane route it
+     replaced (grid_coords, bilerp_fwd_* per plane group, the in-place
+     product, the column copy) and grid_sample per plane shape with the
+     product, against the coordinates, features and touched table rows.
   4. Render phases, ``k-planes``, ``nerfacto``, ``depth-nerfacto`` (nerfacto's
      forward), ``nerfplayer-nerfacto``
      (temporal hash grids), ``nerfplayer`` (the decomposition field), then
@@ -36,7 +43,9 @@
      weights drawn from a numpy seed and loaded through ``params_from_jax``
      (the occupancy methods' grid state from one all-cells update at those
      weights): two counted 960x540 frames through ``render_camera``
-     (K-Planes fails unless both forward kernels launched), two timed
+     (K-Planes fails unless the fused plane kernel launched and no
+     per-plane forward kernel did; the profiled frame's fused time against
+     its in-frame byte bound), two timed
      frames, one profiled with torch.profiler; then one 4096-ray chunk on
      the CPU (the kernels' plain versions) against the card, a random
      background handed to both sides as the same draws, an occupancy
@@ -125,9 +134,10 @@
      three /keyframe and an /export_path; ``scripts.render.main`` renders
      an 8-frame spiral (rgb, depth, accumulation side by side), an
      interpolated path and the exported camera_path.json as PNG frames.
-     Fails unless all four plane kernels launched in training and both
-     forward kernels in eval, in the viewer's /render requests and in
-     render, and every JSON, PNG and frame has its keys and size.  Prints
+     Fails unless all four train plane kernels launched in training and
+     the fused one, and no per-plane forward kernel, in eval, in the
+     viewer's /render requests and in render, and every JSON, PNG and
+     frame has its keys and size.  Prints
      the loop's rays/s, eval rays/s and fps, s/frame per trajectory, ms
      per /render by size (the first apart), ``eval_setup`` ms and peak
      memory.  Then ``cli_depth_nerfacto``: ``snt-train depth-nerfacto ...
@@ -169,8 +179,9 @@
      (``scripts.exporter``'s pointcloud, cameras, marching-cubes, tsdf
      and poisson at their defaults on ``cli_kplanes``' snapshot, and
      marching-cubes at the density's median on a 32^3 grid, each timed,
-     with the forward plane kernels it launched counted).
-Prints a JSON line with the five kernels' results, the card line, and last
+     with the plane kernels it launched counted: the fused one in every
+     subcommand but cameras, no per-plane forward kernel).
+Prints a JSON line with the six kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
 
@@ -373,6 +384,9 @@ def method_parts(method):
             mc.camera_optimizer_configs[method])
 
 
+# the per-plane forward kernels: the train forward's; a pure render
+# launches none of them (its planes go through kplanes_fwd_fused)
+FORWARD = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
 XZ_YZ = ([(0, 1), (1, 3)], 2)              # [(c1, plane index)], c2
 XT_YT_ZT = ([(0, 2), (1, 4), (2, 5)], 3)
 
@@ -487,6 +501,192 @@ def kernel_phase(cfg, staged, dev):
         del pts, rowids, txs, ty, inp, grid
         torch.cuda.empty_cache()
     return results
+
+
+def capture_fused_launches(method, params, cams, dev, aabb, fields) -> list:
+    """The fused launches of chunk 0 of camera 0's frame, where
+    interpolate_kplanes hands them to the kernel: the render path's own
+    points, captured at ``pk._launch_fused`` during one frame of
+    ``render_camera`` (every launch runs as usual).  ``fields`` names the
+    fields to capture, {label: (F, M, scales)}, told apart by feature
+    width and point count; the chunk's first ``scales`` launches of each.
+    Returns [(label, scale, pts, tables, planes, out's row stride, out's
+    column offset)]."""
+    from soccernerfs_tpu_torch.configs.method_configs import model_names
+    from soccernerfs_tpu_torch.engine.render import render_camera
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    _module, cfg, _camera_optimizer = method_parts(method)
+    launch = pk._launch_fused
+    captured, seen = [], {}
+
+    def capture(pts, tables, planes, out):
+        for label, (feat, m, scales) in fields.items():
+            if (out.shape[1], pts.shape[0]) == (feat, m):
+                scale = seen.get(label, 0)
+                seen[label] = scale + 1
+                if scale < scales:
+                    captured.append((label, scale, pts.clone(), list(tables),
+                                     list(planes), out.stride(0),
+                                     out.storage_offset() % out.stride(0)))
+        return launch(pts, tables, planes, out)
+
+    pk._launch_fused = capture
+    try:
+        render_camera(cfg, params, cams, 0, device=dev, aabb=aabb,
+                      model=model_names[method])
+    finally:
+        pk._launch_fused = launch
+    torch.cuda.synchronize()
+    return captured
+
+
+def unstaged_planes(tables, planes, feat):
+    """The bf16 plane values of staged tables as f32 [F, h, w] (a packed
+    row's first quarter is the plane's own cell)."""
+    return [t[:, :feat].reshape(h, w, feat).float().permute(2, 0, 1).contiguous()
+            for t, (_c1, _c2, h, w) in zip(tables, planes)]
+
+
+def fused_kernel_phase(cfg, staged, cams, dev, aabb):
+    """kplanes_fwd_fused on the render path's own operands: chunk 0 of
+    camera 0's frame, captured for the main field's scales and proposal_0
+    (capture_fused_launches), each launch against its plain version
+    (KERNEL_REL_TOL; bit-equal expected) and timed (CUDA events, L2
+    flushed) beside the route it replaced on the render path (grid_coords
+    per axis, bilerp_fwd_unpacked / _packed per plane group, the in-place
+    product in group order, the column copy) and the library yardstick
+    (F.grid_sample per shape group of f32 planes, the product in the
+    planes' order, the column copy), into a fresh [M, S*F] buffer at the
+    launch's column.  Bound: bytes, the coordinates read and the F f32
+    features written once, and the table rows the points touch
+    (``touched_table_bytes``)."""
+    from soccernerfs_tpu_torch.ops.grid_sample import grid_coords
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    chunk = cfg.eval_num_rays_per_chunk
+    field = staged["fields"]
+    prop = staged["proposal_networks"]["proposal_0"]
+    fields = {
+        "field": (field["grids"][0][0].shape[-1],
+                  chunk * cfg.num_nerf_samples_per_ray, len(field["grids"])),
+        "proposal0": (prop["grids"][0][0].shape[-1],
+                      chunk * cfg.num_proposal_samples_per_ray[0], 1),
+    }
+    rows = []
+    for label, s, pts, tables, planes, stride, col in capture_fused_launches(
+            MODEL, staged, cams, dev, aabb, fields):
+        m, dim = pts.shape
+        feat = fields[label][0]
+        buf = torch.empty((m, stride), device=dev)
+        out = buf[:, col:col + feat]
+        kinds = ["unpacked" if t.shape[1] == feat else "packed" for t in tables]
+
+        def kern():
+            return pk.kplanes_fwd_fused(pts, tables, planes, out)
+
+        def plain():
+            return pk.kplanes_fwd_fused_plain(pts, tables, planes, out)
+
+        groups = {}
+        for i, (_c1, c2, _h, w) in enumerate(planes):
+            groups.setdefault((c2, w), []).append(i)
+
+        def old_route():
+            acc = None
+            for (c2, w), members in groups.items():
+                h = planes[members[0]][2]
+                yc, ty = grid_coords(pts[:, c2], h)
+                rowids, txs = [], []
+                for i in members:
+                    xc, tx = grid_coords(pts[:, planes[i][0]], w)
+                    rowids.append(yc * w + xc)
+                    txs.append(tx)
+                group = [tables[i] for i in members]
+                if kinds[members[0]] == "unpacked":
+                    feats = pk.bilerp_fwd_unpacked(group, rowids, txs, ty, h=h, w=w)
+                else:
+                    feats = pk.bilerp_fwd_packed(group, rowids, txs, ty)
+                for f in feats:
+                    acc = f if acc is None else acc.mul_(f)
+            return out.copy_(acc)
+
+        shapes = {}
+        for i, (_c1, _c2, h, w) in enumerate(planes):
+            shapes.setdefault((h, w), []).append(i)
+        inputs = {key: torch.stack(unstaged_planes([tables[i] for i in idx],
+                                                   [planes[i] for i in idx], feat))
+                  for key, idx in shapes.items()}
+
+        def library():
+            per_plane = [None] * len(planes)
+            for key, idx in shapes.items():
+                grid = torch.stack([pts[:, [planes[i][0], planes[i][1]]]
+                                    for i in idx])[:, None]
+                res = torch.nn.functional.grid_sample(
+                    inputs[key], grid, mode="bilinear", padding_mode="border",
+                    align_corners=True)
+                for j, i in enumerate(idx):
+                    per_plane[i] = res[j, :, 0]
+            acc = per_plane[0].clone()
+            for f in per_plane[1:]:
+                acc.mul_(f)
+            return out.copy_(acc.t())
+
+        got = kern().clone()
+        want = plain().clone()
+        old = old_route().clone()
+        lib = library().clone()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= KERNEL_REL_TOL * scale:
+            raise AssertionError(f"kplanes_fwd_fused {label} scale {s}: max "
+                                 f"|kernel - plain| = {err} > {KERNEL_REL_TOL}"
+                                 f" * {scale}")
+        old_err = float((old - want).abs().max())
+        lib_err = float((lib - want).abs().max())
+        del got, want, old, lib
+
+        ms = time_ms(kern, 20)
+        plain_ms = time_ms(plain, 3)
+        old_ms = time_ms(old_route, 10)
+        library_ms = time_ms(library, 5)
+        touched = 0
+        for table, (c1, c2, h, w), kind in zip(tables, planes, kinds):
+            xc, _tx = grid_coords(pts[:, c1], w)
+            yc, _ty = grid_coords(pts[:, c2], h)
+            touched += touched_table_bytes(
+                kind, [table], [yc * w + xc],
+                (h, w) if kind == "unpacked" else (table.shape[0],))
+        whole = sum(t.numel() * t.element_size() for t in tables)
+        bytes_ = m * dim * 4 + m * feat * 4 + touched
+        # per point and plane: 7 operations a coordinate, 2 one-minus, 9 a
+        # feature to lerp, 1 to multiply
+        flops = m * len(planes) * (16 + 10 * feat)
+        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        row = {
+            "case": f"{label} scale {s}, chunk 0 of camera 0, {len(planes)} "
+                    f"planes {[list(p) for p in planes]}, tables {kinds}, "
+                    f"column {col} of {stride}",
+            "order": "frame", "planes": len(planes), "M": m, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "old_route_ms": old_ms,
+            "old_route_max_abs_diff": old_err, "library_ms": library_ms,
+            "library_max_abs_diff": lib_err, "bytes": bytes_,
+            "whole_table_bytes": whole, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        log("kernel fused", json.dumps(row))
+        rows.append(row)
+        del pts, tables, buf, out, inputs
+        torch.cuda.empty_cache()
+    want = {"proposal0 scale 0",
+            *[f"field scale {s}" for s in range(fields["field"][2])]}
+    if sorted(r["case"].split(",")[0] for r in rows) != sorted(want):
+        raise AssertionError(f"captured fused launches: {[r['case'] for r in rows]}")
+    return {"kplanes_fwd_fused": rows}
 
 
 def bwd_kernel_cases(cfg, params):
@@ -1084,8 +1284,8 @@ def make_cameras(dev):
 def profile_device(label, fn, trace_path):
     """Device time by kernel over one call of ``fn``; busy share of the
     wall time.  Returns {kernel wrapper name: device ms} of the port's
-    kernels (templates bilerp_{fwd,bwd}_kernel<F, packed> and
-    scatter_add_rows_kernel<C>)."""
+    kernels (templates bilerp_{fwd,bwd}_kernel<F, packed>,
+    scatter_add_rows_kernel<C> and kplanes_fwd_fused_kernel<F, P>)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1109,7 +1309,8 @@ def profile_device(label, fn, trace_path):
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     plane_us = sum(r[0] for r in rows
-                   if "bilerp_" in r[2] or "scatter_add_rows_kernel" in r[2])
+                   if "bilerp_" in r[2] or "scatter_add_rows_kernel" in r[2]
+                   or "kplanes_fwd_fused_kernel" in r[2])
     # one stream: kernels do not overlap, so their sum is the busy time
     log(f"profile {label}: wall {wall * 1e3:.3f} ms (profiled), "
         f"{sum(r[1] for r in rows)} kernels, device kernel "
@@ -1126,18 +1327,17 @@ def profile_device(label, fn, trace_path):
     }
     times["scatter_add_rows"] = sum(
         r[0] for r in rows if "scatter_add_rows_kernel<" in r[2]) / 1e3
+    times["kplanes_fwd_fused"] = sum(
+        r[0] for r in rows if "kplanes_fwd_fused_kernel<" in r[2]) / 1e3
     return times
 
 
 def frame_plane_bound_ms(cfg, staged, n_chunks):
-    """Least time the plane kernels of one frame could take, per kernel:
-    ``group_bytes`` of every launch of every chunk (the planes of a scale
-    grouped as interpolate_kplanes groups them; times given, so all six
-    planes) at the card's memory rate."""
-    from soccernerfs_tpu_torch.fields.kplanes import (plane_combinations,
-                                                      plane_groups)
-
-    planes = [(ci, c1, c2) for ci, (c1, c2) in enumerate(plane_combinations(4))]
+    """Least time the fused plane launches of one frame could take: per
+    chunk, level (the proposal fields', the main field) and scale, the
+    coordinates read (times given, so 4 a point) and the F f32 features
+    written once, and the scale's whole staged tables read once, at the
+    card's memory rate."""
     chunk = cfg.eval_num_rays_per_chunk
     levels = [
         (staged["proposal_networks"][f"proposal_{idx}"],
@@ -1145,15 +1345,12 @@ def frame_plane_bound_ms(cfg, staged, n_chunks):
         for it, (idx, _d) in enumerate(cfg.density_field_configs())
     ]
     levels.append((staged["fields"], chunk * cfg.num_nerf_samples_per_ray))
-    total = {"bilerp_fwd_unpacked": 0, "bilerp_fwd_packed": 0}
+    total = 0
     for params, m in levels:
-        for grids, staged_tables in zip(params["grids"], params["grids_packed"]):
-            for members in plane_groups(planes, grids).values():
-                tables = [staged_tables[ci] for ci, _c1 in members]
-                feat = grids[members[0][0]].shape[-1]
-                kind = "unpacked" if tables[0].shape[-1] == feat else "packed"
-                total[f"bilerp_fwd_{kind}"] += group_bytes(m, feat, tables)
-    return {k: v * n_chunks / H100_BYTES_PER_S * 1e3 for k, v in total.items()}
+        for grids, tables in zip(params["grids"], params["grids_packed"]):
+            total += (m * 4 * 4 + m * grids[0].shape[-1] * 4
+                      + sum(t.numel() * t.element_size() for t in tables))
+    return {"kplanes_fwd_fused": total * n_chunks / H100_BYTES_PER_S * 1e3}
 
 
 def cpu_stat():
@@ -1746,10 +1943,12 @@ def occupancy_cpu_check(module, cfg, trainers, states, dev, seed, step_draws,
 
 
 def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
-                 aux=None, frames=(0, 1), steady=(0, 1), profile=True):
+                 aux=None, frames=(0, 1), steady=(0, 1), profile=True,
+                 must_not_launch=()):
     """A method's render main path, counted: whole frames of the cameras
     ``frames`` through ``render_camera`` (with the model state ``aux``, an
-    occupancy model's grid); then timed frames of the cameras ``steady``
+    occupancy model's grid), every kernel of ``must_launch`` launched and
+    none of ``must_not_launch``; then timed frames of the cameras ``steady``
     (none: the counted frames' times stand for them) and, with
     ``profile``, one profiled frame.  Returns the counted frames' launches
     and the profiled frame's device time per kernel (empty without
@@ -1779,6 +1978,10 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the {method} "
                                  f"render path")
+    for name in must_not_launch:
+        if launches[name] != 0:
+            raise AssertionError(f"{name} was launched {launches[name]} times "
+                                 f"by the {method} render path")
     for i, fr in enumerate(frames):
         rgb, depth, acc = fr["rgb"], fr["depth"], fr["accumulation"]
         assert rgb.shape == (H, W, 3) and depth.shape == (H, W), (rgb.shape, depth.shape)
@@ -2103,7 +2306,8 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
     checkpoint (its state bit-equal) runs to step 96.  Fails unless the
     cache refreshed twice with IST weights, a batch held
     floor(is_pixel_ratio * rays) IST rays, every loss was finite, every
-    param group moved and all four plane kernels launched in the loop."""
+    param group moved and all five plane kernels launched in the loop (the
+    fused one by the eval image at step 32)."""
     from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
     from soccernerfs_tpu_torch.data.fixtures import make_broadcaststyle_fixture
     from soccernerfs_tpu_torch.engine import checkpoints
@@ -2309,8 +2513,8 @@ def trainer_kplanes_depth_phase(dev, root, launches) -> None:
     steps with IST as ``trainer_kplanes`` sets it: each cache refresh
     decodes the depth maps beside the images, and every batch carries
     target depths.  Fails unless ``depth_loss`` is finite, positive and in
-    the writer's events at every log step, and all four plane kernels
-    launched in the loop."""
+    the writer's events at every log step, and all four train plane
+    kernels launched in the loop."""
     from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
     from soccernerfs_tpu_torch.engine.trainer import Trainer
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
@@ -2344,7 +2548,7 @@ def trainer_kplanes_depth_phase(dev, root, launches) -> None:
     launches[f"trainer {MODEL} depth"] = counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_finite_events(sink, tag)
-    missing = [k.__name__ for k in pk.KERNELS if counts[k.__name__] <= 0]
+    missing = [k.__name__ for k in pk.TRAIN_KERNELS if counts[k.__name__] <= 0]
     if missing:
         raise AssertionError(f"{tag}: {missing} not launched in the loop")
     depth = {step: v for n, step, v in sink.scalars
@@ -2596,8 +2800,8 @@ def trainer_kplanes_hypernerf_phase(dev, root, launches) -> None:
     capture of HYPERNERF_FIXTURE (two sides, distorted cameras) for
     HYPERNERF_STEPS steps, IST from HYPERNERF_IST_FROM; then one eval
     image.  Fails unless all four plane kernels launched in training and
-    both forward kernels in the eval image, the losses stay finite and the
-    image is finite."""
+    the fused one, and no per-plane forward kernel, in the eval image, the
+    losses stay finite and the image is finite."""
     import dataclasses
 
     from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
@@ -2627,7 +2831,7 @@ def trainer_kplanes_hypernerf_phase(dev, root, launches) -> None:
     train_s = time.perf_counter() - t0
     launches[f"trainer {MODEL} hypernerf"] = counts = launch_counts()
     check_finite_events(sink, tag)
-    missing = [k.__name__ for k in pk.KERNELS if counts[k.__name__] <= 0]
+    missing = [k.__name__ for k in pk.TRAIN_KERNELS if counts[k.__name__] <= 0]
     if missing:
         raise AssertionError(f"{tag}: {missing} not launched in training")
     reset_launch_counts()
@@ -2636,7 +2840,7 @@ def trainer_kplanes_hypernerf_phase(dev, root, launches) -> None:
     torch.cuda.synchronize()
     image_s = time.perf_counter() - t0
     launches[f"eval image {MODEL} hypernerf"] = counts = launch_counts()
-    if (counts["bilerp_fwd_unpacked"] <= 0 or counts["bilerp_fwd_packed"] <= 0
+    if (counts["kplanes_fwd_fused"] <= 0 or any(counts[k] for k in FORWARD)
             or not np.isfinite(image["psnr"])):
         raise AssertionError(f"{tag}: eval image {image}, launches {counts}")
     cams = trainer.train_cameras
@@ -2701,10 +2905,11 @@ def cli_phase(dev, root, launches) -> None:
     at VIEWER_SIZES, three /keyframe and an /export_path;
     ``scripts.render.main`` renders a spiral (rgb, depth and accumulation
     side by side), an interpolated path and the exported camera_path.json
-    as PNG frames.  Fails unless all four plane kernels launched in
-    training and both forward kernels in eval, in the viewer's /render
-    requests and in render, the checkpoint and config exist, psnr, dpsnr
-    and dssim are finite, and every frame and PNG has its size."""
+    as PNG frames.  Fails unless all four train plane kernels launched in
+    training and the fused one, and no per-plane forward kernel, in eval,
+    in the viewer's /render requests and in render, the checkpoint and
+    config exist, psnr, dpsnr and dssim are finite, and every frame and
+    PNG has its size."""
     import io
     import threading
     import urllib.request
@@ -2722,12 +2927,15 @@ def cli_phase(dev, root, launches) -> None:
     from soccernerfs_tpu_torch.viewer.server import make_server
 
     tag = f"cli_kplanes {MODEL}"
-    forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
+    render = (pk.kplanes_fwd_fused.__name__,)
 
-    def require(path, names):
+    def require(path, names, none=()):
         missing = [n for n in names if launches[path][n] <= 0]
         if missing:
             raise AssertionError(f"{tag}: {missing} not launched in {path!r}")
+        extra = [n for n in none if launches[path][n] != 0]
+        if extra:
+            raise AssertionError(f"{tag}: {extra} launched in {path!r}")
 
     data = root / "broadcaststyle"
     out = root / "cli"
@@ -2752,7 +2960,7 @@ def cli_phase(dev, root, launches) -> None:
     finally:
         Trainer.train, Trainer.save_checkpoint = train, save
     launches[f"cli train {MODEL}"] = launch_counts()
-    require(f"cli train {MODEL}", [k.__name__ for k in pk.KERNELS])
+    require(f"cli train {MODEL}", [k.__name__ for k in pk.TRAIN_KERNELS])
     rays = trainer.datamanager.get_train_rays_per_batch()
     run_dir = trainer.base_dir
     config = run_dir / "config.yml"
@@ -2790,7 +2998,7 @@ def cli_phase(dev, root, launches) -> None:
         else:
             os.environ["SNT_DYNMETRIC_BOXES"] = saved_env
     launches[f"cli eval {MODEL}"] = launch_counts()
-    require(f"cli eval {MODEL}", forward)
+    require(f"cli eval {MODEL}", render, FORWARD)
     results = info["results"]
     if not ({"experiment_name", "method_name", "checkpoint", "results"} <= set(info)
             and all(results.get(k) is not None and np.isfinite(results[k])
@@ -2828,7 +3036,7 @@ def cli_phase(dev, root, launches) -> None:
                     raise AssertionError(f"{tag}: /render {output} at "
                                          f"{width}x{height} gave {size}")
         launches[f"viewer {MODEL}"] = launch_counts()
-        require(f"viewer {MODEL}", forward)
+        require(f"viewer {MODEL}", render, FORWARD)
         path = get_spiral_path(cams, steps=6)
         for i, t in zip((0, 2, 4), (0.0, 0.5, 1.0)):
             post(f"{url}/keyframe", {"c2w": path.camera_to_worlds[i].tolist(),
@@ -2886,7 +3094,7 @@ def cli_phase(dev, root, launches) -> None:
     finally:
         render_script.eval_setup = eval_utils.eval_setup
     launches[f"cli render {MODEL}"] = launch_counts()
-    require(f"cli render {MODEL}", forward)
+    require(f"cli render {MODEL}", render, FORWARD)
 
     first = render_ms[0]
     by_size = {}
@@ -3585,8 +3793,9 @@ def cli_export_phase(dev, root, launches) -> None:
     faces, which ``write_ply`` writes one Python call each, ~86 s).
     Fails unless each writes a non-empty PLY or JSON (a PLY's header, a
     JSON with both splits' cameras), the point cloud, the Poisson mesh and
-    the median's mesh have vertices, and the forward plane kernels
-    launched in every subcommand but cameras."""
+    the median's mesh have vertices, the fused plane kernel launched in
+    every subcommand but cameras, and no per-plane forward kernel in
+    any."""
     from soccernerfs_tpu_torch.scripts import exporter
     from soccernerfs_tpu_torch.utils.eval_utils import eval_setup
 
@@ -3626,9 +3835,11 @@ def cli_export_phase(dev, root, launches) -> None:
                      if ln.startswith("element")}
             if label != "marching-cubes" and not sizes.get("vertex"):
                 raise AssertionError(f"{tag}: {label} wrote {sizes}")
-        forward = counts["bilerp_fwd_unpacked"] + counts["bilerp_fwd_packed"]
-        if cmd != "cameras" and forward <= 0:
-            raise AssertionError(f"{tag}: {cmd} launched no forward plane kernel")
+        if cmd != "cameras" and counts["kplanes_fwd_fused"] <= 0:
+            raise AssertionError(f"{tag}: {cmd} launched no fused plane kernel")
+        if any(counts[k] for k in FORWARD):
+            raise AssertionError(f"{tag}: {cmd} launched a per-plane forward "
+                                 f"kernel: {counts}")
         rows[label] = {"s": seconds, "bytes": len(raw), "elements": sizes,
                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                        "args": extra, "launches": counts}
@@ -3681,21 +3892,24 @@ def main() -> int:
     _module, cfg, _camera_optimizer = method_parts(MODEL)
     tree, params, staged = make_params(MODEL, dev, time_noise=0.05)
     kernels.update(kernel_phase(cfg, staged, dev))
+    kernels.update(fused_kernel_phase(cfg, staged, cams, dev, aabb))
     kernels.update(bwd_kernel_phase(cfg, params, tree, dev))
-    forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
+    # the render path: the fused kernel, and no per-plane forward kernel
     launches[f"render {MODEL}"], in_frame = render_phase(
-        MODEL, staged, cams, dev, aabb, args.trace, must_launch=forward)
+        MODEL, staged, cams, dev, aabb, args.trace,
+        must_launch=[pk.kplanes_fwd_fused.__name__], must_not_launch=FORWARD)
     n_chunks = -(-H * W // cfg.eval_num_rays_per_chunk)
     for name, bound in frame_plane_bound_ms(cfg, staged, n_chunks).items():
         log(f"in-frame {name}: {in_frame[name]:.3f} ms device, bound "
-            f"{bound:.3f} ms (bytes)"
+            f"{bound:.3f} ms (bytes, whole tables per launch)"
             + (f", {bound / in_frame[name]:.4f} of bound" if in_frame[name] else ""))
     render_cpu_check(MODEL, tree, staged, cams, dev, aabb)
     del staged, params
     torch.cuda.empty_cache()
     fwd_bounds = fwd_step_bounds(tree, dev)
     launches[f"train {MODEL}"], in_step = train_phase(
-        MODEL, tree, dev, args.trace, must_launch=[k.__name__ for k in pk.KERNELS])
+        MODEL, tree, dev, args.trace,
+        must_launch=[k.__name__ for k in pk.TRAIN_KERNELS])
     for update, (times, _counts) in in_step.items():
         log(f"in-step kernels, {MODEL} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
@@ -3828,14 +4042,18 @@ def main() -> int:
         "bilerp_bwd_unpacked": (f"{pallas}:1418", "plane_bwd_kernels.cu"),
         "bilerp_bwd_packed": (f"{pallas}:1156", "plane_bwd_kernels.cu"),
         "scatter_add_rows": (f"{pallas}:1342", "scatter_kernels.cu"),
+        # the render path's launches of both forward kernels, fused
+        "kplanes_fwd_fused": (f"{pallas}:591,1062", "plane_kernels.cu"),
     }
     log("main-path launches:", json.dumps(launches))
     summary = []
-    for name, rows in kernels.items():
+    for name in (k.__name__ for k in all_kernels()):
+        rows = kernels[name]
         # the kernel phases' own cases, as earlier runs summed them; the
         # backward kernels' captured train-step launches have lines of
-        # their own
-        rows = [r for r in rows if r.get("order", "random") == "random"]
+        # their own; the fused kernel's cases are a frame's own launches
+        rows = [r for r in rows
+                if r.get("order", "random") == "random"] or rows
         t_bytes = sum(r["bytes"] for r in rows) / H100_BYTES_PER_S * 1e3
         t_ops = sum(r["flops"] for r in rows) / H100_F32_FLOPS * 1e3
         count = sum(path[name] for path in launches.values())

@@ -8,8 +8,9 @@ This follows the JAX package's unsorted sampler (``interpolate_kplanes``).
 Its stripe-sorted samplers exist because Mosaic cannot lower a vector
 gather; a CUDA thread gathers (and atomically scatters) directly, so every
 path samples in ray order through the CUDA kernels: the render path the
-tables staged once by ``pack_grids_for_render``, the train path the grids
-themselves through the differentiable group samplers of ops/grid_sample.
+tables staged once by ``pack_grids_for_render``, one fused launch per scale
+(``plane_kernels.kplanes_fwd_fused``), the train path the grids themselves
+through the differentiable group samplers of ops/grid_sample.
 
 Kept from the JAX package: the proposal field maps bounded positions to
 [-1, 1] like the main field (the reference left them in [0, 1]), and
@@ -34,11 +35,10 @@ from soccernerfs_tpu_torch.ops.grid_sample import (
     grid_coords,
     plane_sample_fold_group,
     plane_sample_group_bwdsort,
-    plane_sample_packed_group,
-    plane_sample_unpacked_group,
     quad_pack,
     stage_table,
 )
+from soccernerfs_tpu_torch.ops.kernels.plane_kernels import kplanes_fwd_fused
 from soccernerfs_tpu_torch.ops.mlp import init_mlp, mlp_apply
 
 
@@ -112,17 +112,20 @@ def interpolate_kplanes(
     """Query multiscale planes: per-plane bilinear sample, Hadamard product
     over planes, concat/sum over scales.
 
-    The planes of one scale are grouped by their y axis and width, as the
-    JAX package's sorted path groups them, and each group costs one kernel
-    launch.  With ``ms_packed`` (tables staged by pack_grids_for_render)
-    the no-grad samplers read the staged tables.  Without it the
-    differentiable group samplers read the grids: narrow (F = 8) planes
-    whose widths divide by 4 quad-packed (plane_sample_group_bwdsort, the
-    JAX condition of its proposal-field path), the rest through
-    plane_sample_fold_group.  With grad disabled the product runs in place
-    into a running per-scale tensor, so no more than one group's outputs
-    are alive at a time; with grad enabled it runs out of place, since
-    autograd keeps every factor for the product's backward.
+    With ``ms_packed`` (tables staged by pack_grids_for_render; the render
+    path, no gradient) each scale is one fused launch
+    (``kplanes_fwd_fused``) that multiplies the planes in the JAX
+    package's order (``_sampled_planes``) and writes the scale's features
+    into its column slice of the concatenated output; a plane's layout
+    and shape come from its staged table and its grid.  Without it the
+    differentiable group samplers read the grids, the planes of one scale
+    grouped by their y axis and width (one kernel launch per group, as the
+    JAX package's sorted path groups them): narrow (F = 8) planes whose
+    widths divide by 4 quad-packed (plane_sample_group_bwdsort, the JAX
+    condition of its proposal-field path), the rest through
+    plane_sample_fold_group.  With grad disabled that product runs in
+    place into a running per-scale tensor; with grad enabled out of
+    place, since autograd keeps every factor for the product's backward.
 
     Positions carry no gradient here (PDF bins are detached and the camera
     optimizer is not ported): the group samplers return none for their
@@ -142,20 +145,19 @@ def interpolate_kplanes(
                          "supported: the plane samplers give them none")
     dim = pts.shape[-1]
     has_time = dim == 4
-    n_scales = len(ms_grids)
     feat = ms_grids[0][0].shape[-1]
     planes = [
         (ci, c1, c2)
         for ci, (c1, c2) in _sampled_planes(dim, len(ms_grids[0]))
         if not (freeze_time_planes and has_time and 3 in (c1, c2))
     ]
+    if ms_packed is not None:
+        return _interpolate_staged(pts, ms_grids, ms_packed, planes,
+                                   concat_features)
     narrow = feat == 8 and all(g.shape[1] % 4 == 0 for g in ms_grids[0])
     inplace = not torch.is_grad_enabled()
-    out = None
-    if concat_features and inplace:
-        out = torch.empty((pts.shape[0], n_scales * feat), device=pts.device)
     per_scale = []
-    for s, grids in enumerate(ms_grids):
+    for grids in ms_grids:
         acc = None
         for (c2, w), members in plane_groups(planes, grids).items():
             h = grids[members[0][0]].shape[0]
@@ -165,26 +167,17 @@ def interpolate_kplanes(
                 xc, tx = grid_coords(pts[:, c1], w)
                 rowids.append(yc * w + xc)
                 txs.append(tx)
-            if ms_packed is not None:
-                tables = [ms_packed[s][ci] for ci, _c1 in members]
-                if tables[0].shape[-1] == feat:
-                    feats = plane_sample_unpacked_group(
-                        tables, rowids, txs, ty, h=h, w=w
-                    )
-                else:
-                    feats = plane_sample_packed_group(tables, rowids, txs, ty)
+            sel = [
+                grids[ci].detach()
+                if freeze_space_planes and not (has_time and 3 in (c1, c2))
+                else grids[ci]
+                for ci, c1 in members
+            ]
+            if narrow:
+                feats = plane_sample_group_bwdsort(
+                    [quad_pack(g) for g in sel], rowids, txs, ty)
             else:
-                sel = [
-                    grids[ci].detach()
-                    if freeze_space_planes and not (has_time and 3 in (c1, c2))
-                    else grids[ci]
-                    for ci, c1 in members
-                ]
-                if narrow:
-                    feats = plane_sample_group_bwdsort(
-                        [quad_pack(g) for g in sel], rowids, txs, ty)
-                else:
-                    feats = plane_sample_fold_group(sel, rowids, txs, ty)
+                feats = plane_sample_fold_group(sel, rowids, txs, ty)
             for f in feats:
                 if acc is None:
                     acc = f
@@ -192,18 +185,37 @@ def interpolate_kplanes(
                     acc.mul_(f)
                 else:
                     acc = acc * f
-        if out is not None:
-            out[:, s * feat:(s + 1) * feat] = acc
-        else:
-            per_scale.append(acc)
-    if out is not None:
-        return out
+        per_scale.append(acc)
     if concat_features:
         return torch.cat(per_scale, dim=-1)
     total = per_scale[0]
     for p in per_scale[1:]:
         total = total.add_(p) if inplace else total + p
     return total
+
+
+@torch.no_grad()
+def _interpolate_staged(pts, ms_grids, ms_packed, planes, concat_features):
+    """interpolate_kplanes over staged tables: one kplanes_fwd_fused launch
+    per scale, into the scale's column slice of the [M, S*F] output (or
+    an [M, F] output per scale, summed, without concatenation)."""
+    pts = pts.contiguous()
+    m, n_scales = pts.shape[0], len(ms_grids)
+    feat = ms_grids[0][0].shape[-1]
+    width = n_scales * feat if concat_features else feat
+    out = torch.empty((m, width), dtype=torch.float32, device=pts.device)
+    for s, grids in enumerate(ms_grids):
+        descs = [(c1, c2, *grids[ci].shape[:2]) for ci, c1, c2 in planes]
+        tables = [ms_packed[s][ci] for ci, _c1, _c2 in planes]
+        if concat_features:
+            kplanes_fwd_fused(pts, tables, descs,
+                              out[:, s * feat:(s + 1) * feat])
+        elif s == 0:
+            kplanes_fwd_fused(pts, tables, descs, out)
+        else:
+            out.add_(kplanes_fwd_fused(pts, tables, descs,
+                                       torch.empty_like(out)))
+    return out
 
 
 @dataclass(frozen=True)

@@ -5,11 +5,13 @@ mode="bilinear")`` for 2D planes.  Planes are [H, W, F], features last;
 coordinates are (x, y) in [-1, 1] with x indexing W and y indexing H; a
 table row id is ``y0 * W + x0``.
 
-The group samplers at the bottom are the seams to the CUDA kernels
-(ops/kernels/plane_kernels.py): two no-grad ones over tables staged once
-per snapshot (the render path), and two ``torch.autograd.Function``s, the
-counterparts of the JAX package's ``custom_vjp``s, whose backward runs the
-backward kernels (the train path).
+The group samplers at the bottom are the train path's seams to the CUDA
+kernels (ops/kernels/plane_kernels.py): two ``torch.autograd.Function``s,
+the counterparts of the JAX package's ``custom_vjp``s, whose backward runs
+the backward kernels.  The render path samples the tables that
+``stage_table`` stages once per snapshot through one fused launch per
+scale (``plane_kernels.kplanes_fwd_fused``, called by
+fields/kplanes.interpolate_kplanes).
 """
 from __future__ import annotations
 
@@ -18,15 +20,7 @@ from typing import List, Sequence
 import torch
 
 from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
-
-
-def grid_coords(coords_1d: torch.Tensor, size: int):
-    """[-1, 1] -> (cell int32, frac f32) with align_corners/border
-    clamping: the continuous coordinate clamps first, so x = size - 1
-    gives cell size - 1 and fraction 0."""
-    v = torch.clamp((coords_1d + 1.0) * 0.5 * (size - 1), 0.0, size - 1)
-    c = torch.floor(v)
-    return c.to(torch.int32), v - c
+from soccernerfs_tpu_torch.ops.kernels.plane_kernels import grid_coords
 
 
 def sample_plane_bilinear(plane: torch.Tensor, coords: torch.Tensor
@@ -65,8 +59,9 @@ def quad_pack(plane: torch.Tensor) -> torch.Tensor:
 def stage_table(plane: torch.Tensor) -> torch.Tensor:
     """The bf16 table the forward kernels sample for an [H, W, F] plane:
     big F = 32 planes (H*W >= 65536 and W % 32 == 0) unpacked, [H*W, F]
-    (for bilerp_fwd_unpacked, 4x less memory); the rest quad-packed,
-    [H*W, 4F] (bilerp_fwd_packed).  Both hold the same bf16 values."""
+    (4x less memory); the rest quad-packed, [H*W, 4F] (one contiguous
+    row per point).  Both hold the same bf16 values; kplanes_fwd_fused
+    takes either, bilerp_fwd_unpacked and bilerp_fwd_packed one each."""
     h, w, f = plane.shape
     if 4 * f == 128 and h * w >= 65536 and w % 32 == 0:
         return plane.reshape(h * w, f).to(torch.bfloat16).contiguous()
@@ -89,39 +84,6 @@ def sample_plane_bilinear_packed(plane: torch.Tensor, coords: torch.Tensor
     y0, ty = grid_coords(coords[:, 1], H)
     out = _bilerp_rows(quad_pack(plane), y0 * W + x0, tx, ty)
     return out.reshape(*lead, F)
-
-
-@torch.no_grad()
-def plane_sample_packed_group(
-    packeds: Sequence[torch.Tensor], rowids, txs, ty: torch.Tensor
-) -> List[torch.Tensor]:
-    """No-grad sample of P same-shaped quad-packed [R, 4F] bf16 tables
-    staged once per snapshot (fields/kplanes.pack_grids_for_render).
-
-    Args:
-        packeds: P [R, 4F] bf16 of planes sharing their y axis;
-        rowids: P [M] int32 (any order); txs: P [M] f32; ty: [M] f32.
-    Returns:
-        P [M, F] f32 features.
-    """
-    return pk.bilerp_fwd_packed(list(packeds), list(rowids), list(txs), ty)
-
-
-@torch.no_grad()
-def plane_sample_unpacked_group(
-    tables: Sequence[torch.Tensor], rowids, txs, ty: torch.Tensor, *,
-    h: int, w: int
-) -> List[torch.Tensor]:
-    """No-grad sample of P big tables staged as bf16 unpacked [h*w, F]
-    copies (4x less snapshot memory than quad-packed ones).
-
-    Args:
-        tables: P [h*w, F] bf16; rowids/txs/ty as plane_sample_packed_group.
-    Returns:
-        P [M, F] f32 features.
-    """
-    return pk.bilerp_fwd_unpacked(list(tables), list(rowids), list(txs), ty,
-                                  h=h, w=w)
 
 
 def _split(n: int, tensors):

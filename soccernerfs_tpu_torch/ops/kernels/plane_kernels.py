@@ -9,7 +9,15 @@ Backward (``csrc/plane_bwd_kernels.cu``): ``bilerp_bwd_unpacked`` replaces
 ``packed_bilerp_bwd_group``.  The sources state each kernel's bound on the
 card and what its design does about it.
 
-Each wrapper takes P planes of one table shape that share their y axis,
+The render path's forward (``csrc/plane_kernels.cu``) is
+``kplanes_fwd_fused``: one launch per K-Planes scale derives every plane's
+cell and fractions from the normalised points, gathers and lerps up to six
+staged tables of either layout, multiplies them and writes the scale's
+features into its column slice of the concatenated output.  It replaces
+both forward kernels on the render path (the train path keeps them: its
+autograd graph needs each plane's factor).
+
+Each other wrapper takes P planes of one table shape that share their y axis,
 with a row id and x fraction per point and plane and one y fraction per
 point.  The forward wrappers return P f32 [M, F] features; the backward
 wrappers take P f32 [M, F] upstream gradients and return P f32 table
@@ -33,12 +41,22 @@ import torch
 from soccernerfs_tpu_torch.ops.kernels import build
 
 MAX_PLANES = 3
+MAX_FUSED_PLANES = 6
 FEATS = (8, 32)
 
 
 # ---------------------------------------------------------------------------
 # plain versions (the same arithmetic, one PyTorch op at a time)
 # ---------------------------------------------------------------------------
+
+def grid_coords(coords_1d: torch.Tensor, size: int):
+    """[-1, 1] -> (cell int32, frac f32) with align_corners/border
+    clamping: the continuous coordinate clamps first, so x = size - 1
+    gives cell size - 1 and fraction 0."""
+    v = torch.clamp((coords_1d + 1.0) * 0.5 * (size - 1), 0.0, size - 1)
+    c = torch.floor(v)
+    return c.to(torch.int32), v - c
+
 
 def lerp_corners(p00, p01, p10, p11, tx, ty) -> torch.Tensor:
     """f32 bilinear lerp of [M, F] corner rows (bf16 or f32) with [M]
@@ -88,6 +106,28 @@ def bilerp_fwd_unpacked_plain(tables, rowids, txs, ty, *, h: int, w: int
         outs.append(lerp_corners(table[r00], table[r01], table[r10],
                                  table[r11], tx, ty))
     return outs
+
+
+def kplanes_fwd_fused_plain(pts, tables, planes, out) -> torch.Tensor:
+    """Plain version of kplanes_fwd_fused: per plane ``grid_coords`` of
+    its two axes, the row id, the gather and lerp of its layout
+    (``corner_rows`` or ``packed_rows_plain``), the product in the planes'
+    order, written into ``out``."""
+    feat = out.shape[1]
+    acc = None
+    for table, (c1, c2, h, w) in zip(tables, planes):
+        xc, tx = grid_coords(pts[:, c1], w)
+        yc, ty = grid_coords(pts[:, c2], h)
+        rowid = yc * w + xc
+        if table.shape[1] == feat:
+            r00, r01, r10, r11 = corner_rows(rowid, h=h, w=w)
+            f = lerp_corners(table[r00], table[r01], table[r10], table[r11],
+                             tx, ty)
+        else:
+            f = packed_rows_plain(table, rowid, tx, ty)
+        acc = f if acc is None else acc.mul_(f)
+    out.copy_(acc)
+    return out
 
 
 def corner_weights(tx, ty):
@@ -276,6 +316,93 @@ def bilerp_fwd_packed(tables: Sequence[torch.Tensor], rowids, txs,
 bilerp_fwd_packed.launches = 0
 
 
+def _check_fused(pts, tables, planes, out) -> None:
+    """Validate a fused launch's operands (see kplanes_fwd_fused)."""
+    if not 1 <= len(tables) <= MAX_FUSED_PLANES:
+        raise ValueError(f"1..{MAX_FUSED_PLANES} planes per launch, got "
+                         f"{len(tables)}")
+    if len(planes) != len(tables):
+        raise ValueError("one (c1, c2, h, w) per table")
+    dev = pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel operands must be CUDA tensors, got {dev}")
+    if (pts.dtype != torch.float32 or pts.dim() != 2
+            or pts.shape[1] not in (3, 4) or not pts.is_contiguous()):
+        raise ValueError("points must be contiguous f32 [M, 3] or [M, 4]")
+    feat = out.shape[-1] if out.dim() == 2 else -1
+    _check_feat(feat)
+    if (out.dtype != torch.float32 or out.shape[0] != pts.shape[0]
+            or out.stride(1) != 1 or out.stride(0) % 4
+            or out.data_ptr() % 16 or out.device != dev):
+        raise ValueError(f"out must be f32 [{pts.shape[0]}, F] with unit "
+                         f"column stride and 16-byte aligned rows on {dev}")
+    for t, (c1, c2, h, w) in zip(tables, planes):
+        if not (0 <= c1 < pts.shape[1] and 0 <= c2 < pts.shape[1]
+                and h >= 1 and w >= 1):
+            raise ValueError(f"plane (c1, c2, h, w) = {(c1, c2, h, w)} does "
+                             f"not fit [M, {pts.shape[1]}] points")
+        if (t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous()
+                or t.device != dev or t.data_ptr() % 16):
+            raise ValueError("tables must be contiguous 16-byte aligned bf16 "
+                             f"2-D tensors on {dev}")
+        if t.shape[0] != h * w or t.shape[1] not in (feat, 4 * feat):
+            raise ValueError(f"a table of {list(t.shape)} is neither [{h * w},"
+                             f" {feat}] nor [{h * w}, {4 * feat}]")
+
+
+def _launch_fused(pts, tables, planes, out) -> None:
+    """Launch snt_kplanes_fwd_fused on the current stream of the operands'
+    device (checked by _check_fused)."""
+    feat = out.shape[1]
+    fn = build.load("plane_kernels").snt_kplanes_fwd_fused
+    ints = ctypes.c_int * len(tables)
+    fn.argtypes = [ctypes.c_int, _P, *[ctypes.POINTER(ctypes.c_int)] * 5,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    packed = ints(*[int(t.shape[1] != feat) for t in tables])
+    # (c1, c2, h, w) per plane -> the h, w, c1 and c2 arrays
+    hs, ws, c1s, c2s = (ints(*[int(p[k]) for p in planes]) for k in (2, 3, 0, 1))
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        err = fn(len(tables), _ptrs(tables), packed, hs, ws, c1s, c2s,
+                 pts.data_ptr(), pts.shape[1], out.data_ptr(), out.stride(0),
+                 pts.shape[0], feat, stream)
+    if err != 0:
+        raise RuntimeError(f"snt_kplanes_fwd_fused failed to launch: CUDA "
+                           f"error {err}")
+
+
+def kplanes_fwd_fused(pts: torch.Tensor, tables: Sequence[torch.Tensor],
+                      planes, out: torch.Tensor) -> torch.Tensor:
+    """One K-Planes scale's features, the product of its planes' bilinear
+    samples in the order given, written into ``out``.
+
+    Args:
+        pts: [M, D] f32 normalised coordinates, D in {3, 4}.
+        tables: P <= 6 staged bf16 tables (ops/grid_sample.stage_table),
+            each [h*w, F] (unpacked) or [h*w, 4F] (quad-packed).
+        planes: P (c1, c2, h, w): the coordinates indexing a plane's width
+            and height, and its shape.
+        out: [M, F] f32, F in {8, 32}, unit column stride (a column slice
+            of the [M, S*F] concatenated features).
+    Returns:
+        ``out``.
+    """
+    if _on_cpu([pts, *tables, out]):
+        return kplanes_fwd_fused_plain(pts, tables, planes, out)
+    _check_fused(pts, tables, planes, out)
+    if pts.shape[0] == 0:
+        return out
+    _launch_fused(pts, tables, planes, out)
+    kplanes_fwd_fused.launches += 1
+    return out
+
+
+kplanes_fwd_fused.launches = 0
+
+
 def _check_grads(gs, rowids, txs, ty) -> tuple:
     """Validate a backward launch's operands; returns (M, F)."""
     m = _check(gs, rowids, txs, ty, torch.float32)
@@ -337,8 +464,11 @@ def bilerp_bwd_packed(gs: Sequence[torch.Tensor], rowids, txs,
 
 bilerp_bwd_packed.launches = 0
 
-KERNELS = (bilerp_fwd_unpacked, bilerp_fwd_packed, bilerp_bwd_unpacked,
-           bilerp_bwd_packed)
+# the train path's kernels (its forward keeps every plane's factor for the
+# backward), then the render path's
+TRAIN_KERNELS = (bilerp_fwd_unpacked, bilerp_fwd_packed, bilerp_bwd_unpacked,
+                 bilerp_bwd_packed)
+KERNELS = (*TRAIN_KERNELS, kplanes_fwd_fused)
 
 
 def reset_launch_counts() -> None:

@@ -330,6 +330,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             o.copy_(r)
 
     monkeypatch.setattr(pk, "_launch", launch)
+    monkeypatch.setattr(pk, "_check_fused", lambda pts, tables, planes, out: None)
+    monkeypatch.setattr(pk, "_launch_fused", pk.kplanes_fwd_fused_plain)
     monkeypatch.setattr(sk, "_on_cpu", lambda ts: False)
     monkeypatch.setattr(sk, "_check_cuda", lambda operands: None)
     monkeypatch.setattr(
@@ -374,7 +376,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [
         k.__name__ for k in (*pk.KERNELS, *sk.KERNELS)]
-    assert len(kernels) == 5
+    assert len(kernels) == 6
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
@@ -512,6 +514,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert run["loop_rays_per_s"] > 0 and run["load_ms"] > 0
     assert len(run["refresh_ist_ms"]) >= 2 and len(run["save_ms"]) == 2
     assert int(0.15 * 256) in run["ist_rays_per_batch"]
+    # the four train kernels, and the fused one in the eval images
     assert all(run["launches"][k.__name__] > 0 for k in pk.KERNELS)
     assert any(line.startswith("trainer_kplanes small: resumed at step 8 ")
                and "bit-equal" in line for line in lines)
@@ -582,11 +585,20 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert {k: len(v) for k, v in cli["viewer_render_ms"].items()} == {
         "24x16": 1, "40x24": 2}
     assert len(cli["eval_setup_ms"]) == 5
+    # the renders through the fused kernel, none through a per-plane
+    # forward kernel
     forward = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
-    for path, names in (("cli train small", [k.__name__ for k in pk.KERNELS]),
-                        ("cli eval small", forward), ("viewer small", forward),
-                        ("cli render small", forward)):
+    for path, names in (("cli train small", [k.__name__ for k in pk.TRAIN_KERNELS]),
+                        ("cli eval small", ["kplanes_fwd_fused"]),
+                        ("viewer small", ["kplanes_fwd_fused"]),
+                        ("cli render small", ["kplanes_fwd_fused"])):
         assert all(main_path[path][n] > 0 for n in names), path
+    for path in ("render small", "cli eval small", "viewer small",
+                 "cli render small"):
+        assert main_path[path]["kplanes_fwd_fused"] > 0, path
+        assert all(main_path[path][n] == 0 for n in forward), path
+    assert all(main_path["train small"][k.__name__] > 0 for k in pk.TRAIN_KERNELS)
+    assert main_path["train small"]["kplanes_fwd_fused"] == 0
     # the classic methods: render (TensoRF two counted frames and one
     # profiled, the NeRF methods one), a chunk and a step held against the
     # CPU, the step's leaves with the card's bins beside their witness
@@ -620,8 +632,10 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     (hyper,) = phases["trainer_kplanes_hypernerf"]
     assert hyper["bounded"] is False and hyper["steps"] == 4
     assert hyper["train_images"] == 4 and hyper["distortion_max"] > 0
-    assert all(hyper["launches"]["trainer"][k.__name__] > 0 for k in pk.KERNELS)
-    assert all(hyper["launches"]["eval image"][k] > 0 for k in forward)
+    assert all(hyper["launches"]["trainer"][k.__name__] > 0
+               for k in pk.TRAIN_KERNELS)
+    assert hyper["launches"]["eval image"]["kplanes_fwd_fused"] > 0
+    assert all(hyper["launches"]["eval image"][k] == 0 for k in forward)
     # instant-ngp-bounded through the entry points: the live viewer mid-run,
     # the snapshot's grid and render equal to the trainer's, eval, render,
     # the viewer on the snapshot; scatter_add_rows on every step
@@ -687,8 +701,29 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert set(subs["cameras"]["elements"]) == {"train", "eval"}
     for cmd in ("pointcloud", "marching-cubes", "tsdf", "poisson",
                 "marching-cubes at the median"):
-        assert sum(main_path[f"cli export {cmd} small"][f] for f in forward) > 0
-    k = kernels[4]
+        assert main_path[f"cli export {cmd} small"]["kplanes_fwd_fused"] > 0
+    assert all(main_path[f"cli export {cmd} small"][f] == 0
+               for cmd in subs for f in forward)
+    # the fused kernel on the frame's own launches: chunk 0's of each field
+    # scale and of proposal_0, bit-equal to the plain version, beside the
+    # route it replaced and the library's; the profiled frame's fused time
+    # against its bound
+    fused = [json.loads(line.split(" ", 2)[2]) for line in lines
+             if line.startswith("kernel fused ")]
+    assert sorted(r["case"].split(",")[0] for r in fused) == [
+        "field scale 0", "field scale 1", "proposal0 scale 0"]
+    assert all(r["max_abs_err"] == 0.0 and r["order"] == "frame"
+               and r["old_route_ms"] > 0 and r["library_ms"] > 0
+               and r["bound_by"] == "bytes" for r in fused)
+    # the finest field scale's 256x256 space planes stage unpacked, the
+    # rest quad-packed: one launch of both layouts
+    finest = next(r for r in fused if r["case"].startswith("field scale 1"))
+    assert "'unpacked'" in finest["case"] and "'packed'" in finest["case"]
+    assert kernels[4]["name"] == "kplanes_fwd_fused"
+    assert kernels[4]["ms"] == pytest.approx(sum(r["ms"] for r in fused))
+    assert any(line.startswith("in-frame kplanes_fwd_fused:") and "of bound" in line
+               for line in lines)
+    k = kernels[5]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
     assert k["bound_ms"] == pytest.approx(

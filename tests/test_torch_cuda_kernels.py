@@ -225,6 +225,104 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
+# kplanes_fwd_fused: one K-Planes scale per launch
+# ---------------------------------------------------------------------------
+
+def _fused_operands(rng, dim, feat, reso, m, dev):
+    """Every k-choose-2 plane of ``reso`` ([res_c2, res_c1] each), staged
+    alternately quad-packed [h*w, 4F] and unpacked [h*w, F]; points in
+    [-1.1, 1.1]^dim with rows exactly at -1 and +1 (the border cells)."""
+    from soccernerfs_tpu_torch.ops.grid_sample import quad_pack
+
+    planes, tables = [], []
+    for i, (c1, c2) in enumerate((a, b) for a in range(dim)
+                                 for b in range(a + 1, dim)):
+        h, w = reso[c2], reso[c1]
+        plane = torch.from_numpy(rng.uniform(0.1, 0.5, (h, w, feat))
+                                 .astype(np.float32)).to(dev, torch.bfloat16)
+        tables.append(plane.reshape(h * w, feat).contiguous() if i % 2
+                      else quad_pack(plane).contiguous())
+        planes.append((c1, c2, h, w))
+    pts = rng.uniform(-1.1, 1.1, (m, dim)).astype(np.float32)
+    pts[:2] = [[-1.0] * dim, [1.0] * dim]
+    pts[2:12] = rng.choice([-1.0, 1.0], (10, dim))
+    return torch.from_numpy(pts).to(dev), tables, planes
+
+
+# dim, feat, reso, m (never a multiple of a block's 256 / (F / 8) points)
+FUSED_CASES = [
+    (4, 32, (25, 16, 20, 7), 1001),
+    (4, 8, (13, 7, 9, 5), 3333),
+    (3, 32, (64, 32, 16), 777),
+    (3, 8, (1, 5, 3), 299),
+    (4, 32, (256, 256, 128, 6), 40_001),
+]
+
+
+@pytest.mark.parametrize("dim,feat,reso,m", FUSED_CASES)
+def test_fused_kernel_matches_plain(dev, dim, feat, reso, m):
+    """Cells, fractions, lerps and the ordered product round as the plain
+    version's ops do: bit-equal, both layouts in one launch, into a
+    column slice of the concatenated features (scale 1 of 3) with its
+    neighbours untouched."""
+    rng = np.random.default_rng(dim * 100 + feat + m)
+    pts, tables, planes = _fused_operands(rng, dim, feat, reso, m, dev)
+    got = torch.full((m, 3 * feat), -7.0, device=dev)
+    want = torch.full((m, 3 * feat), -7.0, device=dev)
+    before = pk.kplanes_fwd_fused.launches
+    out = pk.kplanes_fwd_fused(pts, tables, planes, got[:, feat:2 * feat])
+    pk.kplanes_fwd_fused_plain(pts, tables, planes, want[:, feat:2 * feat])
+    torch.cuda.synchronize()
+    assert pk.kplanes_fwd_fused.launches == before + 1
+    assert out.data_ptr() == got[:, feat:].data_ptr()
+    assert torch.equal(got, want)
+    assert bool((got[:, :feat] == -7.0).all() and (got[:, 2 * feat:] == -7.0).all())
+
+
+@pytest.mark.parametrize("planes", [1, 2, 5])
+def test_fused_kernel_takes_any_plane_count(dev, planes):
+    """1..6 planes a launch (the render path's 3 and 6, and the rest)."""
+    rng = np.random.default_rng(planes)
+    pts, tables, descs = _fused_operands(rng, 4, 32, (12, 10, 8, 6), 500, dev)
+    got = pk.kplanes_fwd_fused(pts, tables[:planes], descs[:planes],
+                               torch.empty((500, 32), device=dev))
+    want = pk.kplanes_fwd_fused_plain(pts, tables[:planes], descs[:planes],
+                                      torch.empty((500, 32), device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(0)
+    pts, tables, planes = _fused_operands(rng, 4, 8, (6, 5, 4, 3), 20, dev)
+    out = torch.empty((20, 8), device=dev)
+    with pytest.raises(ValueError):      # 7 planes
+        pk.kplanes_fwd_fused(pts, tables + tables[:1], planes + planes[:1], out)
+    with pytest.raises(ValueError):      # one descriptor short
+        pk.kplanes_fwd_fused(pts, tables, planes[:-1], out)
+    with pytest.raises(ValueError):      # 2-D points
+        pk.kplanes_fwd_fused(pts[:, :2].contiguous(), tables[:1],
+                             planes[:1], out)
+    with pytest.raises(ValueError):      # a plane reading the missing time axis
+        pk.kplanes_fwd_fused(pts[:, :3].contiguous(), tables, planes, out)
+    with pytest.raises(ValueError):      # f32 table
+        pk.kplanes_fwd_fused(pts, [tables[0].float()], planes[:1], out)
+    with pytest.raises(ValueError):      # table rows != h * w
+        pk.kplanes_fwd_fused(pts, tables[:1], [(0, 1, 4, 6)], out)
+    with pytest.raises(ValueError):      # F = 16 has no kernel
+        pk.kplanes_fwd_fused(pts, tables[:1], planes[:1],
+                             torch.empty((20, 16), device=dev))
+    with pytest.raises(ValueError):      # rows 14 floats apart: not 16-byte aligned
+        pk.kplanes_fwd_fused(pts, tables[:1], planes[:1],
+                             torch.empty((20, 14), device=dev)[:, :8])
+    with pytest.raises(ValueError):      # points on the CPU, tables on the card
+        pk.kplanes_fwd_fused(pts.cpu(), tables, planes, out)
+    with pytest.raises(ValueError):      # non-contiguous points
+        pk.kplanes_fwd_fused(torch.zeros((4, 20), device=dev).t(), tables,
+                             planes, out)
+
+
+# ---------------------------------------------------------------------------
 # scatter_add_rows
 # ---------------------------------------------------------------------------
 
@@ -439,8 +537,9 @@ def test_temporal_encode_on_the_card_matches_the_cpu(dev):
 def test_viewer_render_on_the_card_matches_the_cpu(dev):
     """A viewer request (``ViewerState.render``: rgb as PNG) of one small
     K-Planes snapshot (seeded planes, time planes with noise) rendered on
-    the card, through the forward plane kernels, and on the CPU, through
-    their plain versions: the decoded 8-bit colours agree within 1 in
+    the card, through the fused plane kernel and no per-plane forward
+    kernel, and on the CPU, through its plain version: the decoded 8-bit
+    colours agree within 1 in
     every channel on at least 99.9 % of the pixels (f32 reduction order
     moves a few across a rounding step)."""
     import dataclasses
@@ -478,11 +577,13 @@ def test_viewer_render_on_the_card_matches_the_cpu(dev):
     c2w[2, 3] = 3.0
     frames = {}
     for where in ("cpu", dev):
-        before = pk.bilerp_fwd_packed.launches
+        before = {k.__name__: k.launches for k in pk.KERNELS}
         png = ViewerState(Snapshot(where)).render(c2w.tolist(), 50.0, 96, 64,
                                                   time=0.5)
         frames[str(where)] = np.asarray(Image.open(io.BytesIO(png)), np.int16)
-    assert pk.bilerp_fwd_packed.launches > before
+    launched = {k.__name__: k.launches - before[k.__name__] for k in pk.KERNELS}
+    assert launched["kplanes_fwd_fused"] > 0
+    assert launched["bilerp_fwd_unpacked"] == launched["bilerp_fwd_packed"] == 0
     cpu, card = frames["cpu"], frames[str(dev)]
     assert card.shape == cpu.shape == (64, 96, 3)
     assert np.mean(np.all(np.abs(card - cpu) <= 1, axis=-1)) >= 0.999
