@@ -508,3 +508,10 @@ descriptions: Dict[str, str] = {
     "semantic-nerfw": "Nerfacto with a semantic segmentation head (Sitcoms3D).",
     "neus": "NeuS SDF surface reconstruction with eikonal regularization.",
 }
+
+# methods of installed plugins (plugins.py)
+from soccernerfs_tpu_torch.plugins import discover_methods  # noqa: E402
+
+_ext_methods, _ext_descriptions = discover_methods()
+trainer_configs.update(_ext_methods)
+descriptions.update(_ext_descriptions)

@@ -1,15 +1,20 @@
 """Synthetic on-disk datasets for tests and smoke training (counterpart
 of soccernerfs_tpu/data/fixtures.py: the same scenes, file names and
-JSON, the same pixels), and the port's own HyperNeRF capture
-(``make_hypernerf_fixture``), which the JAX package has no fixture for.
+JSON, the same pixels), and the port's own captures of the ball scene in
+the formats the JAX package has no fixture for: HyperNeRF, a COLMAP
+model, instant-ngp, the minimal npz, phototourism, dycheck, sdfstudio,
+ScanNet and ARKitScenes.  Each draws what it varies from ``seed``.
 """
 from __future__ import annotations
 
 import json
+import struct
 from pathlib import Path
 
 import numpy as np
 from PIL import Image
+
+from soccernerfs_tpu_torch.data.colmap_utils import CAMERA_MODEL_IDS
 
 
 def _look_at_pose(origin, target=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)) -> np.ndarray:
@@ -28,21 +33,46 @@ def _look_at_pose(origin, target=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)) -> np.ndar
     return pose
 
 
-def _trace_ball_scene(h, w, pose, fx, fy, cx, cy, t: float):
+def _undistort(xd, yd, distortion, iterations: int = 20):
+    """Normalised image coordinates whose OpenCV radial-tangential
+    distortion by (k1, k2, k3, k4, p1, p2) is (xd, yd), by fixed-point
+    iteration (small distortions)."""
+    k1, k2, k3, k4, p1, p2 = (float(v) for v in distortion)
+    x, y = xd, yd
+    for _ in range(iterations):
+        r = x * x + y * y
+        d = 1.0 + r * (k1 + r * (k2 + r * (k3 + r * k4)))
+        x = (xd - 2 * p1 * x * y - p2 * (r + 2 * x * x)) / d
+        y = (yd - 2 * p2 * x * y - p1 * (r + 2 * y * y)) / d
+    return x, y
+
+
+def _trace_ball_scene(h, w, pose, fx, fy, cx, cy, t: float, distortion=None):
     """Analytic render of a red ball moving along x over a green floor:
     the image [h, w, 3], each pixel ray's distance along its unit
     direction to the first hit (inf where it hits nothing) and the norm of
-    its camera-frame direction (x, y, -1) [h, w]."""
+    its camera-frame direction (x, y, -1) [h, w].  ``distortion`` (k1, k2,
+    k3, k4, p1, p2) renders the camera that ``core.cameras`` models with
+    it: each pixel's y-up normalised coordinates, undistorted."""
     ys, xs = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
     dirs_cam = np.stack(
         [(xs - cx) / fx, -(ys - cy) / fy, -np.ones_like(xs)], axis=-1
     )
+    if distortion is not None:
+        dirs_cam[..., 0], dirs_cam[..., 1] = _undistort(
+            dirs_cam[..., 0], dirs_cam[..., 1], distortion)
     R = pose[:3, :3]
     dirs = dirs_cam @ R.T
     norm = np.linalg.norm(dirs, axis=-1, keepdims=True)
     dirs /= norm
-    origin = pose[:3, 3]
+    img, dist = _hit_ball_scene(pose[:3, 3], dirs, t)
+    return img, dist, norm[..., 0]
 
+
+def _hit_ball_scene(origin, dirs, t: float):
+    """The colour [..., 3] and the distance to the first hit [...] (inf
+    where nothing is hit) of rays from ``origin`` along the unit
+    ``dirs`` [..., 3], the ball at time ``t``."""
     center = np.array([0.6 * (t - 0.5), 0.0, 0.15])
     oc = origin - center
     b = np.sum(dirs * oc, axis=-1)
@@ -53,18 +83,19 @@ def _trace_ball_scene(h, w, pose, fx, fy, cx, cy, t: float):
 
     t_floor = np.where(dirs[..., 2] < -1e-6, (0.0 - origin[2]) / dirs[..., 2], np.inf)
 
-    img = np.zeros((h, w, 3), np.float32)
+    img = np.zeros(dirs.shape[:-1] + (3,), np.float32)
     sphere_first = hit_sphere & (t_sphere < t_floor) & (t_sphere > 0)
     floor_vis = (t_floor < np.inf) & ~sphere_first & (t_floor > 0)
     img[sphere_first] = [0.9, 0.15, 0.1]
     img[floor_vis] = [0.1, 0.7, 0.2]
     dist = np.where(sphere_first, t_sphere, np.where(floor_vis, t_floor, np.inf))
-    return img, dist, norm[..., 0]
+    return img, dist
 
 
-def _render_ball_scene(h, w, pose, fx, fy, cx, cy, t: float) -> np.ndarray:
+def _render_ball_scene(h, w, pose, fx, fy, cx, cy, t: float,
+                       distortion=None) -> np.ndarray:
     """The ball scene's image (``_trace_ball_scene``)."""
-    return _trace_ball_scene(h, w, pose, fx, fy, cx, cy, t)[0]
+    return _trace_ball_scene(h, w, pose, fx, fy, cx, cy, t, distortion)[0]
 
 
 def make_broadcaststyle_fixture(
@@ -324,3 +355,427 @@ def make_hypernerf_fixture(root: Path, num_times: int = 6, h: int = 24,
                                      t / max(num_times - 1, 1))
             Image.fromarray((img * 255).astype(np.uint8)).save(img_dir / f"{name}.png")
     return root
+
+
+# ---------------------------------------------------------------------------
+# captures in the formats of the remaining dataparsers and of
+# snt-process-data's COLMAP route
+# ---------------------------------------------------------------------------
+
+_OPENCV_TO_OPENGL = np.diag([1.0, -1.0, -1.0, 1.0])
+
+
+def ring_poses(num_frames: int, seed: int = 0, radius: float = 2.5,
+               height: float = 0.5) -> np.ndarray:
+    """[N, 4, 4] OpenGL camera-to-worlds on a ring around the ball scene,
+    looking at its middle, each angle and height jittered from ``seed``."""
+    rng = np.random.default_rng(seed)
+    poses = []
+    for i in range(num_frames):
+        theta = 2 * np.pi * i / num_frames + rng.uniform(-0.05, 0.05)
+        z = height + rng.uniform(-0.1, 0.1)
+        poses.append(_look_at_pose([radius * np.cos(theta),
+                                    radius * np.sin(theta), z]))
+    return np.stack(poses)
+
+
+def _save_png(path: Path, img: np.ndarray) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray((img * 255).astype(np.uint8)).save(path)
+
+
+def _rotmat_to_qvec(R) -> np.ndarray:
+    """The unit quaternion (w, x, y, z), w >= 0, of a rotation matrix
+    (Shepperd's method: the largest component first)."""
+    R = np.asarray(R, np.float64)
+    d = np.array([1 + R[0, 0] + R[1, 1] + R[2, 2],
+                  1 + R[0, 0] - R[1, 1] - R[2, 2],
+                  1 - R[0, 0] + R[1, 1] - R[2, 2],
+                  1 - R[0, 0] - R[1, 1] + R[2, 2]])
+    i = int(np.argmax(d))
+    s = 2.0 * np.sqrt(d[i])
+    a, b, c = R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]
+    e, f, g = R[0, 1] + R[1, 0], R[0, 2] + R[2, 0], R[1, 2] + R[2, 1]
+    q = np.array([(s / 4, a / s, b / s, c / s), (a / s, s / 4, e / s, f / s),
+                  (b / s, e / s, s / 4, g / s), (c / s, f / s, g / s, s / 4)][i])
+    q /= np.linalg.norm(q)
+    return q if q[0] >= 0 else -q
+
+
+# the camera models the COLMAP fixture writes by default
+COLMAP_FIXTURE_MODELS = ("SIMPLE_PINHOLE", "PINHOLE", "SIMPLE_RADIAL", "OPENCV")
+
+
+def _colmap_camera(model: str, h: int, w: int, rng):
+    """(params, distortion (k1, k2, k3, k4, p1, p2) or None, (fx, fy, cx,
+    cy)) of a camera of ``model`` at h x w, drawn from ``rng``."""
+    f = 0.7 * w * (1 + rng.uniform(-0.02, 0.02))
+    fy = f * (1 + rng.uniform(-0.01, 0.01))
+    cx, cy = w / 2.0 + rng.uniform(-1, 1), h / 2.0 + rng.uniform(-1, 1)
+    if model == "SIMPLE_PINHOLE":
+        return [f, cx, cy], None, (f, f, cx, cy)
+    if model == "PINHOLE":
+        return [f, fy, cx, cy], None, (f, fy, cx, cy)
+    if model == "SIMPLE_RADIAL":
+        k = rng.uniform(-0.02, 0.02)
+        return [f, cx, cy, k], (k, 0, 0, 0, 0, 0), (f, f, cx, cy)
+    if model == "OPENCV":
+        k1, k2 = rng.uniform(-0.02, 0.02, 2) * np.array([1.0, 0.5])
+        p1, p2 = rng.uniform(-1e-3, 1e-3, 2)
+        return ([f, fy, cx, cy, k1, k2, p1, p2], (k1, k2, 0, 0, p1, p2),
+                (f, fy, cx, cy))
+    raise ValueError(f"no fixture camera of model {model}")
+
+
+def _write_colmap_model(sparse: Path, cameras, images, points, binary: bool):
+    """COLMAP's cameras, images and points3D files, binary or text.
+
+    cameras: [(id, model, w, h, params)]; images: [(id, qvec, tvec,
+    camera_id, name, xys [P, 2], point3d_ids [P])]; points: (xyz [N, 3],
+    rgb [N, 3] uint8)."""
+    sparse.mkdir(parents=True, exist_ok=True)
+    xyz, rgb = points
+    if binary:
+        with open(sparse / "cameras.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(cameras)))
+            for cid, model, w, h, params in cameras:
+                f.write(struct.pack("<iiQQ", cid, CAMERA_MODEL_IDS[model], w, h))
+                f.write(struct.pack(f"<{len(params)}d", *params))
+        with open(sparse / "images.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(images)))
+            for iid, qvec, tvec, cid, name, xys, ids in images:
+                f.write(struct.pack("<i4d3di", iid, *qvec, *tvec, cid))
+                f.write(name.encode() + b"\x00")
+                f.write(struct.pack("<Q", len(ids)))
+                for (x, y), pid in zip(xys, ids):
+                    f.write(struct.pack("<ddq", x, y, pid))
+        with open(sparse / "points3D.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(xyz)))
+            for pid, (p, c) in enumerate(zip(xyz, rgb)):
+                f.write(struct.pack("<Q3d3Bd", pid, *p, *c, 0.5))
+                f.write(struct.pack("<Q", 1))
+                f.write(struct.pack("<ii", 1 + pid % len(images), pid))
+        return
+    lines = ["# Camera list with one line of data per camera:",
+             "#   CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]",
+             f"# Number of cameras: {len(cameras)}"]
+    lines += [" ".join([str(cid), model, str(w), str(h), *map(repr, map(float, params))])
+              for cid, model, w, h, params in cameras]
+    (sparse / "cameras.txt").write_text("\n".join(lines) + "\n")
+    lines = ["# Image list with two lines of data per image:",
+             "#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME",
+             "#   POINTS2D[] as (X, Y, POINT3D_ID)"]
+    for iid, qvec, tvec, cid, name, xys, ids in images:
+        lines.append(" ".join([str(iid), *map(repr, map(float, qvec)),
+                               *map(repr, map(float, tvec)), str(cid), name]))
+        lines.append(" ".join(f"{float(x)!r} {float(y)!r} {int(pid)}"
+                              for (x, y), pid in zip(xys, ids)))
+    (sparse / "images.txt").write_text("\n".join(lines) + "\n")
+    lines = ["# 3D point list with one line of data per point:",
+             "#   POINT3D_ID, X, Y, Z, R, G, B, ERROR, TRACK[] as (IMAGE_ID, POINT2D_IDX)"]
+    lines += [" ".join([str(pid), *map(repr, map(float, p)), *map(str, c), "0.5",
+                        str(1 + pid % len(images)), str(pid)])
+              for pid, (p, c) in enumerate(zip(xyz, rgb))]
+    (sparse / "points3D.txt").write_text("\n".join(lines) + "\n")
+
+
+def _colmap_capture(sparse: Path, image_dir: Path, poses, h, w, models,
+                    binary: bool, rng, world) -> None:
+    """Render ``poses`` (OpenGL camera-to-worlds in the ball scene) through
+    one camera per model in ``models`` (image i through camera i mod
+    len(models), of size ``h``, ``w`` or per image), and write their COLMAP
+    model: ``world`` [4, 4] maps the ball scene's frame to the one COLMAP
+    stores."""
+    n = len(poses)
+    sizes = [(h, w)] * n if np.ndim(h) == 0 else list(zip(h, w))
+    cams, lens = [], []
+    for m, model in enumerate(models):
+        ch, cw = sizes[m]
+        params, distortion, pinhole = _colmap_camera(model, ch, cw, rng)
+        cams.append((m + 1, model, cw, ch, params))
+        lens.append((pinhole, distortion))
+    images = []
+    for i, pose in enumerate(poses):
+        cid = i % len(models) + 1
+        (fx, fy, cx, cy), distortion = lens[cid - 1]
+        ch, cw = sizes[cid - 1]
+        name = f"frame_{i:05d}.png"
+        _save_png(image_dir / name, _render_ball_scene(
+            ch, cw, pose, fx, fy, cx, cy, 0.5, distortion))
+        w2c = np.linalg.inv(world @ pose @ _OPENCV_TO_OPENGL)
+        n_pts = int(rng.integers(1, 6))
+        xys = rng.uniform(0, [cw, ch], (n_pts, 2))
+        ids = rng.integers(-1, 32, n_pts)
+        images.append((i + 1, _rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3], cid,
+                       name, xys, ids))
+    # points on the ball (at rest), red
+    d = rng.normal(size=(32, 3))
+    xyz = np.array([0.0, 0.0, 0.15]) + 0.15 * d / np.linalg.norm(d, axis=1,
+                                                                   keepdims=True)
+    rgb = np.tile(np.array([229, 38, 25], np.uint8), (32, 1))
+    _write_colmap_model(sparse, cams, images, (xyz, rgb), binary)
+
+
+# colmap_to_transforms' world change, which the COLMAP fixture undoes: its
+# rows x and y swapped, z flipped
+_COLMAP_TO_NERFSTUDIO_WORLD = np.array([[0.0, 1, 0, 0], [1, 0, 0, 0],
+                                        [0, 0, -1, 0], [0, 0, 0, 1]])
+
+
+def make_colmap_fixture(root: Path, num_frames: int = 8, h: int = 24,
+                        w: int = 32, camera_models=COLMAP_FIXTURE_MODELS,
+                        binary: bool = True, seed: int = 0) -> Path:
+    """A user's COLMAP reconstruction of the ball scene at rest:
+    ``images/frame_{i:05d}.png`` seen from ``ring_poses(num_frames, seed)``
+    and the sparse model under ``sparse/0`` (binary ``.bin`` or text
+    ``.txt`` cameras, images and points3D).  One camera per model in
+    ``camera_models`` (image i uses camera i mod their number), with
+    intrinsics and small distortions drawn from ``seed``; each image is
+    rendered through its camera's distortion.  The stored poses are those
+    that ``colmap_to_transforms`` turns back into the ring's
+    camera-to-worlds (its world change undone).
+
+    Returns the capture's root; convert it with ``snt-process-data
+    colmap-to-json --sparse <root>/sparse/0 --output-dir <root>``."""
+    root = Path(root)
+    rng = np.random.default_rng([seed, 1])
+    _colmap_capture(root / "sparse" / "0", root / "images",
+                    ring_poses(num_frames, seed), h, w, camera_models, binary,
+                    rng, _COLMAP_TO_NERFSTUDIO_WORLD.T)
+    return root
+
+
+def make_phototourism_fixture(root: Path, num_images: int = 8, h: int = 24,
+                              w: int = 32, mixed_sizes: bool = False,
+                              seed: int = 0) -> Path:
+    """A phototourism layout of the ball scene: ``dense/images`` and a
+    binary COLMAP model under ``dense/sparse``, one PINHOLE or
+    SIMPLE_PINHOLE camera per image.  ``mixed_sizes`` gives the images
+    three different sizes, as a landmark's photo collection has."""
+    root = Path(root)
+    rng = np.random.default_rng([seed, 2])
+    hs = [h + 2 * (i % 3) if mixed_sizes else h for i in range(num_images)]
+    ws = [w + 4 * (i % 3) if mixed_sizes else w for i in range(num_images)]
+    models = ["PINHOLE" if i % 2 else "SIMPLE_PINHOLE" for i in range(num_images)]
+    _colmap_capture(root / "dense" / "sparse", root / "dense" / "images",
+                    ring_poses(num_images, seed, height=0.8), hs, ws, models,
+                    True, rng, np.eye(4))
+    return root
+
+
+def make_instant_ngp_fixture(root: Path, num_frames: int = 8, h: int = 24,
+                             w: int = 32, aabb_scale: int = 1,
+                             seed: int = 0) -> Path:
+    """An instant-ngp ``transforms.json`` (global intrinsics,
+    ``aabb_scale``, per-frame transform matrices) over ``images/``, and one
+    frame more whose image is missing."""
+    root = Path(root)
+    fx = fy = 0.7 * w
+    frames = []
+    for i, pose in enumerate(ring_poses(num_frames, seed)):
+        name = f"images/frame_{i:05d}.png"
+        _save_png(root / name, _render_ball_scene(h, w, pose, fx, fy, w / 2,
+                                                  h / 2, 0.5))
+        frames.append({"file_path": name, "transform_matrix": pose.tolist()})
+    frames.append({"file_path": "images/missing.png",
+                   "transform_matrix": np.eye(4).tolist()})
+    meta = {"fl_x": fx, "fl_y": fy, "cx": w / 2, "cy": h / 2, "w": w, "h": h,
+            "aabb_scale": aabb_scale, "frames": frames}
+    with open(root / "transforms.json", "w") as f:
+        json.dump(meta, f)
+    return root
+
+
+def make_minimal_fixture(root: Path, num_frames: int = 8, h: int = 24,
+                         w: int = 32, cameras_as_dict: bool = True,
+                         with_times: bool = False, seed: int = 0) -> Path:
+    """The minimal parser's ``train.npz``, ``val.npz`` and ``test.npz``
+    over ``images/``: every fourth frame is held out for val and test.
+    ``cameras_as_dict`` pickles ``Cameras.create``'s arguments as
+    ``cameras``, else the cameras' arrays stand beside a placeholder.
+    ``with_times`` moves the ball, frame i at time i / (N - 1)."""
+    root = Path(root)
+    fx = fy = 0.7 * w
+    poses = ring_poses(num_frames, seed)
+    times = np.linspace(0.0, 1.0, num_frames) if with_times else None
+    names = []
+    for i, pose in enumerate(poses):
+        name = root / "images" / f"frame_{i:05d}.png"
+        _save_png(name, _render_ball_scene(h, w, pose, fx, fy, w / 2, h / 2,
+                                           0.5 if times is None else times[i]))
+        names.append(str(name))
+    held = np.arange(num_frames) % 4 == 3
+    for split, sel in (("train", ~held), ("val", held), ("test", held)):
+        cams = {"camera_to_worlds": poses[sel, :3, :4].astype(np.float32),
+                "fx": np.full(sel.sum(), fx, np.float32),
+                "fy": np.full(sel.sum(), fy, np.float32),
+                "cx": np.full(sel.sum(), w / 2, np.float32),
+                "cy": np.full(sel.sum(), h / 2, np.float32),
+                "width": np.full(sel.sum(), w, np.int32),
+                "height": np.full(sel.sum(), h, np.int32)}
+        if times is not None:
+            cams["times"] = times[sel].astype(np.float32)
+        arrays = ({"cameras": np.array(cams, dtype=object)} if cameras_as_dict
+                  else {"cameras": np.zeros(0), **cams})
+        np.savez(root / f"{split}.npz",
+                 image_filenames=np.array(names)[sel],
+                 scene_box=np.array([[-1.5] * 3, [1.5] * 3], np.float32),
+                 **arrays)
+    return root
+
+
+def make_dycheck_fixture(root: Path, num_frames: int = 8, h: int = 24,
+                         w: int = 32, downscale: int = 2, seed: int = 0) -> Path:
+    """A dycheck (iPhone) capture of the moving ball: camera 0 moves along
+    an arc over time ids 0 .. N-1 (``splits/train.json``), camera 1 sees
+    every other time id, the last among them (``splits/val.json``);
+    ``scene.json``'s center and scale, which the parser undoes,
+    ``camera/{c}_{t:05d}.json`` at the full size (``downscale`` times
+    h x w) and ``rgb/{downscale}x/`` at h x w."""
+    root = Path(root)
+    rng = np.random.default_rng([seed, 3])
+    center, scale = rng.uniform(-0.2, 0.2, 3).tolist(), 0.8
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / "scene.json", "w") as f:
+        json.dump({"center": center, "scale": scale, "near": 0.05, "far": 10.0}, f)
+    (root / "camera").mkdir(exist_ok=True)
+    (root / "splits").mkdir(exist_ok=True)
+    focal = 0.8 * w * downscale
+    pp = (w * downscale / 2.0, h * downscale / 2.0)
+    flips = np.array([[1, -1, -1], [-1, 1, 1], [-1, 1, 1]], np.float64)
+    last = max(num_frames - 1, 1)
+    val_ids = list(range(num_frames - 1, -1, -2))[::-1]
+    for split, cam, ids in (("train", 0, list(range(num_frames))),
+                            ("val", 1, val_ids)):
+        names = []
+        for t in ids:
+            theta = 0.6 * t / last - 0.3 + (np.pi / 3 if cam else 0.0)
+            pose = _look_at_pose([2.5 * np.cos(theta), 2.5 * np.sin(theta),
+                                  0.8 + rng.uniform(-0.05, 0.05)])
+            name = f"{cam}_{t:05d}"
+            orientation = (pose[:3, :3] * flips).T
+            position = (pose[:3, 3] * np.array([1, -1, -1]) / scale
+                        + np.asarray(center))
+            with open(root / "camera" / f"{name}.json", "w") as f:
+                json.dump({"orientation": orientation.tolist(),
+                           "position": position.tolist(),
+                           "focal_length": focal, "principal_point": list(pp),
+                           "image_size": [w * downscale, h * downscale],
+                           "skew": 0.0, "pixel_aspect_ratio": 1.0,
+                           "radial_distortion": [0.0, 0.0, 0.0],
+                           "tangential_distortion": [0.0, 0.0]}, f)
+            _save_png(root / "rgb" / f"{downscale}x" / f"{name}.png",
+                      _render_ball_scene(h, w, pose, focal / downscale,
+                                         focal / downscale, pp[0] / downscale,
+                                         pp[1] / downscale, t / last))
+            names.append(name)
+        with open(root / "splits" / f"{split}.json", "w") as f:
+            json.dump({"frame_names": names, "time_ids": ids,
+                       "camera_ids": [cam] * len(ids)}, f)
+    return root
+
+
+def make_sdfstudio_fixture(root: Path, num_frames: int = 8, h: int = 24,
+                           w: int = 32, seed: int = 0) -> Path:
+    """An sdfstudio ``meta_data.json`` (size, scene box, per-frame
+    ``camtoworld`` and 4 x 4 ``intrinsics``) over ``{i:06d}_rgb.png``, with
+    monocular priors beside them: ``{i:06d}_depth.npy`` (the z-depth, 0
+    where nothing is hit) and ``{i:06d}_normal.npy`` (a zero normal map)."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    fx = fy = 0.7 * w
+    K = np.array([[fx, 0, w / 2, 0], [0, fy, h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    frames = []
+    for i, pose in enumerate(ring_poses(num_frames, seed)):
+        img, dist, norm = _trace_ball_scene(h, w, pose, fx, fy, w / 2, h / 2, 0.5)
+        _save_png(root / f"{i:06d}_rgb.png", img)
+        np.save(root / f"{i:06d}_depth.npy",
+                np.where(np.isfinite(dist), dist / norm, 0).astype(np.float32))
+        np.save(root / f"{i:06d}_normal.npy", np.zeros((3, h, w), np.float32))
+        frames.append({"rgb_path": f"{i:06d}_rgb.png",
+                       "camtoworld": pose.tolist(), "intrinsics": K.tolist(),
+                       "mono_depth_path": f"{i:06d}_depth.npy",
+                       "mono_normal_path": f"{i:06d}_normal.npy"})
+    meta = {"camera_model": "OPENCV", "height": h, "width": w,
+            "has_mono_prior": True,
+            "scene_box": {"aabb": [[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]],
+                          "near": 0.05, "far": 10.0, "radius": 1.5,
+                          "collider_type": "near_far"},
+            "frames": frames}
+    with open(root / "meta_data.json", "w") as f:
+        json.dump(meta, f)
+    return root
+
+
+def make_scannet_fixture(root: Path, num_frames: int = 10, h: int = 24,
+                         w: int = 32, seed: int = 0) -> Path:
+    """A ScanNet sensor dump: ``color/{i}.jpg``, ``pose/{i}.txt`` (OpenCV
+    camera-to-world) and ``intrinsic/intrinsic_color.txt``, and one frame
+    more whose pose is -inf, as the sensor writes a lost track."""
+    root = Path(root)
+    for d in ("color", "pose", "intrinsic"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    fx = fy = 0.7 * w
+    K = np.array([[fx, 0, w / 2, 0], [0, fy, h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    np.savetxt(root / "intrinsic" / "intrinsic_color.txt", K)
+    poses = ring_poses(num_frames + 1, seed, height=0.8)
+    for i, pose in enumerate(poses):
+        img = _render_ball_scene(h, w, pose, fx, fy, w / 2, h / 2, 0.5)
+        Image.fromarray((img * 255).astype(np.uint8)).save(root / "color" / f"{i}.jpg")
+        c2w = (np.full((4, 4), -np.inf) if i == num_frames
+               else pose @ _OPENCV_TO_OPENGL)
+        np.savetxt(root / "pose" / f"{i}.txt", c2w)
+    return root
+
+
+def make_arkitscenes_fixture(root: Path, num_frames: int = 10, h: int = 24,
+                             w: int = 32, video_id: str = "41069021",
+                             seed: int = 0) -> Path:
+    """An ARKitScenes low-resolution capture under ``root/video_id``:
+    ``{id}_frames/lowres_wide/{id}_{ts:.3f}.png``, a ``.pincam`` per frame
+    ("w h fx fy cx cy") and ``lowres_wide.traj`` (rows "ts rx ry rz tx ty
+    tz": the world-to-camera rotation as axis-angle, then its translation);
+    one image more without a trajectory row and one without intrinsics.
+
+    Returns the scene directory (``root/video_id``, pass as ``--data``)."""
+    scene = Path(root) / video_id
+    frames_dir = scene / f"{video_id}_frames"
+    img_dir = frames_dir / "lowres_wide"
+    intr_dir = frames_dir / "lowres_wide_intrinsics"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    intr_dir.mkdir(parents=True, exist_ok=True)
+    fx = fy = 0.7 * w
+    rows = []
+    for i, pose in enumerate(ring_poses(num_frames + 2, seed, height=0.8)):
+        ts = f"{6800.0 + 0.1 * i:.3f}"
+        _save_png(img_dir / f"{video_id}_{ts}.png",
+                  _render_ball_scene(h, w, pose, fx, fy, w / 2, h / 2, 0.5))
+        if i != num_frames + 1:
+            (intr_dir / f"{video_id}_{ts}.pincam").write_text(
+                f"{w} {h} {fx!r} {fy!r} {w / 2!r} {h / 2!r}")
+        if i != num_frames:
+            w2c = np.linalg.inv(pose @ _OPENCV_TO_OPENGL)
+            q = _rotmat_to_qvec(w2c[:3, :3])
+            vn = np.linalg.norm(q[1:])
+            rotvec = 2 * np.arctan2(vn, q[0]) * q[1:] / max(vn, 1e-300)
+            rows.append(" ".join([ts, *(f"{v!r}" for v in map(float, rotvec)),
+                                  *(f"{v!r}" for v in map(float, w2c[:3, 3]))]))
+    (frames_dir / "lowres_wide.traj").write_text("\n".join(rows) + "\n")
+    return scene
+
+
+def make_equirect_panorama(path: Path, h: int = 512, w: int = 1024,
+                           seed: int = 0) -> Path:
+    """One equirectangular panorama of the ball scene (longitude -180 to
+    180 left to right, latitude +90 to -90 top to bottom, z up) from a
+    point above the floor drawn from ``seed``."""
+    rng = np.random.default_rng([seed, 4])
+    origin = np.array([rng.uniform(-0.3, 0.3), -1.2 + rng.uniform(-0.3, 0.3),
+                       0.5 + rng.uniform(-0.1, 0.1)])
+    lon = ((np.arange(w) + 0.5) / w - 0.5) * 2 * np.pi
+    lat = (0.5 - (np.arange(h) + 0.5) / h) * np.pi
+    lat, lon = np.meshgrid(lat, lon, indexing="ij")
+    dirs = np.stack([np.cos(lat) * np.cos(lon), np.cos(lat) * np.sin(lon),
+                     np.sin(lat)], axis=-1)
+    _save_png(Path(path), _hit_ball_scene(origin, dirs, 0.5)[0])
+    return Path(path)

@@ -33,3 +33,8 @@ def get_model(name: str):
     if name not in _MODEL_MODULES:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_MODEL_MODULES)}")
     return importlib.import_module(_MODEL_MODULES[name])
+
+
+def register_model(name: str, module_path: str):
+    """Name a plugin's model module (plugins.py)."""
+    _MODEL_MODULES[name] = module_path

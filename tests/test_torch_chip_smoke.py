@@ -10,7 +10,9 @@ samples), so every phase (the
 plane and scatter kernel checks, and per method two counted frames, the
 render CPU comparison, the counted train steps, the train CPU comparison;
 the Trainer phases on tiny fixtures with a few steps, the exporter's five
-subcommands at small resolutions; the JSON lines) runs in a minute or two.
+subcommands at small resolutions, a COLMAP capture through process-data and
+the CLI, the remaining dataparsers through the Trainer; the JSON lines)
+runs in a minute or two.
 Also checks that, without CUDA, the script exits non-zero and prints no
 result, both from the repository and alone in a directory.
 """
@@ -109,6 +111,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     small_ingp = dataclasses.replace(
         mc.model_configs["instant-ngp-bounded"], log2_hashmap_size=12,
         max_res=64, **occ)
+    small_ngp = dataclasses.replace(
+        mc.model_configs["instant-ngp"], log2_hashmap_size=12, max_res=64,
+        **occ)
     small_npngp = dataclasses.replace(
         mc.model_configs["nerfplayer-ngp"], num_levels=3, temporal_dim=8,
         log2_hashmap_size=12, max_res=64, **occ)
@@ -160,6 +165,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                                            small_nerfplayer),
                                           ("small-ingp", "instant-ngp-bounded",
                                            small_ingp),
+                                          ("small-ngp", "instant-ngp", small_ngp),
                                           ("small-npngp", "nerfplayer-ngp",
                                            small_npngp),
                                           ("small-np", "nerfplayer", small_np),
@@ -194,6 +200,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         monkeypatch.setitem(table, "small-static", table["k-planes-static"])
     monkeypatch.setitem(mc.train_num_rays_per_batch, "small-static", 256)
     for small_name, method in (("small", "k-planes"),
+                               ("small-nerfacto", "nerfacto"),
+                               ("small-ngp", "instant-ngp"),
                                ("small-depth", "depth-nerfacto"),
                                ("small-ingp", "instant-ngp-bounded"),
                                ("small-static", "k-planes-static"),
@@ -270,6 +278,15 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         "marching-cubes": ["--resolution", "12"],
         "tsdf": ["--resolution", "12", "--num-cameras", "2"],
         "poisson": ["--resolution", "16", "--num-cameras", "2"]})
+    # a user's COLMAP capture, and the remaining dataparsers
+    monkeypatch.setattr(cs, "CAPTURE_FIXTURE", {"num_frames": 10, "h": 24,
+                                                "w": 32})
+    monkeypatch.setattr(cs, "CAPTURE_STEPS", 4)
+    monkeypatch.setattr(cs, "CAPTURE_EVAL_IMAGE", 2)
+    monkeypatch.setattr(cs, "PANORAMA", {"h": 32, "w": 64})
+    monkeypatch.setattr(cs, "NGP", "small-ngp")
+    monkeypatch.setattr(cs, "PARSER_FIXTURE", {"h": 12, "w": 16})
+    monkeypatch.setattr(cs, "PARSER_STEPS", 2)
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "DEPTH", "small-depth")
@@ -532,8 +549,10 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # save at step 4 and at the end), one each of the others (the CLI
     # phases' training among them, and TensoRF's, k-planes on
     # HyperNeRF data's, instant-ngp-bounded's and dnerf's through the CLI,
-    # semantic-nerfw's through Trainer.train and neus' through the CLI)
-    assert checks.count("save_checkpoint") == 16
+    # semantic-nerfw's through Trainer.train and neus' through the CLI,
+    # nerfacto's on the COLMAP capture through the CLI and the seven runs
+    # of trainer_parsers)
+    assert checks.count("save_checkpoint") == 16 + 1 + 7
     assert checks.count("_read") >= 4 + 2 + ingp["steps"]
     # the CLI phase: snt-train from a command line, snt-eval with
     # DynMetric's boxes, the viewer's /render requests, snt-render's three
@@ -728,6 +747,45 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
     assert k["bound_ms"] == pytest.approx(
         sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
+    # a user's COLMAP capture: colmap-to-json, the poses and distortions
+    # read back, nerfacto through snt-train with an eval image, snt-eval,
+    # the panorama's crops
+    (capture,) = phases["cli_process_data"]
+    assert capture["train_argv"][0] == "small-nerfacto"
+    assert "nerfstudio-data" in capture["train_argv"]
+    assert capture["pose_max_abs_err"] <= cs.POSE_TOL
+    assert 0 < capture["distortion_max"] < 0.05
+    assert capture["colmap_to_json_s"] > 0 and capture["loop_rays_per_s"] > 0
+    assert list(capture["losses"]) == ["0"]
+    assert np.isfinite(capture["eval_image_psnr"])
+    assert "camera_opt" in capture["param_groups"]
+    assert all(np.isfinite(capture["eval"][k]) for k in ("psnr", "ssim"))
+    assert capture["panorama"] == {"h": 32, "w": 64, "crops": 8,
+                                   "crop_size": [16, 16],
+                                   "s": capture["panorama"]["s"]}
+    assert capture["launches"]["cli train"]["scatter_add_rows"] >= 4
+    assert main_path["cli train small-nerfacto capture"]["scatter_add_rows"] >= 4
+    # the seven parsers that read local files, each through Trainer.train
+    (parsers,) = phases["trainer_parsers"]
+    runs = parsers["parsers"]
+    assert {k: v["method"] for k, v in runs.items()} == {
+        "instant-ngp-data": "small-ngp", "dycheck-data": "small",
+        "sdfstudio-data": "small-neus", "minimal-parser": "small-nerfacto",
+        "phototourism-data": "small-nerfacto", "scannet-data": "small-nerfacto",
+        "arkitscenes-data": "small-nerfacto"}
+    assert {k: v["train_images"] for k, v in runs.items()} == {
+        "instant-ngp-data": 10, "dycheck-data": 10, "sdfstudio-data": 10,
+        "minimal-parser": 9, "phototourism-data": 11, "scannet-data": 9,
+        "arkitscenes-data": 9}
+    assert [k for k, v in runs.items() if v["times"]] == ["dycheck-data"]
+    for name, run in runs.items():
+        assert run["setup_s"] > 0 and run["ms_per_step"] > 0, name
+        assert len(run["losses"]) == 2 and run["losses"][1] > 0, name
+    assert all(runs["dycheck-data"]["launches"][k.__name__] > 0
+               for k in pk.TRAIN_KERNELS)
+    for name in ("instant-ngp-data", "minimal-parser", "scannet-data"):
+        assert runs[name]["launches"]["scatter_add_rows"] >= 2, name
+    assert main_path["trainer small dycheck-data"]["bilerp_bwd_unpacked"] > 0
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -127,11 +127,9 @@ def test_broadcaststyle_parser_matches_jax(broadcast_root, split, fps):
 def test_dataparser_registry_names():
     from soccernerfs_tpu.data.dataparsers import DATAPARSERS as JAX_PARSERS
 
-    assert set(DATAPARSERS) == {"nerfstudio-data", "blender-data",
-                                "stadium-data", "closeup-data",
-                                "broadcaststyle-data", "stadiumwide-data",
-                                "dynamic-data", "hypernerf-data",
-                                "dnerf-data", "sitcoms3d-data"}
+    # every JAX subcommand, in the JAX registry's order
+    assert list(DATAPARSERS) == list(JAX_PARSERS)
+    assert len(DATAPARSERS) == 18
     for name, cls in DATAPARSERS.items():
         jcls = JAX_PARSERS[name]
         assert cls.__name__ == jcls.__name__
