@@ -37,6 +37,10 @@
      replaced (grid_coords, bilerp_fwd_* per plane group, the in-place
      product, the column copy) and grid_sample per plane shape with the
      product, against the coordinates, features and touched table rows.
+     Then the five plane kernels at the other feature widths (16, 24 and
+     48, compiled; 20, padded to 24), on three [100, 2048] time planes of
+     kp_res_study's finest scale at the render path's field point count:
+     each against its plain version and timed beside its library call.
   4. Render phases, ``k-planes``, ``nerfacto``, ``depth-nerfacto`` (nerfacto's
      forward), ``nerfplayer-nerfacto``
      (temporal hash grids), ``nerfplayer`` (the decomposition field), then
@@ -201,6 +205,15 @@
      minimal-parser, phototourism-data, scannet-data and arkitscenes-data
      (nerfacto).  Each fails unless its losses are finite, every param
      group moved and the scatter's range check passes.
+ 12. ``sweep_kp_res``, last: the paper's resolution study through the
+     ported sweep harness (``experiments.sweeps``, ``snt_experiment``):
+     kp_res_study's third run (k-planes at F = 24 over scales 1..32,
+     ~0.43 G parameters) on the Trainer phases' fixture, 32 steps, the
+     render of a two-frame camera path and snt-eval, each command in its
+     own process reporting its kernels' launches by feature width (F = 24
+     must launch); then ``scripts.plot_kplane`` on the snapshot,
+     ``scripts.compute_ist`` on the fixture, and the snapshot's render on
+     1024 rays against the CPU.
 Prints a JSON line with the six kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -242,11 +255,11 @@ NP = "nerfplayer"
 NPNGPC = "nerfplayer-ngp-complete"
 AABB = [[-1.5] * 3, [1.5] * 3]
 TRAIN_CPU_RAYS = 1024
-TRAIN_CPU_SEEDS = (2, 4, 6)      # numpy seeds of the draws; the batch's is + 1
-NERFACTO_CPU_SEEDS = (2, 4)
-DEPTH_CPU_SEEDS = (2, 4)
+TRAIN_CPU_SEEDS = (2,)           # numpy seeds of the draws; the batch's is + 1
+NERFACTO_CPU_SEEDS = (2,)
+DEPTH_CPU_SEEDS = (2,)
 DEPTH_ZEROS = 0.1                # share of a depth batch's rays without a target
-NERFPLAYER_CPU_SEEDS = (2, 4)    # both temporal proposal methods
+NERFPLAYER_CPU_SEEDS = (2,)      # both temporal proposal methods
 OCC_CPU_SEEDS = (2,)
 OCC_CPU_STEP = 272               # a sampled grid update
 TRAIN_WINDOW = 60                # steps, 10 update cycles
@@ -312,7 +325,8 @@ CLASSIC_STEP = 10_000             # the windows' step: past every upsample
 CLASSIC_CPU_RAYS = {TENSORF: 1024, VNERF: 256, MIPNERF: 256}
 CLASSIC_CPU_SEEDS = (2,)
 # counted render frames (cameras), timed ones, and whether one is profiled
-CLASSIC_FRAMES = {TENSORF: ((0, 1), (1,), True), VNERF: ((1,), (), False),
+# (none: TensoRF's frame of ~84 k kernels took 45.5 s to profile)
+CLASSIC_FRAMES = {TENSORF: ((0, 1), (1,), False), VNERF: ((1,), (), False),
                   MIPNERF: ((1,), (), False)}
 TENSORF_FIXTURE = {"num_frames": 8, "h": 200, "w": 200}
 TENSORF_TRAINER_ITERS = (8, 16, 24, 32, 40)   # the registry's 2000-7000
@@ -401,6 +415,8 @@ def all_kernels():
 def reset_launch_counts() -> None:
     for k in all_kernels():
         k.launches = 0
+        if hasattr(k, "launches_by_width"):
+            k.launches_by_width = {}
 
 
 def launch_counts() -> dict:
@@ -421,6 +437,11 @@ def method_parts(method):
 FORWARD = ("bilerp_fwd_unpacked", "bilerp_fwd_packed")
 XZ_YZ = ([(0, 1), (1, 3)], 2)              # [(c1, plane index)], c2
 XT_YT_ZT = ([(0, 2), (1, 4), (2, 5)], 3)
+# the plane kernels' other widths (width_kernel_phase): the compiled 16,
+# 24 (kp_res_study's) and 48, and 20, which the wrappers pad to 24; on
+# [time, space] planes of kp_res_study's finest scale (100 x 64 * 32)
+WIDTH_FEATS = (16, 20, 24, 48)
+WIDTH_PLANES = (100, 2048)
 
 
 def kernel_cases(cfg, staged):
@@ -456,8 +477,76 @@ def group_bytes(m, feat, tables) -> int:
             + sum(t.numel() * t.element_size() for t in tables))
 
 
-def kernel_phase(cfg, staged, dev):
+def fwd_case(tag, label, kern, plain, library, lib_outs, bytes_, flops, **extra):
+    """Check one forward case against its plain version (KERNEL_REL_TOL of
+    the max; bit-equal expected) and time kernel (20 calls), plain version
+    (5) and library yardstick (10); ``lib_outs`` turns the library's
+    output into the kernel's outputs (a list of [M, F]).  Logs and
+    returns its row."""
+    got = [t.clone() for t in _as_list(kern())]
+    want = [t.clone() for t in _as_list(plain())]
+    torch.cuda.synchronize()
+    err = max(float((g - e).abs().max()) for g, e in zip(got, want))
+    scale = max(float(e.abs().max()) for e in want)
+    if not err <= KERNEL_REL_TOL * scale:
+        raise AssertionError(f"{tag} {label}: max |kernel - plain| = "
+                             f"{err} > {KERNEL_REL_TOL} * {scale}")
+    lib_err = max(float((g - e).abs().max())
+                  for g, e in zip(got, lib_outs(library())))
+    del got, want
+    ms = time_ms(kern, 20)
+    plain_ms = time_ms(plain, 5)
+    library_ms = time_ms(library, 10)
+    t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    row = {
+        "case": label, **extra, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_max_abs_diff": lib_err, "bytes": bytes_, "flops": flops,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    log("kernel", tag, json.dumps(row))
+    return row
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def group_sampler(planes, pts, members, c2):
+    """The per-plane route's operands of one plane group: a y cell and
+    fraction shared by the group, a row id and x fraction per plane; and
+    the grid_sample yardstick over the same bf16 plane values as f32 NCHW
+    at the same continuous coordinates.  Returns (rowids, txs, ty,
+    grid, library)."""
     from soccernerfs_tpu_torch.ops.grid_sample import grid_coords
+
+    h, w = planes[0].shape[:2]
+    yc, ty = grid_coords(pts[:, c2], h)
+    rowids, txs = [], []
+    for c1, _ci in members:
+        xc, tx = grid_coords(pts[:, c1], w)
+        rowids.append(yc * w + xc)
+        txs.append(tx)
+    inp = torch.stack([p.to(torch.bfloat16).float().permute(2, 0, 1)
+                       for p in planes])
+    grid = torch.stack([pts[:, [c1, c2]] for c1, _ci in members])[:, None]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    return rowids, txs, ty, grid, library
+
+
+def per_plane(lib):
+    """grid_sample's [P, F, 1, M] output as P [M, F]."""
+    return list(lib[:, :, 0].permute(0, 2, 1))
+
+
+def kernel_phase(cfg, staged, dev):
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -466,12 +555,7 @@ def kernel_phase(cfg, staged, dev):
         pts = torch.rand((m, 4), generator=gen, device=dev) * 2.0 - 1.0
         tables = [params["grids_packed"][s][ci] for _c1, ci in members]
         planes = [params["grids"][s][ci] for _c1, ci in members]
-        yc, ty = grid_coords(pts[:, c2], h)
-        rowids, txs = [], []
-        for c1, _ci in members:
-            xc, tx = grid_coords(pts[:, c1], w)
-            rowids.append(yc * w + xc)
-            txs.append(tx)
+        rowids, txs, ty, _grid, library = group_sampler(planes, pts, members, c2)
         feat = planes[0].shape[-1]
         if kind == "unpacked":
             def kern():
@@ -487,51 +571,96 @@ def kernel_phase(cfg, staged, dev):
             def plain():
                 return pk.bilerp_fwd_packed_plain(tables, rowids, txs, ty)
 
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        err = max(float((g - e).abs().max()) for g, e in zip(got, want))
-        scale = max(float(e.abs().max()) for e in want)
-        if not err <= KERNEL_REL_TOL * scale:
-            raise AssertionError(f"{kind} {label}: max |kernel - plain| = "
-                                 f"{err} > {KERNEL_REL_TOL} * {scale}")
-        del got, want
-
-        # grid_sample yardstick: the same bf16 plane values as f32 NCHW, the
-        # same continuous coordinates
-        inp = torch.stack([p.to(torch.bfloat16).float().permute(2, 0, 1)
-                           for p in planes])
-        grid = torch.stack([pts[:, [c1, c2]] for c1, _ci in members])[:, None]
-
-        def library():
-            return torch.nn.functional.grid_sample(
-                inp, grid, mode="bilinear", padding_mode="border",
-                align_corners=True)
-
-        lib_out = library()[:, :, 0].permute(0, 2, 1)
-        lib_err = max(float((g - e).abs().max())
-                      for g, e in zip(kern(), lib_out))
-        del lib_out
-
-        ms = time_ms(kern, 20)
-        plain_ms = time_ms(plain, 5)
-        library_ms = time_ms(library, 10)
         n = len(members)
-        bytes_ = group_bytes(m, feat, tables)
-        flops = m * (1 + n * (9 * feat + 1))   # 1-ty; 1-tx and 9 per feature
-        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_F32_FLOPS * 1e3
-        row = {
-            "case": label, "planes": n, "M": m, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_max_abs_diff": lib_err, "bytes": bytes_, "flops": flops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        log("kernel", kind, json.dumps(row))
-        results[f"bilerp_fwd_{kind}"].append(row)
-        del pts, rowids, txs, ty, inp, grid
+        results[f"bilerp_fwd_{kind}"].append(fwd_case(
+            kind, label, kern, plain, library, per_plane,
+            group_bytes(m, feat, tables),
+            m * (1 + n * (9 * feat + 1)),   # 1-ty; 1-tx and 9 per feature
+            planes=n, M=m))
+        del pts, rowids, txs, ty, library
         torch.cuda.empty_cache()
+    return results
+
+
+def width_kernel_phase(cfg, dev):
+    """The five plane kernels at the widths of WIDTH_FEATS (each compiled
+    width but 8 and 32, which the phases above hold, and one the wrappers
+    pad), on the time group (XT, YT, ZT) of kp_res_study's finest scale
+    (WIDTH_PLANES, random bf16 values) at the render path's field point
+    count, uniform random points: each against its plain version
+    (forward KERNEL_REL_TOL, bit-equal expected; backward 1e-5 of the max,
+    as bwd_case holds it), timed beside its library call (F.grid_sample,
+    for the fused kernel with the product; aten.grid_sampler_2d_backward)
+    and its byte bound at F.  The per-plane forward wrappers take [h*w, F]
+    and [h*w, 4F] tables (a padded width is padded per call, inside the
+    timed call); the fused kernel the tables stage_table stages (padded
+    once).  Returns the rows by kernel, "order": "width"."""
+    from soccernerfs_tpu_torch.ops.grid_sample import quad_pack, stage_table
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    m = cfg.eval_num_rays_per_chunk * cfg.num_nerf_samples_per_ray
+    h, w = WIDTH_PLANES
+    members, c2 = XT_YT_ZT
+    descs = [(c1, c2, h, w) for c1, _ci in members]
+    n = len(members)
+    strip = bwd_strip()
+    results = {k.__name__: [] for k in pk.KERNELS}
+    for feat in WIDTH_FEATS:
+        planes = [0.1 + 0.4 * torch.rand((h, w, feat), generator=gen, device=dev)
+                  for _ in members]
+        pts = torch.rand((m, 4), generator=gen, device=dev) * 2.0 - 1.0
+        rowids, txs, ty, grid, library = group_sampler(planes, pts, members, c2)
+        label = (f"F = {feat} (kernel width {pk.native_feat(feat)}), {n} planes "
+                 f"[{h},{w},{feat}], random points")
+        extra = {"order": "width", "feat": feat, "planes": n, "M": m}
+        unpacked = [p.reshape(h * w, feat).to(torch.bfloat16).contiguous()
+                    for p in planes]
+        packed = [quad_pack(p.to(torch.bfloat16)).contiguous() for p in planes]
+        flops = m * (1 + n * (9 * feat + 1))
+        results["bilerp_fwd_unpacked"].append(fwd_case(
+            "unpacked", label,
+            lambda: pk.bilerp_fwd_unpacked(unpacked, rowids, txs, ty, h=h, w=w),
+            lambda: pk.bilerp_fwd_unpacked_plain(unpacked, rowids, txs, ty,
+                                                 h=h, w=w),
+            library, per_plane, group_bytes(m, feat, unpacked), flops, **extra))
+        results["bilerp_fwd_packed"].append(fwd_case(
+            "packed", label,
+            lambda: pk.bilerp_fwd_packed(packed, rowids, txs, ty),
+            lambda: pk.bilerp_fwd_packed_plain(packed, rowids, txs, ty),
+            library, per_plane, group_bytes(m, feat, packed), flops, **extra))
+        del unpacked, packed
+        staged = [stage_table(p) for p in planes]
+        out = torch.empty((m, feat), device=dev)
+
+        def product(lib):
+            acc = lib[0, :, 0].clone()
+            for k in range(1, n):
+                acc.mul_(lib[k, :, 0])
+            return [acc.t()]
+
+        # coordinates read, features written at F; the tables at F, once
+        table_bytes = sum(p.numel() * 2 * 4 for p in planes)
+        results["kplanes_fwd_fused"].append(fwd_case(
+            "fused", label,
+            lambda: pk.kplanes_fwd_fused(pts, staged, descs, out),
+            lambda: pk.kplanes_fwd_fused_plain(pts, staged, descs, out),
+            library, product, m * 4 * 4 + m * feat * 4 + table_bytes,
+            m * n * (16 + 10 * feat), **extra))
+        del staged, out
+        gs = [torch.randn((m, feat), generator=gen, device=dev) for _ in members]
+        for kind in ("unpacked", "packed"):
+            case = {"label": label, "order": "width", "kind": kind, "h": h,
+                    "w": w, "gs": gs, "rowids": rowids, "txs": txs, "ty": ty,
+                    "grid": grid}
+            results[f"bilerp_bwd_{kind}"].append(bwd_case(case, strip))
+        del planes, pts, rowids, txs, ty, grid, library, gs
+        torch.cuda.empty_cache()
+    for name, rows in results.items():
+        log(f"widths {name}: " + "; ".join(
+            f"F = {r['feat']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "
+            f"err {r['max_abs_err']:.3e})" for r in rows))
     return results
 
 
@@ -973,8 +1102,9 @@ def bwd_case(case, strip):
     row = {
         "case": f"{case['label']}, {n} planes [{h},{w},{feat}] "
                 f"grad table {[h * w, table // (h * w)]}",
-        "order": case["order"], "planes": n, "M": m, "max_abs_err": err,
-        "max_abs_plain": scale, "ms": ms, "ms_passes": passes, "plain_ms": plain_ms,
+        "order": case["order"], "feat": feat, "planes": n, "M": m,
+        "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
+        "ms_passes": passes, "plain_ms": plain_ms,
         "library_ms": library_ms, "library_max_abs_diff": lib_diff,
         "bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2066,15 +2196,17 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
     return launches, in_frame
 
 
-def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096):
+def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096,
+                     parts=None):
     """One chunk of ``n`` rays through the model on the card and on the CPU
     (the kernels' plain versions); an occupancy model's on the card's
     binary grid of ``aux`` on both sides, the rays whose samples differ
-    counted and left out of the comparison."""
+    counted and left out of the comparison.  ``parts``: the (model module,
+    model config) of a snapshot, in place of the registered method's."""
     from soccernerfs_tpu_torch.convert import params_from_jax
     from soccernerfs_tpu_torch.core.cameras import generate_rays
 
-    module, cfg, _camera_optimizer = method_parts(method)
+    module, cfg = parts or method_parts(method)[:2]
     pix = np.linspace(0, H * W - 1, n).astype(np.int64)
     coords = np.stack([pix // W, pix % W], -1).astype(np.float32) + 0.5
     cpu = torch.device("cpu")
@@ -2209,8 +2341,9 @@ def proposal_method_phases(method, dev, cams, aabb, trace_dir, kernels,
     scatter = [k.__name__ for k in sk.KERNELS]
     _module, cfg, _camera_optimizer = method_parts(method)
     tree, params, _ = make_params(method, dev, num_train_data=20)
+    # nerfplayer's frame (~16 k kernels) is not profiled: 12.5 s
     launches[f"render {method}"], _ = render_phase(
-        method, params, cams, dev, aabb, trace_dir)
+        method, params, cams, dev, aabb, trace_dir, profile=method != NP)
     render_cpu_check(method, tree, params, cams, dev, aabb)
     del params
     torch.cuda.empty_cache()
@@ -2241,8 +2374,9 @@ def occupancy_method_phases(method, dev, cams, aabb, trace_dir, kernels,
     _module, cfg, _camera_optimizer = method_parts(method)
     tree, params, _ = make_params(method, dev, num_train_data=20)
     aux = occupancy_state(method, params, dev)
+    # no profiled frame: 20-41 k kernels a frame took 11-31 s to profile
     launches[f"render {method}"], _ = render_phase(
-        method, params, cams, dev, aabb, trace_dir, aux=aux)
+        method, params, cams, dev, aabb, trace_dir, aux=aux, profile=False)
     render_cpu_check(method, tree, params, cams, dev, aabb, aux=aux)
     del params
     torch.cuda.empty_cache()
@@ -3889,6 +4023,259 @@ def cli_export_phase(dev, root, launches) -> None:
                     "density_median": median, "subcommands": rows}))
 
 
+# the paper's resolution study through the ported sweep harness: its third
+# parameter set (F = 24, scales 1..32: 2048^2 space planes), 32 steps on
+# the Trainer phases' fixture, the render of a two-frame camera path, eval;
+# then plot_kplane on the snapshot, compute_ist on the fixture and the
+# snapshot's render against the CPU on SWEEP_CPU_RAYS rays
+SWEEP = "kp_res_study"
+SWEEP_RUN = 2
+SWEEP_STEPS = 32
+SWEEP_CPU_RAYS = 1024
+SWEEP_OVERRIDES = {}              # dotted train flags over the run's params
+# runs an entry point's command in its own process: chip_smoke's
+# entry_point_report, its report as JSON to argv[1]
+ENTRY_POINT_RUNNER = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "report = chip_smoke.entry_point_report(sys.argv[4], sys.argv[5:], sys.argv[3])\n"
+    "open(sys.argv[2], 'w').write(json.dumps(report))\n")
+
+
+def entry_point_report(module, args, device) -> dict:
+    """Run entry point ``module``'s ``main(args, device=device)`` in this
+    process, as ``python -m <module> <args>`` runs it on the card, with
+    the launch counts at 0 before it; returns its report: wall seconds of
+    main, of Trainer.train, Trainer.save_checkpoint and eval_setup within
+    it (synchronised), the kernels' launches (the plane kernels' also by
+    width), peak GiB, and what main returned (train: rays per batch and
+    steps; eval: its results)."""
+    import importlib
+
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    script = importlib.import_module(module)
+    sync = torch.cuda.is_available()
+    record = {"train": [], "save_checkpoint": [], "eval_setup": []}
+    patched = [(Trainer, "train"), (Trainer, "save_checkpoint")]
+    if hasattr(script, "eval_setup"):
+        patched.append((script, "eval_setup"))
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
+    for obj, name, fn in saved:
+        setattr(obj, name, timed(fn, record[name], sync=sync))
+    reset_launch_counts()
+    if sync:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        result = script.main(list(args), device=device)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    if sync:
+        torch.cuda.synchronize()
+    report = {
+        "module": module, "main_s": time.perf_counter() - t0,
+        "seconds": {k: sum(v) for k, v in record.items()},
+        "launches": launch_counts(),
+        "by_width": {k.__name__: {str(f): c for f, c in k.launches_by_width.items()}
+                     for k in pk.KERNELS},
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if sync else 0.0),
+    }
+    if isinstance(result, dict):
+        report["results"] = result.get("results")
+    elif hasattr(result, "datamanager"):
+        report["rays_per_batch"] = result.datamanager.get_train_rays_per_batch()
+        report["steps"] = result.config.max_num_iterations
+    return report
+
+
+def run_entry_point(cmd, dev) -> dict:
+    """An Experiment's command, ``python -m <module> <args>``, run in its
+    own process as ENTRY_POINT_RUNNER runs it (its report through a file
+    beside the run; the process's output logged on failure)."""
+    with tempfile.NamedTemporaryFile(suffix=".json", delete=False) as f:
+        report = Path(f.name)
+    full = [cmd[0], "-c", ENTRY_POINT_RUNNER, str(HERE), str(report), str(dev),
+            cmd[2], *cmd[3:]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(full, cwd=HERE, capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:], proc.stderr[-4000:])
+        raise AssertionError(f"{' '.join(cmd[2:4])} exited {proc.returncode}")
+    out = json.loads(report.read_text())
+    report.unlink()
+    return {**out, "process_s": wall}
+
+
+def sweep_camera_path(data, path) -> None:
+    """A two-frame camera_path.json: the fixture's eval camera (Camera_20)
+    at its first two time steps, in the parser's scene frame."""
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+
+    cams = DATAPARSERS["broadcaststyle-data"](data=data, fps_downsample=1.0) \
+        .setup().get_dataparser_outputs("test").cameras
+    frames = []
+    for i in range(2):
+        c2w = np.eye(4)
+        c2w[:3] = cams.camera_to_worlds[i].cpu().numpy()
+        h, fy = int(cams.height[i]), float(cams.fy[i])
+        frames.append({"camera_to_world": c2w.flatten().tolist(),
+                       "fov": float(np.degrees(2 * np.arctan(h / 2 / fy))),
+                       "aspect": float(cams.width[i]) / h,
+                       "render_time": float(cams.times[i])})
+    path.write_text(json.dumps({"render_height": int(cams.height[0]),
+                                "render_width": int(cams.width[0]),
+                                "camera_path": frames, "seconds": 2.0,
+                                "fps": 1}))
+
+
+def sweep_phase(dev, root, launches) -> None:
+    """The paper's resolution study on the port: ``sweeps.experiment``
+    (the ported Experiment) runs kp_res_study's run SWEEP_RUN (k-planes,
+    F = 24, scales 1..32 over 64^3 x 100: 2048^2 space planes) on the
+    Trainer phases' broadcaststyle fixture (the dataparser swapped in for
+    the driver's stadium scene), SWEEP_STEPS steps with trainer_kplanes'
+    data overrides, then snt-render of a two-frame camera path and
+    snt-eval (DynMetric's boxes from a sidecar), each command in its own
+    process (run_entry_point); then scripts.plot_kplane on the snapshot,
+    scripts.compute_ist on the fixture, and the snapshot's render on
+    SWEEP_CPU_RAYS rays of eval camera 0 against the CPU.  Fails unless
+    every command succeeded, the train command launched the train path's
+    plane kernels at F = 24 (bilerp_fwd_packed, bilerp_bwd_unpacked) and
+    render and eval the fused one at F = 24 and no per-plane forward
+    kernel, the eval's metrics are finite, the frames, plane PNGs and the
+    IST cache exist, and the CPU check holds (2e-3)."""
+    from soccernerfs_tpu_torch.experiments import snt_experiment, sweeps
+    from soccernerfs_tpu_torch.scripts import compute_ist, plot_kplane
+    from soccernerfs_tpu_torch.utils import eval_utils
+
+    tag = f"sweep_kp_res {SWEEP}"
+    data = root / "broadcaststyle"
+    cam_path = root / "sweep_camera_path.json"
+    sweep_camera_path(data, cam_path)
+    boxes = root / "sweep_boxes.json"
+    boxes.write_text(json.dumps(ball_boxes(data)))
+    train_args = ["--max-num-iterations", str(SWEEP_STEPS), "--steps-per-save",
+                  str(SWEEP_STEPS), "--vis", "none"]
+    for key, value in TRAINER_DATA.items():
+        train_args += [f"--pipeline.datamanager.{key.replace('_', '-')}", str(value)]
+    for key, value in SWEEP_OVERRIDES.items():
+        train_args += [f"--{key}", *str(value).split()]
+    snt_experiment.OUTPUT_ROOT = root / "sweeps"
+    exp = sweeps.experiment(SWEEP, runs=[SWEEP_RUN], cam_path=str(cam_path),
+                            extra_args={"train": train_args,
+                                        "render": ["--output-format", "images"]})
+    exp.dataset = f"broadcaststyle-data --fps-downsample 1 --data {data}"
+    reports = {}
+
+    def sh(cmd):
+        log(f"{tag}: {' '.join(cmd[2:])}")
+        kind = cmd[2].rsplit(".", 1)[1]
+        reports[kind] = run_entry_point(cmd, dev)
+        launches[f"sweep {kind} {SWEEP}"] = reports[kind]["launches"]
+
+    exp._sh = sh
+    release_memory()
+    saved_env = os.environ.get("SNT_DYNMETRIC_BOXES")
+    os.environ["SNT_DYNMETRIC_BOXES"] = str(boxes)
+    try:
+        exp.run(do_eval=True, do_render=True)
+    finally:
+        if saved_env is None:
+            del os.environ["SNT_DYNMETRIC_BOXES"]
+        else:
+            os.environ["SNT_DYNMETRIC_BOXES"] = saved_env
+    if sorted(reports) != ["eval", "render", "train"]:
+        raise AssertionError(f"{tag}: ran {sorted(reports)}")
+    feat = exp.params[0]["pipeline.model.feature-dim"]
+    need = {"train": ("bilerp_fwd_packed", "bilerp_bwd_unpacked"),
+            "render": ("kplanes_fwd_fused",), "eval": ("kplanes_fwd_fused",)}
+    for kind, names in need.items():
+        by_width = reports[kind]["by_width"]
+        missing = [n for n in names if by_width[n].get(feat, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{tag}: {kind} launched no {missing} at F = "
+                                 f"{feat}: {by_width}")
+        if kind != "train" and any(reports[kind]["launches"][n] for n in FORWARD):
+            raise AssertionError(f"{tag}: {kind} launched a per-plane forward "
+                                 f"kernel: {reports[kind]['launches']}")
+    train, render, evaluate = reports["train"], reports["render"], reports["eval"]
+    results = evaluate["results"]
+    if not all(np.isfinite(results[k]) for k in ("psnr", "ssim", "dpsnr", "dssim")):
+        raise AssertionError(f"{tag}: eval results {results}")
+    config = exp.get_config_path()
+    frames = sorted(Path(str(exp.get_render_path(0))).parent.rglob("*.png"))
+    if len(frames) != 2:
+        raise AssertionError(f"{tag}: rendered frames {frames}")
+    loop_s = train["seconds"]["train"] - train["seconds"]["save_checkpoint"]
+    frame_s = (render["main_s"] - render["seconds"]["eval_setup"]) / 2
+
+    # the tools on the snapshot and the fixture, in process; the CPU check
+    # below takes plot_kplane's snapshot
+    release_memory()
+    setup, snapshot = eval_utils.eval_setup, []
+
+    def kept_setup(*args, **kwargs):
+        snapshot.append(setup(*args, **kwargs))
+        return snapshot[-1]
+
+    t0 = time.perf_counter()
+    eval_utils.eval_setup = kept_setup
+    try:
+        planes_dir = plot_kplane.main(["--load-config", str(config), "--out",
+                                       str(root / "sweep_planes"), "--device",
+                                       str(dev)])
+    finally:
+        eval_utils.eval_setup = setup
+    plot_s = time.perf_counter() - t0
+    pngs = sorted(p.name for p in planes_dir.glob("*.png"))
+    if len(pngs) != 36 and not SWEEP_OVERRIDES:
+        raise AssertionError(f"{tag}: plot_kplane wrote {pngs}")
+    t0 = time.perf_counter()
+    weights = compute_ist.main(["--data", str(data), "--dataparser",
+                                "broadcaststyle-data", "--device", str(dev)])
+    torch.cuda.synchronize()
+    ist_s = time.perf_counter() - t0
+    caches = sorted(data.glob("images/*/ist-weights-1_0-train-*.npy"))
+    if len(caches) != 1 or not np.isfinite(weights.astype(np.float32)).all():
+        raise AssertionError(f"{tag}: compute_ist wrote {caches}")
+
+    # the snapshot's render, card against CPU
+    (_, trainer, step), = snapshot
+    model, cfg = trainer.model, trainer.model_cfg
+    staged = model.prepare_render_params(cfg, trainer.state.params)
+    render_cpu_check(SWEEP, tree_to(trainer.state.params, "cpu"), staged,
+                     trainer.eval_cameras, dev, trainer.aabb, n=SWEEP_CPU_RAYS,
+                     parts=(model, cfg))
+    grids = trainer.state.params["fields"]["grids"]
+    n_params = sum(g.numel() for scale in grids for g in scale)
+    del trainer, staged
+    release_memory()
+    log(json.dumps({
+        "phase": "sweep_kp_res", "driver": SWEEP, "run": SWEEP_RUN,
+        "params": exp.params[0], "checkpoint_step": step,
+        "field_plane_params": n_params,
+        "field_plane_shapes": [list(g.shape) for g in grids[-1]],
+        "train": {"loop_rays_per_s": train["rays_per_batch"] * train["steps"] / loop_s,
+                  "loop_s": loop_s, "save_s": train["seconds"]["save_checkpoint"],
+                  "process_s": train["process_s"], "peak_gib": train["peak_gib"],
+                  "launches_by_width": train["by_width"]},
+        "render": {"s_per_frame": frame_s, "process_s": render["process_s"],
+                   "eval_setup_s": render["seconds"]["eval_setup"],
+                   "peak_gib": render["peak_gib"],
+                   "launches_by_width": render["by_width"]},
+        "eval": {"rays_per_s": results["num_rays_per_sec"], "fps": results["fps"],
+                 "psnr": results["psnr"], "ssim": results["ssim"],
+                 "process_s": evaluate["process_s"], "peak_gib": evaluate["peak_gib"],
+                 "launches_by_width": evaluate["by_width"]},
+        "plot_kplane_s": plot_s, "plane_pngs": len(pngs),
+        "compute_ist_s": ist_s, "ist_cache": caches[0].name}))
+
+
 def release_memory() -> None:
     """Free what earlier runs left (a trainer in a reference cycle lives
     until a collection) and restart the peak, so that a run's peak memory
@@ -4207,6 +4594,11 @@ def main() -> int:
     kernels.update(kernel_phase(cfg, staged, dev))
     kernels.update(fused_kernel_phase(cfg, staged, cams, dev, aabb))
     kernels.update(bwd_kernel_phase(cfg, params, tree, dev))
+    # the other feature widths, off the main path's shapes
+    t0 = time.perf_counter()
+    for name, rows in width_kernel_phase(cfg, dev).items():
+        kernels[name] += rows
+    log(f"width_kernel_phase: {time.perf_counter() - t0:.3f} s")
     # the render path: the fused kernel, and no per-plane forward kernel
     launches[f"render {MODEL}"], in_frame = render_phase(
         MODEL, staged, cams, dev, aabb, args.trace,
@@ -4344,7 +4736,7 @@ def main() -> int:
                       cli_phase, cli_depth_phase, cli_ingp_phase,
                       cli_dnerf_phase, trainer_semantic_phase, cli_neus_phase,
                       cli_export_phase, cli_process_data_phase,
-                      trainer_parsers_phase):
+                      trainer_parsers_phase, sweep_phase):
             t0 = time.perf_counter()
             phase(dev, Path(root), launches)
             log(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")
@@ -4362,10 +4754,11 @@ def main() -> int:
     log("main-path launches:", json.dumps(launches))
     summary = []
     for name in (k.__name__ for k in all_kernels()):
-        rows = kernels[name]
-        # the kernel phases' own cases, as earlier runs summed them; the
-        # backward kernels' captured train-step launches have lines of
+        # the kernel phases' own cases at the main paths' widths, as
+        # earlier runs summed them; the backward kernels' captured
+        # train-step launches and the other widths' cases have lines of
         # their own; the fused kernel's cases are a frame's own launches
+        rows = [r for r in kernels[name] if r.get("order") != "width"]
         rows = [r for r in rows
                 if r.get("order", "random") == "random"] or rows
         t_bytes = sum(r["bytes"] for r in rows) / H100_BYTES_PER_S * 1e3

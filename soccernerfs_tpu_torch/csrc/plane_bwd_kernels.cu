@@ -80,6 +80,11 @@
 #error "atomicAdd(float4*) needs CUDA 12.1 or later"
 #endif
 
+// The feature widths with a compiled instance, as plane_kernels.cu's (F
+// lanes a point, F/4 a corner: any multiple of 4 works; the wrappers pad
+// other widths up to 128 with zero gradient columns and drop them).
+#define SNT_FOR_EACH_FEAT(X) X(8) X(16) X(24) X(32) X(48) X(64) X(96) X(128)
+
 namespace {
 
 constexpr int kMaxPlanes = 3;
@@ -197,14 +202,13 @@ int launch(int planes, const void* const* gs, const void* const* rowids,
   const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat) {
-    case 8:
-      bilerp_bwd_kernel<8, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w,
-                                                             (int)rows);
+#define SNT_BWD_CASE(F)                                                   \
+    case F:                                                                \
+      bilerp_bwd_kernel<F, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w, \
+                                                              (int)rows); \
       break;
-    case 32:
-      bilerp_bwd_kernel<32, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w,
-                                                              (int)rows);
-      break;
+    SNT_FOR_EACH_FEAT(SNT_BWD_CASE)
+#undef SNT_BWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -215,7 +219,7 @@ int launch(int planes, const void* const* gs, const void* const* rowids,
 
 // gs: P x [m, feat] f32; rowids: P x [m] int32 (y0*w + x0); txs: P x [m]
 // f32; ty: [m] f32, shared by the P planes; grads: P zero-filled
-// [h*w, feat] f32.  feat in {8, 32}, 1 <= P <= 3.
+// [h*w, feat] f32.  feat one of SNT_FOR_EACH_FEAT's, 1 <= P <= 3.
 extern "C" int snt_bilerp_bwd_unpacked(
     int planes, const void* const* gs, const void* const* rowids,
     const void* const* txs, const void* ty, void* const* grads,

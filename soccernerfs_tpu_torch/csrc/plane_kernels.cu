@@ -57,6 +57,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The feature widths with a compiled instance of every kernel: the widths
+// of the registry, the paper's sweeps and TensoRF's planes, then 64, 96
+// and 128.  Every instance is the same code, F/8 lanes of 8 features per
+// point; the wrappers zero-pad the feature axis of any other width up to
+// 128 to the next of these and drop the padded output columns.
+#define SNT_FOR_EACH_FEAT(X) X(8) X(16) X(24) X(32) X(48) X(64) X(96) X(128)
+
 namespace {
 
 constexpr int kMaxPlanes = 3;
@@ -162,12 +169,10 @@ int launch(int planes, const void* const* tables, const void* const* rowids,
   const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat) {
-    case 8:
-      bilerp_fwd_kernel<8, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w, rows);
-      break;
-    case 32:
-      bilerp_fwd_kernel<32, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w, rows);
-      break;
+#define SNT_FWD_CASE(F) \
+    case F: bilerp_fwd_kernel<F, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w, rows); break;
+    SNT_FOR_EACH_FEAT(SNT_FWD_CASE)
+#undef SNT_FWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -324,7 +329,7 @@ int launch_fused(int planes, const FusedArgs& a, long long m, cudaStream_t s) {
 
 // tables: P pointers to [h*w, feat] bf16; rowids: P x [m] int32;
 // txs: P x [m] f32; ty: [m] f32, shared by the P planes;
-// outs: P x [m, feat] f32.  feat in {8, 32}, 1 <= P <= 3.
+// outs: P x [m, feat] f32.  feat one of SNT_FOR_EACH_FEAT's, 1 <= P <= 3.
 extern "C" int snt_bilerp_fwd_unpacked(
     int planes, const void* const* tables, const void* const* rowids,
     const void* const* txs, const void* ty, void* const* outs,
@@ -347,8 +352,8 @@ extern "C" int snt_bilerp_fwd_packed(
 // [h*w, feat] (packed[p] = 0) or [h*w, 4*feat] (packed[p] = 1); hs, ws,
 // c1s, c2s: each plane's shape and the coordinates of its x and y;
 // pts: [m, dim] f32, dim in {3, 4}; out: the first of m rows of feat f32,
-// out_stride floats apart (16-byte aligned).  feat in {8, 32},
-// 1 <= P <= 6.
+// out_stride floats apart (16-byte aligned).  feat one of
+// SNT_FOR_EACH_FEAT's, 1 <= P <= 6.
 extern "C" int snt_kplanes_fwd_fused(
     int planes, const void* const* tables, const int* packed, const int* hs,
     const int* ws, const int* c1s, const int* c2s, const void* pts, int dim,
@@ -372,8 +377,9 @@ extern "C" int snt_kplanes_fwd_fused(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   switch (feat) {
-    case 8: err = launch_fused<8>(planes, a, m, s); break;
-    case 32: err = launch_fused<32>(planes, a, m, s); break;
+#define SNT_FUSED_FEAT(F) case F: err = launch_fused<F>(planes, a, m, s); break;
+    SNT_FOR_EACH_FEAT(SNT_FUSED_FEAT)
+#undef SNT_FUSED_FEAT
     default: return (int)cudaErrorInvalidValue;
   }
   return err != 0 ? err : (int)cudaGetLastError();

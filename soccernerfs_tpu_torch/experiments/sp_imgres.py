@@ -1,0 +1,6 @@
+"""Image-resolution sweep on StadiumPlayers
+(counterpart of experiments/sp_imgres.py; the sweep: sweeps.DRIVERS)."""
+from soccernerfs_tpu_torch.experiments.sweeps import main
+
+if __name__ == "__main__":
+    main("sp_imgres")

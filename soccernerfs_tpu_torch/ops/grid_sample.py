@@ -61,8 +61,14 @@ def stage_table(plane: torch.Tensor) -> torch.Tensor:
     big F = 32 planes (H*W >= 65536 and W % 32 == 0) unpacked, [H*W, F]
     (4x less memory); the rest quad-packed, [H*W, 4F] (one contiguous
     row per point).  Both hold the same bf16 values; kplanes_fwd_fused
-    takes either, bilerp_fwd_unpacked and bilerp_fwd_packed one each."""
+    takes either, bilerp_fwd_unpacked and bilerp_fwd_packed one each.
+    A width the kernels have no instance of is zero-padded to the next
+    one (``plane_kernels.native_feat``): F = 20 stages [H*W, 4 * 24], each
+    quarter's 4 last features 0."""
     h, w, f = plane.shape
+    if pk.native_feat(f) != f:
+        plane = torch.nn.functional.pad(plane, (0, pk.native_feat(f) - f))
+        f = plane.shape[-1]
     if 4 * f == 128 and h * w >= 65536 and w % 32 == 0:
         return plane.reshape(h * w, f).to(torch.bfloat16).contiguous()
     return quad_pack(plane.to(torch.bfloat16)).contiguous()
@@ -92,22 +98,23 @@ def _split(n: int, tensors):
 
 class _FoldGroup(torch.autograd.Function):
     """Forward: stage the grids to bf16 (``stage_table``) and sample them
-    with the forward kernel the staging picks.  Backward: the unpacked
-    backward kernel for every table, [H*W, F] f32 straight into the grid's
-    gradient.  Row ids and fractions get no gradient."""
+    with the forward kernel the staging picks (the staged width's padded
+    columns dropped).  Backward: the unpacked backward kernel for every
+    table, [H*W, F] f32 straight into the grid's gradient.  Row ids and
+    fractions get no gradient."""
 
     @staticmethod
     def forward(ctx, n, ty, *tensors):
         grids, rowids, txs = _split(n, tensors)
         h, w, feat = grids[0].shape
         tables = [stage_table(g) for g in grids]
-        if tables[0].shape[-1] == feat:
+        if tables[0].shape[-1] == pk.native_feat(feat):
             feats = pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w)
         else:
             feats = pk.bilerp_fwd_packed(tables, rowids, txs, ty)
         ctx.save_for_backward(ty, *rowids, *txs)
         ctx.shape = (n, h, w, feat)
-        return tuple(feats)
+        return tuple(f if f.shape[1] == feat else f[:, :feat] for f in feats)
 
     @staticmethod
     def backward(ctx, *gouts):

@@ -23,7 +23,14 @@ point.  The forward wrappers return P f32 [M, F] features; the backward
 wrappers take P f32 [M, F] upstream gradients and return P f32 table
 gradients.  For CPU tensors a wrapper runs its plain version (the CPU
 tests' path); for CUDA tensors it launches its kernel or raises.
-``<wrapper>.launches`` counts kernel launches, and nothing else.
+``<wrapper>.launches`` counts kernel launches, and nothing else;
+``<wrapper>.launches_by_width`` splits them by feature width.
+
+Every kernel is compiled for the feature widths in ``FEATS`` (F/8 lanes of
+8 features a point forward, F lanes backward); the wrappers take any
+width from 1 to 128, zero-padding the feature axis to the next compiled
+width (``native_feat``) and dropping the padded output columns.  The
+staged tables come padded, so the main paths pad nothing per call.
 
 Unlike the TPU kernels, these take points in any order: a CUDA thread
 gathers (or atomically scatters) directly, so the stripe sort the TPU
@@ -42,7 +49,30 @@ from soccernerfs_tpu_torch.ops.kernels import build
 
 MAX_PLANES = 3
 MAX_FUSED_PLANES = 6
-FEATS = (8, 32)
+# the feature widths with a compiled instance of every kernel
+# (SNT_FOR_EACH_FEAT in csrc/); any other width up to the last is padded
+FEATS = (8, 16, 24, 32, 48, 64, 96, 128)
+
+
+def native_feat(feat: int) -> int:
+    """The width the kernels compute ``feat`` features at: the least of
+    FEATS at or above it (``feat`` itself above FEATS[-1], which the
+    kernels refuse and the plain versions take).  The staged tables
+    (ops/grid_sample.stage_table) carry it; the wrappers zero-pad other
+    operands to it and drop the padded output columns, which is exact: a
+    padded feature is 0 forward, and its gradient column is discarded."""
+    return next((n for n in FEATS if feat <= n), feat)
+
+
+def pad_features(t: torch.Tensor, feat: int, quarters: int = 1) -> torch.Tensor:
+    """[R, quarters * F] -> [R, quarters * native_feat(F)]: each quarter's F
+    columns followed by zeros (``t`` itself at a native width)."""
+    wide = native_feat(feat)
+    if wide == feat:
+        return t
+    r = t.shape[0]
+    return torch.nn.functional.pad(t.reshape(r, quarters, feat),
+                                   (0, wide - feat)).reshape(r, quarters * wide)
 
 
 # ---------------------------------------------------------------------------
@@ -119,14 +149,14 @@ def kplanes_fwd_fused_plain(pts, tables, planes, out) -> torch.Tensor:
         xc, tx = grid_coords(pts[:, c1], w)
         yc, ty = grid_coords(pts[:, c2], h)
         rowid = yc * w + xc
-        if table.shape[1] == feat:
+        if table.shape[1] == native_feat(feat):
             r00, r01, r10, r11 = corner_rows(rowid, h=h, w=w)
             f = lerp_corners(table[r00], table[r01], table[r10], table[r11],
                              tx, ty)
         else:
             f = packed_rows_plain(table, rowid, tx, ty)
         acc = f if acc is None else acc.mul_(f)
-    out.copy_(acc)
+    out.copy_(acc[:, :feat])
     return out
 
 
@@ -201,6 +231,11 @@ def _on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _require_cuda(dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"kernel operands must be CUDA tensors, got {dev}")
+
+
 def _check(ins, rowids, txs, ty, dtype) -> int:
     """Validate a CUDA launch's operands: P contiguous 2-D ``dtype``
     tensors of one shape (tables, or upstream gradients) and the per-point
@@ -211,8 +246,7 @@ def _check(ins, rowids, txs, ty, dtype) -> int:
     if not len(rowids) == len(txs) == planes:
         raise ValueError("one row id and tx array per plane")
     dev = ins[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"kernel operands must be CUDA tensors, got {dev}")
+    _require_cuda(dev)
     for t in ins:
         if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"tables and gradients must be contiguous 2-D {dtype}")
@@ -232,8 +266,15 @@ def _check(ins, rowids, txs, ty, dtype) -> int:
 
 
 def _check_feat(feat: int) -> None:
-    if feat not in FEATS:
-        raise ValueError(f"feature width must be one of {FEATS}, got {feat}")
+    if not 1 <= feat <= FEATS[-1]:
+        raise ValueError(f"feature width must be 1..{FEATS[-1]}, got {feat}")
+
+
+def _count(kernel, feat: int) -> None:
+    """One launch of ``kernel`` at feature width ``feat``: its count and its
+    count by width (the width asked for, before any padding)."""
+    kernel.launches += 1
+    kernel.launches_by_width[feat] = kernel.launches_by_width.get(feat, 0) + 1
 
 
 def _ptrs(tensors) -> ctypes.Array:
@@ -260,7 +301,8 @@ def bilerp_fwd_unpacked(tables: Sequence[torch.Tensor], rowids, txs,
     """Bilinear sample of P [h*w, F] bf16 tables (the planes themselves).
 
     Args:
-        tables: P [h*w, F] bf16, F in {8, 32}.
+        tables: P [h*w, F] bf16, 1 <= F <= 128 (a width outside FEATS is
+            zero-padded per call: stage_table's tables come padded).
         rowids: P [M] int32 row ids y0*w + x0; txs: P [M] f32;
         ty: [M] f32, shared by the P planes.
     Returns:
@@ -273,17 +315,18 @@ def bilerp_fwd_unpacked(tables: Sequence[torch.Tensor], rowids, txs,
     _check_feat(feat)
     if tables[0].shape[0] != h * w:
         raise ValueError(f"table has {tables[0].shape[0]} rows, want {h * w}")
-    outs = [torch.empty((m, feat), dtype=torch.float32, device=ty.device)
+    wide = native_feat(feat)
+    outs = [torch.empty((m, wide), dtype=torch.float32, device=ty.device)
             for _ in tables]
-    if m == 0:
-        return outs
-    _launch("snt_bilerp_fwd_unpacked", tables, rowids, txs, ty, outs, m, feat,
-            h, w)
-    bilerp_fwd_unpacked.launches += 1
-    return outs
+    if m > 0:
+        _launch("snt_bilerp_fwd_unpacked", [pad_features(t, feat) for t in tables],
+                rowids, txs, ty, outs, m, wide, h, w)
+        _count(bilerp_fwd_unpacked, feat)
+    return outs if wide == feat else [o[:, :feat] for o in outs]
 
 
 bilerp_fwd_unpacked.launches = 0
+bilerp_fwd_unpacked.launches_by_width = {}
 
 
 def bilerp_fwd_packed(tables: Sequence[torch.Tensor], rowids, txs,
@@ -291,7 +334,8 @@ def bilerp_fwd_packed(tables: Sequence[torch.Tensor], rowids, txs,
     """Bilinear sample of P quad-packed [R, 4F] bf16 tables.
 
     Args:
-        tables: P [R, 4F] bf16 (ops/grid_sample.quad_pack), F in {8, 32}.
+        tables: P [R, 4F] bf16 (ops/grid_sample.quad_pack), 1 <= F <= 128
+            (padded per call outside FEATS, as bilerp_fwd_unpacked).
         rowids: P [M] int32 row ids; txs: P [M] f32; ty: [M] f32.
     Returns:
         P [M, F] f32.
@@ -303,17 +347,18 @@ def bilerp_fwd_packed(tables: Sequence[torch.Tensor], rowids, txs,
         raise ValueError("packed tables are [R, 4F]")
     feat = tables[0].shape[-1] // 4
     _check_feat(feat)
-    outs = [torch.empty((m, feat), dtype=torch.float32, device=ty.device)
+    wide = native_feat(feat)
+    outs = [torch.empty((m, wide), dtype=torch.float32, device=ty.device)
             for _ in tables]
-    if m == 0:
-        return outs
-    _launch("snt_bilerp_fwd_packed", tables, rowids, txs, ty, outs, m, feat,
-            tables[0].shape[0])
-    bilerp_fwd_packed.launches += 1
-    return outs
+    if m > 0:
+        _launch("snt_bilerp_fwd_packed", [pad_features(t, feat, 4) for t in tables],
+                rowids, txs, ty, outs, m, wide, tables[0].shape[0])
+        _count(bilerp_fwd_packed, feat)
+    return outs if wide == feat else [o[:, :feat] for o in outs]
 
 
 bilerp_fwd_packed.launches = 0
+bilerp_fwd_packed.launches_by_width = {}
 
 
 def _check_fused(pts, tables, planes, out) -> None:
@@ -324,13 +369,13 @@ def _check_fused(pts, tables, planes, out) -> None:
     if len(planes) != len(tables):
         raise ValueError("one (c1, c2, h, w) per table")
     dev = pts.device
-    if dev.type != "cuda":
-        raise ValueError(f"kernel operands must be CUDA tensors, got {dev}")
+    _require_cuda(dev)
     if (pts.dtype != torch.float32 or pts.dim() != 2
             or pts.shape[1] not in (3, 4) or not pts.is_contiguous()):
         raise ValueError("points must be contiguous f32 [M, 3] or [M, 4]")
     feat = out.shape[-1] if out.dim() == 2 else -1
     _check_feat(feat)
+    wide = native_feat(feat)
     if (out.dtype != torch.float32 or out.shape[0] != pts.shape[0]
             or out.stride(1) != 1 or out.stride(0) % 4
             or out.data_ptr() % 16 or out.device != dev):
@@ -345,14 +390,14 @@ def _check_fused(pts, tables, planes, out) -> None:
                 or t.device != dev or t.data_ptr() % 16):
             raise ValueError("tables must be contiguous 16-byte aligned bf16 "
                              f"2-D tensors on {dev}")
-        if t.shape[0] != h * w or t.shape[1] not in (feat, 4 * feat):
+        if t.shape[0] != h * w or t.shape[1] not in (wide, 4 * wide):
             raise ValueError(f"a table of {list(t.shape)} is neither [{h * w},"
-                             f" {feat}] nor [{h * w}, {4 * feat}]")
+                             f" {wide}] nor [{h * w}, {4 * wide}]")
 
 
 def _launch_fused(pts, tables, planes, out) -> None:
     """Launch snt_kplanes_fwd_fused on the current stream of the operands'
-    device (checked by _check_fused)."""
+    device (checked by _check_fused; ``out``'s width is the tables')."""
     feat = out.shape[1]
     fn = build.load("plane_kernels").snt_kplanes_fwd_fused
     ints = ctypes.c_int * len(tables)
@@ -382,11 +427,13 @@ def kplanes_fwd_fused(pts: torch.Tensor, tables: Sequence[torch.Tensor],
     Args:
         pts: [M, D] f32 normalised coordinates, D in {3, 4}.
         tables: P <= 6 staged bf16 tables (ops/grid_sample.stage_table),
-            each [h*w, F] (unpacked) or [h*w, 4F] (quad-packed).
+            each [h*w, F'] (unpacked) or [h*w, 4F'] (quad-packed), F' =
+            native_feat(F): zero-padded features past F.
         planes: P (c1, c2, h, w): the coordinates indexing a plane's width
             and height, and its shape.
-        out: [M, F] f32, F in {8, 32}, unit column stride (a column slice
-            of the [M, S*F] concatenated features).
+        out: [M, F] f32, 1 <= F <= 128, unit column stride (a column slice
+            of the [M, S*F] concatenated features).  Outside FEATS the
+            kernel writes [M, F'] and the first F columns are copied in.
     Returns:
         ``out``.
     """
@@ -395,12 +442,20 @@ def kplanes_fwd_fused(pts: torch.Tensor, tables: Sequence[torch.Tensor],
     _check_fused(pts, tables, planes, out)
     if pts.shape[0] == 0:
         return out
-    _launch_fused(pts, tables, planes, out)
-    kplanes_fwd_fused.launches += 1
+    wide = native_feat(out.shape[1])
+    if wide == out.shape[1]:
+        _launch_fused(pts, tables, planes, out)
+    else:
+        full = torch.empty((pts.shape[0], wide), dtype=torch.float32,
+                           device=pts.device)
+        _launch_fused(pts, tables, planes, full)
+        out.copy_(full[:, :out.shape[1]])
+    _count(kplanes_fwd_fused, out.shape[1])
     return out
 
 
 kplanes_fwd_fused.launches = 0
+kplanes_fwd_fused.launches_by_width = {}
 
 
 def _check_grads(gs, rowids, txs, ty) -> tuple:
@@ -419,7 +474,8 @@ def bilerp_bwd_unpacked(gs: Sequence[torch.Tensor], rowids, txs,
     """Gradient of bilerp_fwd_unpacked w.r.t. its P [h*w, F] tables.
 
     Args:
-        gs: P [M, F] f32 upstream gradients, F in {8, 32};
+        gs: P [M, F] f32 upstream gradients, 1 <= F <= 128 (zero-padded
+            per call outside FEATS, the padded columns dropped);
         rowids, txs, ty: as bilerp_fwd_unpacked.
     Returns:
         P [h*w, F] f32 table gradients.
@@ -427,17 +483,18 @@ def bilerp_bwd_unpacked(gs: Sequence[torch.Tensor], rowids, txs,
     if _on_cpu([*gs, *rowids, *txs, ty]):
         return bilerp_bwd_unpacked_plain(gs, rowids, txs, ty, h=h, w=w)
     m, feat = _check_grads(gs, rowids, txs, ty)
-    grads = [torch.zeros((h * w, feat), dtype=torch.float32, device=ty.device)
+    wide = native_feat(feat)
+    grads = [torch.zeros((h * w, wide), dtype=torch.float32, device=ty.device)
              for _ in gs]
-    if m == 0:
-        return grads
-    _launch("snt_bilerp_bwd_unpacked", gs, rowids, txs, ty, grads, m, feat,
-            h, w)
-    bilerp_bwd_unpacked.launches += 1
-    return grads
+    if m > 0:
+        _launch("snt_bilerp_bwd_unpacked", [pad_features(g, feat) for g in gs],
+                rowids, txs, ty, grads, m, wide, h, w)
+        _count(bilerp_bwd_unpacked, feat)
+    return grads if wide == feat else [g[:, :feat] for g in grads]
 
 
 bilerp_bwd_unpacked.launches = 0
+bilerp_bwd_unpacked.launches_by_width = {}
 
 
 def bilerp_bwd_packed(gs: Sequence[torch.Tensor], rowids, txs,
@@ -445,7 +502,8 @@ def bilerp_bwd_packed(gs: Sequence[torch.Tensor], rowids, txs,
     """Gradient of bilerp_fwd_packed w.r.t. its P quad-packed tables.
 
     Args:
-        gs: P [M, F] f32 upstream gradients, F in {8, 32};
+        gs: P [M, F] f32 upstream gradients, 1 <= F <= 128 (padded per
+            call outside FEATS, as bilerp_bwd_unpacked);
         rowids, txs, ty: as bilerp_fwd_packed; rows: R.
     Returns:
         P [R, 4F] f32 table gradients.
@@ -453,16 +511,21 @@ def bilerp_bwd_packed(gs: Sequence[torch.Tensor], rowids, txs,
     if _on_cpu([*gs, *rowids, *txs, ty]):
         return bilerp_bwd_packed_plain(gs, rowids, txs, ty, rows=rows)
     m, feat = _check_grads(gs, rowids, txs, ty)
-    grads = [torch.zeros((rows, 4 * feat), dtype=torch.float32,
+    wide = native_feat(feat)
+    grads = [torch.zeros((rows, 4 * wide), dtype=torch.float32,
                          device=ty.device) for _ in gs]
-    if m == 0:
+    if m > 0:
+        _launch("snt_bilerp_bwd_packed", [pad_features(g, feat) for g in gs],
+                rowids, txs, ty, grads, m, wide, rows)
+        _count(bilerp_bwd_packed, feat)
+    if wide == feat:
         return grads
-    _launch("snt_bilerp_bwd_packed", gs, rowids, txs, ty, grads, m, feat, rows)
-    bilerp_bwd_packed.launches += 1
-    return grads
+    return [g.reshape(rows, 4, wide)[:, :, :feat].reshape(rows, 4 * feat)
+            for g in grads]
 
 
 bilerp_bwd_packed.launches = 0
+bilerp_bwd_packed.launches_by_width = {}
 
 # the train path's kernels (its forward keeps every plane's factor for the
 # backward), then the render path's
@@ -474,3 +537,4 @@ KERNELS = (*TRAIN_KERNELS, kplanes_fwd_fused)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.launches_by_width = {}

@@ -301,6 +301,23 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(sk, "raise_if_out_of_range",
                         lambda device=None: (checks.append(
                             sys._getframe(1).f_code.co_name), check(device)))
+    # the other widths on small planes; the sweep at a small size (its
+    # flags after the run's, which they override), its entry points in
+    # this process (the stubs and counters above then see them)
+    monkeypatch.setattr(cs, "WIDTH_PLANES", (6, 16))
+    monkeypatch.setattr(cs, "SWEEP_STEPS", 2)
+    monkeypatch.setattr(cs, "SWEEP_CPU_RAYS", 32)
+    monkeypatch.setattr(cs, "SWEEP_OVERRIDES", {
+        "pipeline.model.spacetime-resolution": "8 8 8 4",
+        "pipeline.model.multiscale-res": "1 2",
+        "pipeline.model.num-proposal-samples-per-ray": "8 6",
+        "pipeline.model.num-nerf-samples-per-ray": "4",
+        "pipeline.model.eval-num-rays-per-chunk": "512",
+        "pipeline.datamanager.train-num-rays-per-batch": "64"})
+    entry_points = []
+    monkeypatch.setattr(cs, "run_entry_point", lambda cmd, dev: (
+        entry_points.append(cmd),
+        {**cs.entry_point_report(cmd[2], cmd[3:], dev), "process_s": 0.0})[1])
     monkeypatch.setattr(cs, "TRAIN_CPU_RAYS", 64)
     monkeypatch.setattr(cs, "TRAIN_WINDOW", 12)
     monkeypatch.setattr(cs, "OCC_TRAIN_WINDOW", 16)
@@ -368,7 +385,19 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             "kernel": "bilerp_" + line.split(" ", 2)[1]}
            for line in lines if line.startswith("kernel bwd_")]
     step = [r for r in bwd if r["order"] == "ray"]
-    assert len(bwd) - len(step) == 5
+    assert len([r for r in bwd if r["order"] == "random"]) == 5
+    # the other widths: each of the five plane kernels at F = 16, 20
+    # (padded to 24), 24 and 48, against its plain version
+    width = [r for r in bwd if r["order"] == "width"]
+    assert [r["feat"] for r in width] == [16, 16, 20, 20, 24, 24, 48, 48]
+    fwd_width = [json.loads(line.split(" ", 2)[2]) for line in lines
+                 if line.startswith(("kernel unpacked ", "kernel packed ",
+                                     "kernel fused "))
+                 and '"order": "width"' in line]
+    assert [r["feat"] for r in fwd_width] == [16] * 3 + [20] * 3 + [24] * 3 + [48] * 3
+    assert all(r["max_abs_err"] == 0.0 and r["library_ms"] > 0
+               and r["bound_ms"] > 0 for r in fwd_width + width)
+    assert sum(line.startswith("widths ") for line in lines) == 5
     assert {r["planes"] for r in step} == {1, 2, 3}
     assert all(0 < r["vector_reductions"] and r["points_per_flush"] >= 1.0
                for r in bwd)
@@ -550,9 +579,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # phases' training among them, and TensoRF's, k-planes on
     # HyperNeRF data's, instant-ngp-bounded's and dnerf's through the CLI,
     # semantic-nerfw's through Trainer.train and neus' through the CLI,
-    # nerfacto's on the COLMAP capture through the CLI and the seven runs
-    # of trainer_parsers)
-    assert checks.count("save_checkpoint") == 16 + 1 + 7
+    # nerfacto's on the COLMAP capture through the CLI, the seven runs
+    # of trainer_parsers and the sweep's training)
+    assert checks.count("save_checkpoint") == 16 + 1 + 7 + 1
     assert checks.count("_read") >= 4 + 2 + ingp["steps"]
     # the CLI phase: snt-train from a command line, snt-eval with
     # DynMetric's boxes, the viewer's /render requests, snt-render's three
@@ -632,10 +661,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert any(line.startswith(f"train cpu check {method}, seed 2: leaves "
                                    f"held with the card's bins") for line in lines)
         assert sum(main_path[f"train {method}"].values()) == 0
-    assert any(line.startswith("render small-tensorf: launches per frame")
-               for line in lines)
-    assert not any(line.startswith("render small-vnerf: launches per frame")
-                   for line in lines)
+    # a profiled frame for k-planes and nerfacto's family, none for the
+    # classic, nerfplayer and occupancy methods (their profiles took
+    # 11-46 s a frame on the card)
+    profiled = {line.split(":")[0][len("render "):] for line in lines
+                if line.startswith("render ") and ": launches per frame" in line}
+    assert profiled == {"small", "small-nerfacto", "small-depth",
+                        "small-semantic", "small-nerfplayer"}
     # TensoRF through Trainer.train: the tables grow at each compressed
     # upsampling step, every optimizer state restarts there, the snapshot
     # reloads at the final resolution
@@ -728,7 +760,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # route it replaced and the library's; the profiled frame's fused time
     # against its bound
     fused = [json.loads(line.split(" ", 2)[2]) for line in lines
-             if line.startswith("kernel fused ")]
+             if line.startswith("kernel fused ") and '"order": "frame"' in line]
     assert sorted(r["case"].split(",")[0] for r in fused) == [
         "field scale 0", "field scale 1", "proposal0 scale 0"]
     assert all(r["max_abs_err"] == 0.0 and r["order"] == "frame"
@@ -786,6 +818,32 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     for name in ("instant-ngp-data", "minimal-parser", "scannet-data"):
         assert runs[name]["launches"]["scatter_add_rows"] >= 2, name
     assert main_path["trainer small dycheck-data"]["bilerp_bwd_unpacked"] > 0
+    # the paper's resolution study through the ported Experiment: train,
+    # render, eval, each an entry point's command; then plot_kplane,
+    # compute_ist and the CPU check on its snapshot
+    assert [cmd[2] for cmd in entry_points] == [
+        f"soccernerfs_tpu_torch.scripts.{k}" for k in ("train", "render", "eval")]
+    train_argv = entry_points[0][3:]
+    assert train_argv[0] == "k-planes"
+    for flag, value in (("--pipeline.model.feature-dim", "24"),
+                        ("--max-num-iterations", "2"),
+                        ("--experiment-name", "kp_res_study")):
+        assert train_argv[train_argv.index(flag) + 1] == value
+    assert train_argv[-5:-1] == ["broadcaststyle-data", "--fps-downsample", "1",
+                                 "--data"]
+    (sweep,) = phases["sweep_kp_res"]
+    assert sweep["params"]["pipeline.model.multiscale-res"] == "1 2 4 8 16 32"
+    assert sweep["field_plane_shapes"][0][-1] == 24
+    for kind, names in (("train", ("bilerp_fwd_packed", "bilerp_bwd_unpacked")),
+                        ("render", ("kplanes_fwd_fused",)),
+                        ("eval", ("kplanes_fwd_fused",))):
+        assert all(sweep[kind]["launches_by_width"][n]["24"] > 0 for n in names)
+    assert sweep["train"]["loop_rays_per_s"] > 0 and sweep["render"]["s_per_frame"] > 0
+    assert all(np.isfinite(sweep["eval"][k]) for k in ("psnr", "ssim", "rays_per_s"))
+    assert sweep["plane_pngs"] == 12 and sweep["ist_cache"].startswith("ist-weights-1_0-")
+    assert any(line.startswith("cpu check kp_res_study (32 rays): max |card - cpu|")
+               for line in lines)
+    assert main_path["sweep train kp_res_study"]["bilerp_bwd_unpacked"] > 0
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

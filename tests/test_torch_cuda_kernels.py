@@ -50,10 +50,18 @@ CASES = [  # h, w, m, planes, feat
     (13, 7, 1001, 3, 8),
     (1, 1, 10, 1, 8),
 ]
+# the other compiled widths of the registry and the paper's sweeps (16,
+# 24, 48) and one the wrappers pad (20 -> 24)
+WIDTH_CASES = [
+    (25, 16, 700, 2, 16),
+    (20, 12, 901, 3, 24),
+    (13, 7, 1001, 3, 48),
+    (9, 8, 99, 2, 20),
+]
 
 
 @pytest.mark.parametrize("sort", [False, True])
-@pytest.mark.parametrize("h,w,m,planes,feat", CASES)
+@pytest.mark.parametrize("h,w,m,planes,feat", CASES + WIDTH_CASES)
 def test_unpacked_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
     """Each multiply and add rounds as the plain version's ops do, so the
     kernel equals it to 1e-6 relative (bit-equal in practice)."""
@@ -71,7 +79,7 @@ def test_unpacked_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
 
 
 @pytest.mark.parametrize("sort", [False, True])
-@pytest.mark.parametrize("h,w,m,planes,feat", CASES)
+@pytest.mark.parametrize("h,w,m,planes,feat", CASES + WIDTH_CASES)
 def test_packed_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
     rng = np.random.default_rng(h * 1000 + w + 1)
     tables = [torch.from_numpy(rng.standard_normal((h * w, 4 * feat),
@@ -101,7 +109,8 @@ def _assert_close_to_plain(got, want):
 
 
 @pytest.mark.parametrize("sort", [False, True])
-@pytest.mark.parametrize("h,w,m,planes,feat", CASES + COLLISION_CASES)
+@pytest.mark.parametrize("h,w,m,planes,feat",
+                         CASES + COLLISION_CASES + WIDTH_CASES)
 def test_unpacked_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
     rng = np.random.default_rng(h * 1000 + w + 2)
     gs = [torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
@@ -116,7 +125,8 @@ def test_unpacked_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
 
 
 @pytest.mark.parametrize("sort", [False, True])
-@pytest.mark.parametrize("h,w,m,planes,feat", CASES + COLLISION_CASES)
+@pytest.mark.parametrize("h,w,m,planes,feat",
+                         CASES + COLLISION_CASES + WIDTH_CASES)
 def test_packed_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
     rng = np.random.default_rng(h * 1000 + w + 3)
     gs = [torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
@@ -208,8 +218,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):      # mixed devices
         pk.bilerp_fwd_packed([torch.zeros((3, 128), dtype=torch.bfloat16,
                                           device=dev)], [z.cpu()], [f], f)
-    with pytest.raises(ValueError):      # F = 16 has no kernel
-        pk.bilerp_fwd_packed([torch.zeros((3, 64), dtype=torch.bfloat16,
+    with pytest.raises(ValueError):      # F = 136: no kernel above 128
+        pk.bilerp_fwd_packed([torch.zeros((3, 544), dtype=torch.bfloat16,
                                           device=dev)], [z], [f], f)
     g = torch.zeros((5, 32), device=dev)
     with pytest.raises(ValueError):      # bf16 upstream gradient
@@ -219,8 +229,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):      # non-contiguous gradient
         pk.bilerp_bwd_packed([torch.zeros((32, 5), device=dev).t()], [z], [f],
                              f, rows=12)
-    with pytest.raises(ValueError):      # F = 16 has no kernel
-        pk.bilerp_bwd_packed([torch.zeros((5, 16), device=dev)], [z], [f], f,
+    with pytest.raises(ValueError):      # F = 136: no kernel above 128
+        pk.bilerp_bwd_packed([torch.zeros((5, 136), device=dev)], [z], [f], f,
                              rows=12)
 
 
@@ -230,8 +240,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def _fused_operands(rng, dim, feat, reso, m, dev):
     """Every k-choose-2 plane of ``reso`` ([res_c2, res_c1] each), staged
-    alternately quad-packed [h*w, 4F] and unpacked [h*w, F]; points in
-    [-1.1, 1.1]^dim with rows exactly at -1 and +1 (the border cells)."""
+    alternately quad-packed [h*w, 4F] and unpacked [h*w, F] (the feature
+    axis zero-padded to native_feat(F), as stage_table stages it); points
+    in [-1.1, 1.1]^dim with rows exactly at -1 and +1 (the border cells)."""
     from soccernerfs_tpu_torch.ops.grid_sample import quad_pack
 
     planes, tables = [], []
@@ -240,8 +251,9 @@ def _fused_operands(rng, dim, feat, reso, m, dev):
         h, w = reso[c2], reso[c1]
         plane = torch.from_numpy(rng.uniform(0.1, 0.5, (h, w, feat))
                                  .astype(np.float32)).to(dev, torch.bfloat16)
-        tables.append(plane.reshape(h * w, feat).contiguous() if i % 2
-                      else quad_pack(plane).contiguous())
+        tables.append(pk.pad_features(plane.reshape(h * w, feat), feat).contiguous()
+                      if i % 2 else
+                      pk.pad_features(quad_pack(plane), feat, 4).contiguous())
         planes.append((c1, c2, h, w))
     pts = rng.uniform(-1.1, 1.1, (m, dim)).astype(np.float32)
     pts[:2] = [[-1.0] * dim, [1.0] * dim]
@@ -256,6 +268,10 @@ FUSED_CASES = [
     (3, 32, (64, 32, 16), 777),
     (3, 8, (1, 5, 3), 299),
     (4, 32, (256, 256, 128, 6), 40_001),
+    (4, 24, (25, 16, 20, 7), 1001),      # kp_res_study's width
+    (4, 16, (13, 7, 9, 5), 3333),
+    (3, 48, (64, 32, 16), 777),
+    (4, 20, (25, 16, 20, 7), 999),       # padded to 24
 ]
 
 
@@ -309,9 +325,12 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
         pk.kplanes_fwd_fused(pts, [tables[0].float()], planes[:1], out)
     with pytest.raises(ValueError):      # table rows != h * w
         pk.kplanes_fwd_fused(pts, tables[:1], [(0, 1, 4, 6)], out)
-    with pytest.raises(ValueError):      # F = 16 has no kernel
+    with pytest.raises(ValueError):      # out 16 wide, tables of F = 8
         pk.kplanes_fwd_fused(pts, tables[:1], planes[:1],
                              torch.empty((20, 16), device=dev))
+    with pytest.raises(ValueError):      # F = 136: no kernel above 128
+        pk.kplanes_fwd_fused(pts, tables[:1], planes[:1],
+                             torch.empty((20, 136), device=dev))
     with pytest.raises(ValueError):      # rows 14 floats apart: not 16-byte aligned
         pk.kplanes_fwd_fused(pts, tables[:1], planes[:1],
                              torch.empty((20, 14), device=dev)[:, :8])

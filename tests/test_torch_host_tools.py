@@ -305,3 +305,39 @@ def test_every_jax_module_has_a_port_counterpart():
     assert missing == UNPORTED
     assert all(m in jax_mods for m in RENAMED)
     assert len(jax_mods) - len(UNPORTED) >= 95
+
+
+# the repository-level tools that import or run the JAX package, and have
+# no counterpart in the port: TPU ablations, microbenchmarks, profilers and
+# multi-chip checks (the port's are chip_smoke.py's timed phases)
+TPU_TOOLS = {"scripts/ablate_step.py", "scripts/diag_fold.py",
+             "scripts/diag_fwd.py", "scripts/diag_temporal.py",
+             "scripts/kbench.py", "scripts/kfloor_r4.py", "scripts/kfloor_r5.py",
+             "scripts/microbench_pack.py", "scripts/microbench_pairgather.py",
+             "scripts/microbench_r3.py", "scripts/profile_method.py",
+             "scripts/profile_render.py", "scripts/profile_step.py",
+             "scripts/tpu_dynamic_convergence.py", "scripts/validate_spmd_tpu.py"}
+
+
+def test_every_root_tool_on_the_jax_package_has_a_port_counterpart():
+    """The root tools that import the JAX package or run its entry points
+    (``experiments/snt_experiment.py`` runs ``soccernerfs_tpu.scripts.*``)
+    are the TPU tools above and the sweep harness and three dataset tools,
+    each with a module of the same name in the port; every sweep driver
+    under ``experiments/`` has its port module too."""
+    import re
+
+    uses_jax = re.compile(r"\bsoccernerfs_tpu\b(?!_torch)")
+    tools = {p.relative_to(REPO).as_posix()
+             for folder in ("experiments", "scripts")
+             for p in (REPO / folder).glob("*.py")
+             if uses_jax.search(p.read_text())}
+    assert TPU_TOOLS <= tools
+    ported = tools - TPU_TOOLS
+    assert ported == {"experiments/snt_experiment.py", "scripts/compute_ist.py",
+                      "scripts/mask_depth_maps.py", "scripts/plot_kplane.py"}
+    port = REPO / "soccernerfs_tpu_torch"
+    assert all((port / m).is_file() for m in ported)
+    drivers = {p.name for p in (REPO / "experiments").glob("*.py")}
+    assert len(drivers) == 22
+    assert all((port / "experiments" / d).is_file() for d in drivers)
