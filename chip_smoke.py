@@ -41,6 +41,12 @@
      48, compiled; 20, padded to 24), on three [100, 2048] time planes of
      kp_res_study's finest scale at the render path's field point count:
      each against its plain version and timed beside its library call.
+     The camera optimizer's coordinate backward (``bilerp_bwd_coords``,
+     1e-5 of the largest gradient; yardstick
+     aten.grid_sampler_2d_backward with output_mask (False, True)) on
+     random points at the K-Planes train path's groups (F = 32 staged
+     unpacked and quad-packed, F = 8), on the launches of one K-Planes
+     SO3xR3 step captured at the wrapper, and at the other widths.
   4. Render phases, ``k-planes``, ``nerfacto``, ``depth-nerfacto`` (nerfacto's
      forward), ``nerfplayer-nerfacto``
      (temporal hash grids), ``nerfplayer`` (the decomposition field), then
@@ -108,6 +114,20 @@
      the witnesses, each leaf held with the card's bins on both sides
      within 1e-2 or twice its one-ulp witness.
 
+     The variants no registry entry names (VARIANTS), each after its
+     method's phases and from its weights: ``k-planes`` with the SO3xR3
+     camera optimizer (steps 0-11 and a 12-step window; all four plane
+     kernels and ``bilerp_bwd_coords`` on every step, its launches per
+     update and other step printed beside the captured step's bound, the
+     pose adjustments' gradient finite and non-zero and the poses moving;
+     the registered path must launch no coordinate backward),
+     ``nerfplayer-nerfacto`` with SO3xR3 and its encodes' inputs
+     differentiated, and ``nerfacto`` with ``predict_normals`` and a
+     random background (one counted frame with its normals, a 4096-ray
+     chunk against the CPU with both normal outputs, train); each with a
+     CPU check of one step, its leaves with the card's bins on both sides
+     within 1e-2 or twice their one-ulp witness (the poses' printed).
+
   7. Trainer phases, through ``Trainer(config).setup().train()`` with the
      registered ``trainer_configs``, on fixtures the script writes to a
      temporary directory: ``trainer_kplanes`` (k-planes at
@@ -131,8 +151,10 @@
      batch copy and train step, each synchronised.
   8. The CLI phase, ``cli_kplanes``, on the same fixture and in process:
      ``scripts.train.main`` trains k-planes at registry width from a
-     command line (the ``trainer_kplanes`` data overrides as flags, 16
-     steps, the checkpoint of step 15); ``scripts.eval.main`` writes
+     command line (the ``trainer_kplanes`` data overrides as flags, the
+     camera optimizer on: ``--pipeline.datamanager.camera-optimizer.mode
+     SO3xR3``, 16 steps, the checkpoint of step 15, which must carry the
+     trained ``camera_opt``); ``scripts.eval.main`` writes
      ns-eval's JSON, with DynMetric's boxes from a sidecar file (one around
      the ball per eval image); the viewer's server
      (``viewer.server.make_server`` on a free port of 127.0.0.1) answers
@@ -214,7 +236,7 @@
      must launch); then ``scripts.plot_kplane`` on the snapshot,
      ``scripts.compute_ist`` on the fixture, and the snapshot's render on
      1024 rays against the CPU.
-Prints a JSON line with the six kernels' results, the card line, and last
+Prints a JSON line with the seven kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
 
@@ -225,6 +247,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -275,6 +298,26 @@ DEFORM_L2_TOL = 5e-2
 # the same updates where that is larger (scatter_case)
 SCATTER_MASS_TOL = 1e-6
 BWD_PASSES = 5                   # timing passes per backward or scatter case
+# method variants that no registry entry names, each a registered method
+# (the module attribute naming it, so that a rehearsal's small configs
+# carry over), the camera optimizer's mode (None: the method's own) and
+# model config overrides: K-Planes and nerfplayer-nerfacto with SO3xR3 on
+# (the Trainer's detached_inputs=False beside it), nerfacto with its
+# normals branch and a random background
+VARIANTS = {
+    "k-planes SO3xR3": ("MODEL", "SO3xR3", {}),
+    "nerfplayer-nerfacto SO3xR3": ("NERFPLAYER", "SO3xR3",
+                                   {"detached_inputs": False}),
+    "nerfacto normals": ("NERFACTO", None, {"predict_normals": True,
+                                            "background_color": "random"}),
+}
+KPLANES_SO3, NERFPLAYER_SO3, NORMALS = VARIANTS
+VARIANT_WINDOW = 12               # the variants' steady windows, steps
+NORMALS_CPU_RAYS = 4096           # nerfacto normals' card-vs-CPU chunk
+# share of those rays whose density-gradient normal may lie further than
+# NORMALS_TOL from the CPU's (render_cpu_check; H100: 0.0098, the CPU's
+# one-ulp witness 0.0032 on an H100, PERF.md §6)
+NORMALS_SHARE_TOL = 0.02
 # the Trainer phases: a broadcaststyle scene of 20 cameras (Camera_1-19
 # train, Camera_20 eval) x 10 time steps at scene 2's working resolution
 STATIC = "k-planes-static"
@@ -423,13 +466,40 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in all_kernels()}
 
 
+def registered(method) -> str:
+    """The registry's name of a method, or of a variant's method."""
+    return globals()[VARIANTS[method][0]] if method in VARIANTS else method
+
+
 def method_parts(method):
-    """(model module, model config, camera optimizer config) of a method."""
+    """(model module, model config, camera optimizer config) of a method or
+    of a variant (VARIANTS: a camera optimizer of another mode is
+    nerfacto's registered one in that mode)."""
     from soccernerfs_tpu_torch.configs import method_configs as mc
     from soccernerfs_tpu_torch.models import get_model
 
+    if method in VARIANTS:
+        _attr, mode, model = VARIANTS[method]
+        module, cfg, camera_optimizer = method_parts(registered(method))
+        if mode is not None:
+            camera_optimizer = dataclasses.replace(
+                mc.camera_optimizer_configs["nerfacto"], mode=mode)
+        return module, dataclasses.replace(cfg, **model), camera_optimizer
     return (get_model(mc.model_names[method]), mc.model_configs[method],
             mc.camera_optimizer_configs[method])
+
+
+def method_optimizers(method) -> dict:
+    """The per-group optimizer configs a method trains with: its registered
+    ones, and the Trainer's camera_opt group when its camera optimizer is
+    on and it registers none."""
+    from soccernerfs_tpu_torch.configs.method_configs import optimizer_configs
+    from soccernerfs_tpu_torch.engine.trainer import CAMERA_OPT_GROUP
+
+    groups = dict(optimizer_configs[registered(method)])
+    if method_parts(method)[2].mode != "off":
+        groups.setdefault("camera_opt", CAMERA_OPT_GROUP)
+    return groups
 
 
 # the per-plane forward kernels: the train forward's; a pure render
@@ -654,6 +724,12 @@ def width_kernel_phase(cfg, dev):
                     "w": w, "gs": gs, "rowids": rowids, "txs": txs, "ty": ty,
                     "grid": grid}
             results[f"bilerp_bwd_{kind}"].append(bwd_case(case, strip))
+        # the coordinate backward over the tables stage_table stages at
+        # this width (quad-packed, padded to the next compiled width)
+        results["bilerp_bwd_coords"].append(coords_case(
+            {"label": label, "order": "width", "h": h, "w": w, "gs": gs,
+             "tables": [stage_table(p) for p in planes], "rowids": rowids,
+             "txs": txs, "ty": ty, "grid": grid}, passes=1))
         del planes, pts, rowids, txs, ty, grid, library, gs
         torch.cuda.empty_cache()
     for name, rows in results.items():
@@ -901,14 +977,13 @@ def make_trainer(method, tree, dev, aux=None):
     """(TrainStep, its state) of a method as registered, on bench.py's
     ring, the parameters loaded from ``tree``; the model's state ``aux``
     (moved to ``dev``) when given, else its ``init_aux``."""
-    from soccernerfs_tpu_torch.configs.method_configs import (
-        model_names, optimizer_configs)
+    from soccernerfs_tpu_torch.configs.method_configs import model_names
     from soccernerfs_tpu_torch.convert import params_from_jax
     from soccernerfs_tpu_torch.engine.trainer import TrainStep
 
     _module, cfg, camera_optimizer = method_parts(method)
-    trainer = TrainStep(cfg, ring_cameras(dev), AABB, optimizer_configs[method],
-                        device=dev, model=model_names[method],
+    trainer = TrainStep(cfg, ring_cameras(dev), AABB, method_optimizers(method),
+                        device=dev, model=model_names[registered(method)],
                         camera_optimizer=camera_optimizer)
     if aux is not None:
         aux = {k: v.to(dev) for k, v in aux.items()}
@@ -1136,6 +1211,189 @@ def bwd_kernel_phase(cfg, params, tree, dev):
             f"{sum(r['bound_ms'] for r in ray):.4f} ms (bytes), "
             f"{sum(r['vector_reductions'] for r in ray)} vector reductions")
     return results
+
+
+def coords_case(case, passes=BWD_PASSES):
+    """Check one bilerp_bwd_coords case against its plain version (1e-5 of
+    the largest |gradient|: the sums over F run in another order) and time
+    kernel (the median of ``passes`` passes of 20 launches), plain version
+    and aten.grid_sampler_2d_backward with output_mask (False, True), the
+    coordinates' gradient of grid_sample (bilinear, border, align_corners)
+    over f32 NCHW planes of the same bf16 values at the same points and
+    upstream gradients; returns its row.
+
+    Bound: bytes.  Per point ty in and its gradient out (8 B); per point
+    and plane the row id and tx (8 B), g (4F B) and the tx gradient (4 B);
+    the table rows the points touch, once (``touched_table_bytes``).  14
+    flops per feature and plane (two corner differences, two lerps, two
+    multiply-adds)."""
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    tables, gs, h, w = case["tables"], case["gs"], case["h"], case["w"]
+    rowids, txs, ty = case["rowids"], case["txs"], case["ty"]
+    m, feat, n = gs[0].shape[0], gs[0].shape[1], len(gs)
+    packed = tables[0].shape[1] != pk.native_feat(feat)
+    args = (tables, gs, rowids, txs, ty)
+
+    def kern():
+        return pk.bilerp_bwd_coords(*args, h=h, w=w)
+
+    def plain():
+        return pk.bilerp_bwd_coords_plain(*args, h=h, w=w)
+
+    (got_tx, got_ty), (want_tx, want_ty) = kern(), plain()
+    torch.cuda.synchronize()
+    got, want = [*got_tx, got_ty], [*want_tx, want_ty]
+    err = max(float((g - e).abs().max()) for g, e in zip(got, want))
+    scale = max(float(e.abs().max()) for e in want)
+    if not err <= KERNEL_REL_TOL * scale:
+        raise AssertionError(f"coords {case['label']}: max |kernel - plain| = "
+                             f"{err} > {KERNEL_REL_TOL} * {scale}")
+    # the planes' values: an unpacked table's first F columns, a packed
+    # one's first quarter's
+    inp = torch.stack([t[:, :feat].float().reshape(h, w, feat).permute(2, 0, 1)
+                       for t in tables]).contiguous()
+    gout = torch.stack(gs).permute(0, 2, 1)[:, :, None].contiguous()
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            gout, inp, case["grid"], 0, 1, True, [False, True])[1]
+
+    # grid_sample's coordinate gradients are the fractions' times the
+    # scales 0.5 (size - 1), its y gradient one per plane
+    lib = library()[:, 0]
+    lib_tx = [lib[k, :, 0] / (0.5 * max(w - 1, 1)) for k in range(n)]
+    lib_ty = lib[:, :, 1].sum(0) / (0.5 * max(h - 1, 1))
+    lib_diff = max(float((g - e).abs().max())
+                   for g, e in zip(got, [*lib_tx, lib_ty]))
+    del got, want, lib, lib_tx, lib_ty
+    ms_passes = [time_ms(kern, 20) for _ in range(passes)]
+    ms = statistics.median(ms_passes)
+    plain_ms = time_ms(plain, 5)
+    library_ms = time_ms(library, 10)
+    touched = touched_table_bytes("packed" if packed else "unpacked", tables,
+                                  rowids, (h * w,) if packed else (h, w))
+    bytes_ = m * 8 + n * m * (8 + 4 * feat + 4) + touched
+    flops = m * (1 + n * (1 + 14 * feat))
+    t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    row = {
+        "case": f"{case['label']}, {n} planes [{h},{w},{feat}] table "
+                f"{list(tables[0].shape)} ({'packed' if packed else 'unpacked'})",
+        "order": case["order"], "feat": feat, "planes": n, "M": m,
+        "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
+        "ms_passes": ms_passes, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_max_abs_diff": lib_diff,
+        "bytes": bytes_, "touched_table_bytes": touched, "flops": flops,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    log("kernel", "coords", json.dumps(row))
+    return row
+
+
+def coords_group(planes, pts, members, c2, gen):
+    """A coordinate case's operands for one plane group at points ``pts``:
+    the staged tables (ops/grid_sample.stage_table), the group sampler's
+    row ids and fractions, random upstream gradients, grid_sample's
+    coordinates."""
+    from soccernerfs_tpu_torch.ops.grid_sample import stage_table
+
+    rowids, txs, ty, grid, _library = group_sampler(planes, pts, members, c2)
+    h, w, feat = planes[0].shape
+    gs = [torch.randn((pts.shape[0], feat), generator=gen, device=pts.device)
+          for _ in members]
+    return {"tables": [stage_table(p) for p in planes], "gs": gs, "h": h,
+            "w": w, "rowids": rowids, "txs": txs, "ty": ty, "grid": grid}
+
+
+def coords_random_cases(cfg, params, dev):
+    """bilerp_bwd_coords on uniform random points at the K-Planes train
+    path's widths and point counts (4096 rays): the main field's finest
+    space group (F = 32, staged unpacked) and coarsest space group (F =
+    32, quad-packed), the first proposal field's time group (F = 8,
+    quad-packed)."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rays = train_num_rays_per_batch[MODEL]
+    field = params["fields"]["grids"]
+    m_field = rays * cfg.num_nerf_samples_per_ray
+    groups = [
+        (f"field scale {len(field) - 1}", field[-1], XZ_YZ, m_field),
+        ("field scale 0", field[0], XZ_YZ, m_field),
+        ("proposal0", params["proposal_networks"]["proposal_0"]["grids"][0],
+         XT_YT_ZT, rays * cfg.num_proposal_samples_per_ray[0]),
+    ]
+    for label, grids, (members, c2), m in groups:
+        pts = torch.rand((m, 4), generator=gen, device=dev) * 2.0 - 1.0
+        planes = [grids[ci].detach() for _c1, ci in members]
+        yield {"label": f"{label}, random points", "order": "random",
+               **coords_group(planes, pts, members, c2, gen)}
+
+
+def coords_step_cases(tree, dev):
+    """The bilerp_bwd_coords launches of one K-Planes step with the SO3xR3
+    camera optimizer on (an update step: make_batch(0), the train phase's
+    draws), captured where the wrapper launches: the path's own staged
+    tables, gradients and ray-ordered points, one case each."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    trainer, state = make_trainer(KPLANES_SO3, tree, dev)
+    launch = pk._launch_coords
+    record = []
+
+    def capture(tables, gs, rowids, txs, ty, d_txs, d_ty, m, packed, h, w, feat):
+        record.append(([t.clone() for t in tables], [g.clone() for g in gs],
+                       [r.clone() for r in rowids], [x.clone() for x in txs],
+                       ty.clone(), h, w))
+        return launch(tables, gs, rowids, txs, ty, d_txs, d_ty, m, packed, h, w,
+                      feat)
+
+    pk._launch_coords = capture
+    try:
+        trainer.loss_and_grads(
+            state, make_batch(0, train_num_rays_per_batch[MODEL], dev),
+            train_proposal_networks=True,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+    finally:
+        pk._launch_coords = launch
+    # a packed group names its rows only: the proposal planes give (h, w)
+    hw = {g.shape[0] * g.shape[1]: tuple(g.shape[:2])
+          for field in state.params["proposal_networks"].values()
+          for scale in field["grids"] for g in scale}
+    del trainer, state
+    for j, (tables, gs, rowids, txs, ty, h, w) in enumerate(record):
+        if w == 1:
+            h, w = hw[h]
+        yc = torch.div(rowids[0], w, rounding_mode="floor")
+        y = (yc + ty) * (2.0 / max(h - 1, 1)) - 1.0
+        grid = torch.stack([torch.stack(
+            [(r - yc * w + tx) * (2.0 / max(w - 1, 1)) - 1.0, y], -1)
+            for r, tx in zip(rowids, txs)])[:, None]
+        yield {"label": f"SO3xR3 train step launch {j}, ray-ordered",
+               "order": "ray", "tables": tables, "gs": gs, "h": h, "w": w,
+               "rowids": rowids, "txs": txs, "ty": ty, "grid": grid}
+
+
+def coords_kernel_phase(cfg, params, tree, dev):
+    """bilerp_bwd_coords on coords_random_cases, then on the launches of one
+    K-Planes SO3xR3 step (coords_step_cases); returns its rows."""
+    rows = []
+    for cases in (coords_random_cases(cfg, params, dev),
+                  coords_step_cases(tree, dev)):
+        for case in cases:
+            rows.append(coords_case(case))
+            del case
+        torch.cuda.empty_cache()
+    ray = [r for r in rows if r["order"] == "ray"]
+    log(f"SO3xR3 train step launches of bilerp_bwd_coords, ray-ordered: "
+        f"{len(ray)}, kernel {sum(r['ms'] for r in ray):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in ray):.4f} ms, library "
+        f"{sum(r['library_ms'] for r in ray):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in ray):.4f} ms (bytes)")
+    return {"bilerp_bwd_coords": rows}
 
 
 def scatter_layout(dev) -> dict:
@@ -1457,7 +1715,8 @@ def profile_device(label, fn, trace_path):
     """Device time by kernel over one call of ``fn``; busy share of the
     wall time.  Returns {kernel wrapper name: device ms} of the port's
     kernels (templates bilerp_{fwd,bwd}_kernel<F, packed>,
-    scatter_add_rows_kernel<C> and kplanes_fwd_fused_kernel<F, P>)."""
+    bilerp_bwd_coords_kernel<F, packed>, scatter_add_rows_kernel<C> and
+    kplanes_fwd_fused_kernel<F, P>)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1497,6 +1756,8 @@ def profile_device(label, fn, trace_path):
         for d in ("fwd", "bwd")
         for kind, flag in (("unpacked", ", false>"), ("packed", ", true>"))
     }
+    times["bilerp_bwd_coords"] = sum(
+        r[0] for r in rows if "bilerp_bwd_coords_kernel<" in r[2]) / 1e3
     times["scatter_add_rows"] = sum(
         r[0] for r in rows if "scatter_add_rows_kernel<" in r[2]) / 1e3
     times["kplanes_fwd_fused"] = sum(
@@ -1626,11 +1887,11 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=(),
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
     from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
-    module, cfg, _camera_optimizer = method_parts(method)
+    module, cfg, camera_optimizer = method_parts(method)
     occupancy = hasattr(module, "update_aux")
     window = window or TRAIN_WINDOW
     tag = f"train {method}"
-    rays = train_num_rays_per_batch[method]
+    rays = train_num_rays_per_batch[registered(method)]
     trainer, state = make_trainer(method, tree, dev, aux)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     batches = [method_batch(i, rays, dev, method) for i in range(8)]
@@ -1651,6 +1912,12 @@ def train_phase(method, tree, dev, trace_dir, must_launch, every_step=(),
     if any(g is None for g in grads):
         raise AssertionError("step 0 (an update step) left a leaf without "
                              "a gradient")
+    if camera_optimizer.mode != "off":
+        pose = grads[leaf_paths(state.params).index("camera_opt/pose_adjustment")]
+        if not float(pose.abs().max()) > 0.0:
+            raise AssertionError(f"{tag}: step 0 gave the poses a zero gradient")
+        log(f"{tag}: step 0 pose_adjustment gradient: max |g| "
+            f"{float(pose.abs().max()):.6e}, L2 {float(pose.norm()):.6e}")
     trainer.apply_grads(state, grads)
     if occupancy:
         # and the grid update after it: over all cells at step 0
@@ -1805,15 +2072,24 @@ def pdf_bins(record=None, replay=None):
                           and getattr(m, "pdf_samples", None) is orig]
     it = iter(replay or ())
 
+    fields = ("starts", "ends", "spacing_starts", "spacing_ends")
+
+    def replayed(own, card):
+        # the card's values; where the run's own bins carry a gradient
+        # (through nears and fars that depend on the camera optimizer's
+        # rays), the run's own path for it
+        card = card.to(own.device)
+        return own + (card - own).detach() if own.requires_grad else card
+
     def patched(*a, **k):
         out = orig(*a, **k)
         if replay is None:
-            record.append(out)
+            record.append(out.replace(**{f: getattr(out, f).detach()
+                                         for f in fields}))
             return out
         rec = next(it)
-        return out.replace(**{
-            f: getattr(rec, f).to(out.starts.device)
-            for f in ("starts", "ends", "spacing_starts", "spacing_ends")})
+        return out.replace(**{f: replayed(getattr(out, f), getattr(rec, f))
+                              for f in fields})
 
     for module in users:
         module.pdf_samples = patched
@@ -1901,6 +2177,9 @@ def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None, rays=None):
     module, cfg, camera_optimizer = method_parts(method)
     occupancy = hasattr(module, "update_aux")
     classic = is_classic(module)
+    # the variants' leaves (the poses' through every sample) are held as
+    # the classic methods' are, with the card's bins and the witnesses
+    held = classic or method in VARIANTS
     step = OCC_CPU_STEP if occupancy else 300
     n = rays or TRAIN_CPU_RAYS
     cpu = torch.device("cpu")
@@ -2023,23 +2302,35 @@ def train_cpu_check(method, tree, dev, seeds, witnesses, aux=None, rays=None):
         if not any(name == "camera_opt/pose_adjustment" for _l, _m, name in rows
                    ) and camera_optimizer.mode != "off":
             raise AssertionError("the camera optimizer got no gradient")
-        if classic:
+        if held:
             witness = {name: l2 for l2, _m, name in pairs[
                 "cpu vs cpu, directions + 1 ulp, both the card's bins"][1]}
             shared = pairs["card vs cpu, both the card's bins"][1]
             bounds = {name: max(GRAD_L2_TOL, 2 * witness[name])
                       for _l, _m, name in shared}
             bad = [r for r in shared if r[0] > bounds[r[2]]]
-            held = sorted(name for name, b in bounds.items() if b > GRAD_L2_TOL)
+            at_witness = sorted(name for name, b in bounds.items()
+                                if b > GRAD_L2_TOL)
             log(f"{tag}, seed {seed}: leaves held with the card's bins on "
                 f"both sides, at {GRAD_L2_TOL} or twice their one-ulp "
-                f"witness: {len(held)} of {len(bounds)} at their witness"
-                + (f" ({', '.join(held[:4])}{', ...' if len(held) > 4 else ''})"
-                   if held else ""))
-            if max(terms.values()) > 1e-4 or bad:
+                f"witness: {len(at_witness)} of {len(bounds)} at their witness"
+                + (f" ({', '.join(at_witness[:4])}"
+                   f"{', ...' if len(at_witness) > 4 else ''})"
+                   if at_witness else ""))
+            for l2, _m, name in shared:
+                if name == "camera_opt/pose_adjustment":
+                    log(f"{tag}, seed {seed}: {name} card vs cpu in L2 "
+                        f"{l2:.3e} (both the card's bins), one-ulp witness "
+                        f"{witness[name]:.3e}, bound {bounds[name]:.3e}")
+            # a variant's loss terms too with the card's bins on both sides:
+            # the orientation loss weighs every sample's density-gradient
+            # normal, and other bins (C.6) move it by ~4e-4
+            held_terms = (pairs["card vs cpu, both the card's bins"][0]
+                          if method in VARIANTS else terms)
+            if max(held_terms.values()) > 1e-4 or bad:
                 raise AssertionError(
                     f"card and CPU {method} train steps disagree, seed "
-                    f"{seed}: {terms}, gradients {bad}")
+                    f"{seed}: {held_terms}, gradients {bad}")
             del card_grads
             results.append(pairs)
             continue
@@ -2133,7 +2424,7 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
 
     def frame(i):
         return render_camera(cfg, params, cams, i, device=dev, aabb=aabb,
-                             model=model_names[method], aux=aux)
+                             model=model_names[registered(method)], aux=aux)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2162,6 +2453,10 @@ def render_phase(method, params, cams, dev, aabb, trace_dir, must_launch=(),
             assert bool(torch.isfinite(v).all()), f"{method} frame {i} {k} not finite"
         assert float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
         assert float(acc.min()) >= 0.0 and float(acc.max()) <= 1.0 + 1e-4
+        for k in ("normals", "pred_normals"):
+            # rendered normals are scaled to unit length (0 on an empty ray)
+            if k in fr and not float(fr[k].norm(dim=-1).max()) <= 1.0 + 1e-3:
+                raise AssertionError(f"{method} frame {i}: {k} longer than 1")
         if "probs" in fr:
             # the rendered component probabilities sum to the accumulation
             probs = fr["probs"]
@@ -2202,7 +2497,17 @@ def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096,
     (the kernels' plain versions); an occupancy model's on the card's
     binary grid of ``aux`` on both sides, the rays whose samples differ
     counted and left out of the comparison.  ``parts``: the (model module,
-    model config) of a snapshot, in place of the registered method's."""
+    model config) of a snapshot, in place of the registered method's.
+
+    nerfacto's density-gradient normals (NORMALS) are held by their share
+    of rays further than NORMALS_TOL from the CPU's, at most
+    NORMALS_SHARE_TOL or twice the share of the CPU's own one-ulp witness
+    (the directions' every other component one ulp up), whichever is
+    larger: each sample's
+    normal is the gradient of bf16-policy MLPs over a hash grid whose
+    weights' derivative jumps at every cell face, and a ray's composite
+    of a fog's normals nearly cancels before it is scaled to unit
+    length, so a flipped rounding can turn a whole ray's normal."""
     from soccernerfs_tpu_torch.convert import params_from_jax
     from soccernerfs_tpu_torch.core.cameras import generate_rays
 
@@ -2219,10 +2524,20 @@ def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096,
                   if getattr(cfg, "background_color", None) == "random" else None)
     extra = {} if aux is None else module.eval_kwargs(cfg, aux)
     outs, picked = {}, {}
-    for where, d, p in (("card", dev, params), ("cpu", cpu, params_cpu)):
+    runs = [("card", dev, params), ("cpu", cpu, params_cpu)]
+    witnessed = method == NORMALS
+    if witnessed:
+        runs.append(("cpu, directions + 1 ulp", cpu, params_cpu))
+    for where, d, p in runs:
         rays = generate_rays(cams.to(d), torch.zeros(n, dtype=torch.int32,
                                                      device=d),
                              torch.from_numpy(coords).to(d))
+        if where.endswith("1 ulp"):
+            dirs = rays.directions
+            every_other = (torch.arange(dirs.numel()) % 2 == 0).reshape(dirs.shape)
+            rays = rays.replace(directions=torch.where(
+                every_other, torch.nextafter(dirs, torch.full_like(dirs, 2.0)),
+                dirs))
         with torch.no_grad():
             o = module.get_outputs(
                 cfg, p, aabb.to(d), rays,
@@ -2230,7 +2545,8 @@ def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096,
                 **({} if background is None
                    else {"background": torch.from_numpy(background).to(d)}))
         outs[where] = {k: o[k].cpu() for k in ("rgb", "accumulation", "depth",
-                                               "probs", "semantics", "normals")
+                                               "probs", "semantics", "normals",
+                                               "pred_normals")
                        if k in o}
         if "valid" in o:
             picked[where] = {"valid": o["valid"].cpu(),
@@ -2263,7 +2579,25 @@ def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096,
     # their largest value (NEUS_REL_TOL), its unit normals at NORMALS_TOL,
     # and its depth, which never reaches the cumulative weight 0.5 and is
     # the last midpoint on both sides, carries nothing
-    absolute = {k: v for k, v in diffs.items() if k not in ("depth", "normals")}
+    normals = {k: v for k, v in diffs.items() if k in ("normals", "pred_normals")}
+    normals_off = None
+    if witnessed:
+        del normals["normals"]
+
+        def off(a, b):
+            return float(((a - b)[keep].abs().amax(-1) > NORMALS_TOL)
+                         .float().mean())
+
+        normals_off = off(outs["card"]["normals"], outs["cpu"]["normals"])
+        witness = off(outs["cpu, directions + 1 ulp"]["normals"],
+                      outs["cpu"]["normals"])
+        normals_bound = max(NORMALS_SHARE_TOL, 2 * witness)
+        log(f"cpu check {method} ({n} rays): normals further than "
+            f"{NORMALS_TOL} from the cpu's on {normals_off:.4f} of the rays "
+            f"(max {diffs['normals']:.3e}); the cpu's one-ulp witness on "
+            f"{witness:.4f}; held at {normals_bound:.4f}")
+    absolute = {k: v for k, v in diffs.items()
+                if k != "depth" and k not in ("normals", "pred_normals")}
     rel = {}
     if method == NEUS:
         rel = {k: absolute.pop(k) / max(float(outs["cpu"][k].abs().max()), 1e-30)
@@ -2274,7 +2608,9 @@ def render_cpu_check(method, tree, params, cams, dev, aabb, aux=None, n=4096,
             raise AssertionError(f"{method} renders nothing: zero accumulation")
     if (max(absolute.values(), default=0.0) > 2e-3
             or max(rel.values(), default=0.0) > NEUS_REL_TOL
-            or diffs.get("normals", 0.0) > NORMALS_TOL or depth_off > 0.01):
+            or max(normals.values(), default=0.0) > NORMALS_TOL
+            or (normals_off is not None and normals_off > normals_bound)
+            or depth_off > 0.01):
         raise AssertionError(f"card and CPU disagree on {method}: {diffs}, "
                              f"{rel}, {depth_off}")
 
@@ -2330,12 +2666,14 @@ def make_params(method, dev, **seed_args):
 
 
 def proposal_method_phases(method, dev, cams, aabb, trace_dir, kernels,
-                           launches) -> None:
+                           launches, so3=False) -> None:
     """A temporal proposal method's phases (nerfplayer-nerfacto, nerfplayer):
     render and check a chunk on the CPU; the scatter's launches of a train
     step; train (4096-ray batches, a proposal update every sixth step at
-    the window) and check a step on the CPU.  Adds to ``kernels`` and
-    ``launches``."""
+    the window) and check a step on the CPU; with ``so3``, the same weights
+    train and are checked again with the SO3xR3 camera optimizer on and
+    the encodes' inputs differentiated (NERFPLAYER_SO3), over a
+    VARIANT_WINDOW-step window.  Adds to ``kernels`` and ``launches``."""
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
     scatter = [k.__name__ for k in sk.KERNELS]
@@ -2357,6 +2695,75 @@ def proposal_method_phases(method, dev, cams, aabb, trace_dir, kernels,
     # nerfplayer's deformation MLP leaves need the witnesses (train_cpu_check)
     train_cpu_check(method, tree, dev, NERFPLAYER_CPU_SEEDS,
                     witnesses=method == NP)
+    if so3:
+        t0 = time.perf_counter()
+        launches[f"train {NERFPLAYER_SO3}"], in_step = train_phase(
+            NERFPLAYER_SO3, tree, dev, trace_dir, must_launch=scatter,
+            every_step=scatter, window=VARIANT_WINDOW)
+        for update, (_times, counts) in in_step.items():
+            log(f"train {NERFPLAYER_SO3}: scatter_add_rows launches in one "
+                f"{'update' if update else 'non-update'} step: "
+                f"{counts['scatter_add_rows']}")
+        train_cpu_check(NERFPLAYER_SO3, tree, dev, NERFPLAYER_CPU_SEEDS,
+                        witnesses=True)
+        log(f"{NERFPLAYER_SO3} phases: {time.perf_counter() - t0:.3f} s")
+    del tree
+    torch.cuda.empty_cache()
+
+
+def kplanes_so3_phases(tree, dev, trace_dir, kernels, launches) -> None:
+    """K-Planes with the SO3xR3 camera optimizer on (KPLANES_SO3), at the
+    registered width: train steps 0-11 and a VARIANT_WINDOW-step window,
+    every plane kernel launched and the coordinate backward on every step
+    (its launches per update and non-update step printed, the profiled
+    update step's beside the captured step's bound); then the CPU check of
+    one step with the witnesses.  Adds to ``launches``."""
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    coords = pk.bilerp_bwd_coords.__name__
+    launches[f"train {KPLANES_SO3}"], in_step = train_phase(
+        KPLANES_SO3, tree, dev, trace_dir,
+        must_launch=[*(k.__name__ for k in pk.TRAIN_KERNELS), coords],
+        every_step=[coords], window=VARIANT_WINDOW)
+    ray = [r for r in kernels[coords] if r["order"] == "ray"]
+    bound = sum(r["bound_ms"] for r in ray)
+    for update, (times, counts) in in_step.items():
+        label = "update" if update else "non-update"
+        log(f"in-step kernels, {KPLANES_SO3} ({label} step): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+        if counts[coords] <= 0 or (update and counts[coords] != len(ray)):
+            raise AssertionError(f"{coords}: {counts[coords]} launches in the "
+                                 f"profiled {label} step, the captured update "
+                                 f"step made {len(ray)}")
+        log(f"in-step (SO3xR3) {coords} ({label} step): {times[coords]:.3f} "
+            f"ms device in {counts[coords]} launches"
+            + (f", bound {bound:.3f} ms (bytes, the captured update step), "
+               + (f"{bound / times[coords]:.4f} of bound" if times[coords]
+                  else "not measured") if update else ""))
+    train_cpu_check(KPLANES_SO3, tree, dev, TRAIN_CPU_SEEDS, witnesses=True)
+
+
+def normals_phases(dev, cams, aabb, trace_dir, launches) -> None:
+    """nerfacto with ``predict_normals`` and a random background (NORMALS),
+    the camera optimizer on as registered: one counted frame with its
+    normals, a NORMALS_CPU_RAYS-ray chunk against the CPU (rgb, both
+    normal outputs), train steps 0-11 and a VARIANT_WINDOW-step window
+    (the scatter on every step), the CPU check of one step with the
+    witnesses.  Adds to ``launches``."""
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    scatter = [k.__name__ for k in sk.KERNELS]
+    tree, params, _ = make_params(NORMALS, dev, num_train_data=20)
+    launches[f"render {NORMALS}"], _ = render_phase(
+        NORMALS, params, cams, dev, aabb, trace_dir, frames=(0,), steady=(),
+        profile=False)
+    render_cpu_check(NORMALS, tree, params, cams, dev, aabb, n=NORMALS_CPU_RAYS)
+    del params
+    torch.cuda.empty_cache()
+    launches[f"train {NORMALS}"], _ = train_phase(
+        NORMALS, tree, dev, trace_dir, must_launch=scatter, every_step=scatter,
+        window=VARIANT_WINDOW)
+    train_cpu_check(NORMALS, tree, dev, NERFACTO_CPU_SEEDS, witnesses=True)
     del tree
     torch.cuda.empty_cache()
 
@@ -2570,9 +2977,13 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
     stuck = stuck_groups(trainer, watch)
     if stuck:
         raise AssertionError(f"{tag}: param groups {stuck} did not move")
-    missing = [k.__name__ for k in pk.KERNELS if counts[k.__name__] <= 0]
+    missing = [k.__name__ for k in (*pk.TRAIN_KERNELS, pk.kplanes_fwd_fused)
+               if counts[k.__name__] <= 0]
     if missing:
         raise AssertionError(f"{tag}: {missing} not launched in the loop")
+    if counts[pk.bilerp_bwd_coords.__name__] != 0:
+        raise AssertionError(f"{tag}: the registered method launched the "
+                             f"coordinate backward")
     if len(is_s) < 2 or dm.train_cache.cached_batch.get("ist_weights") is None:
         raise AssertionError(f"{tag}: {len(is_s)} cache refreshes with IST "
                              f"weights (at least 2)")
@@ -3071,16 +3482,19 @@ def cli_phase(dev, root, launches) -> None:
     """The user entry points on a trained K-Planes snapshot, in process so
     that the launch counters see every kernel: ``scripts.train.main``
     trains k-planes at registry width from a command line (the
-    ``trainer_kplanes`` fixture and data overrides as flags, CLI_STEPS
-    steps, one checkpoint); ``scripts.eval.main`` writes ns-eval's JSON
+    ``trainer_kplanes`` fixture and data overrides as flags, the SO3xR3
+    camera optimizer on, ``--pipeline.datamanager.camera-optimizer.mode
+    SO3xR3``: the coordinate backward on every step, CLI_STEPS steps, one
+    checkpoint carrying ``camera_opt``); ``scripts.eval.main`` writes ns-eval's JSON
     with DynMetric's boxes from a sidecar file (one around the ball per
     eval image); the viewer's server (``viewer.server.make_server`` on
     port 0 of 127.0.0.1) answers /scene, rgb and depth /render requests
     at VIEWER_SIZES, three /keyframe and an /export_path;
     ``scripts.render.main`` renders a spiral (rgb, depth and accumulation
     side by side), an interpolated path and the exported camera_path.json
-    as PNG frames.  Fails unless all four train plane kernels launched in
-    training and the fused one, and no per-plane forward kernel, in eval,
+    as PNG frames.  Fails unless all four train plane kernels and the
+    coordinate backward launched in training and the fused one, and no
+    per-plane forward kernel nor the coordinate backward, in eval,
     in the viewer's /render requests and in render, the checkpoint and
     config exist, psnr, dpsnr and dssim are finite, and every frame and
     PNG has its size."""
@@ -3102,6 +3516,8 @@ def cli_phase(dev, root, launches) -> None:
 
     tag = f"cli_kplanes {MODEL}"
     render = (pk.kplanes_fwd_fused.__name__,)
+    coords = pk.bilerp_bwd_coords.__name__
+    no_grad = (*FORWARD, coords)
 
     def require(path, names, none=()):
         missing = [n for n in names if launches[path][n] <= 0]
@@ -3115,7 +3531,8 @@ def cli_phase(dev, root, launches) -> None:
     out = root / "cli"
     argv = [MODEL, "--max-num-iterations", str(CLI_STEPS),
             "--steps-per-save", str(CLI_STEPS), "--vis", "none",
-            "--output-dir", str(out)]
+            "--output-dir", str(out),
+            "--pipeline.datamanager.camera-optimizer.mode", "SO3xR3"]
     for key, value in TRAINER_DATA.items():
         argv += [f"--pipeline.datamanager.{key.replace('_', '-')}", str(value)]
     argv += ["broadcaststyle-data", "--fps-downsample", "1", "--data", str(data)]
@@ -3134,7 +3551,12 @@ def cli_phase(dev, root, launches) -> None:
     finally:
         Trainer.train, Trainer.save_checkpoint = train, save
     launches[f"cli train {MODEL}"] = launch_counts()
-    require(f"cli train {MODEL}", [k.__name__ for k in pk.TRAIN_KERNELS])
+    require(f"cli train {MODEL}", [*(k.__name__ for k in pk.TRAIN_KERNELS),
+                                   coords])
+    if launches[f"cli train {MODEL}"][coords] < CLI_STEPS:
+        raise AssertionError(f"{tag}: {coords} launched "
+                             f"{launches[f'cli train {MODEL}'][coords]} times "
+                             f"in {CLI_STEPS} steps")
     rays = trainer.datamanager.get_train_rays_per_batch()
     run_dir = trainer.base_dir
     config = run_dir / "config.yml"
@@ -3142,7 +3564,15 @@ def cli_phase(dev, root, launches) -> None:
             run_dir, CLI_STEPS - 1).is_file():
         raise AssertionError(f"{tag}: no config.yml or step-{CLI_STEPS - 1} "
                              f"checkpoint under {run_dir}")
-    del trainer
+    _step, saved = checkpoints.load_checkpoint(run_dir, CLI_STEPS - 1)
+    pose = saved["params"].get("camera_opt", {}).get("pose_adjustment")
+    if (pose is None or "camera_opt" not in saved["opt_state"]
+            or not bool(torch.isfinite(pose).all())
+            or not float(pose.abs().max()) > 0.0):
+        raise AssertionError(f"{tag}: the checkpoint carries no trained "
+                             f"camera_opt")
+    pose_max = float(pose.abs().max())
+    del trainer, saved
     torch.cuda.empty_cache()
 
     # every eval_setup (the checkpoint's load included) by entry point
@@ -3172,7 +3602,7 @@ def cli_phase(dev, root, launches) -> None:
         else:
             os.environ["SNT_DYNMETRIC_BOXES"] = saved_env
     launches[f"cli eval {MODEL}"] = launch_counts()
-    require(f"cli eval {MODEL}", render, FORWARD)
+    require(f"cli eval {MODEL}", render, no_grad)
     results = info["results"]
     if not ({"experiment_name", "method_name", "checkpoint", "results"} <= set(info)
             and all(results.get(k) is not None and np.isfinite(results[k])
@@ -3210,7 +3640,7 @@ def cli_phase(dev, root, launches) -> None:
                     raise AssertionError(f"{tag}: /render {output} at "
                                          f"{width}x{height} gave {size}")
         launches[f"viewer {MODEL}"] = launch_counts()
-        require(f"viewer {MODEL}", render, FORWARD)
+        require(f"viewer {MODEL}", render, no_grad)
         path = get_spiral_path(cams, steps=6)
         for i, t in zip((0, 2, 4), (0.0, 0.5, 1.0)):
             post(f"{url}/keyframe", {"c2w": path.camera_to_worlds[i].tolist(),
@@ -3268,7 +3698,7 @@ def cli_phase(dev, root, launches) -> None:
     finally:
         render_script.eval_setup = eval_utils.eval_setup
     launches[f"cli render {MODEL}"] = launch_counts()
-    require(f"cli render {MODEL}", render, FORWARD)
+    require(f"cli render {MODEL}", render, no_grad)
 
     first = render_ms[0]
     by_size = {}
@@ -3277,6 +3707,7 @@ def cli_phase(dev, root, launches) -> None:
     log(json.dumps({
         "phase": "cli_kplanes", "method": MODEL, "card": card_line(),
         "train_argv": argv, "train_steps": CLI_STEPS,
+        "checkpoint_pose_adjustment_max": pose_max,
         "train_loop_rays_per_s": rays * CLI_STEPS / (loop_s[0] - sum(save_s)),
         "train_loop_s": loop_s[0], "save_ms": [1e3 * t for t in save_s],
         "eval": {k: results[k] for k in ("psnr", "ssim", "lpips", "dpsnr",
@@ -4594,6 +5025,9 @@ def main() -> int:
     kernels.update(kernel_phase(cfg, staged, dev))
     kernels.update(fused_kernel_phase(cfg, staged, cams, dev, aabb))
     kernels.update(bwd_kernel_phase(cfg, params, tree, dev))
+    t0 = time.perf_counter()
+    kernels.update(coords_kernel_phase(cfg, params, tree, dev))
+    log(f"coords_kernel_phase: {time.perf_counter() - t0:.3f} s")
     # the other feature widths, off the main path's shapes
     t0 = time.perf_counter()
     for name, rows in width_kernel_phase(cfg, dev).items():
@@ -4618,6 +5052,15 @@ def main() -> int:
     for update, (times, _counts) in in_step.items():
         log(f"in-step kernels, {MODEL} ({'update' if update else 'non-update'} "
             f"step): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    # the registered step gives its sample positions no gradient: no
+    # coordinate backward
+    coords = pk.bilerp_bwd_coords.__name__
+    if launches[f"train {MODEL}"][coords] or any(
+            counts[coords] for _times, counts in in_step.values()):
+        raise AssertionError(f"the registered {MODEL} train path launched "
+                             f"{coords}")
+    log(f"train {MODEL}: {coords} launches 0 (registered, camera optimizer "
+        f"off)")
     # the forward kernels against the byte bound of the captured step's
     # launches: every step runs all of them
     for name, (step_launches, bound, whole) in fwd_bounds.items():
@@ -4661,6 +5104,11 @@ def main() -> int:
             f"still on after them")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+
+    # ---- K-Planes with the SO3xR3 camera optimizer: the coordinate backward
+    t0 = time.perf_counter()
+    kplanes_so3_phases(tree, dev, args.trace, kernels, launches)
+    log(f"kplanes_so3_phases {KPLANES_SO3}: {time.perf_counter() - t0:.3f} s")
     del tree
 
     # ---- nerfacto: the scatter kernel, render, train (camera optimizer on)
@@ -4682,6 +5130,11 @@ def main() -> int:
     scatter_in_step(NERFACTO, kernels["scatter_add_rows"], in_step)
     train_cpu_check(NERFACTO, tree, dev, NERFACTO_CPU_SEEDS, witnesses=False)
     del tree
+
+    # ---- nerfacto with its normals branch and a random background
+    t0 = time.perf_counter()
+    normals_phases(dev, cams, aabb, args.trace, launches)
+    log(f"normals_phases {NORMALS}: {time.perf_counter() - t0:.3f} s")
 
     # ---- depth-nerfacto: nerfacto's render, and its step with the DS-NeRF
     # loss on batches with target depths (camera optimizer on); the
@@ -4710,7 +5163,7 @@ def main() -> int:
     # scatter's width-1 launches
     for method in (NERFPLAYER, NP):
         proposal_method_phases(method, dev, cams, aabb, args.trace, kernels,
-                               launches)
+                               launches, so3=method == NERFPLAYER)
 
     # ---- the occupancy-grid methods
     for method in (INGP, NPNGP, NPNGPC):
@@ -4748,6 +5201,9 @@ def main() -> int:
         "bilerp_bwd_unpacked": (f"{pallas}:1418", "plane_bwd_kernels.cu"),
         "bilerp_bwd_packed": (f"{pallas}:1156", "plane_bwd_kernels.cu"),
         "scatter_add_rows": (f"{pallas}:1342", "scatter_kernels.cu"),
+        # no TPU kernel: XLA's autodiff of the JAX package's sampler
+        "bilerp_bwd_coords": ("soccernerfs_tpu/ops/grid_sample.py:89",
+                              "plane_bwd_kernels.cu"),
         # the render path's launches of both forward kernels, fused
         "kplanes_fwd_fused": (f"{pallas}:591,1062", "plane_kernels.cu"),
     }

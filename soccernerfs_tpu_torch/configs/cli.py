@@ -48,10 +48,20 @@ def _coerce(value_tokens: List[str], current: Any):
     return value_tokens[0]
 
 
+def _child(obj: Any, name: str):
+    """A dataclass's field, or a dict's entry (the per-group optimizer
+    configs: ``--optimizers.fields.optimizer.max-norm 1.0``)."""
+    if isinstance(obj, dict):
+        if name not in obj:
+            raise AttributeError(name)
+        return obj[name]
+    return getattr(obj, name)
+
+
 def _resolve(obj: Any, parts: List[str]):
     """(parent, attribute name) of a dotted path."""
     for p in parts[:-1]:
-        obj = getattr(obj, p)
+        obj = _child(obj, p)
     return obj, parts[-1]
 
 
@@ -84,12 +94,16 @@ def set_nested(config: Any, dotted: str, value_tokens: List[str]) -> None:
             table[key] = _coerce(value_tokens, table[key])
             _frozen_replace(config, parts[:-1], tuple(table.items()))
             return
-    parent, attr = _resolve(config, parts)
-    if not hasattr(parent, attr):
+    try:
+        parent, attr = _resolve(config, parts)
+        current = _child(parent, attr)
+    except AttributeError:
         raise SystemExit(f"unknown option --{dotted}")
-    new_value = _coerce(value_tokens, getattr(parent, attr))
+    new_value = _coerce(value_tokens, current)
     if _is_frozen(parent):
         _frozen_replace(config, parts, new_value)
+    elif isinstance(parent, dict):
+        parent[attr] = new_value
     else:
         setattr(parent, attr, new_value)
 
@@ -99,12 +113,15 @@ def _frozen_replace(config: Any, parts: List[str], new_value: Any) -> None:
     with ``dataclasses.replace`` up to the first mutable parent."""
     chain = [config]
     for p in parts[:-1]:
-        chain.append(getattr(chain[-1], p))
+        chain.append(_child(chain[-1], p))
     obj = dataclasses.replace(chain[-1], **{parts[-1]: new_value})
     for i in range(len(chain) - 2, -1, -1):
         parent, name = chain[i], parts[i]
         if _is_frozen(parent):
             obj = dataclasses.replace(parent, **{name: obj})
+        elif isinstance(parent, dict):
+            parent[name] = obj
+            return
         else:
             setattr(parent, name, obj)
             return

@@ -188,6 +188,8 @@ def _seeded_nerfacto(cfg: nerfacto.Config, rng, num_train_data: int,
             (max(fcfg.num_images, 1), fcfg.appearance_embedding_dim)
         ).astype(np.float32)
     fields["mlp_head"] = _seeded_mlp(rng, *dims["mlp_head"])
+    if fcfg.use_pred_normals:
+        fields["mlp_pred_normals"] = _seeded_mlp(rng, *dims["mlp_pred_normals"])
 
     props = {}
     for idx, dcfg in cfg.density_field_configs():

@@ -1,8 +1,10 @@
 // Bilinear plane-sampling backward kernels of the K-Planes train path,
 // written for Hopper (sm_90a), with a plain C interface bound by ctypes
-// (soccernerfs_tpu_torch/ops/kernels/plane_kernels.py).
+// (soccernerfs_tpu_torch/ops/kernels/plane_kernels.py): the tables'
+// gradient (the first two below) and, at the end of the file, the
+// fractions' gradient (snt_bilerp_bwd_coords, the camera optimizer's).
 //
-// Both kernels compute the transpose of the forward kernels of
+// The first two kernels compute the transpose of the forward kernels of
 // plane_kernels.cu: for every point i of every plane p in one launch they
 // add the upstream gradient g_p[i, :] (f32), weighted by the four bilinear
 // corner weights
@@ -240,3 +242,206 @@ extern "C" int snt_bilerp_bwd_packed(
 
 // Points per lane strip of the run merge (kStrip).
 extern "C" int snt_bilerp_bwd_strip(void) { return kStrip; }
+
+
+// ---------------------------------------------------------------------------
+// The coordinate backward of the plane samplers
+// ---------------------------------------------------------------------------
+//
+// snt_bilerp_bwd_coords computes, for every point i and the P <= 3 planes
+// of one group (planes that share their y axis, as the forward launches
+// take them), the gradient of the bilinear samples with respect to their
+// fractions:
+//   d_tx_p[i] = sum_f g_p[i, f] ((1-ty)(p01 - p00) + ty (p11 - p10))
+//   d_ty[i]   = sum_p sum_f g_p[i, f] ((1-tx_p)(p10 - p00) + tx_p (p11 - p01))
+// with the corners the forward read: bf16 table values widened to f32,
+// from the staged table of either layout (an unpacked [h*w, F] table's
+// four rows, border replicated as snt_bilerp_fwd_unpacked takes them, or
+// a quad-packed [R, 4F] row's four quarters).  At the last column or row
+// two corners are one value, so the gradient across it is 0, as the
+// transpose of quad_pack gives it.  Each multiply and add rounds on its
+// own (no FMA contraction); the sum over F runs in the features' order and
+// the plain PyTorch version sums in another, so they agree to f32 rounding
+// of the sums.
+//
+// It has no TPU kernel: the JAX package's camera-optimizer path samples
+// its planes with sample_plane_bilinear_packed
+// (soccernerfs_tpu/ops/grid_sample.py) and XLA's autodiff of that gather
+// and lerp gives these fractions' gradient.  The port's group samplers
+// (ops/grid_sample.py) launch this kernel in their backward only when the
+// fractions need a gradient, which no registered method's step asks for.
+//
+// Bound on the card: bytes.  Per point the kernel must read ty (4 B) and
+// write d_ty (4 B); per point and plane it reads the row id and tx (8 B),
+// g (4F B) and the four corners (8F B of bf16), and writes d_tx (4 B):
+// 14 flops per feature against 12F B, far under the f32 rate.  The design
+// is a simple one:
+//   * A group of kLanes threads serves a point: the largest power of two
+//     (at most 16) that divides F/8, so 4 lanes at F = 32, 1 at F = 8 and
+//     F = 24.  Each lane walks the point's planes and its share of their
+//     features 8 at a time (one 16-byte load per corner, two for g) and
+//     keeps its sums in registers; the group's sums meet by warp shuffles
+//     (a power of two divides the warp, so a group never straddles one),
+//     and its first lane writes them.  No atomics.  A first version, one
+//     thread a point walking all F, ran 0.26-0.35 of the byte bound on
+//     the train step's launches and lost to the library yardstick on its
+//     small quad-packed tables (PERF.md): a lane's dependent loads were
+//     the only parallelism.
+//   * Consecutive groups gather other rows, so a warp's corner loads touch
+//     32 / kLanes rows each; the train path's points come ray by ray and
+//     neighbours often share rows, which L1 then serves.
+namespace {
+
+// kLanes: the largest power of two dividing c, at most 16.
+__host__ __device__ constexpr int lanes_for(int c) {
+  return c % 16 == 0 ? 16 : c % 8 == 0 ? 8 : c % 4 == 0 ? 4 : c % 2 == 0 ? 2 : 1;
+}
+
+struct CoordArgs {
+  const uint4* table[kMaxPlanes];
+  const float* g[kMaxPlanes];
+  const int32_t* rowid[kMaxPlanes];
+  const float* tx[kMaxPlanes];
+  float* d_tx[kMaxPlanes];
+  const float* ty;
+  float* d_ty;
+  int planes;
+};
+
+// 8 bf16 values in one 16-byte vector -> 8 floats (exact: bf16 is the top
+// half of an f32).
+__device__ __forceinline__ void bf16x8_to_f32(const uint4 v, float (&f)[8]) {
+  const unsigned int u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(u[k] << 16);
+    f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+  }
+}
+
+// The sum of v over the group of L lanes that holds this lane.
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o /= 2)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int F, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+bilerp_bwd_coords_kernel(const __grid_constant__ CoordArgs a, long long m,
+                         int h, int w, long long rows) {
+  constexpr int kChunks = F / 8;  // 16-byte bf16 vectors per corner row
+  constexpr int kLanes = lanes_for(kChunks);
+  constexpr int kPer = kChunks / kLanes;  // vectors per lane and corner
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int lane = (int)(t % kLanes);
+  // every lane of a warp takes part in the shuffles: a point past the end
+  // reads the last one and writes nothing
+  const bool valid = t / kLanes < m;
+  const long long i = valid ? t / kLanes : m - 1;
+  const float ty = __ldg(a.ty + i);
+  const float omty = __fsub_rn(1.0f, ty);
+  float d_ty = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kMaxPlanes; ++p) {
+    if (p >= a.planes) break;
+    long long row = __ldg(a.rowid[p] + i);
+    row = row < 0 ? 0 : (row >= rows ? rows - 1 : row);  // as the forward
+    const float tx = __ldg(a.tx[p] + i);
+    const float omtx = __fsub_rn(1.0f, tx);
+    const uint4* r00;
+    long long s01, s10, s11;  // the other corners, in vectors from r00
+    if constexpr (kPacked) {
+      r00 = a.table[p] + row * (4 * kChunks);
+      s01 = kChunks;
+      s10 = 2 * kChunks;
+      s11 = 3 * kChunks;
+    } else {
+      const int y0 = (int)(row / w);
+      const int x0 = (int)(row - (long long)y0 * w);
+      const long long dx = x0 < w - 1 ? 1 : 0;
+      const long long dy = y0 < h - 1 ? w : 0;
+      r00 = a.table[p] + row * kChunks;
+      s01 = dx * kChunks;
+      s10 = dy * kChunks;
+      s11 = (dy + dx) * kChunks;
+    }
+    const float4* g = reinterpret_cast<const float4*>(a.g[p] + i * F);
+    float d_tx = 0.0f, d_typ = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int c = lane * kPer + k;
+      float f00[8], f01[8], f10[8], f11[8];
+      bf16x8_to_f32(__ldg(r00 + c), f00);
+      bf16x8_to_f32(__ldg(r00 + s01 + c), f01);
+      bf16x8_to_f32(__ldg(r00 + s10 + c), f10);
+      bf16x8_to_f32(__ldg(r00 + s11 + c), f11);
+      const float4 g0 = __ldg(g + 2 * c);
+      const float4 g1 = __ldg(g + 2 * c + 1);
+      const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float ax = __fadd_rn(__fmul_rn(omty, __fsub_rn(f01[q], f00[q])),
+                                   __fmul_rn(ty, __fsub_rn(f11[q], f10[q])));
+        const float ay = __fadd_rn(__fmul_rn(omtx, __fsub_rn(f10[q], f00[q])),
+                                   __fmul_rn(tx, __fsub_rn(f11[q], f01[q])));
+        d_tx = __fadd_rn(d_tx, __fmul_rn(gv[q], ax));
+        d_typ = __fadd_rn(d_typ, __fmul_rn(gv[q], ay));
+      }
+    }
+    d_tx = group_sum<kLanes>(d_tx);
+    if (valid && lane == 0) a.d_tx[p][i] = d_tx;
+    d_ty = __fadd_rn(d_ty, group_sum<kLanes>(d_typ));
+  }
+  if (valid && lane == 0) a.d_ty[i] = d_ty;
+}
+
+}  // namespace
+
+// tables: P bf16 staged tables, unpacked [h*w, feat] (packed = 0) or
+// quad-packed [rows, 4*feat] (packed = 1); gs: P x [m, feat] f32 upstream
+// gradients; rowids: P x [m] int32 (y0*w + x0); txs: P x [m] f32; ty: [m]
+// f32, shared by the P planes; d_txs: P x [m] f32 out; d_ty: [m] f32 out.
+// feat one of SNT_FOR_EACH_FEAT's, 1 <= P <= 3.
+extern "C" int snt_bilerp_bwd_coords(
+    int planes, const void* const* tables, const void* const* gs,
+    const void* const* rowids, const void* const* txs, const void* ty,
+    void* const* d_txs, void* d_ty, long long m, int packed, int h, int w,
+    long long rows, int feat, void* stream) {
+  if (planes < 1 || planes > kMaxPlanes || m <= 0 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  CoordArgs a;
+  for (int p = 0; p < kMaxPlanes; ++p) {
+    const int q = p < planes ? p : 0;
+    a.table[p] = static_cast<const uint4*>(tables[q]);
+    a.g[p] = static_cast<const float*>(gs[q]);
+    a.rowid[p] = static_cast<const int32_t*>(rowids[q]);
+    a.tx[p] = static_cast<const float*>(txs[q]);
+    a.d_tx[p] = static_cast<float*>(d_txs[q]);
+  }
+  a.ty = static_cast<const float*>(ty);
+  a.d_ty = static_cast<float*>(d_ty);
+  a.planes = planes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (feat) {
+#define SNT_COORDS_CASE(F)                                                   \
+    case F: {                                                                 \
+      const long long threads = m * lanes_for(F / 8);                         \
+      const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));      \
+      if (packed)                                                             \
+        bilerp_bwd_coords_kernel<F, true><<<grid, kThreads, 0, s>>>(a, m, h,  \
+                                                                   w, rows);  \
+      else                                                                    \
+        bilerp_bwd_coords_kernel<F, false><<<grid, kThreads, 0, s>>>(a, m, h, \
+                                                                    w, rows); \
+      break;                                                                  \
+    }
+    SNT_FOR_EACH_FEAT(SNT_COORDS_CASE)
+#undef SNT_COORDS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

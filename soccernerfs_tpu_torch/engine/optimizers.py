@@ -2,8 +2,9 @@
 soccernerfs_tpu/engine/optimizers.py).
 
 The JAX package chains optax transforms per top-level param group
-("fields", "proposal_networks", "camera_opt", "encodings"): coupled weight
-decay where set (``add_decayed_weights``), Adam with f32 moments
+("fields", "proposal_networks", "camera_opt", "encodings"): global-norm
+clipping where set (``clip_by_global_norm``), coupled weight decay where
+set (``add_decayed_weights``), Adam with f32 moments
 (``scale_by_adam``) or a low-precision first moment
 (``scale_by_adam_lowp``), or RAdam (``scale_by_radam``), then
 ``scale_by_schedule(-lr * schedule)``.  The
@@ -37,23 +38,32 @@ f32 = np.float32
 class AdamOptimizerConfig:
     """Adam; field names and defaults are the JAX package's.
 
-    ``weight_decay`` is coupled L2: ``weight_decay * p`` joins the gradient
-    before the moments, as torch.optim.Adam's.  ``moment_dtype`` is the
-    first moment's storage type: None for f32 (the nerfacto groups),
-    "bfloat16" (the k-planes groups); the second moment is stored in f32
-    and all arithmetic is f32.  The JAX config's clipping and bf16 second
-    moment are not ported: no registered method uses them.
+    ``max_norm`` clips the group's gradient first, to that global L2 norm
+    (optax's ``clip_by_global_norm``: unchanged below it, else scaled by
+    max_norm / norm).  ``weight_decay`` is coupled L2: ``weight_decay * p``
+    joins the gradient before the moments, as torch.optim.Adam's.
+    ``moment_dtype`` is the first moment's storage type: None for f32 (the
+    nerfacto groups), "bfloat16" (the k-planes groups).  The second moment
+    is stored in f32 unless ``nu_moment_dtype`` is "bfloat16" with a
+    "bfloat16" ``moment_dtype`` (the JAX package's ``scale_by_adam_lowp``;
+    with f32 moments it takes optax's ``scale_by_adam``, f32 both).  All
+    arithmetic is f32.
     """
 
     lr: float = 5e-4
     eps: float = 1e-8
     weight_decay: float = 0.0
+    max_norm: Optional[float] = None
     moment_dtype: Optional[str] = None
+    nu_moment_dtype: str = "float32"
 
     def __post_init__(self):
         if self.moment_dtype not in (None, "bfloat16"):
             raise ValueError(f"moment_dtype {self.moment_dtype!r} is not "
                              f"ported (None or 'bfloat16')")
+        if self.nu_moment_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"nu_moment_dtype {self.nu_moment_dtype!r}: "
+                             f"'float32' or 'bfloat16'")
 
 
 @dataclass(frozen=True)
@@ -92,12 +102,37 @@ class AdamState:
     nu: List[torch.Tensor] = field(default_factory=list)
 
 
+def _moment_dtypes(cfg: AdamOptimizerConfig):
+    """(mu, nu) storage types: bf16 mu with ``moment_dtype``; bf16 nu only
+    beside it, with ``nu_moment_dtype`` "bfloat16"."""
+    if cfg.moment_dtype is None:
+        return torch.float32, torch.float32
+    return torch.bfloat16, (torch.bfloat16 if cfg.nu_moment_dtype == "bfloat16"
+                            else torch.float32)
+
+
 def adam_init(cfg: AdamOptimizerConfig, leaves) -> AdamState:
-    mu_dtype = torch.float32 if cfg.moment_dtype is None else torch.bfloat16
+    mu_dtype, nu_dtype = _moment_dtypes(cfg)
     return AdamState(
         mu=[torch.zeros_like(p, dtype=mu_dtype) for p in leaves],
-        nu=[torch.zeros_like(p, dtype=torch.float32) for p in leaves],
+        nu=[torch.zeros_like(p, dtype=nu_dtype) for p in leaves],
     )
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float) -> list:
+    """optax's ``clip_by_global_norm`` over one group's gradients (None: a
+    zero gradient): unchanged when their global L2 norm is below
+    ``max_norm``, else each ``(g / norm) * max_norm``; f32.  The choice is
+    made on the device (no host sync)."""
+    present = [g.float() for g in grads if g is not None]
+    if not present:
+        return list(grads)
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in present))
+    keep = norm < max_norm
+    return [None if g is None else
+            torch.where(keep, g.float(), (g.float() / norm) * max_norm)
+            for g in grads]
 
 
 @torch.no_grad()
@@ -108,7 +143,9 @@ def adam_update(cfg: AdamOptimizerConfig, schedule: Callable,
     for a leaf that got no gradient: a zero gradient).
 
     Per leaf, in f32 and in the order of optax's scale_by_adam and the JAX
-    package's scale_by_adam_lowp: g += weight_decay p where set, then
+    package's scale_by_adam_lowp: the group's gradients clipped to
+    ``max_norm`` where set (``clip_by_global_norm``), g += weight_decay p
+    where set, then
     mu = b1 mu + (1-b1) g, nu = b2 nu + (1-b2) g g,
     u = (mu / c1) / (sqrt(nu / c2) + eps) with c_k = 1 - b_k^count; then
     p += u * (-lr * schedule(count - 1)).  The moments are stored back in
@@ -119,6 +156,8 @@ def adam_update(cfg: AdamOptimizerConfig, schedule: Callable,
     count = f32(state.count)
     c1 = f32(1.0) - f32(b1) ** count
     c2 = f32(1.0) - f32(b2) ** count
+    if cfg.max_norm is not None:
+        grads = clip_by_global_norm(grads, cfg.max_norm)
     for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
         g = torch.zeros_like(p) if g is None else g.float()
         if cfg.weight_decay:
@@ -144,7 +183,8 @@ def radam_update(cfg: AdamOptimizerConfig, schedule: Callable,
     f32 arithmetic of optax's ``scale_by_radam`` (not torch.optim.RAdam's):
     g += weight_decay p where set; mu = (1-b1) g + b1 mu, nu = (1-b2) g g +
     b2 nu; with t the count after the update, rho = rho_inf - 2 t b2^t /
-    (1 - b2^t) and rho_inf = 2 / (1 - b2) - 1; mu_hat = mu / (1 - b1^t),
+    (1 - b2^t) and rho_inf = 2 / (1 - b2) - 1 (the gradients clipped to
+    ``max_norm`` first where set); mu_hat = mu / (1 - b1^t),
     nu_hat = nu / (1 - b2^t); when rho >= 5 (from t = 6 on with the
     defaults) u = r mu_hat / (sqrt(nu_hat) + eps), r = sqrt((rho - 4)(rho
     - 2) rho_inf / ((rho_inf - 4)(rho_inf - 2) rho)), eps outside the root;
@@ -167,6 +207,8 @@ def radam_update(cfg: AdamOptimizerConfig, schedule: Callable,
         rectify = float(np.sqrt(
             (rho - f32(4.0)) * (rho - f32(2.0)) * f32(rho_inf)
             / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho)))
+    if cfg.max_norm is not None:
+        grads = clip_by_global_norm(grads, cfg.max_norm)
     for p, g, mu, nu in zip(leaves, grads, state.mu, state.nu):
         g = torch.zeros_like(p) if g is None else g.float()
         if cfg.weight_decay:

@@ -54,7 +54,8 @@ def render_camera(
     Returns:
         {"rgb": [H, W, 3], "depth": [H, W], "accumulation": [H, W]} on
         ``device``, and the model's further ``RENDER_OUTPUTS`` (NeRFPlayer's
-        component probabilities "probs" [H, W, 3]).
+        component probabilities "probs" [H, W, 3]) or ``render_outputs(cfg)``
+        (nerfacto's normals with ``predict_normals``).
     """
     dev = resolve_device(device)
     module = get_model(model)
@@ -79,7 +80,8 @@ def render_camera(
         if not hasattr(module, "eval_kwargs"):
             raise ValueError(f"model {model!r} takes no state (aux)")
         extra = module.eval_kwargs(cfg, aux)
-    keys = getattr(module, "RENDER_OUTPUTS", OUTPUT_KEYS)
+    keys = (module.render_outputs(cfg) if hasattr(module, "render_outputs")
+            else getattr(module, "RENDER_OUTPUTS", OUTPUT_KEYS))
     outs = {k: [] for k in keys}
     with torch.no_grad(), full_f32():
         for i in range(0, n_pad, chunk):

@@ -25,6 +25,7 @@ and resume from ``load_dir``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import operator
 import threading
@@ -59,6 +60,14 @@ from soccernerfs_tpu_torch.utils import profiler, writer
 from soccernerfs_tpu_torch.utils.device import full_f32, resolve_device
 from soccernerfs_tpu_torch.utils.tree import tree_leaves
 from soccernerfs_tpu_torch.utils.writer import EventName
+
+
+# the camera optimizer's param group when the method's optimizers have none
+# (the JAX Trainer's ``cam_opt_cfg_optimizer``)
+CAMERA_OPT_GROUP = {
+    "optimizer": AdamOptimizerConfig(lr=6e-4, eps=1e-8, weight_decay=1e-2),
+    "scheduler": None,
+}
 
 
 @dataclass
@@ -350,13 +359,18 @@ class Trainer:
             seeded_params(self.model_cfg, config.machine.seed,
                           self.num_train_data), self.device)
         cam_opt = config.pipeline.datamanager.camera_optimizer
+        if cam_opt.mode != "off" and getattr(self.model_cfg, "detached_inputs",
+                                             False):
+            # pose gradients flow through the sample positions: the hash
+            # grids' encodes must differentiate them (a per-instance
+            # replace; other Trainers keep the detached encodes)
+            self.model_cfg = dataclasses.replace(self.model_cfg,
+                                                 detached_inputs=False)
+            print("[trainer] camera optimizer is on: enabling encode input "
+                  "gradients (pose grads flow through sample positions)")
         opt_configs = dict(config.optimizers)
         if cam_opt.mode != "off" and "camera_opt" not in opt_configs:
-            opt_configs["camera_opt"] = {
-                "optimizer": AdamOptimizerConfig(lr=6e-4, eps=1e-8,
-                                                 weight_decay=1e-2),
-                "scheduler": None,
-            }
+            opt_configs["camera_opt"] = CAMERA_OPT_GROUP
         self.train_step = TrainStep(
             self.model_cfg, self.train_cameras, self.aabb, opt_configs,
             self.device, model=config.pipeline.model_name,

@@ -127,10 +127,12 @@ def interpolate_kplanes(
     place into a running per-scale tensor; with grad enabled out of
     place, since autograd keeps every factor for the product's backward.
 
-    Positions carry no gradient here (PDF bins are detached and the camera
-    optimizer is not ported): the group samplers return none for their
-    coordinates, so the function refuses ``pts`` that require grad rather
-    than give silent zeros.
+    Positions that require grad (the camera optimizer's steps) get it, as
+    the JAX package's XLA path gives it: through ``grid_coords``' fractions
+    and the group samplers' coordinate backward (one
+    ``bilerp_bwd_coords`` launch per group, the field's and the proposal
+    fields' alike).  Without it, as in every registered method's step, no
+    coordinate kernel runs.  The staged render path takes no gradient.
 
     Args:
         pts: [M, 3] or [M, 4] normalized coordinates in [-1, 1].
@@ -140,9 +142,6 @@ def interpolate_kplanes(
     Returns:
         [M, F * num_scales] if concat else [M, F].
     """
-    if pts.requires_grad:
-        raise ValueError("plane coordinates that require grad are not "
-                         "supported: the plane samplers give them none")
     dim = pts.shape[-1]
     has_time = dim == 4
     feat = ms_grids[0][0].shape[-1]

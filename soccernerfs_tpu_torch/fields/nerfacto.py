@@ -2,9 +2,10 @@
 soccernerfs_tpu/fields/nerfacto.py): a hash grid and bf16-policy MLPs, an
 SH direction encoding and per-camera appearance embeddings.
 
-The predicted-normals head and the density-gradient normals
-(``use_pred_normals``; off in every registered method the port runs) are
-not ported: the config raises when asked for them.
+With ``use_pred_normals`` the field also has a predicted-normals head
+(``mlp_pred_normals`` over the positions and geo features) and gives
+density-gradient normals (``nerfacto_normals``: ``torch.autograd.grad`` of
+the re-evaluated density where the JAX package takes ``jax.grad``).
 """
 from __future__ import annotations
 
@@ -49,11 +50,6 @@ class NerfactoFieldConfig:
     num_images: int = 0
     sh_degree: int = 4
 
-    def __post_init__(self):
-        if self.use_pred_normals:
-            raise NotImplementedError(
-                "predicted and density-gradient normals are not ported yet")
-
     @property
     def grid(self) -> HashGridConfig:
         return HashGridConfig(
@@ -72,12 +68,15 @@ def field_mlp_dims(cfg: NerfactoFieldConfig) -> dict:
     in_dim_color = cfg.geo_feat_dim + cfg.sh_degree**2
     if cfg.use_appearance_embedding:
         in_dim_color += cfg.appearance_embedding_dim
-    return {
+    dims = {
         "mlp_base": (cfg.num_levels * cfg.features_per_level, cfg.hidden_dim,
                      cfg.num_layers - 1, 1 + cfg.geo_feat_dim),
         "mlp_head": (in_dim_color, cfg.hidden_dim_color,
                      cfg.num_layers_color - 1, 3),
     }
+    if cfg.use_pred_normals:
+        dims["mlp_pred_normals"] = (cfg.geo_feat_dim + 3, 64, 2, 3)
+    return dims
 
 
 def init_nerfacto_field(cfg: NerfactoFieldConfig,
@@ -93,6 +92,9 @@ def init_nerfacto_field(cfg: NerfactoFieldConfig,
             generator=generator).to(device)
     params["mlp_head"] = init_mlp(*dims["mlp_head"], generator=generator,
                                   device=device)
+    if cfg.use_pred_normals:
+        params["mlp_pred_normals"] = init_mlp(
+            *dims["mlp_pred_normals"], generator=generator, device=device)
     return params
 
 
@@ -142,6 +144,44 @@ def nerfacto_rgb(
     h = torch.cat(parts, dim=-1)
     return mlp_apply(params["mlp_head"], h, activation="relu",
                      output_activation="sigmoid")
+
+
+def nerfacto_pred_normals(cfg: NerfactoFieldConfig, params: dict,
+                          geo_feats: torch.Tensor, positions: torch.Tensor
+                          ) -> torch.Tensor:
+    """Predicted normals [M, 3]: the ``mlp_pred_normals`` head over world
+    positions [M, 3] and geo features, scaled to unit length (+ 1e-10)."""
+    h = torch.cat([positions, geo_feats], dim=-1)
+    n = mlp_apply(params["mlp_pred_normals"], h, activation="relu")
+    return n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-10)
+
+
+def nerfacto_normals(cfg: NerfactoFieldConfig, params: dict,
+                     aabb: torch.Tensor, positions: torch.Tensor
+                     ) -> torch.Tensor:
+    """Density-gradient normals [M, 3]: minus the gradient of the density's
+    sum with respect to the positions, scaled to unit length (+ 1e-10).
+
+    The density is evaluated again on a detached copy of the positions and
+    of the params (the JAX package's ``jax.grad`` of it takes the positions'
+    gradient alone), with grad enabled locally, so that a render's no_grad
+    computes it too; the normals carry no gradient (both losses that read
+    them stop it)."""
+    # the density reads the grid and the base MLP only
+    detached = {name: _detach(params[name]) for name in ("grid", "mlp_base")}
+    with torch.enable_grad():
+        p = positions.detach().requires_grad_(True)
+        density, _ = nerfacto_density(cfg, detached, aabb, p)
+        g, = torch.autograd.grad(density.sum(), p)
+    return -g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-10)
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detach(v) for v in tree]
+    return tree.detach()
 
 
 # ---------------------------------------------------------------------------

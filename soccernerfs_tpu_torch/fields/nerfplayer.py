@@ -12,8 +12,9 @@
     colour MLP.
 
 Sample positions and times carry no gradient in the registered methods
-(``detached_inputs``): the raw points' encodes have no position backward.
-The deformed points do carry one: the stationary grid's gradient with
+(``detached_inputs``), so the raw points' encodes detach them; with the
+camera optimizer on, the Trainer turns the flag off and they carry the
+pose gradient.  The deformed points always carry one: the stationary grid's gradient with
 respect to them (``_GatherSum``'s weight gradient) reaches the
 deformation MLP.  A deformed point may leave the unit cube; the stationary
 grid then hashes negative lattice coordinates and ones beyond the
@@ -33,7 +34,6 @@ from soccernerfs_tpu_torch.core.math import (
     trunc_exp,
 )
 from soccernerfs_tpu_torch.fields.nerfacto import _normalize
-from soccernerfs_tpu_torch.fields.nerfplayer_nerfacto import _detached
 from soccernerfs_tpu_torch.ops.hash_grid import (
     HashGridConfig,
     hash_grid_encode,
@@ -66,9 +66,6 @@ class NerfplayerFieldConfig:
     sh_degree: int = 4
     desired_resolution: int = 1024
     detached_inputs: bool = True
-
-    def __post_init__(self):
-        _detached(self)
 
     @property
     def feature_dim(self) -> int:
@@ -142,7 +139,11 @@ def nerfplayer_density(
     t = times[:, None]
     deformed = pts + mlp_apply(params["deformation_field"], pts,
                                activation="relu")
-    v_stat = hash_grid_encode(cfg.static_grid, params["stationary_field"], pts)
+    # the raw points' encodes detach them with ``detached_inputs``; the
+    # deformed points' never does (its gradient trains the deformation MLP)
+    ig = not cfg.detached_inputs
+    v_stat = hash_grid_encode(cfg.static_grid, params["stationary_field"], pts,
+                              input_grads=ig)
     v_deform = hash_grid_encode(cfg.static_grid, params["stationary_field"],
                                 deformed)
     v_stat = mlp_apply(params["stationary_field_mlp"],
@@ -150,9 +151,9 @@ def nerfplayer_density(
     v_deform = mlp_apply(params["stationary_field_mlp"],
                          torch.cat([v_deform, t], -1), activation="relu")
     v_new = hash_grid_encode(cfg.temporal_grid, params["newness_field"], pts,
-                             times)
+                             times, input_grads=ig)
     v_decomp = hash_grid_encode(cfg.temporal_grid, params["decomposition_field"],
-                                pts, times)
+                                pts, times, input_grads=ig)
     probs = torch.softmax(mlp_apply(params["decomposition_mlp"], v_decomp,
                                     activation="relu"), dim=-1)
     v = (probs[:, 0:1] * v_stat + probs[:, 1:2] * v_deform

@@ -4,9 +4,10 @@ hash grid, a decode MLP, and nerfacto's SH direction and appearance colour
 head; the proposal fields are a temporal hash grid behind a density MLP.
 
 Sample positions and times carry no gradient in the registered method
-(``detached_inputs``: PDF bins detached, camera optimizer off); the
-temporal encoder has no position or time backward, so a config that asks
-for one raises.
+(``detached_inputs``: PDF bins detached, camera optimizer off), so the
+encodes detach them; with the camera optimizer on the Trainer turns the
+flag off and the encodes differentiate them, as the JAX package's
+``input_grads=not detached_inputs`` does.
 """
 from __future__ import annotations
 
@@ -26,13 +27,6 @@ from soccernerfs_tpu_torch.ops.hash_grid import (
     init_hash_grid,
 )
 from soccernerfs_tpu_torch.ops.mlp import init_mlp, mlp_apply
-
-
-def _detached(cfg) -> None:
-    if not cfg.detached_inputs:
-        raise NotImplementedError(
-            "position and time gradients of the temporal grids are not "
-            "ported (detached_inputs=False)")
 
 
 @dataclass(frozen=True)
@@ -57,9 +51,6 @@ class NerfplayerNerfactoFieldConfig:
     sh_degree: int = 4
     desired_resolution: int = 1024
     detached_inputs: bool = True
-
-    def __post_init__(self):
-        _detached(self)
 
     @property
     def grid(self) -> HashGridConfig:
@@ -111,7 +102,8 @@ def nerfplayer_nerfacto_density(
     """Density [M] and geo features [M, geo_feat_dim] at world positions
     [M, 3] and times [M]."""
     pts = _normalize(cfg, positions, aabb)
-    feats = hash_grid_encode(cfg.grid, params["grid"], pts, times)
+    feats = hash_grid_encode(cfg.grid, params["grid"], pts, times,
+                             input_grads=not cfg.detached_inputs)
     out = mlp_apply(params["mlp_base_decode"], feats, activation="relu")
     return trunc_exp(out[..., 0]), out[..., 1:]
 
@@ -168,9 +160,6 @@ class TemporalHashMLPDensityFieldConfig:
     disable_scene_contraction: bool = False
     detached_inputs: bool = True
 
-    def __post_init__(self):
-        _detached(self)
-
     @property
     def grid(self) -> HashGridConfig:
         return HashGridConfig(
@@ -206,5 +195,6 @@ def temporal_density_field_density(
 ) -> torch.Tensor:
     """Density [M] at world positions [M, 3] and times [M]."""
     pts = _normalize(cfg, positions, aabb)
-    feats = hash_grid_encode(cfg.grid, params["grid"], pts, times)
+    feats = hash_grid_encode(cfg.grid, params["grid"], pts, times,
+                             input_grads=not cfg.detached_inputs)
     return trunc_exp(mlp_apply(params["mlp"], feats, activation="relu")[..., 0])

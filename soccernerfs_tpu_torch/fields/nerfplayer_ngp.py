@@ -5,8 +5,8 @@ features, SH-encoded directions unless view-independent (the default),
 and an optional appearance embedding; instant-NGP's normalisation.
 
 Sample positions and times carry no gradient in the registered method
-(``detached_inputs``; no camera optimizer); the temporal encoder has no
-position or time backward, so a config that asks for one raises.
+(``detached_inputs``; no camera optimizer), so the encode detaches them;
+with the flag off it differentiates them.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ from soccernerfs_tpu_torch.core.math import (
     trunc_exp,
 )
 from soccernerfs_tpu_torch.fields.instant_ngp import _normalize
-from soccernerfs_tpu_torch.fields.nerfplayer_nerfacto import _detached
 from soccernerfs_tpu_torch.ops.hash_grid import (
     HashGridConfig,
     hash_grid_encode,
@@ -51,9 +50,6 @@ class NerfplayerNGPFieldConfig:
     contraction_type: str = "aabb"
     sh_degree: int = 4
     detached_inputs: bool = True
-
-    def __post_init__(self):
-        _detached(self)
 
     @property
     def grid(self) -> HashGridConfig:
@@ -105,7 +101,8 @@ def nerfplayer_ngp_density(
     """Density [M] and geo features [M, geo_feat_dim] at world positions
     [M, 3] and times [M]."""
     pts = _normalize(cfg, positions, aabb)
-    feats = hash_grid_encode(cfg.grid, params["grid"], pts, times)
+    feats = hash_grid_encode(cfg.grid, params["grid"], pts, times,
+                             input_grads=not cfg.detached_inputs)
     out = mlp_apply(params["mlp_base"], feats, activation="relu")
     return trunc_exp(out[..., 0]), out[..., 1:]
 

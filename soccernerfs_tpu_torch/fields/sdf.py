@@ -188,14 +188,17 @@ def sdf_features_and_normals(cfg: SDFFieldConfig, params: dict,
                              positions: torch.Tensor, create_graph: bool
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """sdf [M], features [M, F] and the SDF's gradient in the positions
-    [M, 3] (the unnormalised normals), from one forward.  The positions
-    are taken as constants (the NeuS sampler's are).  With
-    ``create_graph`` the gradient stays in the graph, so that a loss on it
-    or on what it feeds reaches the params (a double backward); the
-    gradient is computed whatever the caller's grad mode (a render runs
-    under ``no_grad``), never under ``inference_mode``."""
+    [M, 3] (the unnormalised normals), from one forward.  Positions that
+    require grad (the camera optimizer's: the sampler's distances are
+    constants, the rays are not) keep it, through all three outputs, as
+    the JAX package's ``jax.grad`` of the sdf keeps it; others are taken
+    as constants.  With ``create_graph`` the gradient stays in the graph,
+    so that a loss on it or on what it feeds reaches the params (a double
+    backward); the gradient is computed whatever the caller's grad mode (a
+    render runs under ``no_grad``), never under ``inference_mode``."""
     with torch.enable_grad():
-        p = positions.detach().requires_grad_(True)
+        p = (positions if positions.requires_grad
+             else positions.detach().requires_grad_(True))
         sdf, feats = sdf_and_features(cfg, params, p)
         (normals,) = torch.autograd.grad(sdf.sum(), p,
                                          create_graph=create_graph)

@@ -3,7 +3,8 @@ dataclass), ``init``, ``get_outputs``, ``get_metrics_dict``,
 ``get_loss_dict``, ``proposal_anneal``, ``host_static_kwargs`` and
 ``train_draws``, and optionally ``prepare_render_params`` (staged render
 tables), ``RENDER_OUTPUTS`` (the outputs ``render_camera`` returns, when
-more than rgb, depth and accumulation), the non-trainable state's
+more than rgb, depth and accumulation) or ``render_outputs(cfg)`` (the
+same, by config), the non-trainable state's
 ``init_aux``, ``schedules``, ``eval_kwargs`` and ``update_aux`` (the
 occupancy grid) and ``host_update`` (params reshaped on the host between
 steps: TensoRF's upsampling)."""

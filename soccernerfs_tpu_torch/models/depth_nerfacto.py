@@ -16,6 +16,7 @@ from soccernerfs_tpu_torch.models.nerfacto import (  # noqa: F401  (protocol)
     host_static_kwargs,
     init,
     proposal_anneal,
+    render_outputs,
     sample_counts,
     train_draws,
 )

@@ -3,9 +3,11 @@ hash-grid field behind two hash-grid proposal fields, scene contraction
 and per-camera appearance embeddings.  The same functional protocol as
 models/kplanes.py, whose proposal schedules it shares.
 
-Not ported: the normals branch (``predict_normals``, with its orientation
-and predicted-normal losses) and the random background; the config raises
-when asked for either.
+``predict_normals`` adds the density-gradient and the predicted normals
+(``normals``, ``pred_normals``) and, in training, the orientation and
+predicted-normal losses; a "random" background is a draw of
+``train_draws`` in training and ``random_background``'s fixed-seed draw
+outside it.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from soccernerfs_tpu_torch.fields.nerfacto import (
     init_hash_density_field,
     init_nerfacto_field,
     nerfacto_density,
+    nerfacto_normals,
+    nerfacto_pred_normals,
     nerfacto_rgb,
 )
 from soccernerfs_tpu_torch.models.kplanes import (  # noqa: F401  (protocol)
@@ -31,8 +35,10 @@ from soccernerfs_tpu_torch.models.kplanes import (  # noqa: F401  (protocol)
 )
 from soccernerfs_tpu_torch.ops import losses as L
 from soccernerfs_tpu_torch.ops.rendering import (
+    random_background,
     render_accumulation,
     render_depth,
+    render_normals,
     render_rgb,
 )
 from soccernerfs_tpu_torch.ops.samplers import proposal_sample
@@ -89,11 +95,6 @@ class Config:
                            freeze(self.proposal_net_args_list))
         object.__setattr__(self, "num_proposal_samples_per_ray",
                            tuple(self.num_proposal_samples_per_ray))
-        if self.predict_normals:
-            raise NotImplementedError("the normals branch is not ported yet")
-        if self.background_color == "random":
-            raise NotImplementedError("the random background is not ported "
-                                      "for this model")
 
     def field_config(self, num_images: int = 0) -> NerfactoFieldConfig:
         return NerfactoFieldConfig(
@@ -144,16 +145,26 @@ def init(cfg: Config, num_train_data: int = 0,
     return {"fields": fields, "proposal_networks": prop_params}
 
 
+def render_outputs(cfg: Config) -> tuple:
+    """The outputs render_camera returns: rgb, depth and accumulation, and
+    the rendered normals and predicted normals with ``predict_normals``."""
+    keys = ("rgb", "depth", "accumulation")
+    return (*keys, "normals", "pred_normals") if cfg.predict_normals else keys
+
+
 def train_draws(cfg: Config, num_rays: int, generator: torch.Generator,
                 device) -> dict:
-    """The uniform draws of one training forward: per level the stratified
-    jitter, [N, 1] with a single jitter, else [N, S + 1].  The background
-    is a fixed colour and takes no draw."""
-    return {"jitters": [
+    """The uniform draws of one training forward, in this order: per level
+    the stratified jitter, [N, 1] with a single jitter, else [N, S + 1];
+    the [N, 3] random background (None for a fixed colour)."""
+    jitters = [
         torch.rand((num_rays, 1 if cfg.use_single_jitter else s + 1),
                    generator=generator, device=device)
         for s in sample_counts(cfg)
-    ], "background": None}
+    ]
+    background = (random_background(num_rays, device, generator)
+                  if cfg.background_color == "random" else None)
+    return {"jitters": jitters, "background": background}
 
 
 def get_outputs(
@@ -169,25 +180,32 @@ def get_outputs(
 ) -> dict:
     """Forward: rgb [N, 3], accumulation [N], depth [N], prop_depth_i [N],
     directions_norm [N], plus the per-level weights and samples (the
-    interlevel and distortion losses read them).
+    interlevel and distortion losses read them); with ``predict_normals``
+    also normals and pred_normals [N, 3] and, in training, the per-ray
+    orientation and predicted-normal losses.
 
-    In training the samplers jitter with ``jitters`` (``train_draws``'
-    layout), which training needs; ``background`` is unused (the colour
-    is fixed).  ``anneal`` and
-    ``train_proposal_networks`` are the step's schedules
-    (``proposal_anneal``, ``host_static_kwargs``).  The appearance embedding
-    is the ray's camera's in training (``ray_bundle.camera_indices`` index
-    the training cameras), the mean or zeros outside it.
+    In training the samplers jitter with ``jitters`` and a random
+    background is ``background`` (both in ``train_draws``' layout), which
+    training needs.  Outside training the random background is
+    ``background`` when given, else ``random_background``'s fixed-seed
+    draw.  ``anneal`` and ``train_proposal_networks`` are the step's
+    schedules (``proposal_anneal``, ``host_static_kwargs``).  The
+    appearance embedding is the ray's camera's in training
+    (``ray_bundle.camera_indices`` index the training cameras), the mean
+    or zeros outside it.
     """
-    del background
+    n = ray_bundle.num_rays
+    dev = ray_bundle.origins.device
     if ray_bundle.nears is None or ray_bundle.fars is None:
-        n = ray_bundle.num_rays
-        dev = ray_bundle.origins.device
         ray_bundle = ray_bundle.replace(
             nears=torch.full((n,), cfg.near_plane, device=dev),
             fars=torch.full((n,), cfg.far_plane, device=dev))
-    if train and jitters is None:
-        raise ValueError("training needs the jitters draws (train_draws)")
+    random_bg = cfg.background_color == "random"
+    if train and (jitters is None or (random_bg and background is None)):
+        raise ValueError("training needs the jitters and background draws "
+                         "(train_draws)")
+    if random_bg and background is None:
+        background = random_background(n, dev)
 
     def make_density_fn(idx, dcfg):
         def density_fn(ray_samples: RaySamples):
@@ -214,8 +232,8 @@ def get_outputs(
     fcfg = cfg.field_config()
     positions = ray_samples.get_positions()
     n, s = positions.shape[:2]
-    density, geo = nerfacto_density(fcfg, params["fields"], aabb,
-                                    positions.reshape(-1, 3))
+    flat_pos = positions.reshape(-1, 3)
+    density, geo = nerfacto_density(fcfg, params["fields"], aabb, flat_pos)
     flat_dirs = ray_samples.directions[:, None, :].expand(n, s, 3).reshape(-1, 3)
     flat_cam = (
         torch.repeat_interleave(ray_samples.camera_indices, s)
@@ -231,12 +249,29 @@ def get_outputs(
 
     outputs = {
         "rgb": render_rgb(rgb_samples, weights,
-                          background_color=cfg.background_color, train=train),
+                          background_color=(background if random_bg
+                                            else cfg.background_color),
+                          train=train),
         "accumulation": render_accumulation(weights),
         "depth": render_depth(weights, ray_samples),
         "weights_list": weights_list,
         "ray_samples_list": ray_samples_list,
     }
+    if cfg.predict_normals:
+        # the density-gradient normals carry no gradient (both losses stop
+        # it); the predicted ones train the head, the geo features and,
+        # through the positions, the poses
+        normals = nerfacto_normals(fcfg, params["fields"], aabb,
+                                   flat_pos).reshape(n, s, 3)
+        pred_normals = nerfacto_pred_normals(
+            fcfg, params["fields"], geo, flat_pos).reshape(n, s, 3)
+        outputs["normals"] = render_normals(normals, weights)
+        outputs["pred_normals"] = render_normals(pred_normals, weights)
+        if train:
+            outputs["rendered_orientation_loss"] = L.orientation_loss(
+                weights, normals, ray_bundle.directions)
+            outputs["rendered_pred_normal_loss"] = L.pred_normal_loss(
+                weights, normals, pred_normals)
     for i in range(cfg.num_proposal_iterations):
         outputs[f"prop_depth_{i}"] = render_depth(weights_list[i],
                                                   ray_samples_list[i])
@@ -260,10 +295,18 @@ def get_metrics_dict(cfg: Config, outputs: dict, batch: dict, step: int = 0
 def get_loss_dict(cfg: Config, params: dict, outputs: dict, batch: dict,
                   metrics_dict: dict) -> dict:
     """The training loss dict, in the JAX package's insertion order (the
-    total is summed in that order)."""
-    return {
+    total is summed in that order); with ``predict_normals`` the
+    orientation and predicted-normal losses, each the mean over the rays
+    times its multiplier."""
+    loss_dict = {
         "rgb_loss": L.mse_loss(batch["image"], outputs["rgb"]),
         "interlevel_loss": cfg.interlevel_loss_mult * L.interlevel_loss(
             outputs["weights_list"], outputs["ray_samples_list"]),
         "distortion_loss": cfg.distortion_loss_mult * metrics_dict["distortion"],
     }
+    if cfg.predict_normals:
+        loss_dict["orientation_loss"] = cfg.orientation_loss_mult * torch.mean(
+            outputs["rendered_orientation_loss"])
+        loss_dict["pred_normal_loss"] = cfg.pred_normal_loss_mult * torch.mean(
+            outputs["rendered_pred_normal_loss"])
+    return loss_dict

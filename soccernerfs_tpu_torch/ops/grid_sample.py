@@ -96,12 +96,34 @@ def _split(n: int, tensors):
     return tensors[:n], tensors[n:2 * n], tensors[2 * n:]
 
 
+def _coord_grads(ctx, tables, gouts, rowids, txs, ty, h, w):
+    """The fractions' gradients of a group's backward, when autograd asks
+    for any (``ctx.needs_input_grad``): one ``bilerp_bwd_coords`` launch
+    over the forward's staged tables.  Returns (P gradients of the txs,
+    the gradient of ty), None where not needed."""
+    n = len(rowids)
+    need_ty = ctx.needs_input_grad[1]
+    need_tx = [ctx.needs_input_grad[2 + 2 * n + i] for i in range(n)]
+    if not (need_ty or any(need_tx)):
+        return [None] * n, None
+    d_txs, d_ty = pk.bilerp_bwd_coords(
+        tables, [g.contiguous() for g in gouts], rowids, txs, ty, h=h, w=w)
+    return ([d if need else None for d, need in zip(d_txs, need_tx)],
+            d_ty if need_ty else None)
+
+
+def _needs_coord_grads(ctx, n) -> bool:
+    return ctx.needs_input_grad[1] or any(ctx.needs_input_grad[2 + 2 * n:])
+
+
 class _FoldGroup(torch.autograd.Function):
     """Forward: stage the grids to bf16 (``stage_table``) and sample them
     with the forward kernel the staging picks (the staged width's padded
     columns dropped).  Backward: the unpacked backward kernel for every
-    table, [H*W, F] f32 straight into the grid's gradient.  Row ids and
-    fractions get no gradient."""
+    table, [H*W, F] f32 straight into the grid's gradient; and, only when
+    the fractions need a gradient (the camera optimizer's steps), one
+    ``bilerp_bwd_coords`` launch over the staged tables, which the forward
+    then keeps.  Row ids get no gradient."""
 
     @staticmethod
     def forward(ctx, n, ty, *tensors):
@@ -112,7 +134,8 @@ class _FoldGroup(torch.autograd.Function):
             feats = pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w)
         else:
             feats = pk.bilerp_fwd_packed(tables, rowids, txs, ty)
-        ctx.save_for_backward(ty, *rowids, *txs)
+        coords = _needs_coord_grads(ctx, n)
+        ctx.save_for_backward(ty, *rowids, *txs, *(tables if coords else ()))
         ctx.shape = (n, h, w, feat)
         return tuple(f if f.shape[1] == feat else f[:, :feat] for f in feats)
 
@@ -120,29 +143,31 @@ class _FoldGroup(torch.autograd.Function):
     def backward(ctx, *gouts):
         n, h, w, feat = ctx.shape
         ty, *rest = ctx.saved_tensors
-        rowids, txs = rest[:n], rest[n:]
+        rowids, txs, tables = rest[:n], rest[n:2 * n], rest[2 * n:]
         need = [i for i in range(n) if ctx.needs_input_grad[2 + i]]
         grads = pk.bilerp_bwd_unpacked(
             [gouts[i].contiguous() for i in need], [rowids[i] for i in need],
-            [txs[i] for i in need], ty, h=h, w=w)
+            [txs[i] for i in need], ty, h=h, w=w) if need else []
         out = [None] * n
         for i, g in zip(need, grads):
             out[i] = g.reshape(h, w, feat)
-        return (None, None, *out, *([None] * (2 * n)))
+        d_txs, d_ty = _coord_grads(ctx, tables, gouts, rowids, txs, ty, h, w)
+        return (None, d_ty, *out, *([None] * n), *d_txs)
 
 
 class _PackedGroup(torch.autograd.Function):
     """Forward: bilerp_fwd_packed on the quad-packed tables cast to bf16.
-    Backward: bilerp_bwd_packed, f32 [R, 4F] per table.  Row ids and
-    fractions get no gradient."""
+    Backward: bilerp_bwd_packed, f32 [R, 4F] per table; and, only when the
+    fractions need a gradient, one ``bilerp_bwd_coords`` launch over the
+    bf16 tables, which the forward then keeps.  Row ids get no gradient."""
 
     @staticmethod
     def forward(ctx, n, ty, *tensors):
         tables, rowids, txs = _split(n, tensors)
-        feats = pk.bilerp_fwd_packed(
-            [t.to(torch.bfloat16).contiguous() for t in tables], rowids, txs,
-            ty)
-        ctx.save_for_backward(ty, *rowids, *txs)
+        staged = [t.to(torch.bfloat16).contiguous() for t in tables]
+        feats = pk.bilerp_fwd_packed(staged, rowids, txs, ty)
+        coords = _needs_coord_grads(ctx, n)
+        ctx.save_for_backward(ty, *rowids, *txs, *(staged if coords else ()))
         ctx.shape = (n, tables[0].shape[0])
         return tuple(feats)
 
@@ -150,26 +175,28 @@ class _PackedGroup(torch.autograd.Function):
     def backward(ctx, *gouts):
         n, rows = ctx.shape
         ty, *rest = ctx.saved_tensors
-        rowids, txs = rest[:n], rest[n:]
+        rowids, txs, staged = rest[:n], rest[n:2 * n], rest[2 * n:]
         need = [i for i in range(n) if ctx.needs_input_grad[2 + i]]
         grads = pk.bilerp_bwd_packed(
             [gouts[i].contiguous() for i in need], [rowids[i] for i in need],
-            [txs[i] for i in need], ty, rows=rows)
+            [txs[i] for i in need], ty, rows=rows) if need else []
         out = [None] * n
         for i, g in zip(need, grads):
             out[i] = g
-        return (None, None, *out, *([None] * (2 * n)))
+        # a packed table names its rows only; the kernel reads whole rows
+        d_txs, d_ty = _coord_grads(ctx, staged, gouts, rowids, txs, ty, rows, 1)
+        return (None, d_ty, *out, *([None] * n), *d_txs)
 
 
 def plane_sample_fold_group(grids: Sequence[torch.Tensor], rowids, txs,
                             ty: torch.Tensor) -> List[torch.Tensor]:
     """Differentiable bilinear sample of P same-shaped f32 [H, W, F] planes
-    that share their y axis: the gradient boundary sits at the grids.
+    that share their y axis: gradients reach the grids and, where they
+    require one, the fractions.
 
     Args:
         grids: P [H, W, F] f32; rowids: P [M] int32 (y0*W + x0, any
-            order); txs: P [M] f32; ty: [M] f32 (no gradient flows to
-            these).
+            order; no gradient); txs: P [M] f32; ty: [M] f32.
     Returns:
         P [M, F] f32 features.
     """
@@ -185,7 +212,8 @@ def plane_sample_group_bwdsort(tables: Sequence[torch.Tensor], rowids, txs,
     kernel; the CUDA kernel takes them in any order.
 
     Args:
-        tables: P [R, 4F] f32; rowids, txs, ty: as plane_sample_fold_group.
+        tables: P [R, 4F] f32; rowids, txs, ty: as plane_sample_fold_group
+            (the fractions' gradients included).
     Returns:
         P [M, F] f32 features.
     """

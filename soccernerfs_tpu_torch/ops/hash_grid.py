@@ -37,8 +37,11 @@ w_b * row[ch_b]``, the channels and weights a function of the time
 corner's row, never the whole row: the forward gathers those picked
 entries of the flattened table, and the table gradient is one
 ``scatter_add_rows`` launch of width 1 over ``[rows * C_row, 1]``, one
-group per level whose "corners" are the (corner, picked entry) pairs.  Position and time gradients of a
-temporal grid are not ported (the registered methods detach both).
+group per level whose "corners" are the (corner, picked entry) pairs.
+Positions and times that require grad (the camera optimizer's steps) get
+theirs through the corner weights and the time weights, whose gradients
+the backward computes from the picked entries gathered again; the
+registered methods detach both (``input_grads=False``).
 """
 from __future__ import annotations
 
@@ -420,6 +423,14 @@ class _TemporalGatherSum(torch.autograd.Function):
     32-byte sectors; a pick whose time weight is 0 (the second pick of
     every channel but the window's last) is pointed at its channel's first
     pick, adding 0 where the launch adds anyway.
+
+    The corner weights' and the time weights' gradients (when autograd
+    asks for them: positions or times that require grad) come from the
+    picked entries gathered again in the backward, one corner at a time
+    as the forward gathers them, rather than kept from the forward:
+    ``d_ws[l, k, b] = sum_{i,s} g[b, l*C + i] w[b, i, s] T[idxs[l, k, b],
+    ch[b, i, s]]`` and ``d_w[b, i, s] = sum_l g[b, l*C + i] acc[l, i, s,
+    b]`` with ``acc`` the forward's corner sum, in plain PyTorch.
     """
 
     @staticmethod
@@ -436,19 +447,32 @@ class _TemporalGatherSum(torch.autograd.Function):
             acc = term if acc is None else acc + term
         acc = acc.view(levels, -1, 2, points)                          # [L, C, 2, B]
         out = (acc * w.permute(1, 2, 0)[None]).sum(2)                  # [L, C, B]
-        ctx.save_for_backward(idxs, ws, picks, w)
-        ctx.table_shape = (rows, c_row)
+        ctx.save_for_backward(table, idxs, ws, picks, w)
         return out.permute(2, 0, 1).reshape(points, -1)
 
     @staticmethod
     def backward(ctx, g):
-        idxs, ws, picks, w = ctx.saved_tensors
-        rows, c_row = ctx.table_shape
+        table, idxs, ws, picks, w = ctx.saved_tensors
+        rows, c_row = table.shape
         levels, corners, points = idxs.shape
         n_picks = picks.shape[0]
         w = w.reshape(points, n_picks).t().contiguous()                # [2C, B]
-        gw = (g.reshape(points, levels, -1).permute(1, 2, 0)[:, :, None]
-              * w.view(-1, 2, points)).reshape(levels, n_picks, points)
+        gl = g.reshape(points, levels, -1).permute(1, 2, 0)            # [L, C, B]
+        gw = (gl[:, :, None] * w.view(-1, 2, points)).reshape(levels, n_picks,
+                                                               points)
+        d_ws = d_w = None
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[4]:
+            flat_table = table.reshape(-1)
+            d_ws = torch.empty_like(ws)
+            acc = None
+            for k in range(corners):
+                vals = torch.take(flat_table, _picked_entries(
+                    idxs[:, k], picks, c_row, rows))                    # [L, 2C, B]
+                d_ws[:, k] = (gw * vals).sum(1)
+                term = ws[:, k, None, :] * vals
+                acc = term if acc is None else acc + term
+            d_w = (gl[:, :, None] * acc.view(levels, -1, 2, points)).sum(0)
+            d_w = d_w.permute(2, 0, 1)                                 # [B, C, 2]
         first = picks.view(-1, 2, points)[:, :1].expand(-1, 2, -1)
         picks = torch.where(w == 0, first.reshape(n_picks, points), picks)
         flat = _picked_entries(idxs, picks, c_row, rows).to(torch.int32)
@@ -457,24 +481,27 @@ class _TemporalGatherSum(torch.autograd.Function):
             flat.reshape(levels, -1, points),
             (ws[:, :, None] * gw[:, None]).reshape(levels, -1, points),
             rows=rows * c_row)
-        return d_table.view(rows, c_row), None, None, None, None
+        return d_table.view(rows, c_row), None, d_ws, None, d_w
 
 
 def hash_grid_encode(cfg: HashGridConfig, params: dict, xyz: torch.Tensor,
-                     time: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     time: Optional[torch.Tensor] = None, *,
+                     input_grads: bool = True) -> torch.Tensor:
     """Encode points (with time, for a temporal grid) -> [B, num_levels *
     level_dim].
 
     Args:
         params: {"embeddings": [rows, level_dim + temporal_dim] f32}.
         xyz: [B, input_dim] in [0, 1]; gradients reach it when it requires
-            grad (through the corner weights) on a static grid.
-        time: [B] in [0, 1], a temporal grid's only.
-    Raises:
-        NotImplementedError: positions or times of a temporal grid that
-            require grad (the JAX package's ``input_grads``; every
-            registered method detaches them).
+            grad (through the corner weights).
+        time: [B] in [0, 1], a temporal grid's only; gradients reach it
+            when it requires grad (through the time weights).
+        input_grads: False detaches ``xyz`` and ``time`` (the JAX
+            package's flag: its fields pass ``not detached_inputs``).
     """
+    if not input_grads:
+        xyz = xyz.detach()
+        time = None if time is None else time.detach()
     if cfg.temporal_dim == 0:
         if time is not None:
             raise ValueError("a static grid takes no time")
@@ -482,10 +509,6 @@ def hash_grid_encode(cfg: HashGridConfig, params: dict, xyz: torch.Tensor,
         return _GatherSum.apply(params["embeddings"], idxs.contiguous(), ws)
     if time is None:
         raise ValueError("a temporal grid needs a time per point")
-    if xyz.requires_grad or time.requires_grad:
-        raise NotImplementedError(
-            "position and time gradients of a temporal hash grid are not "
-            "ported; detach the inputs")
     idxs, ws = grid_corners(cfg, xyz)
     tri = get_temporal_index(cfg, time).view(xyz.shape[0], cfg.level_dim, 4)
     return _TemporalGatherSum.apply(params["embeddings"], idxs.contiguous(), ws,

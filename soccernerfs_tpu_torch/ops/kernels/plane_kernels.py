@@ -6,8 +6,11 @@ Forward (``csrc/plane_kernels.cu``): ``bilerp_fwd_unpacked`` replaces
 ``packed_bilerp_fwd_group`` (soccernerfs_tpu/ops/pallas/plane_kernels.py).
 Backward (``csrc/plane_bwd_kernels.cu``): ``bilerp_bwd_unpacked`` replaces
 ``bilerp_bwd_group_fold`` and ``bilerp_bwd_packed`` replaces
-``packed_bilerp_bwd_group``.  The sources state each kernel's bound on the
-card and what its design does about it.
+``packed_bilerp_bwd_group``; ``bilerp_bwd_coords`` gives the fractions'
+gradient over the staged tables (the camera optimizer's steps), which the
+JAX package gets from XLA's autodiff of ``sample_plane_bilinear_packed``
+(soccernerfs_tpu/ops/grid_sample.py).  The sources state each kernel's
+bound on the card and what its design does about it.
 
 The render path's forward (``csrc/plane_kernels.cu``) is
 ``kplanes_fwd_fused``: one launch per K-Planes scale derives every plane's
@@ -82,9 +85,16 @@ def pad_features(t: torch.Tensor, feat: int, quarters: int = 1) -> torch.Tensor:
 def grid_coords(coords_1d: torch.Tensor, size: int):
     """[-1, 1] -> (cell int32, frac f32) with align_corners/border
     clamping: the continuous coordinate clamps first, so x = size - 1
-    gives cell size - 1 and fraction 0."""
-    v = torch.clamp((coords_1d + 1.0) * 0.5 * (size - 1), 0.0, size - 1)
-    c = torch.floor(v)
+    gives cell size - 1 and fraction 0.
+
+    The fraction is differentiable in the coordinate (the cell carries no
+    gradient).  The clamp is a maximum then a minimum, whose gradient at a
+    bound is 0.5, as ``jnp.clip``'s is: ``torch.clamp`` would give 1 to a
+    point exactly at -1 or 1."""
+    v = (coords_1d + 1.0) * 0.5 * (size - 1)
+    v = torch.minimum(torch.maximum(v, v.new_zeros(())),
+                      v.new_full((), size - 1))
+    c = torch.floor(v).detach()
     return c.to(torch.int32), v - c
 
 
@@ -199,6 +209,38 @@ def bilerp_bwd_packed_plain(gs, rowids, txs, ty, *, rows: int
             [g * wt[:, None] for wt in corner_weights(tx, ty)], dim=1))
         outs.append(grad)
     return outs
+
+
+def staged_corners(table, rowid, feat: int, *, h: int, w: int):
+    """The four f32 [M, F'] corners (y0, x0), (y0, x1), (y1, x0), (y1, x1)
+    that the forward kernels read from a staged bf16 table: an unpacked
+    [h*w, F'] table's rows (``corner_rows``) or a quad-packed [R, 4F']
+    row's quarters (row ids clipped), F' = native_feat(feat)."""
+    wide = native_feat(feat)
+    if table.shape[1] == wide:
+        return [table[r].float() for r in corner_rows(rowid, h=h, w=w)]
+    rows = table[torch.clamp(rowid.long(), 0, table.shape[0] - 1)].float()
+    return [rows[:, k * wide:(k + 1) * wide] for k in range(4)]
+
+
+def bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty, *, h: int, w: int):
+    """Plain version of bilerp_bwd_coords: per plane p, ``d_tx_p = sum_f g_p
+    ((1-ty)(p01-p00) + ty(p11-p10))``; ``d_ty = sum_p sum_f g_p
+    ((1-tx_p)(p10-p00) + tx_p(p11-p01))``, over the staged corners
+    (``staged_corners``), g zero-padded to the tables' width.  Returns (P
+    [M] f32, [M] f32)."""
+    d_txs, d_ty = [], None
+    omty = (1.0 - ty)[:, None]
+    for table, g, rowid, tx in zip(tables, gs, rowids, txs):
+        feat = g.shape[1]
+        p00, p01, p10, p11 = staged_corners(table, rowid, feat, h=h, w=w)
+        g = pad_features(g, feat)
+        ax = omty * (p01 - p00) + ty[:, None] * (p11 - p10)
+        ay = (1.0 - tx)[:, None] * (p10 - p00) + tx[:, None] * (p11 - p01)
+        d_txs.append((g * ax).sum(1))
+        d = (g * ay).sum(1)
+        d_ty = d if d_ty is None else d_ty + d
+    return d_txs, d_ty
 
 
 # ---------------------------------------------------------------------------
@@ -527,11 +569,70 @@ def bilerp_bwd_packed(gs: Sequence[torch.Tensor], rowids, txs,
 bilerp_bwd_packed.launches = 0
 bilerp_bwd_packed.launches_by_width = {}
 
+def _launch_coords(tables, gs, rowids, txs, ty, d_txs, d_ty, m, packed, h, w,
+                   feat) -> None:
+    """Launch snt_bilerp_bwd_coords on the current stream of the operands'
+    device (checked by bilerp_bwd_coords; ``gs`` at the tables' width
+    ``feat``; the caller allocated ``d_txs`` and ``d_ty``)."""
+    fn = build.load("plane_bwd_kernels").snt_bilerp_bwd_coords
+    fn.argtypes = [ctypes.c_int, _P, _P, _P, _P, ctypes.c_void_p, _P,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(ty.device):
+        stream = torch.cuda.current_stream(ty.device).cuda_stream
+        err = fn(len(tables), _ptrs(tables), _ptrs(gs), _ptrs(rowids),
+                 _ptrs(txs), ty.data_ptr(), _ptrs(d_txs), d_ty.data_ptr(), m,
+                 packed, h, w, h * w, feat, stream)
+    if err != 0:
+        raise RuntimeError(f"snt_bilerp_bwd_coords failed to launch: CUDA "
+                           f"error {err}")
+
+
+def bilerp_bwd_coords(tables: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
+                      rowids, txs, ty: torch.Tensor, *, h: int, w: int):
+    """Gradient of the forward kernels' samples w.r.t. their fractions.
+
+    Args:
+        tables: P staged bf16 tables of one layout, the forward's own:
+            unpacked [h*w, F'] or quad-packed [h*w, 4F'], F' =
+            native_feat(F) (ops/grid_sample.stage_table);
+        gs: P [M, F] f32 upstream gradients, 1 <= F <= 128 (zero-padded to
+            F' per call outside FEATS);
+        rowids, txs, ty: as bilerp_fwd_unpacked.
+    Returns:
+        (P [M] f32 gradients of the txs, [M] f32 gradient of ty, summed
+        over the planes).
+    """
+    if _on_cpu([*tables, *gs, *rowids, *txs, ty]):
+        return bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty, h=h, w=w)
+    m, feat = _check_grads(gs, rowids, txs, ty)
+    wide = native_feat(feat)
+    _check(tables, rowids, txs, ty, torch.bfloat16)
+    if tables[0].shape[0] != h * w or tables[0].shape[1] not in (wide, 4 * wide):
+        raise ValueError(f"a table of {list(tables[0].shape)} is neither "
+                         f"[{h * w}, {wide}] nor [{h * w}, {4 * wide}]")
+    d_txs = [torch.empty((m,), dtype=torch.float32, device=ty.device)
+             for _ in gs]
+    d_ty = torch.empty((m,), dtype=torch.float32, device=ty.device)
+    if m > 0:
+        _launch_coords(tables, [pad_features(g, feat) for g in gs], rowids,
+                       txs, ty, d_txs, d_ty, m,
+                       int(tables[0].shape[1] != wide), h, w, wide)
+        _count(bilerp_bwd_coords, feat)
+    return d_txs, d_ty
+
+
+bilerp_bwd_coords.launches = 0
+bilerp_bwd_coords.launches_by_width = {}
+
 # the train path's kernels (its forward keeps every plane's factor for the
-# backward), then the render path's
+# backward), then the coordinate backward (the camera optimizer's train
+# path only), then the render path's
 TRAIN_KERNELS = (bilerp_fwd_unpacked, bilerp_fwd_packed, bilerp_bwd_unpacked,
                  bilerp_bwd_packed)
-KERNELS = (*TRAIN_KERNELS, kplanes_fwd_fused)
+KERNELS = (*TRAIN_KERNELS, bilerp_bwd_coords, kplanes_fwd_fused)
 
 
 def reset_launch_counts() -> None:

@@ -221,6 +221,22 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)
 
 
+def orientation_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     viewdirs: torch.Tensor) -> torch.Tensor:
+    """Ref-NeRF's orientation loss per ray: sum_s w min(0, n . -v)^2.
+    [N, S], [N, S, 3], [N, 3] -> [N]."""
+    n_dot_v = torch.sum(normals * -viewdirs[..., None, :], dim=-1)
+    return torch.sum(weights * torch.clamp(n_dot_v, max=0.0) ** 2, dim=-1)
+
+
+def pred_normal_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     pred_normals: torch.Tensor) -> torch.Tensor:
+    """The predicted normals' agreement with the density's per ray:
+    sum_s w (1 - n . n_pred).  [N, S], [N, S, 3], [N, S, 3] -> [N]."""
+    return torch.sum(weights * (1.0 - torch.sum(normals * pred_normals, dim=-1)),
+                     dim=-1)
+
+
 def scale_dict(d: dict, coefficients: dict) -> dict:
     """Each loss times its coefficient (1 where it has none)."""
     return {k: d[k] * coefficients.get(k, 1.0) for k in d}

@@ -364,6 +364,16 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             o.copy_(r)
 
     monkeypatch.setattr(pk, "_launch", launch)
+
+    def launch_coords(tables, gs, rowids, txs, ty, d_txs, d_ty, m, packed, h,
+                      w, feat):
+        res_tx, res_ty = pk.bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty,
+                                                    h=h, w=w)
+        for o, r in zip(d_txs, res_tx):
+            o.copy_(r)
+        d_ty.copy_(res_ty)
+
+    monkeypatch.setattr(pk, "_launch_coords", launch_coords)
     monkeypatch.setattr(pk, "_check_fused", lambda pts, tables, planes, out: None)
     monkeypatch.setattr(pk, "_launch_fused", pk.kplanes_fwd_fused_plain)
     monkeypatch.setattr(sk, "_on_cpu", lambda ts: False)
@@ -397,7 +407,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert [r["feat"] for r in fwd_width] == [16] * 3 + [20] * 3 + [24] * 3 + [48] * 3
     assert all(r["max_abs_err"] == 0.0 and r["library_ms"] > 0
                and r["bound_ms"] > 0 for r in fwd_width + width)
-    assert sum(line.startswith("widths ") for line in lines) == 5
+    assert sum(line.startswith("widths ") for line in lines) == 6
     assert {r["planes"] for r in step} == {1, 2, 3}
     assert all(0 < r["vector_reductions"] and r["points_per_flush"] >= 1.0
                for r in bwd)
@@ -422,7 +432,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [
         k.__name__ for k in (*pk.KERNELS, *sk.KERNELS)]
-    assert len(kernels) == 6
+    assert len(kernels) == 7
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
@@ -523,13 +533,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # methods: 4 with their witnesses, else 2)
     # (the classic methods and NeuS: 4 more train phases, their CPU checks
     # with the witnesses; semantic-nerfw one more, its check without them)
-    assert checks.count("train_phase") == 13 * 4
+    # (the three variants: 3 more train phases over VARIANT_WINDOW steps,
+    # their CPU checks with the witnesses)
+    assert checks.count("train_phase") == 16 * 4
     assert checks.count("run") == (10 * (11 + cs.TRAIN_WINDOW)
-                                   + 3 * (11 + cs.OCC_TRAIN_WINDOW))
+                                   + 3 * (11 + cs.OCC_TRAIN_WINDOW)
+                                   + 3 * (11 + cs.VARIANT_WINDOW))
     assert checks.count("train_cpu_check") == (
-        4 * len(cs.TRAIN_CPU_SEEDS) + 2 * len(cs.NERFACTO_CPU_SEEDS)
+        (4 + 4) * len(cs.TRAIN_CPU_SEEDS)
+        + (2 + 4) * len(cs.NERFACTO_CPU_SEEDS)
         + 4 * len(cs.DEPTH_CPU_SEEDS) + 2 * len(cs.SEMANTIC_CPU_SEEDS)
-        + (2 + 4) * len(cs.NERFPLAYER_CPU_SEEDS)
+        + (2 + 4 + 4) * len(cs.NERFPLAYER_CPU_SEEDS)
         + (2 + 2 + 4) * len(cs.OCC_CPU_SEEDS)
         + 3 * 4 * len(cs.CLASSIC_CPU_SEEDS) + 4 * len(cs.NEUS_CPU_SEEDS))
     # the deformation MLP's leaves, with the one-ulp witness beside them
@@ -560,8 +574,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert run["loop_rays_per_s"] > 0 and run["load_ms"] > 0
     assert len(run["refresh_ist_ms"]) >= 2 and len(run["save_ms"]) == 2
     assert int(0.15 * 256) in run["ist_rays_per_batch"]
-    # the four train kernels, and the fused one in the eval images
-    assert all(run["launches"][k.__name__] > 0 for k in pk.KERNELS)
+    # the four train kernels, and the fused one in the eval images; the
+    # registered method no coordinate backward
+    assert all(run["launches"][k.__name__] > 0
+               for k in (*pk.TRAIN_KERNELS, pk.kplanes_fwd_fused))
+    assert run["launches"]["bilerp_bwd_coords"] == 0
     assert any(line.startswith("trainer_kplanes small: resumed at step 8 ")
                and "bit-equal" in line for line in lines)
     (ingp,) = phases["trainer_ingp_bounded"]
@@ -608,7 +625,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert depth_run["loop_rays_per_s"] > 0
     assert depth_run["trainer_kplanes_loop_rays_per_s"] == run["loop_rays_per_s"]
     assert len(depth_run["refresh_decode_ms_with_depth"]) >= 2
-    assert all(depth_run["launches"][k.__name__] > 0 for k in pk.KERNELS)
+    assert all(depth_run["launches"][k.__name__] > 0
+               for k in (*pk.TRAIN_KERNELS, pk.kplanes_fwd_fused))
     (cli_depth,) = phases["cli_depth_nerfacto"]
     argv = cli_depth["train_argv"]
     assert argv[0] == "small-depth" and "nerfstudio-data" in argv
@@ -622,6 +640,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     (cli,) = phases["cli_kplanes"]
     argv = cli["train_argv"]
     assert argv[0] == "small" and argv[argv.index("--max-num-iterations") + 1] == "4"
+    assert argv[argv.index("--pipeline.datamanager.camera-optimizer.mode")
+                + 1] == "SO3xR3"
+    assert cli["checkpoint_pose_adjustment_max"] > 0
     assert argv[argv.index("--pipeline.datamanager.iters-to-start-is") + 1] == "2"
     assert cli["train_steps"] == 4 and cli["train_loop_rays_per_s"] > 0
     assert all(np.isfinite(cli["eval"][k]) for k in ("psnr", "ssim", "dpsnr",
@@ -647,6 +668,52 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert all(main_path[path][n] == 0 for n in forward), path
     assert all(main_path["train small"][k.__name__] > 0 for k in pk.TRAIN_KERNELS)
     assert main_path["train small"]["kplanes_fwd_fused"] == 0
+    # the camera optimizer's paths: the coordinate backward on random
+    # points at the train path's widths, on the launches of one K-Planes
+    # SO3xR3 step and at the other widths; it launches on every SO3xR3 step
+    # (the variant's train phase, the CLI's snt-train) and on no other path
+    coords = [json.loads(line.split(" ", 2)[2]) for line in lines
+              if line.startswith("kernel coords ")]
+    assert [r["order"] for r in coords if r["order"] != "ray"] == [
+        "random"] * 3 + ["width"] * 4
+    assert [r["feat"] for r in coords if r["order"] == "width"] == [16, 20, 24, 48]
+    assert len([r for r in coords if r["order"] == "ray"]) >= 3
+    assert all(r["max_abs_err"] == 0.0 and r["library_ms"] > 0
+               and r["bound_by"] == "bytes" for r in coords)
+    assert kernels[4]["name"] == "bilerp_bwd_coords"
+    assert kernels[4]["replaces"] == "soccernerfs_tpu/ops/grid_sample.py:89"
+    assert kernels[4]["ms"] == pytest.approx(
+        sum(r["ms"] for r in coords if r["order"] == "random"))
+    so3 = "train k-planes SO3xR3"
+    assert main_path[so3]["bilerp_bwd_coords"] >= 1 + 11 + cs.VARIANT_WINDOW
+    assert all(main_path[so3][k.__name__] > 0 for k in pk.TRAIN_KERNELS)
+    assert main_path["cli train small"]["bilerp_bwd_coords"] >= cs.CLI_STEPS
+    for path, counts in main_path.items():
+        if path not in (so3, "cli train small"):
+            assert counts["bilerp_bwd_coords"] == 0, path
+    for kind in ("update", "non-update"):
+        assert any(line.startswith(f"in-step (SO3xR3) bilerp_bwd_coords ({kind} "
+                                   f"step):") for line in lines), kind
+    assert any(line.startswith("train k-planes SO3xR3: step 0 pose_adjustment "
+                               "gradient") for line in lines)
+    for method in ("k-planes SO3xR3", "nerfplayer-nerfacto SO3xR3",
+                   "nerfacto normals"):
+        assert any(line.startswith(f"train {method}: window steps")
+                   for line in lines), method
+        assert any(line.startswith(f"train cpu check {method}, seed 2: "
+                                   f"camera_opt/pose_adjustment card vs cpu")
+                   for line in lines), method
+    assert main_path["train nerfplayer-nerfacto SO3xR3"]["scatter_add_rows"] > 0
+    # nerfacto's normals branch with a random background: a counted frame,
+    # both normal outputs held against the CPU beside rgb
+    assert any(line.startswith("render nerfacto normals: 1 frames")
+               for line in lines)
+    line = next(line for line in lines
+                if line.startswith("cpu check nerfacto normals (4096 rays): max"))
+    assert "'normals'" in line and "'pred_normals'" in line
+    assert any(line.startswith("cpu check nerfacto normals (4096 rays): normals "
+                               "further than") and "one-ulp witness" in line
+               for line in lines)
     # the classic methods: render (TensoRF two counted frames and one
     # profiled, the NeRF methods one), a chunk and a step held against the
     # CPU, the step's leaves with the card's bins beside their witness
@@ -770,11 +837,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # rest quad-packed: one launch of both layouts
     finest = next(r for r in fused if r["case"].startswith("field scale 1"))
     assert "'unpacked'" in finest["case"] and "'packed'" in finest["case"]
-    assert kernels[4]["name"] == "kplanes_fwd_fused"
-    assert kernels[4]["ms"] == pytest.approx(sum(r["ms"] for r in fused))
+    assert kernels[5]["name"] == "kplanes_fwd_fused"
+    assert kernels[5]["ms"] == pytest.approx(sum(r["ms"] for r in fused))
     assert any(line.startswith("in-frame kplanes_fwd_fused:") and "of bound" in line
                for line in lines)
-    k = kernels[5]
+    k = kernels[6]
     assert k["name"] == "scatter_add_rows"
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
     assert k["bound_ms"] == pytest.approx(

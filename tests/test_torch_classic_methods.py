@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
+from soccernerfs_tpu.core import camera_optimizer as jco
 from soccernerfs_tpu.core import cameras as jcam
 from soccernerfs_tpu.engine import optimizers as jopt
 from soccernerfs_tpu.engine.trainer import TrainState as JaxTrainState
@@ -39,6 +40,7 @@ from soccernerfs_tpu.models import vanilla_nerf as jvn
 from soccernerfs_tpu.ops import encodings as jenc
 from soccernerfs_tpu_torch import convert
 from soccernerfs_tpu_torch.configs import method_configs as tmc
+from soccernerfs_tpu_torch.core import camera_optimizer as tco
 from soccernerfs_tpu_torch.core import cameras as tcam
 from soccernerfs_tpu_torch.data.dataparsers.blender import BlenderDataParserConfig
 from soccernerfs_tpu_torch.data.fixtures import make_blender_fixture
@@ -523,6 +525,82 @@ def test_train_step_matches_jax(setup):
         assert _l2(g, jg) <= bound, (name, _l2(g, jg), bound)
     if method != "vanilla-nerf":
         assert not held_to_witness
+
+
+@pytest.mark.parametrize("name", ["vanilla-nerf", "dnerf", "mipnerf",
+                                  "tensorf-vm"])
+def test_pose_gradient_with_the_camera_optimizer_matches_jax(name):
+    """The classic methods (and D-NeRF, vanilla NeRF's model on its
+    planes 2..6 with a white background) train with the SO3xR3 camera
+    optimizer: one step with non-zero pose adjustments against
+    jax.value_and_grad of the JAX Trainer's loss_fn with the same params,
+    batch and jitters.  The loss terms within 1e-4 relative; the pose
+    adjustments' gradient within 1e-2 in L2, or twice the JAX step's own
+    one-ulp witness where that is larger (vanilla NeRF's encodings carry a
+    one-ulp move of the samples into its first layers, see
+    test_train_step_matches_jax; the pose's gradient sums over them)."""
+    if name == "dnerf":
+        small = dict(SMALL["vanilla-nerf"][2])
+        jm, tm = jvn, tvn
+        jcfg = dataclasses.replace(method_configs["dnerf"].pipeline.model, **small)
+        tcfg = dataclasses.replace(tmc.model_configs["dnerf"], **small)
+        method = "dnerf"
+    else:
+        method, jm, tm, jcfg, tcfg = _configs(name)
+    np_tree = _lifted(jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(0), jcfg, N_CAMS)), jcfg)
+    rng = np.random.default_rng(29)
+    np_tree["camera_opt"] = {"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)}
+    jcams = jcam.Cameras.create(**_camera_args())
+    jcam_cfg = jco.CameraOptimizerConfig(mode="SO3xR3")
+    aabb = jnp.asarray(AABB)
+    key = jax.random.PRNGKey(17)
+
+    @jax.jit
+    def jax_step(params, batch, shift):
+        def loss_fn(p):
+            cam_opt = jco.apply_camera_optimizer(jcam_cfg, p["camera_opt"],
+                                                 batch["cam_idx"])
+            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                      cam_opt)
+            # the witness's one-ulp move, keeping the directions' gradient
+            d = rays.directions
+            every_other = (jnp.arange(d.size) % 2 == 0).reshape(d.shape)
+            dd = jax.lax.stop_gradient(d)
+            up = jnp.nextafter(dd, 2.0) - dd
+            rays = rays.replace(directions=d + jnp.where(
+                every_other & (shift > 0), up, 0.0))
+            outputs = jm.get_outputs(jcfg, p, aabb, rays, rng=key, train=True)
+            metrics = jm.get_metrics_dict(jcfg, outputs, batch)
+            loss_dict = jm.get_loss_dict(jcfg, p, outputs, batch, metrics)
+            return functools.reduce(jnp.add, loss_dict.values()), loss_dict
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    batch = _batch(7)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_tree)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, jld), jgrads = jax_step(jparams, jbatch, 0)
+    _, wgrads = jax_step(jparams, jbatch, 1)
+    groups = dict(tmc.optimizer_configs[method],
+                  camera_opt=tmc.optimizer_configs["nerfacto"]["camera_opt"])
+    step = TrainStep(tcfg, tcam.Cameras.create(**_camera_args(), device=CPU),
+                     AABB, groups, device=CPU, model=tmc.model_names[method],
+                     camera_optimizer=tco.CameraOptimizerConfig(mode="SO3xR3"))
+    state = step.init_state(convert.params_from_jax(np_tree, CPU))
+    loss, ld, _met, grads = step.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=False, jitters=_jax_draws(key, N_RAYS, tm, tcfg))
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    pose = grads[-1]
+    want = np.asarray(jgrads["camera_opt"]["pose_adjustment"])
+    witness = np.asarray(wgrads["camera_opt"]["pose_adjustment"])
+    assert pose.shape == (N_CAMS, 6) and np.abs(want).max() > 0
+    assert _l2(pose, want) <= max(1e-2, 2 * _l2(witness, want)), (
+        _l2(pose, want), _l2(witness, want))
 
 
 def test_train_iteration_draws_and_updates(setup):

@@ -162,6 +162,44 @@ def _runs(rng, h, w, lengths, planes, dev, border=False):
     return rowids, txs, ty
 
 
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("h,w,m,planes,feat", CASES + WIDTH_CASES)
+def test_coords_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, layout,
+                                         sort):
+    """bilerp_bwd_coords against its plain version on staged tables of
+    either layout (a padded width's extra columns zero, as stage_table
+    stages them): 1e-5 of the largest |gradient| (the sums over F run in
+    another order); across the right border (its two corners one value)
+    the x fraction's gradient is exactly 0."""
+    from soccernerfs_tpu_torch.ops.grid_sample import quad_pack
+
+    rng = np.random.default_rng(h * 1000 + w + 4)
+    wide = pk.native_feat(feat)
+    planes_ = [torch.nn.functional.pad(
+        torch.from_numpy(rng.standard_normal((h, w, feat), dtype=np.float32)),
+        (0, wide - feat)).to(dev, torch.bfloat16) for _ in range(planes)]
+    tables = [(p.reshape(h * w, wide) if layout == "unpacked" else quad_pack(p))
+              .contiguous() for p in planes_]
+    gs = [torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
+          for _ in range(planes)]
+    rowids, txs, ty = _points(rng, h, w, m, planes, dev, sort)
+    before = pk.bilerp_bwd_coords.launches
+    got_tx, got_ty = pk.bilerp_bwd_coords(tables, gs, rowids, txs, ty, h=h, w=w)
+    want_tx, want_ty = pk.bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty,
+                                                  h=h, w=w)
+    torch.cuda.synchronize()
+    assert pk.bilerp_bwd_coords.launches == before + 1
+    got, want = [*got_tx, got_ty], [*want_tx, want_ty]
+    scale = max(float(e.abs().max()) for e in want)
+    for g, e in zip(got, want):
+        assert g.shape == (m,) and g.dtype == torch.float32
+        assert float((g - e).abs().max()) <= 1e-5 * scale
+    if not sort:
+        # _points puts the first five points on the right border
+        assert all(not bool(g[:5].any()) for g in got_tx)
+
+
 # run lengths: long runs of one row; runs that cross the edges of a strip
 # (8 points), a warp (32 points at F = 32, 128 at F = 8) and a block (256,
 # 1024); every point on one row; runs on border cells; a point count that
@@ -232,6 +270,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):      # F = 136: no kernel above 128
         pk.bilerp_bwd_packed([torch.zeros((5, 136), device=dev)], [z], [f], f,
                              rows=12)
+    g8 = torch.zeros((5, 8), device=dev)
+    with pytest.raises(ValueError):      # f32 table
+        pk.bilerp_bwd_coords([table.float()], [g8], [z], [f], f, h=3, w=4)
+    with pytest.raises(ValueError):      # neither layout of F = 8
+        pk.bilerp_bwd_coords([table[:, :16].contiguous()], [g8], [z], [f], f,
+                             h=3, w=4)
+    with pytest.raises(ValueError):      # gradient rows != points
+        pk.bilerp_bwd_coords([table], [g8[:4]], [z], [f], f, h=3, w=4)
 
 
 # ---------------------------------------------------------------------------

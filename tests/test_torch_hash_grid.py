@@ -516,18 +516,56 @@ def test_temporal_out_of_range_index_raises(monkeypatch):
                                 flat.view(-1, 8, 50), rows=table.size)
 
 
+def _temporal_input_grads(kw, x, t, table, cot, input_grads=True):
+    """(position, time) gradients of <encode, cot>: JAX's
+    ``hash_grid_encode(..., input_grads=...)`` on its CPU path, and the
+    port's."""
+    jc, tc = jh.HashGridConfig(**kw), th.HashGridConfig(**kw)
+
+    def jloss(xx, tt):
+        return jnp.vdot(jh.hash_grid_encode(
+            jc, {"embeddings": jnp.asarray(table)}, xx, tt,
+            input_grads=input_grads), cot)
+
+    jgx, jgt = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(t))
+    tx = _t(x).requires_grad_(True)
+    tt = _t(t).requires_grad_(True)
+    out = th.hash_grid_encode(tc, {"embeddings": _t(table).requires_grad_(True)},
+                              tx, tt, input_grads=input_grads)
+    if not input_grads:
+        assert not out.requires_grad or out.grad_fn is not None
+        (out * _t(cot)).sum().backward()
+        return (jgx, jgt), (tx.grad, tt.grad)
+    gx, gt = torch.autograd.grad((out * _t(cot)).sum(), (tx, tt))
+    return (jgx, jgt), (gx, gt)
+
+
 def test_temporal_inputs_that_need_a_gradient_are_refused():
-    """Positions or times that require grad raise (no position or time
-    backward is ported); a temporal grid needs times, a static one takes
-    none; temporal_dim 1 has no window."""
+    """Positions and times that need a gradient get it (the refusal this
+    test once held is gone): against jax.grad of JAX's
+    ``hash_grid_encode(..., input_grads=True)`` on its CPU path, every
+    temporal config (dense and hashed levels, xor and zline, level_dim 2
+    and 3), positions and times at rtol 1e-5 of the max (the same f32
+    products; the per-corner and per-level sums in another order).  With
+    ``input_grads=False`` both are detached, as JAX's stop_gradient: no
+    gradient reaches them.  The refusals that stay: a temporal grid needs
+    times, a static one takes none; temporal_dim 1 has no window."""
+    for name, kw in TEMPORAL.items():
+        x, t, table, cot = _temporal_inputs(kw, 11, n=60)
+        (jgx, jgt), (gx, gt) = _temporal_input_grads(kw, x, t, table, cot)
+        assert gx.shape == (60, 3) and gt.shape == (60,)
+        assert float(np.abs(np.asarray(jgx)).max()) > 0, name
+        assert float(np.abs(np.asarray(jgt)).max()) > 0, name
+        assert _rel(gx, jgx) <= 1e-5, (name, _rel(gx, jgx))
+        assert _rel(gt, jgt) <= 1e-5, (name, _rel(gt, jgt))
+        (jgx, jgt), (gx, gt) = _temporal_input_grads(kw, x, t, table, cot,
+                                                     input_grads=False)
+        assert gx is None and gt is None
+        assert not np.asarray(jgx).any() and not np.asarray(jgt).any()
     kw = TEMPORAL["xor"]
     cfg = th.HashGridConfig(**kw)
     x, t, table, _cot = _temporal_inputs(kw, 11, n=10)
     params = {"embeddings": _t(table)}
-    for tx, tt in ((_t(x).requires_grad_(True), _t(t)),
-                   (_t(x), _t(t).requires_grad_(True))):
-        with pytest.raises(NotImplementedError):
-            th.hash_grid_encode(cfg, params, tx, tt)
     with pytest.raises(ValueError):
         th.hash_grid_encode(cfg, params, _t(x))
     with pytest.raises(ValueError):
@@ -535,6 +573,29 @@ def test_temporal_inputs_that_need_a_gradient_are_refused():
                             {"embeddings": torch.zeros(10, 2)}, _t(x), _t(t))
     with pytest.raises(ValueError):
         th.init_hash_grid(th.HashGridConfig(temporal_dim=1))
+
+
+@pytest.mark.parametrize("index", range(len(REGISTERED_TEMPORAL)))
+def test_temporal_input_grads_at_registered_widths_match_jax(index):
+    """The position and time gradients on the registered nerfplayer-nerfacto
+    grids' widths (64 and 32 temporal channels, 16 and 5 levels, xor and
+    zline; 2^15 rows a level, to keep the CPU's tables small) against JAX's
+    CPU path, rtol 1e-5 of the max, and a table gradient unchanged by
+    asking for them (the width-1 scatter, bit for bit)."""
+    kw = dict(REGISTERED_TEMPORAL[index], log2_hashmap_size=15)
+    x, t, table, cot = _temporal_inputs(kw, 20 + index, n=80)
+    (jgx, jgt), (gx, gt) = _temporal_input_grads(kw, x, t, table, cot)
+    assert _rel(gx, jgx) <= 1e-5
+    assert _rel(gt, jgt) <= 1e-5
+    cfg = th.HashGridConfig(**kw)
+    grads = []
+    for needs in (False, True):
+        tab = _t(table).requires_grad_(True)
+        out = th.hash_grid_encode(cfg, {"embeddings": tab},
+                                  _t(x).requires_grad_(needs),
+                                  _t(t).requires_grad_(needs))
+        grads.append(torch.autograd.grad((out * _t(cot)).sum(), tab)[0])
+    assert torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.parametrize("name", list(TEMPORAL))

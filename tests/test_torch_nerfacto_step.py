@@ -305,26 +305,165 @@ def test_training_lowers_the_loss(setup):
     assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params))
 
 
-def test_kplanes_with_the_camera_optimizer_still_raises():
-    """The K-Planes field has no position backward: with the camera
-    optimizer on, its step raises rather than dropping the pose gradient."""
+KPLANES_SO3 = dict(
+    multiscale_res=(1, 2), feature_dim=32,
+    num_proposal_iterations=2, num_proposal_samples_per_ray=(16, 12),
+    num_nerf_samples_per_ray=8, sigma_net_hidden_dim=16, rgb_net_hidden_dim=16,
+    loss_coefficients=dict(tmc._KPLANES_LOSS_COEF),
+)
+
+
+def _kplanes_so3_step(dim, flag=True, seed=0, method=None):
+    """One K-Planes train step with the SO3xR3 camera optimizer on and
+    non-zero pose adjustments, static (3D planes) or dynamic (4D): the
+    JAX package's loss_fn (its Trainer's, with ``sorted_sampler`` off as
+    it turns it off) and the port's TrainStep on the same params, batch
+    and draws; ``method`` starts from that registered method's configs
+    (cut to this size) in place of the default one.  Returns ((JAX loss,
+    loss dict, grads), (the port's loss, loss dict, grads by leaf
+    path))."""
+    from soccernerfs_tpu.models import kplanes as jk
     from soccernerfs_tpu_torch.models import kplanes as tk
 
-    cfg = tk.Config(spacetime_resolution=(8, 8, 8), multiscale_res=(1,),
-                    feature_dim=8, proposal_net_args_list=(
-                        {"feature_dim": 8, "resolution": (8, 8, 8)},),
-                    num_proposal_iterations=1,
-                    num_proposal_samples_per_ray=(8,),
-                    num_nerf_samples_per_ray=4)
-    cams = tcam.Cameras.create(**_camera_args(), device=CPU)
+    reso = (8, 8, 8, 5)[:dim]
+    kw = dict(KPLANES_SO3, spacetime_resolution=reso, proposal_net_args_list=(
+        {"feature_dim": 8, "resolution": reso},
+        {"feature_dim": 8, "resolution": tuple(2 * r if i < 3 else r
+                                               for i, r in enumerate(reso))}))
+    if method is None:
+        jcfg = jk.Config(**kw, sorted_sampler=False)
+        tcfg = tk.Config(**kw)
+    else:
+        coef = kw.pop("loss_coefficients")
+        jcfg = dataclasses.replace(method_configs[method].pipeline.model, **kw,
+                                   sorted_sampler=False)
+        tcfg = dataclasses.replace(tmc.model_configs[method], **kw)
+        assert dict(tcfg.loss_coefficients).keys() <= coef.keys()
+    rng = np.random.default_rng(40 + dim)
+
+    def noise(path, x):
+        # time planes init to exactly 1: jitter them so their gradients
+        # and the pose's path through them are not degenerate
+        x = np.asarray(x)
+        if x.ndim == 3 and np.all(x == 1.0):
+            return (x + rng.uniform(-0.2, 0.2, x.shape)).astype(np.float32)
+        return x
+
+    np_tree = _walk(jax.tree_util.tree_map(
+        np.asarray, jk.init(jax.random.PRNGKey(seed), jcfg)), noise)
+    np_tree["camera_opt"] = {"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)}
+    cam_args = dict(_camera_args(), times=np.array([0.1, 0.5, 0.9], np.float32))
+    jcams = jcam.Cameras.create(**cam_args)
+    jcam_cfg = jco.CameraOptimizerConfig(**CAM_OPT)
+    batch = _batch(seed)
+    key = jax.random.PRNGKey(11 + seed)
+    step = 300
+
+    @functools.partial(jax.jit, static_argnums=(2,))
+    def jax_step(params, batch, flag):
+        def loss_fn(p):
+            cam_opt = jco.apply_camera_optimizer(jcam_cfg, p.get("camera_opt"),
+                                                 batch["cam_idx"])
+            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                      cam_opt)
+            outputs = jk.get_outputs(
+                jcfg, p, jnp.asarray(AABB), rays, rng=key, train=True,
+                anneal=jk.proposal_anneal(jcfg, step),
+                train_proposal_networks=flag)
+            metrics = jk.get_metrics_dict(jcfg, outputs, batch, step)
+            loss_dict = jk.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                         train=True)
+            return functools.reduce(jnp.add, loss_dict.values()), loss_dict
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (jloss, jld), jgrads = jax_step(
+        jax.tree_util.tree_map(jnp.asarray, np_tree),
+        {k: jnp.asarray(v) for k, v in batch.items()}, flag)
+
+    # the step key's draws: (sampling, background) keys, one stratified
+    # uniform per level, the [N, 3] background
+    rng_sample, rng_bg = jax.random.split(key)
+    keys = jax.random.split(rng_sample, tcfg.num_proposal_iterations + 1)
+    counts = [*tcfg.num_proposal_samples_per_ray, tcfg.num_nerf_samples_per_ray]
+    jitters = [_t(jax.random.uniform(k, (N_RAYS, s + 1)))
+               for k, s in zip(keys, counts)]
+    background = _t(jax.random.uniform(rng_bg, (N_RAYS, 3)))
     groups = dict(tmc.optimizer_configs["k-planes"],
                   camera_opt=tmc.optimizer_configs["nerfacto"]["camera_opt"])
-    trainer = TrainStep(cfg, cams, AABB, groups, device=CPU,
+    trainer = TrainStep(tcfg, tcam.Cameras.create(**cam_args, device=CPU), AABB,
+                        groups, device=CPU,
                         camera_optimizer=tco.CameraOptimizerConfig(**CAM_OPT))
-    state = trainer.init_state(tk.init(cfg, generator=torch.Generator().manual_seed(0)))
-    with pytest.raises(ValueError, match="require grad"):
-        trainer.train_iteration(state, {k: _t(v) for k, v in _batch().items()},
-                                torch.Generator().manual_seed(0))
+    state = trainer.init_state(convert.params_from_jax(np_tree, device=CPU))
+    state.step = step
+    loss, ld, _met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=flag, jitters=jitters, background=background)
+    names = []
+    _walk(state.params, lambda path, x: names.append(path))
+    return (jloss, jld, jgrads), (loss, ld, dict(zip(names, grads)))
+
+
+def _assert_kplanes_so3_step_matches(dim, flag, method=None):
+    (jloss, jld, jgrads), (loss, ld, tgrads) = _kplanes_so3_step(
+        dim, flag, method=method)
+    assert set(jld) == set(ld)
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(jflat) == len(tgrads)
+    checked = 0
+    for path, jg in jflat:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g = tgrads[name]
+        if g is None:
+            assert not flag and name[0] == "proposal_networks", name
+            assert np.abs(np.asarray(jg)).max() == 0.0, name
+            continue
+        assert tuple(g.shape) == jg.shape, name
+        assert _rel(g, jg) <= 2e-2, (name, _rel(g, jg))
+        checked += 1
+    pose = tgrads[("camera_opt", "pose_adjustment")]
+    assert bool(torch.isfinite(pose).all()) and float(pose.abs().max()) > 0
+    return checked
+
+
+def test_kplanes_with_the_camera_optimizer_still_raises():
+    """K-Planes with the SO3xR3 camera optimizer trains (the refusal this
+    test once held is gone): one step at step 300 with a proposal update,
+    static (3D) and dynamic (4D) planes, against jax.value_and_grad of the
+    JAX Trainer's loss_fn with its sorted sampler off: every loss term
+    within 1e-4 relative, every gradient leaf (planes, MLPs,
+    ``camera_opt/pose_adjustment``) within 2e-2 of its max |grad|, as
+    test_torch_train_step.py holds K-Planes' step (JAX's CPU path gathers
+    bf16 tables, so its transpose adds bf16 cotangents; the pose's path
+    through the samples' positions adds the bf16 MLP operands' rounding).
+    The field's planes (F = 32) go through the fold route, the proposal
+    fields' (F = 8) through the packed route, each with its coordinate
+    backward."""
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    before = pk.bilerp_bwd_coords.launches
+    for dim in (3, 4):
+        assert _assert_kplanes_so3_step_matches(dim, True) > 0
+    # on the CPU the wrapper runs its plain version: no launch is counted
+    assert pk.bilerp_bwd_coords.launches == before
+
+
+def test_kplanes_static_with_the_camera_optimizer_matches_jax():
+    """k-planes-static as registered (concatenated scales, the MLP decoder,
+    a random background in training), cut to the small planes above, with
+    the SO3xR3 camera optimizer: the same holds as the step above."""
+    assert _assert_kplanes_so3_step_matches(3, True, "k-planes-static") > 0
+
+
+def test_kplanes_with_the_camera_optimizer_on_a_non_update_step():
+    """The same 4D step without the proposal update: the proposal fields'
+    leaves get no gradient (JAX returns zeros), the pose's gradient comes
+    through the field's samples alone, and it still matches."""
+    assert _assert_kplanes_so3_step_matches(4, False) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -433,15 +572,137 @@ def test_rgb_matches_jax(setup, mode):
 
 
 def test_unported_branches_are_refused():
-    with pytest.raises(NotImplementedError):
-        tn.Config(predict_normals=True)
-    with pytest.raises(NotImplementedError):
-        tf.NerfactoFieldConfig(use_pred_normals=True)
-    with pytest.raises(NotImplementedError):
-        tn.Config(background_color="random")
+    """The normals branch and the random background are ported (the
+    refusals this test once held are gone: their steps are held to JAX by
+    test_train_step_with_normals_or_random_background_matches_jax); an
+    unknown model name is refused."""
+    assert tn.Config(predict_normals=True).field_config().use_pred_normals
+    fcfg = tf.NerfactoFieldConfig(use_pred_normals=True)
+    assert tf.field_mlp_dims(fcfg)["mlp_pred_normals"] == (18, 64, 2, 3)
+    params = tf.init_nerfacto_field(dataclasses.replace(fcfg, num_levels=2,
+                                                        log2_hashmap_size=8))
+    assert len(params["mlp_pred_normals"]["w"]) == 3
+    draws = tn.train_draws(tn.Config(background_color="random"), 5,
+                           torch.Generator().manual_seed(0), CPU)
+    assert draws["background"].shape == (5, 3)
+    assert tn.train_draws(tn.Config(), 5, torch.Generator().manual_seed(0),
+                          CPU)["background"] is None
     with pytest.raises(KeyError):
         get_model("no_such_model")
     assert get_model("nerfacto") is tn
+
+
+def _nerfacto_variant_tree(jcfg, seed=0):
+    """JAX's init of ``jcfg`` lifted as the setup's, with non-zero pose
+    adjustments."""
+    rng = np.random.default_rng(27)
+
+    def lift(path, x):
+        x = np.asarray(x)
+        return x * 3000.0 if path[-1] == "embeddings" else x
+
+    tree = _walk(jax.tree_util.tree_map(
+        np.asarray, jn.init(jax.random.PRNGKey(seed), jcfg, N_CAMS)), lift)
+    tree["camera_opt"] = {"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)}
+    return tree
+
+
+@pytest.mark.parametrize("variant", ["normals", "random background"])
+def test_train_step_with_normals_or_random_background_matches_jax(variant):
+    """One nerfacto train step at step 300, proposal update on, SO3xR3 on,
+    with ``predict_normals`` (the density-gradient normals, the predicted
+    normals' head and the orientation and predicted-normal losses) or with
+    a random background (JAX's draw from the step key's background split,
+    handed to the port): every loss term within 1e-4 relative and every
+    gradient leaf (the head's, the poses') within 2e-2 of its max |grad|
+    (the step's own tolerances, test_train_step_matches_jax), against
+    jax.value_and_grad.  For the normals, an eval chunk's rendered
+    normals and predicted normals beside rgb: 1e-3 absolute (unit vectors;
+    the density's gradient goes through bf16 MLP operands)."""
+    kw = (dict(predict_normals=True) if variant == "normals"
+          else dict(background_color="random"))
+    jcfg, tcfg = jn.Config(**SMALL, **kw), tn.Config(**SMALL, **kw)
+    np_tree = _nerfacto_variant_tree(jcfg)
+    jcams = jcam.Cameras.create(**_camera_args())
+    jcam_cfg = jco.CameraOptimizerConfig(**CAM_OPT)
+    step, batch, key = 300, _batch(6), jax.random.PRNGKey(13)
+
+    @jax.jit
+    def jax_step(params, batch):
+        def loss_fn(p):
+            cam_opt = jco.apply_camera_optimizer(jcam_cfg, p["camera_opt"],
+                                                 batch["cam_idx"])
+            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                      cam_opt)
+            outputs = jn.get_outputs(
+                jcfg, p, jnp.asarray(AABB), rays, rng=key, train=True,
+                anneal=jn._kp.proposal_anneal(jcfg, step),
+                train_proposal_networks=True)
+            metrics = jn.get_metrics_dict(jcfg, outputs, batch, step)
+            loss_dict = jn.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                         train=True)
+            return functools.reduce(jnp.add, loss_dict.values()), loss_dict
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (jloss, jld), jgrads = jax_step(
+        jax.tree_util.tree_map(jnp.asarray, np_tree),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    trainer = _trainer(tcfg)
+    state = trainer.init_state(convert.params_from_jax(np_tree, device=CPU))
+    state.step = step
+    background = (_t(jax.random.uniform(jax.random.split(key)[1], (N_RAYS, 3)))
+                  if variant == "random background" else None)
+    loss, ld, _met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=True,
+        jitters=_jax_jitters(tcfg, key, N_RAYS), background=background)
+    want_terms = ["rgb_loss", "interlevel_loss", "distortion_loss"]
+    if variant == "normals":
+        want_terms += ["orientation_loss", "pred_normal_loss"]
+    assert list(ld) == want_terms and set(jld) == set(ld)
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert float(np.abs(np.asarray(jld[k]))) > 0, k
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    names = []
+    _walk(state.params, lambda path, x: names.append(path))
+    tgrads = dict(zip(names, grads))
+    jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(jflat) == len(names)
+    for path, jg in jflat:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g = tgrads[name]
+        assert g is not None and tuple(g.shape) == jg.shape, name
+        assert _rel(g, jg) <= 2e-2, (name, _rel(g, jg))
+    if variant == "normals":
+        assert ("fields", "mlp_pred_normals", "w", 0) in tgrads
+        coords = np.stack(np.meshgrid(np.arange(H), np.arange(W), indexing="ij"),
+                          -1).reshape(-1, 2).astype(np.float32) + 0.5
+        idx = np.full(H * W, 1, np.int32)
+        jrays = jcam.generate_rays(jcams, jnp.asarray(idx), jnp.asarray(coords))
+        jout = jax.jit(lambda p: jn.get_outputs(
+            jcfg, p, jnp.asarray(AABB), jrays, rng=None, train=False))(
+            jax.tree_util.tree_map(jnp.asarray, np_tree))
+        params = convert.params_from_jax(np_tree, device=CPU)
+        cams = tcam.Cameras.create(**_camera_args(), device=CPU)
+        with torch.no_grad():
+            tout = tn.get_outputs(tcfg, params, _t(AABB),
+                                  tcam.generate_rays(cams, _t(idx), _t(coords)))
+        for k in ("rgb", "normals", "pred_normals"):
+            assert float(np.abs(_np(tout[k]) - np.asarray(jout[k])).max()) <= 1e-3, k
+        assert not tout["normals"].requires_grad
+        # a whole-image render returns both normal outputs (snt-render's
+        # --rendered-output-names normals), computed under its no_grad
+        frame = render_camera(tcfg, params, cams, 1, device=CPU, aabb=AABB,
+                              model="nerfacto")
+        assert set(frame) == {"rgb", "depth", "accumulation", "normals",
+                              "pred_normals"}
+        assert frame["normals"].shape == (H, W, 3)
+        np.testing.assert_allclose(
+            _np(frame["normals"]).reshape(-1, 3), _np(tout["normals"]),
+            atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -537,14 +798,16 @@ def test_camera_optimizer_init_and_noise():
 # ---------------------------------------------------------------------------
 
 def _assert_same_optimizer(mine, theirs):
-    """The port's Adam config equals the JAX one on every field it has,
-    and the JAX one uses none of the options the port leaves out."""
+    """The port's Adam config equals the JAX one on every field it has
+    (clipping and both moments' storage types included), and the JAX one
+    is Adam, not RAdam."""
     ref = dataclasses.asdict(theirs)
     got = dataclasses.asdict(mine)
     assert got == {k: ref[k] for k in got}
     assert type(theirs) is jopt.AdamOptimizerConfig
-    assert {k: v for k, v in ref.items() if k not in got} == {
-        "max_norm": None, "kind": "adam", "nu_moment_dtype": "float32"}
+    # the port's Adam config has no ``kind`` (RAdam is a class of its own);
+    # clipping and the second moment's storage type are compared above
+    assert {k: v for k, v in ref.items() if k not in got} == {"kind": "adam"}
 
 
 @pytest.mark.parametrize("group", ["fields", "camera_opt"])

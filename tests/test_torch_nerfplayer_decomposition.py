@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
+from soccernerfs_tpu.core import camera_optimizer as jco
 from soccernerfs_tpu.core import cameras as jcam
 from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.engine import optimizers as jopt
@@ -45,6 +46,7 @@ from soccernerfs_tpu.ops import hash_grid as jh
 from soccernerfs_tpu.ops import rendering as jr
 from soccernerfs_tpu_torch import convert
 from soccernerfs_tpu_torch.configs import method_configs as tmc
+from soccernerfs_tpu_torch.core import camera_optimizer as tco
 from soccernerfs_tpu_torch.core import cameras as tcam
 from soccernerfs_tpu_torch.engine.render import render_camera
 from soccernerfs_tpu_torch.engine.trainer import TrainStep
@@ -356,6 +358,78 @@ def test_train_step_matches_jax(setup, flag):
     proposal_mlps = 0 if flag or setup["occupancy"] else 8
     assert checked == n_leaves - proposal_mlps
     assert checked >= 24
+
+
+def test_train_step_with_the_camera_optimizer_matches_jax(setup):
+    """One train step as test_train_step_matches_jax's (update on) with the
+    SO3xR3 camera optimizer on, non-zero pose adjustments and the encodes'
+    inputs differentiated (``detached_inputs=False``, as both Trainers set
+    it): the raw points' stationary, newness and decomposition encodes
+    then carry the pose's gradient beside the deformed points' encode.
+    Loss terms within 1e-4 relative, every leaf within 1e-2 in L2, the
+    pose's included (the tolerances above), against jax.value_and_grad of
+    the JAX Trainer's loss_fn with ``input_grads=True``."""
+    method, jm = setup["method"], setup["jm"]
+    jcfg = dataclasses.replace(setup["jcfg"], detached_inputs=False)
+    tcfg = dataclasses.replace(setup["tcfg"], detached_inputs=False)
+    rng = np.random.default_rng(19)
+    np_tree = dict(setup["np_tree"], camera_opt={"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)})
+    jcam_cfg = jco.CameraOptimizerConfig(mode="SO3xR3")
+    jcams, aabb = setup["jcams"], jnp.asarray(AABB)
+    step = 272 if setup["occupancy"] else 300
+    batch = _batch(4)
+    occs = _occs(1, p=0.3)
+    binary = (jin.occupancy_binary(jcfg.occ, jnp.asarray(occs))
+              if setup["occupancy"] else None)
+    key, key_loss = jax.random.PRNGKey(31), jax.random.PRNGKey(32)
+
+    @jax.jit
+    def jax_step(params, batch):
+        def loss_fn(p):
+            cam_opt = jco.apply_camera_optimizer(jcam_cfg, p["camera_opt"],
+                                                 batch["cam_idx"])
+            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                      cam_opt)
+            kw = ({"occ_binary": binary} if setup["occupancy"] else
+                  {"anneal": jm._kp.proposal_anneal(jcfg, step),
+                   "train_proposal_networks": True})
+            outputs = jm.get_outputs(jcfg, p, aabb, rays, rng=key, train=True,
+                                     **kw)
+            metrics = jm.get_metrics_dict(jcfg, outputs, batch, step)
+            loss_dict = jm.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                         train=True, rng=key_loss)
+            return functools.reduce(jnp.add, loss_dict.values()), loss_dict
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (jloss, jld), jgrads = jax_step(
+        jax.tree_util.tree_map(jnp.asarray, np_tree),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    groups = dict(tmc.optimizer_configs[method],
+                  camera_opt=tmc.optimizer_configs["nerfacto"]["camera_opt"])
+    trainer = TrainStep(tcfg, tcam.Cameras.create(**_camera_args(), device=CPU),
+                        AABB, groups, device=CPU, model=tmc.model_names[method],
+                        camera_optimizer=tco.CameraOptimizerConfig(mode="SO3xR3"))
+    state = trainer.init_state(
+        convert.params_from_jax(np_tree, device=CPU),
+        aux=(convert.aux_from_jax({"occs": occs}, device=CPU)
+             if setup["occupancy"] else None))
+    state.step = step
+    draws = _jax_train_draws(method, tcfg, key, key_loss, N_RAYS)
+    loss, ld, _met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=True, **draws)
+    assert set(jld) == set(ld)
+    assert _rel(loss, jloss) <= LOSS_TOL
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= LOSS_TOL, k
+    pairs = _grad_pairs(state, grads, jgrads)
+    for name, g, jg in pairs:
+        assert g is not None and tuple(g.shape) == jg.shape, name
+        assert _l2(g, jg) <= GRAD_L2_TOL, (name, _l2(g, jg))
+    pose = [g for name, g, _jg in pairs if name == ("camera_opt", "pose_adjustment")]
+    assert len(pose) == 1 and float(pose[0].abs().max()) > 0
 
 
 @pytest.mark.parametrize("kind", ["ds_nerf", "urf"])
@@ -710,8 +784,10 @@ def test_draws_and_refusals(setup):
     assert set(got) == set(want) and float(got["depth_loss"]) > 0.0
     for k in want:
         assert _rel(got[k], want[k]) <= 1e-5, k
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tcfg, detached_inputs=False).field_config()
+    # detached_inputs=False (the camera optimizer's) reaches the field:
+    # test_train_step_with_the_camera_optimizer_matches_jax trains it
+    assert not dataclasses.replace(
+        tcfg, detached_inputs=False).field_config().detached_inputs
     assert get_model(tmc.model_names[method]) is tm
 
 

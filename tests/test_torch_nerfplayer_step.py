@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
+from soccernerfs_tpu.core import camera_optimizer as jco
 from soccernerfs_tpu.core import cameras as jcam
 from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.engine import optimizers as jopt
@@ -35,6 +36,7 @@ from soccernerfs_tpu.ops import hash_grid as jh
 from soccernerfs_tpu.ops import losses as jL
 from soccernerfs_tpu_torch import convert
 from soccernerfs_tpu_torch.configs import method_configs as tmc
+from soccernerfs_tpu_torch.core import camera_optimizer as tco
 from soccernerfs_tpu_torch.core import cameras as tcam
 from soccernerfs_tpu_torch.engine import optimizers as topt
 from soccernerfs_tpu_torch.engine.render import render_camera
@@ -266,6 +268,78 @@ def test_train_step_matches_jax(setup, flag):
     assert checked == (len(jflat) if flag else len(jflat) - 8)
 
 
+def test_train_step_with_the_camera_optimizer_matches_jax(setup):
+    """One train step at step 300, proposal update on, with the SO3xR3
+    camera optimizer on and non-zero pose adjustments, the encodes'
+    inputs differentiated (``detached_inputs=False``, as both Trainers set
+    it): the loss terms within 1e-4 relative and every gradient, the
+    pose's included, within 2e-2 of its max |grad| (the step's own
+    tolerances, test_train_step_matches_jax), against jax.value_and_grad
+    of the JAX Trainer's loss_fn with ``hash_grid_encode(...,
+    input_grads=True)`` on the same params, batch and draws.  The pose's
+    gradient reaches it through the temporal grids' position and time
+    weights and the proposal samples' positions."""
+    jcfg = dataclasses.replace(setup["jcfg"], detached_inputs=False)
+    tcfg = dataclasses.replace(setup["tcfg"], detached_inputs=False)
+    rng = np.random.default_rng(17)
+    np_tree = dict(setup["np_tree"], camera_opt={"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)})
+    jcam_cfg = jco.CameraOptimizerConfig(mode="SO3xR3")
+    jcams, aabb, step = setup["jcams"], jnp.asarray(AABB), 300
+    batch = _batch(3)
+    key, key_loss = jax.random.PRNGKey(21), jax.random.PRNGKey(22)
+
+    @jax.jit
+    def jax_step(params, batch):
+        def loss_fn(p):
+            cam_opt = jco.apply_camera_optimizer(jcam_cfg, p["camera_opt"],
+                                                 batch["cam_idx"])
+            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                      cam_opt)
+            outputs = jn.get_outputs(
+                jcfg, p, aabb, rays, rng=key, train=True,
+                anneal=jn._kp.proposal_anneal(jcfg, step),
+                train_proposal_networks=True)
+            metrics = jn.get_metrics_dict(jcfg, outputs, batch, step)
+            loss_dict = jn.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                         train=True, rng=key_loss)
+            return functools.reduce(jnp.add, loss_dict.values()), loss_dict
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (jloss, jld), jgrads = jax_step(
+        jax.tree_util.tree_map(jnp.asarray, np_tree),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    groups = dict(tmc.optimizer_configs["nerfplayer-nerfacto"],
+                  camera_opt=tmc.optimizer_configs["nerfacto"]["camera_opt"])
+    trainer = TrainStep(tcfg, tcam.Cameras.create(**_camera_args(), device=CPU),
+                        AABB, groups, device=CPU, model="nerfplayer_nerfacto",
+                        camera_optimizer=tco.CameraOptimizerConfig(mode="SO3xR3"))
+    state = trainer.init_state(convert.params_from_jax(np_tree, device=CPU))
+    state.step = step
+    jitters, background, rows = _jax_draws(tcfg, key, key_loss, N_RAYS)
+    loss, ld, _met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=True, jitters=jitters, background=background,
+        tv_rows=rows)
+    assert set(jld) == set(ld)
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    names = []
+    _walk(state.params, lambda path, x: names.append(path))
+    tgrads = dict(zip(names, grads))
+    jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(jflat) == len(names)
+    for path, jg in jflat:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g = tgrads[name]
+        assert g is not None and tuple(g.shape) == jg.shape, name
+        assert np.abs(np.asarray(jg)).max() > 0.0, name
+        assert _rel(g, jg) <= 2e-2, (name, _rel(g, jg))
+    assert ("camera_opt", "pose_adjustment") in tgrads
+
+
 @pytest.mark.parametrize("kind", ["ds_nerf", "urf"])
 def test_train_step_with_depth_matches_jax(setup, kind):
     """One train step at step 300, proposal update on, on a batch with
@@ -423,10 +497,11 @@ def test_draws_and_refusals(setup):
         for w, rs in zip(out["weights_list"], out["ray_samples_list"])) / 3
     assert float(met["depth_loss"]) > 0.0
     assert _rel(met["depth_loss"], want) <= 1e-5
-    with pytest.raises(NotImplementedError):
-        tn.Config(detached_inputs=False).field_config()
-    with pytest.raises(NotImplementedError):
-        tf.TemporalHashMLPDensityFieldConfig(detached_inputs=False)
+    # detached_inputs=False (the camera optimizer's) reaches every field:
+    # test_train_step_with_the_camera_optimizer_matches_jax trains it
+    assert not tn.Config(detached_inputs=False).field_config().detached_inputs
+    assert all(not d.detached_inputs for _i, d in tn.Config(
+        detached_inputs=False).density_field_configs())
     with pytest.raises(KeyError):
         get_model("no_such_model")
     assert get_model("nerfplayer_nerfacto") is tn
@@ -612,8 +687,10 @@ def test_train_configs_copy_registered_nerfplayer_nerfacto():
         mine = dataclasses.asdict(got[group]["optimizer"])
         theirs = dataclasses.asdict(gcfg["optimizer"])
         assert mine == {k: theirs[k] for k in mine}
+        # the port's Adam config has no ``kind`` (RAdam is a class of its
+        # own); clipping and the moments' storage types are compared above
         assert {k: v for k, v in theirs.items() if k not in mine} == {
-            "max_norm": None, "kind": "adam", "nu_moment_dtype": "float32"}
+            "kind": "adam"}
         assert dataclasses.asdict(got[group]["scheduler"]) == dataclasses.asdict(
             gcfg["scheduler"])
     assert (tmc.camera_optimizer_configs["nerfplayer-nerfacto"].mode

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
+from soccernerfs_tpu.core import camera_optimizer as jco
 from soccernerfs_tpu.core import cameras as jcam
 from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.fields import sdf as jsdf
@@ -35,6 +36,7 @@ from soccernerfs_tpu.ops import rendering as jrender
 from soccernerfs_tpu.ops import samplers as jsamplers
 from soccernerfs_tpu_torch import convert
 from soccernerfs_tpu_torch.configs import method_configs as tmc
+from soccernerfs_tpu_torch.core import camera_optimizer as tco
 from soccernerfs_tpu_torch.core import cameras as tcam
 from soccernerfs_tpu_torch.core import rays as trays
 from soccernerfs_tpu_torch.engine.render import render_camera
@@ -481,6 +483,114 @@ def test_train_step_matches_jax(setup, seed):
         assert g is not None and tuple(g.shape) == jg.shape, name
         assert np.abs(np.asarray(jg)).max() > 0.0, name
         assert _l2(g, jg) <= 1e-2, (name, _l2(g, jg))
+
+
+def test_train_step_with_the_camera_optimizer_matches_jax(setup, monkeypatch):
+    """The step above with the SO3xR3 camera optimizer on and non-zero pose
+    adjustments: the pose's gradient reaches it through the samples'
+    positions, the sdf and its normals (JAX's jax.grad of the sdf is
+    differentiable in the positions; the port's double backward too).
+    Each loss term within 1e-4 relative and every leaf, the pose's
+    included, within 1e-2 in L2 (the tolerances above).
+
+    Both sides take JAX's sampler bins (the port's sampler runs, and its
+    bins are replaced by JAX's): the pose corrections' exp maps round a
+    direction one ulp apart on the two sides (test_pose_corrected_rays_
+    match_jax holds them to 1e-6), and NeuS's upsampling turns such a
+    rounding into another importance sample on a ray now and then (one
+    ray of 64 here), which moves the eikonal term by ~1e-3; the card's
+    CPU check shares its bins the same way.  The bins are constants on
+    both sides, so the gradients' paths are unchanged."""
+    jcfg, tcfg = setup["jcfg"], setup["tcfg"]
+    rng = np.random.default_rng(37)
+    np_tree = dict(setup["np_tree"], camera_opt={"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)})
+    jcams = jcam.Cameras.create(**_camera_args())
+    jcam_cfg = jco.CameraOptimizerConfig(mode="SO3xR3")
+    aabb = jnp.asarray(AABB)
+    batch = _batch(5)
+    key = jax.random.PRNGKey(29)
+
+    def jax_rays(p, batch):
+        cam_opt = jco.apply_camera_optimizer(jcam_cfg, p["camera_opt"],
+                                             batch["cam_idx"])
+        return jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                  cam_opt)
+
+    @jax.jit
+    def jax_step(params, batch):
+        def loss_fn(p):
+            outputs = jneus.get_outputs(jcfg, p, aabb, jax_rays(p, batch),
+                                        rng=key, train=True)
+            metrics = jneus.get_metrics_dict(jcfg, outputs, batch)
+            loss_dict = jneus.get_loss_dict(jcfg, p, outputs, batch, metrics)
+            return functools.reduce(jnp.add, loss_dict.values()), loss_dict
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    @jax.jit
+    def jax_bins(params, batch):
+        rays = jax_rays(params, batch)
+        n = rays.origins.shape[0]
+        rays = rays.replace(nears=jnp.full((n,), jcfg.near_plane),
+                            fars=jnp.full((n,), jcfg.far_plane))
+        samples = jns.neus_sample(
+            rays, lambda p: jsdf.sdf_value(jcfg.sdf_field, params["fields"], p),
+            num_samples=jcfg.num_samples,
+            num_samples_importance=jcfg.num_samples_importance,
+            num_upsample_steps=jcfg.num_upsample_steps,
+            base_variance=jcfg.base_variance, rng=jax.random.split(key)[0],
+            stratified=True)
+        return {f: getattr(samples, f) for f in
+                ("starts", "ends", "spacing_starts", "spacing_ends")}
+
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_tree)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, jld), jgrads = jax_step(jparams, jbatch)
+    bins = jax_bins(jparams, jbatch)
+    sample = tneus.neus_sample
+
+    def with_jax_bins(*args, **kwargs):
+        out = sample(*args, **kwargs)
+        return out.replace(**{f: _t(v).reshape(getattr(out, f).shape)
+                              for f, v in bins.items()})
+
+    monkeypatch.setattr(tneus, "neus_sample", with_jax_bins)
+    groups = dict(tmc.optimizer_configs["neus"],
+                  camera_opt=tmc.optimizer_configs["nerfacto"]["camera_opt"])
+    step = TrainStep(tcfg, tcam.Cameras.create(**_camera_args(), device=CPU),
+                     AABB, groups, device=CPU, model="neus",
+                     camera_optimizer=tco.CameraOptimizerConfig(mode="SO3xR3"))
+    state = step.init_state(convert.params_from_jax(np_tree, CPU))
+    loss, ld, _met, grads = step.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()},
+        train_proposal_networks=False, jitters=_jax_jitters(key, N_RAYS, tcfg))
+    assert set(jld) == set(ld)
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    names = []
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, path + (i,))
+        else:
+            names.append(path)
+
+    walk(state.params)
+    tgrads = dict(zip(names, grads))
+    jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(jflat) == len(names)
+    for path, jg in jflat:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g = tgrads[name]
+        assert g is not None and tuple(g.shape) == jg.shape, name
+        assert _l2(g, jg) <= 1e-2, (name, _l2(g, jg))
+    assert float(tgrads[("camera_opt", "pose_adjustment")].abs().max()) > 0
 
 
 def test_eikonal_loss_reaches_the_params_through_the_normals(setup):

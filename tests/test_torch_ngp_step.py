@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs
+from soccernerfs_tpu.core import camera_optimizer as jco
 from soccernerfs_tpu.core import cameras as jcam
 from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.engine import optimizers as jopt
@@ -41,6 +42,7 @@ from soccernerfs_tpu.models import nerfplayer_ngp as jpn
 from soccernerfs_tpu.ops import hash_grid as jh
 from soccernerfs_tpu_torch import convert
 from soccernerfs_tpu_torch.configs import method_configs as tmc
+from soccernerfs_tpu_torch.core import camera_optimizer as tco
 from soccernerfs_tpu_torch.core import cameras as tcam
 from soccernerfs_tpu_torch.engine.render import render_camera
 from soccernerfs_tpu_torch.engine.trainer import TrainStep
@@ -290,6 +292,93 @@ def test_train_step_matches_jax(setup):
         assert g is not None and tuple(g.shape) == jg.shape, name
         assert np.abs(np.asarray(jg)).max() > 0.0, name
         assert _rel(g, jg) <= 2e-2, (name, _rel(g, jg))
+
+
+def test_train_step_with_the_camera_optimizer_matches_jax(setup):
+    """The step above with the SO3xR3 camera optimizer on, non-zero pose
+    adjustments and, for nerfplayer-ngp, the encode's inputs
+    differentiated (``detached_inputs=False``, as both Trainers set it):
+    the valid masks equal, the loss terms within 1e-4 relative and every
+    gradient, the pose's included, within 2e-2 of its max |grad| (the
+    step's own tolerances), against jax.value_and_grad of the JAX
+    Trainer's loss_fn on the same params, batch, grid and draws."""
+    method, jm = setup["method"], setup["jm"]
+    undetach = ({"detached_inputs": False}
+                if hasattr(setup["tcfg"], "detached_inputs") else {})
+    jcfg = dataclasses.replace(setup["jcfg"], **undetach)
+    tcfg = dataclasses.replace(setup["tcfg"], **undetach)
+    rng = np.random.default_rng(23)
+    np_tree = dict(setup["np_tree"], camera_opt={"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)})
+    jcam_cfg = jco.CameraOptimizerConfig(mode="SO3xR3")
+    jcams, aabb, step = setup["jcams"], jnp.asarray(AABB), 272
+    batch = _batch(5)
+    occs = _occs(1, p=0.1)
+    binary = _jax_binary(jcfg, occs)
+    key, key_loss = jax.random.PRNGKey(41), jax.random.PRNGKey(42)
+
+    @jax.jit
+    def jax_step(params, batch):
+        def loss_fn(p):
+            cam_opt = jco.apply_camera_optimizer(jcam_cfg, p["camera_opt"],
+                                                 batch["cam_idx"])
+            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                      cam_opt)
+            outputs = jm.get_outputs(jcfg, p, aabb, rays, rng=key, train=True,
+                                     occ_binary=binary)
+            metrics = jm.get_metrics_dict(jcfg, outputs, batch, step)
+            loss_dict = jm.get_loss_dict(jcfg, p, outputs, batch, metrics,
+                                         train=True, rng=key_loss)
+            return functools.reduce(jnp.add, loss_dict.values()), (
+                loss_dict, outputs["valid"])
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (jloss, (jld, jvalid)), jgrads = jax_step(
+        jax.tree_util.tree_map(jnp.asarray, np_tree),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    groups = dict(tmc.optimizer_configs[method],
+                  camera_opt=tmc.optimizer_configs["nerfacto"]["camera_opt"])
+    trainer = TrainStep(tcfg, tcam.Cameras.create(**_camera_args(), device=CPU),
+                        AABB, groups, device=CPU, model=tmc.model_names[method],
+                        camera_optimizer=tco.CameraOptimizerConfig(mode="SO3xR3"))
+    state = trainer.init_state(
+        convert.params_from_jax(np_tree, device=CPU),
+        aux=convert.aux_from_jax({"occs": occs}, device=CPU))
+    state.step = step
+    draws = _jax_train_draws(key, key_loss, N_RAYS, tcfg)
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    loss, ld, _met, grads = trainer.loss_and_grads(
+        state, tbatch, train_proposal_networks=False, **draws)
+    with torch.no_grad():
+        from soccernerfs_tpu_torch.core.camera_optimizer import (
+            apply_camera_optimizer)
+        rays = tcam.generate_rays(
+            trainer.cameras, tbatch["cam_idx"], tbatch["coords"],
+            apply_camera_optimizer(trainer.camera_optimizer,
+                                   state.params["camera_opt"],
+                                   tbatch["cam_idx"]))
+        out = setup["tm"].get_outputs(
+            tcfg, state.params, trainer.aabb, rays, train=True,
+            jitters=draws["jitters"], background=draws["background"],
+            **setup["tm"].schedules(tcfg, step, state.aux))
+    np.testing.assert_array_equal(out["valid"].numpy(), np.asarray(jvalid))
+    assert set(jld) == set(ld)
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    names = []
+    _walk(state.params, lambda path, x: names.append(path))
+    tgrads = dict(zip(names, grads))
+    jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(jflat) == len(names)
+    for path, jg in jflat:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g = tgrads[name]
+        assert g is not None and tuple(g.shape) == jg.shape, name
+        assert _rel(g, jg) <= 2e-2, (name, _rel(g, jg))
+    pose = tgrads[("camera_opt", "pose_adjustment")]
+    assert float(pose.abs().max()) > 0
 
 
 @pytest.mark.parametrize("setup", ["nerfplayer-ngp"], indirect=True)
@@ -668,8 +757,9 @@ def test_draws_and_refusals(setup):
         assert _rel(got[k], want[k]) <= 1e-5, k
     with pytest.raises(ValueError, match="ray times"):
         tm.get_outputs(tcfg, params, _t(AABB), rays.replace(times=None))
-    with pytest.raises(NotImplementedError):
-        tpn.Config(detached_inputs=False).field_config()
+    # detached_inputs=False (the camera optimizer's) reaches the field:
+    # test_train_step_with_the_camera_optimizer_matches_jax trains it
+    assert not tpn.Config(detached_inputs=False).field_config().detached_inputs
 
 
 def test_train_configs_copy_registered_occupancy_methods():

@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from soccernerfs_tpu.configs.method_configs import method_configs as jax_registry
+from soccernerfs_tpu.core import camera_optimizer as jco
 from soccernerfs_tpu.core import cameras as jcam
 from soccernerfs_tpu.data import datasets as jds
 from soccernerfs_tpu.data import fixtures as jfix
@@ -42,6 +43,7 @@ from soccernerfs_tpu.models import semantic_nerfw as jsem
 from soccernerfs_tpu.ops import rendering as jrender
 from soccernerfs_tpu_torch import convert
 from soccernerfs_tpu_torch.configs import method_configs as tmc
+from soccernerfs_tpu_torch.core import camera_optimizer as tco
 from soccernerfs_tpu_torch.core import cameras as tcam
 from soccernerfs_tpu_torch.data import datasets as tds
 from soccernerfs_tpu_torch.data import fixtures as tfix
@@ -391,6 +393,67 @@ def test_train_step_matches_jax(setup, seed):
             assert g is not None and float(g.abs().max()) > 0.0, n
         else:
             assert g is None or float(g.abs().max()) == 0.0, n
+
+
+def test_train_step_with_the_camera_optimizer_matches_jax(setup):
+    """The step above with the SO3xR3 camera optimizer on and non-zero pose
+    adjustments: the loss terms within 1e-4 relative and every gradient
+    leaf, the pose's included, within 1e-2 in L2 (the tolerances above),
+    against jax.value_and_grad of the JAX Trainer's loss_fn."""
+    jcfg, tcfg, step = setup["jcfg"], setup["tcfg"], setup["step"]
+    rng = np.random.default_rng(31)
+    np_tree = dict(setup["np_tree"], camera_opt={"pose_adjustment": (
+        rng.standard_normal((N_CAMS, 6)) * 0.02).astype(np.float32)})
+    jcams = jcam.Cameras.create(**_camera_args())
+    jcam_cfg = jco.CameraOptimizerConfig(mode="SO3xR3")
+    batch = _batch(4)
+    key = jax.random.PRNGKey(23)
+
+    @jax.jit
+    def jax_step(params, batch):
+        def loss_fn(p):
+            cam_opt = jco.apply_camera_optimizer(jcam_cfg, p["camera_opt"],
+                                                 batch["cam_idx"])
+            rays = jcam.generate_rays(jcams, batch["cam_idx"], batch["coords"],
+                                      cam_opt)
+            outputs = jsem.get_outputs(
+                jcfg, p, jnp.asarray(AABB), rays, rng=key, train=True,
+                anneal=jk.proposal_anneal(jcfg, step), train_proposal_networks=True)
+            metrics = jsem.get_metrics_dict(jcfg, outputs, batch, step)
+            ld = jsem.get_loss_dict(jcfg, p, outputs, batch, metrics, train=True)
+            return functools.reduce(jnp.add, ld.values()), ld
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (jloss, jld), jgrads = jax_step(
+        jax.tree_util.tree_map(jnp.asarray, np_tree),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    groups = dict(tmc.optimizer_configs["semantic-nerfw"],
+                  camera_opt=tmc.optimizer_configs["nerfacto"]["camera_opt"])
+    trainer = TrainStep(
+        tcfg, tcam.Cameras.create(**_camera_args(), device=CPU), AABB, groups,
+        device=CPU, model="semantic_nerfw",
+        camera_optimizer=tco.CameraOptimizerConfig(mode="SO3xR3"))
+    state = trainer.init_state(convert.params_from_jax(np_tree, CPU))
+    state.step = step
+    loss, ld, _met, grads = trainer.loss_and_grads(
+        state, {k: _t(v) for k, v in batch.items()}, train_proposal_networks=True,
+        jitters=_jitters(key, tcfg))
+    assert set(jld) == set(ld)
+    assert _rel(loss, jloss) <= 1e-4
+    for k in jld:
+        assert _rel(ld[k], jld[k]) <= 1e-4, k
+    names = []
+    _walk(state.params, lambda path, x: names.append(path))
+    tgrads = dict(zip(names, grads))
+    jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(jflat) == len(names)
+    for path, jg in jflat:
+        name = tuple(p.key if hasattr(p, "key") else p.idx for p in path)
+        g = tgrads[name]
+        assert g is not None and tuple(g.shape) == jg.shape, name
+        assert _l2(g, jg) <= 1e-2, (name, _l2(g, jg))
+    assert float(tgrads[("camera_opt", "pose_adjustment")].abs().max()) > 0
 
 
 def _flat(tree):

@@ -606,15 +606,15 @@ def test_schedules_match_jax(kind):
 
 def _assert_same_optimizer(mine, theirs):
     """The port's Adam config equals the JAX one on every field it has
-    (lr, eps, weight decay, the first moment's storage type), and the JAX
-    one uses none of the options the port leaves out (clipping, RAdam, a
-    second moment stored in anything but f32)."""
+    (lr, eps, weight decay, clipping, both moments' storage types), and the
+    JAX one is Adam, not RAdam."""
     ref = dataclasses.asdict(theirs)
     got = dataclasses.asdict(mine)
     assert got == {k: ref[k] for k in got}
     assert type(theirs) is jopt.AdamOptimizerConfig
-    assert {k: v for k, v in ref.items() if k not in got} == {
-        "max_norm": None, "kind": "adam", "nu_moment_dtype": "float32"}
+    # the port's Adam config has no ``kind`` (RAdam is a class of its own);
+    # clipping and the second moment's storage type are compared above
+    assert {k: v for k, v in ref.items() if k not in got} == {"kind": "adam"}
     assert (got["weight_decay"], got["moment_dtype"]) == (0.0, "bfloat16")
 
 
@@ -661,6 +661,77 @@ def test_adam_update_matches_scale_by_adam_lowp():
             np.testing.assert_allclose(a.float().numpy(),
                                        np.asarray(b.astype(jnp.float32)),
                                        rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", ["clip f32", "clip lowp", "nu bf16",
+                                  "clip radam"])
+def test_optimizer_options_match_optax(case):
+    """``max_norm`` (optax's clip_by_global_norm over the group, before the
+    weight decay) and ``nu_moment_dtype="bfloat16"`` (scale_by_adam_lowp's
+    bf16 second moment beside a bf16 first one) against the JAX package's
+    chain (build_group_optimizer) fed the same gradients: five updates
+    whose gradients' global norm runs from above the clip to below it,
+    one with a None (zero) leaf; params within 1e-6 relative (f32
+    arithmetic, the same order); both moments' storage types, f32 moments
+    within 1e-6 of their max and bf16 ones within one bf16 ulp per element
+    (the global norm sums the squares in another order, so a clipped
+    gradient may differ by an f32 ulp, and a bf16 rounding may flip on
+    it).  The options reach the CLI's dotted overrides."""
+    from soccernerfs_tpu_torch.configs.cli import parse_train_cli
+
+    kw = {"clip f32": dict(max_norm=0.5, weight_decay=1e-2),
+          "clip lowp": dict(max_norm=2.0, moment_dtype="bfloat16"),
+          "nu bf16": dict(moment_dtype="bfloat16", nu_moment_dtype="bfloat16"),
+          "clip radam": dict(max_norm=0.5)}[case]
+    radam = case == "clip radam"
+    jcfg = (jopt.RAdamOptimizerConfig if radam else jopt.AdamOptimizerConfig)(
+        lr=1e-2, eps=1e-8, **kw)
+    tcfg = (topt.RAdamOptimizerConfig if radam else topt.AdamOptimizerConfig)(
+        lr=1e-2, eps=1e-8, **kw)
+    rng = np.random.default_rng(53)
+    params = [rng.uniform(0.1, 0.5, (6, 5, 4)).astype(np.float32),
+              rng.standard_normal((7,)).astype(np.float32)]
+    jtx = jopt.build_group_optimizer(jcfg, None)
+    jp = [jnp.asarray(p) for p in params]
+    jstate = jtx.init(jp)
+    tp = [_t(p) for p in params]
+    tstate = topt.adam_init(tcfg, tp)
+    sched = topt.schedule_fn(None, tcfg.lr)
+    for i in range(5):
+        grads = [rng.standard_normal(p.shape).astype(np.float32) * 0.5 ** i
+                 for p in params]
+        if i == 2:
+            grads[1] = np.zeros_like(grads[1])
+        upd, jstate = jtx.update([jnp.asarray(g) for g in grads], jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        topt.group_update(tcfg, sched, tstate, tp,
+                          [None if i == 2 and k == 1 else _t(g)
+                           for k, g in enumerate(grads)])
+        for a, b in zip(tp, jp):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-6,
+                                       atol=1e-7)
+    moments = [st for st in jax.tree_util.tree_leaves(
+        jstate, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(st, "mu")][0]
+    for mine, theirs in ((tstate.mu, moments.mu), (tstate.nu, moments.nu)):
+        for a, b in zip(mine, theirs):
+            assert a.dtype == (torch.float32 if b.dtype == jnp.float32
+                               else torch.bfloat16)
+            want = np.asarray(b.astype(jnp.float32))
+            if a.dtype == torch.float32:
+                assert _rel(a, want) <= 1e-6
+            else:
+                np.testing.assert_allclose(a.float().numpy(), want,
+                                           rtol=2.0 ** -7, atol=0)
+    if case == "nu bf16":
+        assert all(n.dtype == torch.bfloat16 for n in tstate.nu)
+    cfg = parse_train_cli([
+        "k-planes", "--optimizers.fields.optimizer.max-norm", "1.5",
+        "--optimizers.proposal-networks.optimizer.nu-moment-dtype", "bfloat16",
+        "blender-data"])
+    assert cfg.optimizers["fields"]["optimizer"].max_norm == 1.5
+    assert (cfg.optimizers["proposal_networks"]["optimizer"].nu_moment_dtype
+            == "bfloat16")
+    assert tmc.optimizer_configs["k-planes"]["fields"]["optimizer"].max_norm is None
 
 
 def test_train_configs_copy_registered_kplanes():

@@ -188,6 +188,70 @@ def test_kplanes_checkpoint_round_trip(tmp_path, blender_root):
         ckpt.load_checkpoint(tmp_path / "nowhere")
 
 
+def test_camera_optimizer_trains_kplanes_and_undetaches_the_encodes(
+        tmp_path, blender_root, capsys):
+    """With the SO3xR3 camera optimizer on, k-planes trains through
+    Trainer.train (4 steps): the poses move, and the checkpoint carries
+    ``camera_opt`` and its optimizer state, which a resumed Trainer loads
+    bit for bit.  A NeRFPlayer method's Trainer turns its
+    ``detached_inputs`` off on its own model config, as the JAX Trainer
+    does, prints the JAX Trainer's notice, leaves the saved config as
+    given and trains a step whose pose adjustments move."""
+    from soccernerfs_tpu_torch.core.camera_optimizer import CameraOptimizerConfig
+
+    so3 = CameraOptimizerConfig(mode="SO3xR3")
+    cfg = _config(tmp_path, blender_root, "kp_so3", method="k-planes")
+    cfg.pipeline.datamanager.camera_optimizer = so3
+    cfg.max_num_iterations = 4
+    cfg.steps_per_save = 2
+    trainer = Trainer(cfg, device="cpu").setup()
+    before = trainer.state.params["camera_opt"]["pose_adjustment"].detach().clone()
+    trainer.train()
+    after = trainer.state.params["camera_opt"]["pose_adjustment"]
+    assert bool(torch.isfinite(after).all()) and not torch.equal(before, after)
+    _step, saved = ckpt.load_checkpoint(trainer.base_dir)
+    assert "camera_opt" in saved["opt_state"]
+    resumed = Trainer(_config(tmp_path, blender_root, "kp_so3b", method="k-planes",
+                              load_dir=trainer.base_dir), device="cpu")
+    resumed.config.pipeline.datamanager.camera_optimizer = so3
+    resumed.setup()
+    _assert_states_equal(resumed.state, trainer.state)
+
+    root = make_blender_fixture(tmp_path / "dnerf", h=12, w=16, with_times=True)
+    cfg = copy.deepcopy(mc.trainer_configs["nerfplayer-nerfacto"])
+    cfg.pipeline.model = dataclasses.replace(
+        cfg.pipeline.model, num_levels=2, log2_hashmap_size=8, temporal_dim=8,
+        num_proposal_samples_per_ray=(8, 6), num_nerf_samples_per_ray=4,
+        hidden_dim=16, hidden_dim_color=16, proposal_net_args_list=(
+            {"hidden_dim": 8, "log2_hashmap_size": 8, "num_levels": 2,
+             "max_res": 16, "temporal_dim": 8},
+            {"hidden_dim": 8, "log2_hashmap_size": 8, "num_levels": 2,
+             "max_res": 32, "temporal_dim": 8}))
+    dm = cfg.pipeline.datamanager
+    dm.camera_optimizer = so3
+    dm.train_num_rays_per_batch = 32
+    dm.eval_num_rays_per_batch = 16
+    dm.train_num_images_to_sample_from = -1
+    dm.eval_num_images_to_sample_from = -1
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+
+    dm.dataparser = DATAPARSERS["dnerf-data"](data=root)
+    cfg.vis = "none"
+    cfg.output_dir = tmp_path / "np_so3"
+    cfg.set_timestamp()
+    capsys.readouterr()
+    trainer = Trainer(cfg, device="cpu").setup()
+    assert "enabling encode input gradients" in capsys.readouterr().out
+    assert trainer.model_cfg.detached_inputs is False
+    assert trainer.train_step.cfg.detached_inputs is False
+    assert cfg.pipeline.model.detached_inputs is True
+    before = trainer.state.params["camera_opt"]["pose_adjustment"].detach().clone()
+    trainer.train_iteration(0)
+    trainer.train_iteration(1)
+    after = trainer.state.params["camera_opt"]["pose_adjustment"]
+    assert bool(torch.isfinite(after).all()) and not torch.equal(before, after)
+
+
 def test_generator_is_seeded_per_step():
     a = trainer_mod.step_seed(42, 7)
     assert a == trainer_mod.step_seed(42, 7)
