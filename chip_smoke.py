@@ -236,6 +236,22 @@
      must launch); then ``scripts.plot_kplane`` on the snapshot,
      ``scripts.compute_ist`` on the fixture, and the snapshot's render on
      1024 rays against the CPU.
+ 13. ``parallel_phase``, after the sweep: data parallelism
+     (``parallel/mesh.py``).  (a) ``snt-train k-planes --machine.force-
+     shard-map True`` on the Trainer phases' fixture over NCCL at world
+     size 1, 16 steps; from the trained state the sharded path against the
+     unsharded TrainStep with the same (seed, step, 0) draws (loss terms
+     bit-equal, the one-rank all-reduce the identity, gradients within the
+     atomics), and both steps' ms and peak memory in turns.  (b) two ranks
+     sharing the card over gloo (NCCL refuses two ranks on one device):
+     both build and load a kernel library into one directory at once;
+     the registered k-planes, 4096 global rays, 3 steps from an update
+     step: every rank's averages exactly the mean of the ranks' own
+     (gathered), rank 0's recomputation of rank 1's shard, every state
+     tensor bit-equal across the ranks, a sharded 960x540 frame against
+     rank 0's own (the render tolerances; bit-equality printed).  (c)
+     the same for instant-ngp-bounded through a grid update.  Each rank
+     sends its launches back into the ``kernels`` line.
 Prints a JSON line with the seven kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -1697,17 +1713,19 @@ def scatter_in_step(method, rows, in_step):
             + (f"{bound / t:.4f} of bound" if t else "not measured"))
 
 
-def make_cameras(dev):
+def make_cameras(dev, hw=None):
+    """The two render cameras, H x W (or ``hw``)."""
     from soccernerfs_tpu_torch.core.cameras import Cameras
 
+    h, w = hw or (H, W)
     # camera 0: inside the box at its center, looking down -z (bench.py's
     # render camera); camera 1: outside the box on +z, looking at it
     c2w = np.zeros((2, 3, 4), np.float32)
     c2w[:, :, :3] = np.eye(3, dtype=np.float32)
     c2w[1, 2, 3] = 3.0
     return Cameras.create(
-        camera_to_worlds=c2w, fx=800.0, fy=800.0, cx=W / 2, cy=H / 2,
-        width=W, height=H, times=np.array([0.0, 0.5], np.float32), device=dev,
+        camera_to_worlds=c2w, fx=800.0, fy=800.0, cx=w / 2, cy=h / 2,
+        width=w, height=h, times=np.array([0.0, 0.5], np.float32), device=dev,
     )
 
 
@@ -4980,6 +4998,508 @@ def trainer_parsers_phase(dev, root, launches) -> None:
                     "steps": PARSER_STEPS, "parsers": rows}))
 
 
+# ---- data parallelism: the sharded step and render (parallel/mesh.py)
+PARALLEL_STEPS = 16              # (a): snt-train's steps at world size 1
+PARALLEL_TIMED = 3               # (a): P S S P turns of a step each, timed
+PAIR_KPLANES_STEPS = 3           # (b): from an update step
+PAIR_KPLANES_RAYS = 4096         # (b): the global batch; 2048 a rank
+PAIR_INGP_STEPS = 2              # (c): from a grid update
+PAIR_GRAD_TOL = 1e-5             # a recomputed shard's leaf, of its max
+PARALLEL_TIMEOUT_S = 300.0       # every collective and join of the phase
+PAIR_BUILD = True                # (b): both ranks build a kernel at once
+PAIR_HOST_STEPS = 16             # the data path's steps, alone and per rank
+RANK_SETUP = None                # run first in a spawned rank (the rehearsal)
+
+
+def _clone_step(out):
+    """A copy of (loss, loss dict, metrics, grads): ``all_mean`` consumes
+    its inputs."""
+    loss, loss_dict, metrics, grads = out
+    return (loss.clone(), {k: v.clone() for k, v in loss_dict.items()},
+            {k: v.clone() for k, v in metrics.items()},
+            [None if g is None else g.clone() for g in grads])
+
+
+def _scalars(out) -> torch.Tensor:
+    loss, loss_dict, metrics, _grads = out
+    return torch.stack([loss.float(), *(v.float() for v in loss_dict.values()),
+                        *(v.float() for v in metrics.values())])
+
+
+def _filled(grads, leaves):
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+
+
+def _counts_minus(a: dict, b: dict) -> dict:
+    return {k: a[k] - b.get(k, 0) for k in a}
+
+
+def pair_run(dev, world, spec: dict) -> dict:
+    """One method's sharded steps on this rank of a pair (phase (b) or
+    (c)); rank 0 also recomputes rank 1's shard and renders alone.
+
+    Each step: the global batch of ``spec["rays"]`` rays from numpy seed
+    ``SEED + i``, this rank's rows, its draws from (SEED, step, rank) and
+    the model state's from (SEED, step), through
+    ``TrainStep.train_iteration``; then every rank gathers both ranks'
+    own loss terms and gradients and holds the averages bit-equal to
+    (a + b) / 2; rank 0 holds its own recomputation of rank 1's shard
+    (same rows, same draws) to rank 1's (loss terms 1e-6 relative, each
+    gradient leaf PAIR_GRAD_TOL of its max: the backward kernels add with
+    atomics).  After the steps every tensor of the state is bit-equal
+    across the ranks.  With ``spec["frame"]``, camera 1's frame split over
+    the ranks against rank 0's own (PERF.md section 2's render
+    tolerances).  Returns this rank's launches (the comparisons' left
+    out), per-step findings, times and peak memory."""
+    from soccernerfs_tpu_torch.convert import params_from_jax, seeded_params
+    from soccernerfs_tpu_torch.engine.render import render_camera
+    from soccernerfs_tpu_torch.engine.trainer import TrainStep, step_seed
+    from soccernerfs_tpu_torch.models import get_model
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+    from soccernerfs_tpu_torch.parallel import mesh
+    from soccernerfs_tpu_torch.utils.tree import tree_leaves
+
+    method, cfg, rank = spec["method"], spec["cfg"], world.rank
+    tag = f"parallel {method} rank {rank}"
+    module = get_model(spec["model"])
+    aabb = torch.tensor(AABB, device=dev)
+    params = params_from_jax(seeded_params(cfg, SEED, **spec["seed_args"]),
+                             device=dev)
+    ts = TrainStep(cfg, ring_cameras(dev), AABB, spec["optimizers"], dev,
+                   model=spec["model"], camera_optimizer=spec["camera_optimizer"],
+                   world=world)
+    aux = None
+    if hasattr(module, "update_aux"):
+        # the grid of one all-cells update at the seeded weights (a fresh
+        # grid is empty: its step would see no sample)
+        aux = module.update_aux(cfg, params, aabb, 0, module.init_aux(cfg, dev),
+                                torch.Generator(device=dev).manual_seed(SEED))
+    state = ts.init_state(params, aux)
+    state.step = spec["start_step"]
+    set_step_kind(module, cfg, state, update=True)
+
+    captured = {}
+    own, averaged = ts.loss_and_grads, ts.averaged_loss_and_grads
+
+    def own_step(*args, **kwargs):
+        out = own(*args, **kwargs)
+        captured["own"] = _clone_step(out)
+        return out
+
+    def averaged_step(*args, **kwargs):
+        out = averaged(*args, **kwargs)
+        captured["mean"] = _clone_step(out)
+        return out
+
+    ts.loss_and_grads, ts.averaged_loss_and_grads = own_step, averaged_step
+    leaves = tree_leaves(state.params)
+    excluded, steps, step_s = {}, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i in range(spec["steps"]):
+        batch = make_batch(SEED + i, spec["rays"], dev)
+        rows = [mesh.shard_rows(batch, r, world.size) for r in range(world.size)]
+        step = state.step
+        flag = module.host_static_kwargs(
+            cfg, step, {"steps_since_update": state.steps_since_update}
+        )["train_proposal_networks"]
+        update = is_update_step(module, cfg, state)
+        emulated = None
+        if rank == 0:
+            before = launch_counts()
+            gen = torch.Generator(device=dev).manual_seed(step_seed(SEED, step, 1))
+            emulated = _clone_step(own(state, rows[1], train_proposal_networks=flag,
+                                       generator=gen))
+            excluded = {k: excluded.get(k, 0) + v for k, v in
+                        _counts_minus(launch_counts(), before).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts.train_iteration(
+            state, rows[rank],
+            torch.Generator(device=dev).manual_seed(step_seed(SEED, step, rank)),
+            aux_generator=torch.Generator(device=dev).manual_seed(
+                step_seed(SEED, step)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        sk.raise_if_out_of_range(dev)
+        before = launch_counts()
+        mine, mean = captured["own"], captured["mean"]
+        # every rank's own values, gathered: the averages are exactly theirs
+        both = mesh.all_gather_rows(_scalars(mine)[None], world.group)
+        if not torch.equal(_scalars(mean), (both[0] + both[1]) / 2):
+            raise AssertionError(f"{tag}, step {step}: averaged loss terms "
+                                 f"{_scalars(mean).tolist()} are not the mean "
+                                 f"of {both.tolist()}")
+        grads_both = []
+        for g, m in zip(_filled(mine[3], leaves), mean[3]):
+            pair = mesh.all_gather_rows(g[None], world.group)
+            if not torch.equal(m, (pair[0] + pair[1]) / 2):
+                raise AssertionError(f"{tag}, step {step}: an averaged gradient "
+                                     f"is not the mean of the ranks'")
+            grads_both.append(pair)
+        found = {"step": step, "update": update,
+                 "loss": float(mean[0]), "ms": step_s[-1] * 1e3}
+        if emulated is not None:
+            # rank 0's recomputation of rank 1's shard against rank 1's own
+            emu_scalars = _scalars(emulated)
+            loss_rel = float(((emu_scalars - both[1]).abs()
+                              / both[1].abs().clamp(min=1e-30)).max())
+            grad_rel = max(
+                float((e - pair[1]).abs().max())
+                / max(float(pair[1].abs().max()), 1e-30)
+                for e, pair in zip(_filled(emulated[3], leaves), grads_both))
+            found.update(
+                emulated_loss_bit_equal=bool(torch.equal(emu_scalars, both[1])),
+                emulated_loss_max_rel=loss_rel,
+                emulated_grads_bit_equal=all(
+                    torch.equal(e, pair[1]) for e, pair in
+                    zip(_filled(emulated[3], leaves), grads_both)),
+                emulated_grad_max_rel=grad_rel)
+            if loss_rel > 1e-6 or grad_rel > PAIR_GRAD_TOL:
+                raise AssertionError(f"{tag}, step {step}: the recomputed shard "
+                                     f"1 differs from rank 1's: loss terms "
+                                     f"{loss_rel:.3e}, gradients {grad_rel:.3e}")
+        del grads_both
+        excluded = {k: excluded.get(k, 0) + v for k, v in
+                    _counts_minus(launch_counts(), before).items()}
+        steps.append(found)
+    ts.loss_and_grads, ts.averaged_loss_and_grads = own, averaged
+    digests = mesh.check_replicated(state.tensors(), world.group)
+    out = {"rank": rank, "steps": steps, "step_ms": [s * 1e3 for s in step_s],
+           "state_tensors": int(digests.shape[1])}
+    if spec["frame"]:
+        cams = make_cameras(dev, spec["hw"])
+        kwargs = dict(aabb=aabb, model=spec["model"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = render_camera(cfg, state.params, cams, 1, None, dev,
+                              world=world, **kwargs)
+        torch.cuda.synchronize()
+        out["frame_s"] = time.perf_counter() - t0
+        if rank == 0:
+            before = launch_counts()
+            alone = render_camera(cfg, state.params, cams, 1, None, dev, **kwargs)
+            excluded = {k: excluded.get(k, 0) + v for k, v in
+                        _counts_minus(launch_counts(), before).items()}
+            diffs = {k: float((frame[k] - alone[k]).abs().max()) for k in alone}
+            depth_rel = ((frame["depth"] - alone["depth"]).abs()
+                         / alone["depth"].abs().clamp(min=1e-6))
+            out["frame"] = {
+                "max_abs": diffs,
+                "bit_equal": all(torch.equal(frame[k], alone[k]) for k in alone),
+                "depth_off": float((depth_rel > 1e-3).float().mean()),
+                "shape": list(frame["rgb"].shape)}
+            if (max(v for k, v in diffs.items() if k != "depth") > 2e-3
+                    or out["frame"]["depth_off"] > 0.01
+                    or not all(torch.isfinite(v).all() for v in frame.values())):
+                raise AssertionError(f"{tag}: the sharded frame differs from "
+                                     f"the unsharded one: {out['frame']}")
+    out["launches"] = _counts_minus(launch_counts(), excluded)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def concurrent_build(build_dir: str) -> dict:
+    """Every rank builds ``scatter_kernels.cu`` into the same empty
+    directory at once (each nvcc writes a per-process temporary and
+    renames it into place) and loads the library; returns its name, the
+    build's seconds and what the directory holds after every rank's
+    build."""
+    import ctypes
+
+    from soccernerfs_tpu_torch.ops.kernels import build
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+
+    saved = build.BUILD
+    build.BUILD = Path(build_dir)
+    try:
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        (lib,) = build.build_all(sk.LIBRARIES)
+        ctypes.CDLL(str(lib))
+        seconds = time.perf_counter() - t0
+        # the directory once every rank's build has ended
+        torch.distributed.barrier()
+        return {"library": lib.name, "s": seconds,
+                "files": sorted(p.name for p in Path(build_dir).iterdir())}
+    finally:
+        build.BUILD = saved
+
+
+def host_batches(dev, config) -> dict:
+    """The data path's host work as every rank of a Trainer pays it: the
+    datamanager of ``config`` set up (the image cache decoded), then
+    PAIR_HOST_STEPS global batches drawn (``next_train_raw``: the cache's
+    refreshes and the importance sampler, the whole global batch) and put
+    on the device; seconds of the setup, ms of each step."""
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+
+    t0 = time.perf_counter()
+    dm = config.pipeline.datamanager.setup(test_mode="val",
+                                           seed=config.machine.seed, device=dev)
+    setup_s = time.perf_counter() - t0
+    trainer = Trainer.__new__(Trainer)
+    trainer.device = dev
+    ms = []
+    for step in range(PAIR_HOST_STEPS):
+        t0 = time.perf_counter()
+        Trainer._device_batch(trainer, dm.next_train_raw(step))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"setup_s": setup_s, "ms": ms}
+
+
+def parallel_pair_rank(dev, specs: list, build_dir=None, setup=None,
+                       host_config=None) -> list:
+    """Phases (b) and (c) on one rank of a pair sharing the card: the
+    concurrent build into ``build_dir`` (when given), the data path's host
+    work of ``host_config`` (when given; both ranks at once), then each
+    method's ``pair_run``.  ``setup`` runs first (the CPU rehearsal's
+    stubs)."""
+    from soccernerfs_tpu_torch.parallel import mesh
+
+    if setup is not None:
+        setup()
+    world = mesh.current_world()
+    results = [concurrent_build(build_dir) if build_dir else None]
+    if host_config is not None:
+        torch.distributed.barrier()
+        results.append(host_batches(dev, host_config))
+        release_memory()
+    for spec in specs:
+        results.append(pair_run(dev, world, spec))
+        release_memory()
+    return results
+
+
+def parallel_world_one(dev, argv: list) -> dict:
+    """Phase (a) on its one rank: ``snt-train`` with ``force_shard_map``
+    over the process group the caller made (so the Trainer's step is the
+    sharded one at world size 1), then, from the trained state, the
+    sharded path against the unsharded ``TrainStep`` given the same
+    (seed, step, 0) draws, and both steps' times in P S S P turns."""
+    import copy
+
+    from soccernerfs_tpu_torch.engine.trainer import Trainer, step_seed
+    from soccernerfs_tpu_torch.parallel import mesh
+    from soccernerfs_tpu_torch.scripts import train as train_script
+    from soccernerfs_tpu_torch.utils.tree import tree_leaves
+
+    tag = f"parallel_world_one {MODEL}"
+    loop_s = []
+    train = Trainer.train
+    Trainer.train = timed(train, loop_s, sync=True)
+    reset_launch_counts()
+    try:
+        trainer = train_script.main(argv, device=dev)
+    finally:
+        Trainer.train = train
+    out = {"launches": launch_counts(), "loop_s": loop_s[0]}
+    if trainer.world != mesh.World(rank=0, size=1):
+        raise AssertionError(f"{tag}: trained over {trainer.world}")
+    sharded = trainer.train_step
+    plain = copy.copy(sharded)
+    plain.world = None
+    state = trainer.state
+    step = state.step
+    module, cfg = sharded.model, sharded.cfg
+    flag = module.host_static_kwargs(
+        cfg, step, {"steps_since_update": state.steps_since_update}
+    )["train_proposal_networks"]
+    batch = trainer._device_batch(trainer.datamanager.next_train_raw(step))
+    seed = step_seed(trainer.config.machine.seed, step, 0)
+
+    def draws():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    got = sharded.averaged_loss_and_grads(state, batch, train_proposal_networks=flag,
+                                          generator=draws())
+    want = plain.loss_and_grads(state, batch, train_proposal_networks=flag,
+                                generator=draws())
+    want_grads = _filled(want[3], tree_leaves(state.params))
+    # the all-reduce of one rank leaves every bit as it was
+    again = mesh.all_mean([g.clone() for g in want_grads])
+    out["all_mean_identity"] = all(torch.equal(a, b)
+                                   for a, b in zip(again, want_grads))
+    out["loss_bit_equal"] = bool(torch.equal(_scalars(got), _scalars(want)))
+    out["grads_bit_equal"] = all(torch.equal(a, b)
+                                 for a, b in zip(got[3], want_grads))
+    out["grad_max_rel"] = max(
+        float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        for a, b in zip(got[3], want_grads))
+    out["step"], out["update"] = step, bool(flag)
+    if not (out["all_mean_identity"] and out["loss_bit_equal"]
+            and out["grad_max_rel"] <= PAIR_GRAD_TOL):
+        raise AssertionError(f"{tag}: the sharded step at world size 1 differs "
+                             f"from the unsharded one: {out}")
+    del got, want, want_grads, again
+    # the step times and peak memory, sharded (NCCL all-reduce) and
+    # unsharded, in turns
+    times = {"sharded": [], "unsharded": []}
+    peak = {"sharded": 0.0, "unsharded": 0.0}
+    other = copy.deepcopy(state)
+    for kind in ("unsharded", "sharded", "sharded", "unsharded") * PARALLEL_TIMED:
+        s = state if kind == "sharded" else other
+        gen = draws()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if kind == "sharded":
+            sharded.train_iteration(s, batch, gen, aux_generator=draws())
+        else:
+            plain.train_iteration(s, batch, gen)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2**30)
+    out["ms"] = {k: statistics.median(v) for k, v in times.items()}
+    out["peak_gib"] = peak
+    out["ms_all"] = times
+    out["rays"] = int(batch["cam_idx"].shape[0])
+    return out
+
+
+def parallel_phase(dev, root, launches) -> None:
+    """Data parallelism on the card (``parallel/mesh.py``, the sharded
+    ``TrainStep`` and render):
+
+    (a) the registered k-planes through ``snt-train --machine.force-shard-map
+        True`` over NCCL at world size 1 (the Trainer phases' broadcaststyle
+        fixture, PARALLEL_STEPS steps; ``parallel_world_one``);
+    (b) two ranks sharing the card over gloo (NCCL refuses two ranks on one
+        device): the registered k-planes, PAIR_KPLANES_RAYS global rays,
+        PAIR_KPLANES_STEPS steps from an update step, a sharded 960x540 frame
+        (``pair_run``);
+    (c) the same pair for instant-ngp-bounded through a grid update
+        (PAIR_INGP_STEPS steps), its registered batch.
+
+    First both ranks of the pair build and load a kernel library into one
+    empty directory at once (``concurrent_build``), then draw the
+    Trainer phases' global batches at once (``host_batches``: the data
+    path's host work, which every rank pays, beside one process's alone).
+
+    Each rank's launches (the comparisons' left out) join ``launches``;
+    fails unless every plane kernel launched in (a) and (b) and
+    scatter_add_rows in each rank of (c)."""
+    from soccernerfs_tpu_torch.configs import method_configs as mc
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
+    from soccernerfs_tpu_torch.parallel import mesh
+
+    train_kernels = [k.__name__ for k in pk.TRAIN_KERNELS]
+    data = root / "broadcaststyle"
+    argv = [MODEL, "--max-num-iterations", str(PARALLEL_STEPS),
+            "--steps-per-save", "0", "--vis", "none",
+            "--output-dir", str(root / "parallel"),
+            "--machine.force-shard-map", "True"]
+    for key, value in TRAINER_DATA.items():
+        argv += [f"--pipeline.datamanager.{key.replace('_', '-')}", str(value)]
+    argv += ["broadcaststyle-data", "--fps-downsample", "1", "--data", str(data)]
+    release_memory()
+    t0 = time.perf_counter()
+    (a,) = mesh.spawn(parallel_world_one, 1, (argv,), devices=[dev],
+                      timeout_s=PARALLEL_TIMEOUT_S)
+    rays = a["rays"]
+    launches[f"parallel snt-train {MODEL}, world 1"] = a["launches"]
+    missing = [k for k in train_kernels if a["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"parallel_world_one: {missing} not launched")
+    log(f"parallel_world_one {MODEL}: snt-train with force_shard_map over "
+        f"{mesh.default_backend(dev)} at world size 1, {PARALLEL_STEPS} steps "
+        f"in {a['loop_s']:.3f} s ({PARALLEL_STEPS * rays / a['loop_s']:.1f} "
+        f"loop rays/s); at step {a['step']} ({'update' if a['update'] else 'non-update'}"
+        f" step), the sharded path against the unsharded TrainStep with the "
+        f"same (seed, step, 0) draws: loss terms bit-equal "
+        f"{a['loss_bit_equal']}, gradients bit-equal {a['grads_bit_equal']} "
+        f"(max {a['grad_max_rel']:.3e} of a leaf's max), the one-rank "
+        f"all-reduce leaves every bit {a['all_mean_identity']}; ms per step "
+        f"(median of {2 * PARALLEL_TIMED}, {rays} rays): sharded "
+        f"{a['ms']['sharded']:.3f}, unsharded {a['ms']['unsharded']:.3f} "
+        f"({json.dumps(a['ms_all'])}); peak GiB in a step (two copies of the "
+        f"state held) {json.dumps(a['peak_gib'])}; "
+        f"{time.perf_counter() - t0:.3f} s")
+    release_memory()
+
+    specs = []
+    for method, rays, steps, seed_args, frame in (
+            (MODEL, PAIR_KPLANES_RAYS, PAIR_KPLANES_STEPS, {"time_noise": 0.05},
+             True),
+            (INGP, mc.train_num_rays_per_batch[INGP], PAIR_INGP_STEPS,
+             {"num_train_data": 20}, False)):
+        _module, cfg, camera_optimizer = method_parts(method)
+        specs.append({"method": method, "cfg": cfg, "model": mc.model_names[method],
+                      "camera_optimizer": camera_optimizer,
+                      "optimizers": method_optimizers(method), "rays": rays,
+                      "steps": steps, "seed_args": seed_args,
+                      "start_step": 10_000 if method == MODEL else 0,
+                      "frame": frame, "hw": (H, W)})
+    # the data path's host work (D.0): one process alone, then each rank of
+    # the pair at once; every rank decodes the cache and samples the whole
+    # global batch
+    from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
+
+    host_config = trainer_config(
+        MODEL, DATAPARSERS["broadcaststyle-data"](data=data, fps_downsample=1.0),
+        root / "parallel", "host", TRAINER_DATA)
+    alone = host_batches(dev, host_config)
+    release_memory()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_build_") as build_dir:
+        ranks = mesh.spawn(parallel_pair_rank, 2,
+                           (specs, build_dir if PAIR_BUILD else None, RANK_SETUP,
+                            host_config),
+                           devices=[dev, dev], backend="gloo",
+                           timeout_s=PARALLEL_TIMEOUT_S)
+    pair_s = time.perf_counter() - t0
+    ist = TRAINER_DATA["iters_to_start_is"]
+
+    def host_line(h):
+        return (f"setup {h['setup_s']:.3f} s, ms a step before IST median "
+                f"{statistics.median(h['ms'][1:ist]):.3f}, from IST median "
+                f"{statistics.median(h['ms'][ist:]):.3f} (all "
+                f"{json.dumps([round(m, 3) for m in h['ms']])})")
+
+    log(f"parallel host data path ({TRAINER_FIXTURE}, {PAIR_HOST_STEPS} global "
+        f"batches of {host_config.pipeline.datamanager.train_num_rays_per_batch} "
+        f"rays, IST from step {ist}): one process alone: {host_line(alone)}; "
+        + "; ".join(f"rank {r} of 2 at once: {host_line(rk[1])}"
+                    for r, rk in enumerate(ranks)))
+    if PAIR_BUILD:
+        built = [r[0] for r in ranks]
+        if (built[0]["library"] != built[1]["library"]
+                or built[0]["files"] != sorted(
+                    [built[0]["library"], Path(built[0]["library"]).stem + ".log"])):
+            raise AssertionError(f"parallel pair: the concurrent build left "
+                                 f"{built}")
+        log(f"parallel pair: both ranks built and loaded "
+            f"{built[0]['library']} into one directory at once "
+            f"({built[0]['s']:.3f} / {built[1]['s']:.3f} s); it holds "
+            f"{built[0]['files']}")
+    for i, spec in enumerate(specs, start=2):
+        method = spec["method"]
+        for r in ranks:
+            got = r[i]
+            launches[f"parallel pair {method}, rank {got['rank']}"] = got["launches"]
+            need = (train_kernels + ([pk.kplanes_fwd_fused.__name__]
+                                     if spec["frame"] else [])
+                    if method == MODEL else [k.__name__ for k in sk.KERNELS])
+            missing = [k for k in need if got["launches"][k] <= 0]
+            if missing:
+                raise AssertionError(f"parallel pair {method} rank "
+                                     f"{got['rank']}: {missing} not launched")
+            log(f"parallel pair {method} rank {got['rank']} (gloo, two ranks on "
+                f"one card, {spec['rays']} global rays): steps "
+                f"{json.dumps(got['steps'])}; state bit-equal across the ranks "
+                f"({got['state_tensors']} tensors); launches "
+                f"{json.dumps({k: v for k, v in got['launches'].items() if v})}; "
+                f"peak {got['peak_gib']:.3f} GiB"
+                + (f"; sharded frame {got['frame_s']:.3f} s" if spec["frame"]
+                   else "")
+                + (f", against rank 0's own: {json.dumps(got['frame'])}"
+                   if "frame" in got else ""))
+    log(f"parallel pair: {pair_s:.3f} s with the spawn")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", default=None,
@@ -5189,7 +5709,7 @@ def main() -> int:
                       cli_phase, cli_depth_phase, cli_ingp_phase,
                       cli_dnerf_phase, trainer_semantic_phase, cli_neus_phase,
                       cli_export_phase, cli_process_data_phase,
-                      trainer_parsers_phase, sweep_phase):
+                      trainer_parsers_phase, sweep_phase, parallel_phase):
             t0 = time.perf_counter()
             phase(dev, Path(root), launches)
             log(f"{phase.__name__}: {time.perf_counter() - t0:.3f} s")

@@ -8,8 +8,9 @@ runs in a fresh process from that checkout, with its own
 the sha256 of camera 0's 960x540 frame outputs and of one train forward's
 loss terms (an update step and another, the same batch and draws: the
 forwards use no atomics, so equal code gives equal bits), the plane
-kernels' launches in each of those steps, and the window rays/s of
-chip_smoke's K-Planes train phase.  Then a last JSON line with every turn.
+kernels' launches in each of those steps, the sha256 of the values one
+``TrainStep.train_iteration`` returns, the window rays/s of chip_smoke's
+K-Planes train phase, and whether a process group exists after it.  Then a last JSON line with every turn.
 
 Usage (from the repository root; needs CUDA):
     python3 kplanes_hash_ab.py PARENT_TREE . . PARENT_TREE
@@ -49,10 +50,17 @@ for flag in (True, False):
         b"".join(v.cpu().numpy().tobytes() for k, v in sorted(ld.items()))).hexdigest()[:16]
     del grads
 out["launches"] = counts
+# one whole step through train_iteration (the forward's values it returns)
+m = trainer.train_iteration(
+    state, cs.make_batch(0, train_num_rays_per_batch[cs.MODEL], dev),
+    torch.Generator(device=dev).manual_seed(cs.SEED))
+out["train_iteration values"] = hashlib.sha256(
+    b"".join(v.cpu().numpy().tobytes() for k, v in sorted(m.items()))).hexdigest()[:16]
 del trainer, state
 torch.cuda.empty_cache()
 cs.train_phase(cs.MODEL, tree, dev, None, must_launch=["bilerp_fwd_unpacked"])
 out["window_rays_per_s"] = cs.WINDOW_RAYS_PER_S[cs.MODEL]
+out["process_group"] = torch.distributed.is_initialized()
 print("TURN " + json.dumps(out), flush=True)
 """
 

@@ -23,21 +23,20 @@ from soccernerfs_tpu_torch.data.datamanager import VanillaDataManagerConfig
 
 @dataclass
 class MachineConfig:
-    """The port trains on one device: more devices or machines raise (the
-    JAX package's ``parallel/mesh.py`` is not ported)."""
+    """Where a run trains (ref: configs/base_config.py:62-75).  ``snt-train``
+    and ``snt-eval`` run one process per device (``parallel.mesh``):
+    ``num_devices`` -1 is every local CUDA device (on the CPU, which a
+    caller must ask for, N ranks for N > 0, one for -1); across
+    ``num_machines`` the ranks meet at ``coordinator`` (host:port of
+    machine 0), this machine being ``machine_rank``.  ``force_shard_map``
+    takes the sharded path even at world size 1."""
 
     seed: int = 42
     num_devices: int = -1
     num_machines: int = 1
     machine_rank: int = 0
     coordinator: Optional[str] = None
-
-    def check_single_device(self) -> None:
-        if self.num_devices > 1 or self.num_machines > 1:
-            raise NotImplementedError(
-                f"num_devices {self.num_devices}, num_machines "
-                f"{self.num_machines}: training across devices needs "
-                f"parallel/mesh.py, which the port does not have yet")
+    force_shard_map: bool = False
 
 
 @dataclass

@@ -4,7 +4,8 @@ model that stages tables for rendering (K-Planes' bf16 plane tables) does
 so once per parameter snapshot, and a model with non-trainable state (the
 occupancy grid) renders with its ``eval_kwargs``, made once per image.
 Every matmul of a render runs in full f32 (TF32 off), whatever the
-caller's setting."""
+caller's setting.  Over a ``world`` of ranks each chunk's rays are split
+by rows over the ranks and gathered (the JAX Trainer's sharded render)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -13,6 +14,7 @@ import torch
 
 from soccernerfs_tpu_torch.core.cameras import Cameras, generate_rays, get_image_coords
 from soccernerfs_tpu_torch.models import get_model
+from soccernerfs_tpu_torch.parallel.mesh import World, all_gather_rows
 from soccernerfs_tpu_torch.utils.device import full_f32, resolve_device
 from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
@@ -30,6 +32,7 @@ def render_camera(
     aabb,
     model: str = "kplanes",
     aux: Optional[dict] = None,
+    world: Optional[World] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one camera's image.
 
@@ -51,6 +54,11 @@ def render_camera(
             e.g. ``{"occs": ...}``); every chunk's forward takes the model's
             ``eval_kwargs`` of it.  None: the forward's defaults (an
             occupancy model then treats every cell as occupied).
+        world: the ranks to split the render over (every rank calls this
+            alike): the chunk is rounded up to a multiple of their count,
+            rank r renders rows [r c/n, (r + 1) c/n) of each chunk of c
+            rays, and every rank gets the whole image back.  None: this
+            process renders every ray.
     Returns:
         {"rgb": [H, W, 3], "depth": [H, W], "accumulation": [H, W]} on
         ``device``, and the model's further ``RENDER_OUTPUTS`` (NeRFPlayer's
@@ -63,6 +71,9 @@ def render_camera(
     if leaf.device.type != dev.type:
         raise ValueError(f"params are on {leaf.device}, rendering on {dev}")
     chunk = chunk or cfg.eval_num_rays_per_chunk
+    ranks, rank = (1, 0) if world is None else (world.size, world.rank)
+    chunk = -(-chunk // ranks) * ranks
+    sub = chunk // ranks
     cameras = cameras.to(dev)
     aabb = torch.as_tensor(aabb, dtype=torch.float32, device=dev)
     h = int(cameras.height[camera_index])
@@ -84,13 +95,17 @@ def render_camera(
             else getattr(module, "RENDER_OUTPUTS", OUTPUT_KEYS))
     outs = {k: [] for k in keys}
     with torch.no_grad(), full_f32():
-        for i in range(0, n_pad, chunk):
-            rays = generate_rays(cameras, cam_idx[i:i + chunk],
-                                 coords[i:i + chunk])
+        for i in range(rank * sub, n_pad, chunk):
+            rays = generate_rays(cameras, cam_idx[i:i + sub],
+                                 coords[i:i + sub])
             o = module.get_outputs(cfg, params, aabb, rays, train=False, **extra)
             for k in keys:
                 outs[k].append(o[k])
-    return {
-        k: torch.cat(v)[:n].reshape(h, w, *v[0].shape[1:])
-        for k, v in outs.items()
-    }
+    merged = {k: torch.cat(v) for k, v in outs.items()}
+    if world is not None:
+        # rank-major [ranks, chunks, sub] rows back into image order
+        merged = {k: all_gather_rows(v, world.group)
+                  .reshape(ranks, n_pad // chunk, sub, *v.shape[1:])
+                  .transpose(0, 1).reshape(n_pad, *v.shape[1:])
+                  for k, v in merged.items()}
+    return {k: v[:n].reshape(h, w, *v.shape[1:]) for k, v in merged.items()}

@@ -1,5 +1,5 @@
-"""One training step on one device (the counterpart of the step that
-soccernerfs_tpu's ``Trainer._build_step_fns`` jits, without a mesh).
+"""Training steps and the training loop (the counterpart of the step that
+soccernerfs_tpu's ``Trainer._build_step_fns`` jits, and of its Trainer).
 
 ``TrainStep`` holds what does not change between steps (the model and its
 config, cameras, scene box, per-group optimizer configs, the camera
@@ -15,12 +15,21 @@ The batch comes from the caller in the layout of the JAX trainer's
 ``_device_batch``: ``cam_idx`` [N] int32, ``coords`` [N, 2] (row, col)
 pixel coordinates + 0.5, ``image`` [N, 3].
 
-``Trainer`` (the JAX package's ``Trainer``, on one device) drives a
-``TrainStep`` from a ``TrainerConfig``: the datamanager (parser, image
-cache with importance weights, pixel sampler), seeded initial params,
-per-step draws from a generator seeded by (seed, step), the train loop's
-cadence (logs, eval batches and images, checkpoints), ``dynamic_batch``
-and resume from ``load_dir``.
+Over a ``World`` of ranks (``parallel.mesh``, one process per device) the
+step is the JAX package's sharded step: each rank's loss and gradients
+over its own rows of the global batch, with its own draws, are averaged
+over the ranks (``pmean``), every rank applies the same update, and the
+model's state updates alike on every rank from draws shared by all.
+
+``Trainer`` (the JAX package's ``Trainer``) drives a ``TrainStep`` from a
+``TrainerConfig``, on one device or on each rank of the process group it
+finds (``snt-train`` launches the ranks): the datamanager (parser, image
+cache with importance weights, pixel sampler; each rank draws the same
+global batch and keeps its rows), seeded initial params (broadcast from
+rank 0), per-step draws from a generator seeded by (seed, step), or by
+(seed, step, rank) when sharded, the train loop's cadence (logs, eval
+batches and images, checkpoints), ``dynamic_batch`` and resume from
+``load_dir``.  Only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from soccernerfs_tpu_torch.engine.optimizers import (
 from soccernerfs_tpu_torch.engine.render import render_camera
 from soccernerfs_tpu_torch.models import get_model
 from soccernerfs_tpu_torch.ops.kernels import scatter_kernels
+from soccernerfs_tpu_torch.parallel import mesh
 from soccernerfs_tpu_torch.utils import profiler, writer
 from soccernerfs_tpu_torch.utils.device import full_f32, resolve_device
 from soccernerfs_tpu_torch.utils.tree import tree_leaves
@@ -78,6 +88,13 @@ class TrainState:
     steps_since_update: int = 0       # host counter of host_static_kwargs
     aux: dict = field(default_factory=dict)  # the model's non-trainable state
 
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the state: params, the optimizer's moments, the
+        model's state."""
+        return [*tree_leaves(self.params),
+                *(t for o in self.opt_state.values() for t in (*o.mu, *o.nu)),
+                *(t for t in tree_leaves(self.aux) if isinstance(t, torch.Tensor))]
+
 
 class TrainStep:
     """The static half of training: model, cameras, scene box, optimizers.
@@ -96,13 +113,18 @@ class TrainStep:
             "camera_opt" param group (one pose adjustment per training
             camera) and every step's rays go through its corrections, so
             origins, directions and sample positions carry a gradient.
+        world: the ranks the step is sharded over (``parallel.mesh.World``;
+            every rank builds its TrainStep alike and steps together); None
+            for a step of one process, which makes no collective call.
     """
 
     def __init__(self, cfg, cameras: Cameras, aabb,
                  optimizer_configs: Dict[str, dict], device=None, *,
                  model: str = "kplanes",
-                 camera_optimizer: CameraOptimizerConfig = CameraOptimizerConfig()):
+                 camera_optimizer: CameraOptimizerConfig = CameraOptimizerConfig(),
+                 world: Optional[mesh.World] = None):
         self.device = resolve_device(device)
+        self.world = world
         self.model = get_model(model)
         self.cfg = cfg
         self.camera_optimizer = camera_optimizer
@@ -197,6 +219,24 @@ class TrainStep:
         return (loss.detach(), {k: v.detach() for k, v in loss_dict.items()},
                 {k: v.detach() for k, v in metrics.items()}, list(grads))
 
+    def averaged_loss_and_grads(self, state: TrainState,
+                                batch: Dict[str, torch.Tensor], **kwargs):
+        """``loss_and_grads`` of this rank's rows (``kwargs``: its flag and
+        draws), then the loss, every loss term, every metric and every
+        gradient averaged over the world (JAX's ``pmean``); a leaf without
+        a gradient comes back as averaged zeros, so that every rank updates
+        it alike.  Without a world, ``loss_and_grads`` itself."""
+        loss, loss_dict, metrics, grads = self.loss_and_grads(state, batch,
+                                                              **kwargs)
+        if self.world is None:
+            return loss, loss_dict, metrics, grads
+        scalars = [loss, *loss_dict.values(), *metrics.values()]
+        mean = mesh.all_mean([*scalars, *grads], self.world.group,
+                             like=[*scalars, *tree_leaves(state.params)])
+        n, m = len(loss_dict), len(scalars)
+        return (mean[0], dict(zip(loss_dict, mean[1:1 + n])),
+                dict(zip(metrics, mean[1 + n:m])), mean[m:])
+
     def apply_grads(self, state: TrainState, grads: List) -> None:
         """One optimizer update per param group (Adam or RAdam), in place;
         step + 1."""
@@ -239,15 +279,21 @@ class TrainStep:
         state: TrainState,
         batch: Dict[str, torch.Tensor],
         generator: Optional[torch.Generator] = None,
+        aux_generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """One training step, in place on ``state``, its draws from
         ``generator``.  Returns {"Train Loss", **loss_dict, **metrics} as
         0-d tensors, still on the device: the step never waits for it.
+        Over a world, ``batch`` is this rank's rows, ``generator`` this
+        rank's, and the values returned are the averages over the ranks
+        (``averaged_loss_and_grads``).
 
         A model with ``update_aux`` then updates ``state.aux`` from the
         updated params at the step's own (pre-increment) number, its draws
-        from ``generator`` too; the host decides whether the step updates
-        and which update runs.
+        from ``aux_generator`` when given, else from ``generator``; over a
+        world ``aux_generator`` is required, seeded alike on every rank
+        (JAX's ``rng_aux``: the state stays replicated).  The host decides
+        whether the step updates and which update runs.
 
         On CUDA, ``scatter_add_rows`` (the hash grids' table gradient)
         checks its row indices without a host sync: an update outside the
@@ -262,13 +308,34 @@ class TrainStep:
             self.cfg, state.step, host)["train_proposal_networks"]
         state.steps_since_update = host["steps_since_update"]
         step = state.step
-        loss, loss_dict, metrics, grads = self.loss_and_grads(
+        if aux_generator is None:
+            if self.world is not None and hasattr(self.model, "update_aux"):
+                raise ValueError("a sharded step's state update needs an "
+                                 "aux_generator seeded alike on every rank")
+            aux_generator = generator
+        loss, loss_dict, metrics, grads = self.averaged_loss_and_grads(
             state, batch, train_proposal_networks=flag, generator=generator)
         self.apply_grads(state, grads)
         if hasattr(self.model, "update_aux"):
             state.aux = self.model.update_aux(self.cfg, state.params, self.aabb,
-                                              step, state.aux, generator)
+                                              step, state.aux, aux_generator)
         return {"Train Loss": loss, **loss_dict, **metrics}
+
+
+class _LocalRenders:
+    """A trainer as its viewer sees it over a world: the same attributes,
+    and renders of every ray on this rank alone."""
+
+    def __init__(self, trainer: "Trainer"):
+        self._trainer = trainer
+
+    def __getattr__(self, name):
+        return getattr(self._trainer, name)
+
+    def render_camera(self, cameras: Cameras, camera_index: int,
+                      chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
+        return self._trainer.render_camera(cameras, camera_index, chunk,
+                                           local=True)
 
 
 def step_check(step: int, interval: int, run_at_zero: bool = False) -> bool:
@@ -279,11 +346,13 @@ def step_check(step: int, interval: int, run_at_zero: bool = False) -> bool:
     return (run_at_zero or step != 0) and step % interval == 0
 
 
-def step_seed(seed: int, step: int) -> int:
-    """A generator seed of (seed, step): the counterpart of
-    ``fold_in(PRNGKey(seed), step)``, so a resumed run draws at a step what
-    an uninterrupted one draws there."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+def step_seed(seed: int, step: int, shard: Optional[int] = None) -> int:
+    """A generator seed of (seed, step), or of (seed, step, shard) for a
+    rank of a sharded step: the counterpart of ``fold_in(PRNGKey(seed),
+    step)`` and of ``fold_in(fold_in(key, step), shard)``, so a resumed run
+    draws at a step what an uninterrupted one draws there."""
+    entropy = [seed, step] if shard is None else [seed, step, shard]
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return int(state[0] >> np.uint64(1))
 
 
@@ -307,7 +376,10 @@ def dynamic_batch_update(cur: int, num_samples: float, target_samples: int,
 
 
 class Trainer:
-    """Training from a ``TrainerConfig`` on one device.
+    """Training from a ``TrainerConfig``, on one device, or on this rank of
+    the process group that the caller made (``parallel.mesh.spawn``, as
+    ``snt-train`` runs it; ``machine.*`` tell the launcher, not the
+    Trainer, how many ranks to run).
 
     Args:
         config: the method's config (``configs/method_configs.trainer_configs``
@@ -325,11 +397,19 @@ class Trainer:
     A training run whose ``vis`` names "viewer" serves the viewer
     (``viewer.server``) over the live trainer from ``setup`` on; see
     ``_start_viewer``.
+
+    Over a process group (``world``) every rank runs the same loop: each
+    draws the same global batch and trains on its rows
+    (``TrainStep``'s sharded step), renders split each chunk over the
+    ranks, and only rank 0 writes the config, the dataparser's transform,
+    the writers' output, checkpoints, and serves the viewer (which renders
+    locally).  Every rank resumes from ``load_dir``; the state is then
+    broadcast from rank 0.
     """
 
     def __init__(self, config: TrainerConfig, test_mode: str = "val",
                  device=None):
-        config.machine.check_single_device()
+        self.world = mesh.current_world()
         self.config = config
         self.test_mode = test_mode
         self.device = resolve_device(device)
@@ -338,6 +418,7 @@ class Trainer:
         self.model_cfg = config.pipeline.model
         config.seed_everything()
         self.viewer_server = None
+        self.replica_digests = None
         # held around each step while a viewer serves renders
         self._step_lock = contextlib.nullcontext()
 
@@ -374,11 +455,13 @@ class Trainer:
         self.train_step = TrainStep(
             self.model_cfg, self.train_cameras, self.aabb, opt_configs,
             self.device, model=config.pipeline.model_name,
-            camera_optimizer=cam_opt)
+            camera_optimizer=cam_opt, world=self.world)
         self.state = self.train_step.init_state(params)
         self._maybe_load_checkpoint()
+        if self.world is not None:
+            mesh.replicate_tree(self.state.tensors(), self.world.group)
 
-        if self.test_mode == "val":
+        if self.test_mode == "val" and mesh.is_main_process():
             config.save_config()
             self.datamanager.train_dataparser_outputs.save_dataparser_transform(
                 self.base_dir / "dataparser_transforms.json")
@@ -400,22 +483,28 @@ class Trainer:
         half-applied update."""
         from soccernerfs_tpu_torch.viewer.server import make_server
 
-        server = make_server(self, "0.0.0.0", self.config.viewer.websocket_port,
+        # over a world the other ranks never enter a viewer's render: it
+        # must make no collective call
+        server = make_server(self if self.world is None else _LocalRenders(self),
+                             "0.0.0.0", self.config.viewer.websocket_port,
                              output_dir=self.base_dir)
         self._step_lock = server.viewer_state.lock
         threading.Thread(target=server.serve_forever, daemon=True).start()
         self.viewer_server = server
         print(f"[viewer] serving on http://localhost:{server.server_address[1]}")
 
-    def _generator(self, step: int) -> torch.Generator:
+    def _generator(self, step: int, shard: Optional[int] = None
+                   ) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
-            step_seed(self.config.machine.seed, step))
+            step_seed(self.config.machine.seed, step, shard))
 
-    def _device_batch(self, raw: Dict) -> Dict[str, torch.Tensor]:
+    def _device_batch(self, raw: Dict, world: Optional[mesh.World] = None
+                      ) -> Dict[str, torch.Tensor]:
         """A sampler batch on the device: cam_idx [N] int32, coords [N, 2]
         pixel centres, image [N, 3] (and depth_image [N], semantics [N]
         int32 where the batch has them); copied from pinned host memory
-        without waiting on a CUDA device."""
+        without waiting on a CUDA device.  Over ``world``, only this
+        rank's rows (``parallel.mesh.shard_rows``)."""
         indices = raw["indices"]
         host = {
             "cam_idx": indices[:, 0].astype(np.int32),
@@ -426,6 +515,8 @@ class Trainer:
             host["depth_image"] = raw["depth_image"].astype(np.float32)
         if "semantics" in raw:
             host["semantics"] = raw["semantics"].astype(np.int32)
+        if world is not None:
+            host = mesh.shard_rows(host, world.rank, world.size)
         pin = self.device.type == "cuda"
         return {k: (torch.from_numpy(v).pin_memory() if pin else torch.from_numpy(v))
                 .to(self.device, non_blocking=pin) for k, v in host.items()}
@@ -438,12 +529,16 @@ class Trainer:
         A model with ``host_update`` (TensoRF's upsampling) first gets the
         chance to replace the state on the host, as the JAX Trainer's loop
         gives it before each step: ``host_update(cfg, state, step,
-        init_opt_state)`` returns the new state or None."""
+        init_opt_state)`` returns the new state or None; every rank runs
+        it alike.
+
+        Over a world the step draws from (seed, step, rank) and the model's
+        state update from (seed, step), on every rank alike."""
         if step != self.state.step:
             raise ValueError(f"train_iteration({step}) on a state at step "
                              f"{self.state.step}")
         raw = self.datamanager.next_train_raw(step)
-        batch = self._device_batch(raw)
+        batch = self._device_batch(raw, self.world)
         with self._step_lock:
             if hasattr(self.model, "host_update"):
                 state = self.model.host_update(
@@ -451,29 +546,40 @@ class Trainer:
                     self.train_step.init_opt_state)
                 if state is not None:
                     self.state = state
-            return self.train_step.train_iteration(self.state, batch,
-                                                   self._generator(step))
+            if self.world is None:
+                return self.train_step.train_iteration(self.state, batch,
+                                                       self._generator(step))
+            return self.train_step.train_iteration(
+                self.state, batch, self._generator(step, self.world.rank),
+                aux_generator=self._generator(step))
 
     @profiler.time_function
     def eval_iteration(self, step: int) -> Dict[str, torch.Tensor]:
-        """An eval batch's loss dict and metrics (on the device)."""
+        """An eval batch's loss dict and metrics (on the device); every rank
+        evaluates the whole batch, as the JAX Trainer does."""
         batch = self._device_batch(self.datamanager.next_eval_raw(step))
         return self.train_step.eval_losses(
             self.state, batch, self.eval_cameras,
             self._generator(step + 1_000_000), step)
 
     def render_camera(self, cameras: Cameras, camera_index: int,
-                      chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
+                      chunk: Optional[int] = None, local: bool = False
+                      ) -> Dict[str, np.ndarray]:
         """A whole image of ``cameras[camera_index]`` at the state's params
-        (and model state), as host arrays."""
+        (and model state), as host arrays.  Over a world every rank must
+        call it alike: each renders its rows of every chunk (JAX's sharded
+        render); ``local`` renders every ray here instead, with no
+        collective (the viewer's renders, which only rank 0 makes)."""
         aux = self.state.aux if hasattr(self.model, "eval_kwargs") else None
         out = render_camera(self.model_cfg, self.state.params, cameras,
                             camera_index, chunk, self.device, aabb=self.aabb,
-                            model=self.config.pipeline.model_name, aux=aux)
+                            model=self.config.pipeline.model_name, aux=aux,
+                            world=None if local else self.world)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def eval_image(self, step: int) -> Dict[str, float]:
-        """One eval image (the next in turn) rendered, with its PSNR."""
+        """One eval image (the next in turn) rendered, with its PSNR (every
+        rank renders; rank 0's writers record it)."""
         idx, _, batch = self.datamanager.next_eval_image(
             step // max(self.config.steps_per_eval_image, 1))
         outputs = self.render_camera(self.eval_cameras, idx)
@@ -513,7 +619,10 @@ class Trainer:
         """The loop from the state's step to ``max_num_iterations``: log
         every ``steps_per_log`` steps (rolling rays/s, ETA, the loss
         dict), eval batches and images, checkpoints, ``dynamic_batch``;
-        then the final checkpoint."""
+        then the final checkpoint.  Over a world every rank runs it alike,
+        and at its end every tensor of the state must hold the same bits on
+        every rank (``parallel.mesh.check_replicated``; the ranks' digests
+        in ``replica_digests``)."""
         config = self.config
         start_step = self.state.step
         num_iters = config.max_num_iterations
@@ -571,11 +680,17 @@ class Trainer:
         writer.write_out_storage()
         print(f"training finished: {num_iters - start_step} steps in "
               f"{time.time() - t_start:.1f}s")
+        if self.world is not None:
+            self.replica_digests = mesh.check_replicated(self.state.tensors(),
+                                                         self.world.group)
 
-    def save_checkpoint(self, step: int) -> Path:
+    def save_checkpoint(self, step: int) -> Optional[Path]:
         """Checkpoint the state as that of loop step ``step`` (the state's
-        step is ``step + 1``)."""
+        step is ``step + 1``); rank 0 writes, every rank checks the
+        scatter's range flag first."""
         scatter_kernels.raise_if_out_of_range(self.device)
+        if not mesh.is_main_process():
+            return None
         s = self.state
         return checkpoints.save_checkpoint(self.base_dir, step, {
             "step": s.step,

@@ -9,17 +9,21 @@ import time
 
 import numpy as np
 
+from soccernerfs_tpu_torch.parallel import mesh
 from soccernerfs_tpu_torch.utils import metrics as M
 from soccernerfs_tpu_torch.utils.dynmetric import DynMetric
 
 
-def average_eval_image_metrics(trainer, use_dynmetric: bool = False) -> dict:
+def average_eval_image_metrics(trainer, use_dynmetric: bool = False):
     """psnr, ssim and lpips averaged over every eval image (computed on the
     trainer's device), with the render rate; with ``use_dynmetric`` (as
     snt-eval runs it) also DynMetric's dpsnr, dssim and dlpips.  A metric
     that is NaN on every image (lpips without local weights, the D-metrics
-    without boxes) is reported as None."""
-    dynmetric = DynMetric(device=trainer.device) if use_dynmetric else None
+    without boxes) is reported as None.  Over a world every rank renders
+    each image (the sharded render) and rank 0 scores: the other ranks
+    return None."""
+    score = mesh.is_main_process()
+    dynmetric = DynMetric(device=trainer.device) if use_dynmetric and score else None
     per_image = []
     num_rays = 0
     t0 = time.time()
@@ -27,6 +31,8 @@ def average_eval_image_metrics(trainer, use_dynmetric: bool = False) -> dict:
     for idx in range(len(dm.eval_dataset)):
         _, _, batch = dm.next_eval_image(idx)
         outputs = trainer.render_camera(trainer.eval_cameras, idx)
+        if not score:
+            continue
         gt = np.asarray(batch["image"], np.float32)
         m = M.all_image_metrics(outputs["rgb"], gt, device=trainer.device)
         if dynmetric is not None:
@@ -36,6 +42,8 @@ def average_eval_image_metrics(trainer, use_dynmetric: bool = False) -> dict:
         per_image.append(m)
         num_rays += gt.shape[0] * gt.shape[1]
     dt = time.time() - t0
+    if not score:
+        return None
 
     metrics: dict = {}
     unavailable = []

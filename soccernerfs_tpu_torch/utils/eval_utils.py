@@ -4,7 +4,9 @@ soccernerfs_tpu/utils/eval_utils.py).
 ``eval_setup`` reads a run's ``config.yml`` (``configs.base.load_config``:
 only the port's classes, so a config of the JAX package raises
 ValueError), rebuilds its Trainer without writing to the run, and loads
-the latest (or the given) checkpoint.
+the latest (or the given) checkpoint.  Within a process group (snt-eval
+over several ranks) every rank does so, and the Trainer's renders split
+over the ranks.
 """
 from __future__ import annotations
 

@@ -71,6 +71,65 @@ class _Event:
         return (other.t - self.t) * 1e3
 
 
+def _launch(name, ins, rowids, txs, ty, outs, m, feat, *shape):
+    plain = {
+        "snt_bilerp_fwd_unpacked": lambda a, shape: pk.bilerp_fwd_unpacked_plain(
+            *a, h=shape[0], w=shape[1]),
+        "snt_bilerp_fwd_packed": lambda a, shape: pk.bilerp_fwd_packed_plain(*a),
+        "snt_bilerp_bwd_unpacked": lambda a, shape: pk.bilerp_bwd_unpacked_plain(
+            *a, h=shape[0], w=shape[1]),
+        "snt_bilerp_bwd_packed": lambda a, shape: pk.bilerp_bwd_packed_plain(
+            *a, rows=shape[0]),
+    }
+    for o, r in zip(outs, plain[name]((ins, rowids, txs, ty), shape)):
+        o.copy_(r)
+
+
+def _launch_coords(tables, gs, rowids, txs, ty, d_txs, d_ty, m, packed, h, w,
+                   feat):
+    res_tx, res_ty = pk.bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty,
+                                                h=h, w=w)
+    for o, r in zip(d_txs, res_tx):
+        o.copy_(r)
+    d_ty.copy_(res_ty)
+
+
+def _stubs():
+    """(object, attribute, value) of the script's CUDA calls stubbed and of
+    the kernel wrappers made to take their "kernel" branch, which runs
+    their plain versions (and counts their launches)."""
+    cuda = [(torch.cuda, name, value) for name, value in (
+        ("is_available", lambda: True),
+        ("synchronize", lambda *a: None),
+        ("Event", _Event),
+        ("max_memory_allocated", lambda *a: 0),
+        ("reset_peak_memory_stats", lambda *a: None),
+        ("get_device_name", lambda *a: "stub"),
+        ("device_count", lambda: 1),
+        ("empty_cache", lambda: None))]
+    return cuda + [
+        (pk, "_on_cpu", lambda ts: False),
+        (pk, "_check", lambda ins, r, x, y, dtype: r[0].shape[0]),
+        (pk, "_launch", _launch),
+        (pk, "_launch_coords", _launch_coords),
+        (pk, "_check_fused", lambda pts, tables, planes, out: None),
+        (pk, "_launch_fused", pk.kplanes_fwd_fused_plain),
+        (sk, "_on_cpu", lambda ts: False),
+        (sk, "_check_cuda", lambda operands: None),
+        (sk, "_launch",
+         lambda g, idxs, ws, out, flag, points, groups, corners, c, rows, window:
+         out.copy_(sk.scatter_add_rows_plain(g, idxs, ws, rows=rows))),
+    ]
+
+
+def rank_stubs():
+    """``_stubs`` in a rank that chip_smoke's parallel phase spawns (a
+    fresh process: nothing to restore)."""
+    torch.set_num_threads(1)
+    for obj, name, value in _stubs():
+        setattr(obj, name, value)
+
+
 def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     cs = _load_chip_smoke()
     small = dataclasses.replace(
@@ -287,6 +346,15 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "NGP", "small-ngp")
     monkeypatch.setattr(cs, "PARSER_FIXTURE", {"h": 12, "w": 16})
     monkeypatch.setattr(cs, "PARSER_STEPS", 2)
+    # the parallel phase: small batches, and the stubs in the ranks it
+    # spawns, which import this script by name from the repository
+    monkeypatch.setattr(cs, "PARALLEL_STEPS", 4)
+    monkeypatch.setattr(cs, "PARALLEL_TIMED", 1)
+    monkeypatch.setattr(cs, "PAIR_KPLANES_RAYS", 256)
+    monkeypatch.setattr(cs, "RANK_SETUP", rank_stubs)
+    monkeypatch.setattr(cs, "PAIR_BUILD", False)     # no nvcc here
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(REPO))
     monkeypatch.setattr(cs, "MODEL", "small")
     monkeypatch.setattr(cs, "NERFACTO", "small-nerfacto")
     monkeypatch.setattr(cs, "DEPTH", "small-depth")
@@ -331,57 +399,14 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         cs, "profile_device",
         lambda label, fn, trace_path: (fn(), {k.__name__: 1.0
                                               for k in cs.all_kernels()})[1])
-    for name, value in (("is_available", lambda: True),
-                        ("synchronize", lambda *a: None),
-                        ("Event", _Event),
-                        ("max_memory_allocated", lambda *a: 0),
-                        ("reset_peak_memory_stats", lambda *a: None),
-                        ("get_device_name", lambda *a: "stub"),
-                        ("device_count", lambda: 1),
-                        ("empty_cache", lambda: None)):
-        monkeypatch.setattr(torch.cuda, name, value)
+    for obj, name, value in _stubs():
+        monkeypatch.setattr(obj, name, value)
     libs = [tmp_path / f"lib{name}_stub.so"
             for name in (*pk.LIBRARIES, *sk.LIBRARIES)]
     for lib in libs:
         lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers\n")
     monkeypatch.setattr(build, "build_all", lambda names: libs)
     monkeypatch.setattr(cs, "bwd_strip", lambda: 8)
-    # the wrappers take the "kernel" branch, which runs the plain versions
-    monkeypatch.setattr(pk, "_on_cpu", lambda ts: False)
-    monkeypatch.setattr(pk, "_check", lambda ins, r, x, y, dtype: r[0].shape[0])
-    plain = {
-        "snt_bilerp_fwd_unpacked": lambda a, shape: pk.bilerp_fwd_unpacked_plain(
-            *a, h=shape[0], w=shape[1]),
-        "snt_bilerp_fwd_packed": lambda a, shape: pk.bilerp_fwd_packed_plain(*a),
-        "snt_bilerp_bwd_unpacked": lambda a, shape: pk.bilerp_bwd_unpacked_plain(
-            *a, h=shape[0], w=shape[1]),
-        "snt_bilerp_bwd_packed": lambda a, shape: pk.bilerp_bwd_packed_plain(
-            *a, rows=shape[0]),
-    }
-
-    def launch(name, ins, rowids, txs, ty, outs, m, feat, *shape):
-        for o, r in zip(outs, plain[name]((ins, rowids, txs, ty), shape)):
-            o.copy_(r)
-
-    monkeypatch.setattr(pk, "_launch", launch)
-
-    def launch_coords(tables, gs, rowids, txs, ty, d_txs, d_ty, m, packed, h,
-                      w, feat):
-        res_tx, res_ty = pk.bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty,
-                                                    h=h, w=w)
-        for o, r in zip(d_txs, res_tx):
-            o.copy_(r)
-        d_ty.copy_(res_ty)
-
-    monkeypatch.setattr(pk, "_launch_coords", launch_coords)
-    monkeypatch.setattr(pk, "_check_fused", lambda pts, tables, planes, out: None)
-    monkeypatch.setattr(pk, "_launch_fused", pk.kplanes_fwd_fused_plain)
-    monkeypatch.setattr(sk, "_on_cpu", lambda ts: False)
-    monkeypatch.setattr(sk, "_check_cuda", lambda operands: None)
-    monkeypatch.setattr(
-        sk, "_launch",
-        lambda g, idxs, ws, out, flag, points, groups, corners, c, rows, window:
-        out.copy_(sk.scatter_add_rows_plain(g, idxs, ws, rows=rows)))
     monkeypatch.setattr(cs, "scatter_layout", lambda dev: {
         "strip": {c: 8 if c <= 2 else 4 for c in sk.CHANNELS},
         "threads": 1024, "sms": 132})
@@ -598,7 +623,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # semantic-nerfw's through Trainer.train and neus' through the CLI,
     # nerfacto's on the COLMAP capture through the CLI, the seven runs
     # of trainer_parsers and the sweep's training)
-    assert checks.count("save_checkpoint") == 16 + 1 + 7 + 1
+    # (and the parallel phase's snt-train at world size 1)
+    assert checks.count("save_checkpoint") == 16 + 1 + 7 + 1 + 1
     assert checks.count("_read") >= 4 + 2 + ingp["steps"]
     # the CLI phase: snt-train from a command line, snt-eval with
     # DynMetric's boxes, the viewer's /render requests, snt-render's three
@@ -911,6 +937,30 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert any(line.startswith("cpu check kp_res_study (32 rays): max |card - cpu|")
                for line in lines)
     assert main_path["sweep train kp_res_study"]["bilerp_bwd_unpacked"] > 0
+    # data parallelism: snt-train with force_shard_map at world size 1,
+    # bit-equal to the unsharded step; a pair of ranks (a spawned process)
+    # for k-planes with its sharded frame and for instant-ngp-bounded
+    world_one = next(line for line in lines
+                     if line.startswith("parallel_world_one small: "))
+    assert ("loss terms bit-equal True" in world_one
+            and "leaves every bit True" in world_one)
+    assert all(main_path["parallel snt-train small, world 1"][k.__name__] > 0
+               for k in pk.TRAIN_KERNELS)
+    for rank in (0, 1):
+        kp = main_path[f"parallel pair small, rank {rank}"]
+        assert all(kp[k.__name__] > 0 for k in (*pk.TRAIN_KERNELS,
+                                                 pk.kplanes_fwd_fused))
+        assert main_path[f"parallel pair small-ingp, rank {rank}"][
+            "scatter_add_rows"] >= cs.PAIR_INGP_STEPS
+    pair = [json.loads(line.split("steps ", 1)[1].split("; state")[0])
+            for line in lines if line.startswith("parallel pair small rank 0")]
+    assert [s["update"] for s in pair[0]] == [True, False, False]
+    assert all(s["emulated_loss_bit_equal"] for s in pair[0])
+    assert any('"bit_equal": true' in line for line in lines
+               if line.startswith("parallel pair small rank 0"))
+    host = next(line for line in lines
+                if line.startswith("parallel host data path"))
+    assert "one process alone: setup" in host and "rank 1 of 2 at once" in host
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1,7 +1,7 @@
 """The port's Trainer: checkpoints and resume (a copy of
 tests/test_resume.py's two tests), the train loop's contracts (the
 deferred range check where values are read, dynamic_batch against the JAX
-trainer's arithmetic, one device only, CUDA by default), the
+trainer's arithmetic, CUDA by default), the
 ``trainer_configs`` registry against the JAX one field by field, the
 config file, the convergence gate (slow), and that no module of the port
 imports JAX or the JAX package.
@@ -354,14 +354,6 @@ def test_dynamic_batch_reads_after_range_check(tmp_path, blender_root, monkeypat
     for rays, samples in counts:
         assert rays == cur
         cur, lg = dynamic_batch_update(cur, samples, 1 << 12, 32, lg)
-
-
-@pytest.mark.parametrize("field,value", [("num_devices", 2), ("num_machines", 2)])
-def test_more_than_one_device_is_refused(tmp_path, blender_root, field, value):
-    cfg = _config(tmp_path, blender_root, "many")
-    setattr(cfg.machine, field, value)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(cfg, device="cpu")
 
 
 def test_cuda_by_default_and_host_update_refused(tmp_path, blender_root,
