@@ -4,10 +4,14 @@
   1. Prints the card's name and power limit (nvidia-smi).
   2. Builds the CUDA kernels from soccernerfs_tpu_torch/csrc, one nvcc per
      source, all started together.
-  3. Kernel phases, at the main paths' shapes, CUDA events, L2 flushed: each
-     kernel against its plain PyTorch version, timed beside it and beside a
-     library yardstick.  Forward plane kernels (relative max error <= 1e-5;
-     yardstick torch.nn.functional.grid_sample); backward plane kernels
+  3. Kernel phases, at the main paths' shapes, CUDA events, L2 flushed (and
+     the card kept busy while each timed call is enqueued, so no host time
+     enters a kernel's): each kernel against its plain PyTorch version,
+     timed beside it and beside a library yardstick.  Forward plane kernels
+     (relative max error <= 1e-5; yardstick torch.nn.functional.grid_sample)
+     at the render path's point counts, and bilerp_fwd_unpacked also at the
+     train path's (262,144 points) and on the 7 launches of one K-Planes
+     train step, captured at the wrapper; backward plane kernels
      (atomics: 1e-5 of the max; aten.grid_sampler_2d_backward) on uniform
      random points and on every launch of one K-Planes train step,
      captured at the wrappers (the path's own ray-ordered operands), with
@@ -313,7 +317,8 @@ DEFORM_L2_TOL = 5e-2
 # of the largest row's sum of |terms|, or index_add_'s own f32 error on
 # the same updates where that is larger (scatter_case)
 SCATTER_MASS_TOL = 1e-6
-BWD_PASSES = 5                   # timing passes per backward or scatter case
+BWD_PASSES = 5                   # timing passes per backward or scatter case, and
+                                 # per train-shape and step case of the unpacked forward
 # method variants that no registry entry names, each a registered method
 # (the module attribute naming it, so that a rehearsal's small configs
 # carry over), the camera optimizer's mode (None: the method's own) and
@@ -440,6 +445,12 @@ def card_line() -> str:
 
 
 _FLUSH = None
+# cycles the card spins before each timed call (~0.25-0.3 ms), so the
+# call's own host work (a wrapper's checks, its ctypes launch) is enqueued
+# before the start event runs: without it the queue drained after the
+# flush and a short kernel's time took in that host work (launches of
+# 20-80 us read 2-8x their time now and then)
+HOST_LEAD_CYCLES = 500_000
 
 
 def time_ms(fn, iters: int) -> float:
@@ -453,6 +464,7 @@ def time_ms(fn, iters: int) -> float:
     pairs = []
     for _ in range(iters):
         _FLUSH.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -563,31 +575,38 @@ def group_bytes(m, feat, tables) -> int:
             + sum(t.numel() * t.element_size() for t in tables))
 
 
-def fwd_case(tag, label, kern, plain, library, lib_outs, bytes_, flops, **extra):
+def fwd_case(tag, label, kern, plain, library, lib_outs, bytes_, flops,
+             passes=1, **extra):
     """Check one forward case against its plain version (KERNEL_REL_TOL of
-    the max; bit-equal expected) and time kernel (20 calls), plain version
-    (5) and library yardstick (10); ``lib_outs`` turns the library's
-    output into the kernel's outputs (a list of [M, F]).  Logs and
-    returns its row."""
+    the max, bit-equal expected; the unpacked kernel, ``tag`` "unpacked",
+    held bit-equal) and time kernel (the median of ``passes`` passes of 20
+    calls), plain version (5) and library yardstick (10); ``lib_outs``
+    turns the library's output into the kernel's outputs (a list of
+    [M, F]).  Logs and returns its row."""
     got = [t.clone() for t in _as_list(kern())]
     want = [t.clone() for t in _as_list(plain())]
     torch.cuda.synchronize()
     err = max(float((g - e).abs().max()) for g, e in zip(got, want))
     scale = max(float(e.abs().max()) for e in want)
+    if tag == "unpacked" and not all(torch.equal(g, e) for g, e in zip(got, want)):
+        raise AssertionError(f"{tag} {label}: not bit-equal to its plain "
+                             f"version, max |kernel - plain| = {err}")
     if not err <= KERNEL_REL_TOL * scale:
         raise AssertionError(f"{tag} {label}: max |kernel - plain| = "
                              f"{err} > {KERNEL_REL_TOL} * {scale}")
     lib_err = max(float((g - e).abs().max())
                   for g, e in zip(got, lib_outs(library())))
     del got, want
-    ms = time_ms(kern, 20)
+    ms_passes = [time_ms(kern, 20) for _ in range(passes)]
+    ms = statistics.median(ms_passes)
     plain_ms = time_ms(plain, 5)
     library_ms = time_ms(library, 10)
     t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     row = {
-        "case": label, **extra, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "case": label, **extra, "max_abs_err": err, "ms": ms,
+        **({"ms_passes": ms_passes} if passes > 1 else {}),
+        "plain_ms": plain_ms, "library_ms": library_ms,
         "library_max_abs_diff": lib_err, "bytes": bytes_, "flops": flops,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -632,12 +651,32 @@ def per_plane(lib):
     return list(lib[:, :, 0].permute(0, 2, 1))
 
 
+def train_shape_cases(cfg, staged):
+    """kernel_cases' unpacked groups of the finest scale (its space and
+    time groups) at the train path's point count: 4096 rays of the main
+    field's samples, 262,144 points, the size of each of a K-Planes
+    step's 7 bilerp_fwd_unpacked launches."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
+
+    m = train_num_rays_per_batch[MODEL] * cfg.num_nerf_samples_per_ray
+    last = len(staged["fields"]["grids"]) - 1
+    return [(label, kind, params, s, h, w, members, c2, m)
+            for label, kind, params, s, h, w, members, c2, _m
+            in kernel_cases(cfg, staged) if kind == "unpacked" and s == last]
+
+
 def kernel_phase(cfg, staged, dev):
+    """Both per-plane forward kernels on kernel_cases' uniform random
+    points (the render path's point counts, "order": "random"), then the
+    unpacked kernel on train_shape_cases' ("order": "train")."""
+    from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {"bilerp_fwd_unpacked": [], "bilerp_fwd_packed": []}
-    for label, kind, params, s, h, w, members, c2, m in kernel_cases(cfg, staged):
+    cases = [(case, "random") for case in kernel_cases(cfg, staged)]
+    cases += [(case, "train") for case in train_shape_cases(cfg, staged)]
+    for (label, kind, params, s, h, w, members, c2, m), order in cases:
         pts = torch.rand((m, 4), generator=gen, device=dev) * 2.0 - 1.0
         tables = [params["grids_packed"][s][ci] for _c1, ci in members]
         planes = [params["grids"][s][ci] for _c1, ci in members]
@@ -658,10 +697,14 @@ def kernel_phase(cfg, staged, dev):
                 return pk.bilerp_fwd_packed_plain(tables, rowids, txs, ty)
 
         n = len(members)
+        if order == "train":
+            label += (f", {m} points ({train_num_rays_per_batch[MODEL]} train "
+                      f"rays)")
         results[f"bilerp_fwd_{kind}"].append(fwd_case(
             kind, label, kern, plain, library, per_plane,
             group_bytes(m, feat, tables),
             m * (1 + n * (9 * feat + 1)),   # 1-ty; 1-tx and 9 per feature
+            passes=BWD_PASSES if order == "train" else 1, order=order,
             planes=n, M=m))
         del pts, rowids, txs, ty, library
         torch.cuda.empty_cache()
@@ -1023,14 +1066,16 @@ def touched_table_bytes(name, tables, rowids, shape) -> int:
     return total
 
 
-def fwd_step_bounds(tree, dev) -> dict:
+def fwd_step_bounds(tree, dev):
     """The forward plane launches of one K-Planes train step (step 0 of the
     train phase: make_batch(0), the same draws), captured where the
     wrappers launch: per kernel, (launches, their summed byte bound in ms,
     the same with whole tables in ms).  A launch's bound: its points'
     inputs and outputs (``group_bytes`` less the tables) and the table rows
     its points touch (``touched_table_bytes``: a step's 4096 rays touch a
-    fraction of the finest planes), at the card's memory rate."""
+    fraction of the finest planes), at the card's memory rate.  Also
+    returns bilerp_fwd_unpacked's launches as cases of fwd_step_phase:
+    the path's own tables and ray-ordered operands, each with its bytes."""
     from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
@@ -1038,6 +1083,7 @@ def fwd_step_bounds(tree, dev) -> dict:
     launch = pk._launch
     bounds = {"bilerp_fwd_unpacked": [0, 0.0, 0.0],
               "bilerp_fwd_packed": [0, 0.0, 0.0]}
+    cases = []
 
     def capture(name, ins, rowids, txs, ty, outs, m, feat, *shape):
         if name.startswith("snt_bilerp_fwd_"):
@@ -1048,6 +1094,12 @@ def fwd_step_bounds(tree, dev) -> dict:
             entry[0] += 1
             entry[1] += (whole - tables + touched) / H100_BYTES_PER_S * 1e3
             entry[2] += whole / H100_BYTES_PER_S * 1e3
+            if name == "snt_bilerp_fwd_unpacked":
+                cases.append({"tables": list(ins),
+                              "rowids": [r.clone() for r in rowids],
+                              "txs": [t.clone() for t in txs],
+                              "ty": ty.clone(), "h": shape[0], "w": shape[1],
+                              "bytes": whole - tables + touched})
         return launch(name, ins, rowids, txs, ty, outs, m, feat, *shape)
 
     pk._launch = capture
@@ -1060,7 +1112,61 @@ def fwd_step_bounds(tree, dev) -> dict:
         pk._launch = launch
     del trainer, state
     torch.cuda.empty_cache()
-    return {k: tuple(v) for k, v in bounds.items()}
+    return {k: tuple(v) for k, v in bounds.items()}, cases
+
+
+def cell_grid(rowids, txs, ty, h, w):
+    """grid_sample's [P, 1, M, 2] coordinates (align_corners) of a plane
+    group's cells and fractions: x = x0 + tx, y = y0 + ty, scaled to
+    [-1, 1]."""
+    yc = torch.div(rowids[0], w, rounding_mode="floor")
+    y = (yc + ty) * (2.0 / max(h - 1, 1)) - 1.0
+    return torch.stack([torch.stack(
+        [(r - yc * w + tx) * (2.0 / max(w - 1, 1)) - 1.0, y], -1)
+        for r, tx in zip(rowids, txs)])[:, None]
+
+
+def fwd_step_phase(cases):
+    """bilerp_fwd_unpacked on the launches of one K-Planes train step
+    (fwd_step_bounds' cases): each against its plain version (bit-equal
+    expected) and timed beside F.grid_sample over the same bf16 plane
+    values as f32 at the same coordinates; its bound the touched table
+    rows' bytes with the points' (fwd_step_bounds).  Returns the rows,
+    "order": "ray"."""
+    from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+
+    rows = []
+    for j, case in enumerate(cases):
+        tables, rowids, txs, ty = (case["tables"], case["rowids"], case["txs"],
+                                   case["ty"])
+        h, w = case["h"], case["w"]
+        m, feat, n = ty.shape[0], tables[0].shape[1], len(tables)
+        inp = torch.stack([t.float().reshape(h, w, feat).permute(2, 0, 1)
+                           for t in tables])
+        grid = cell_grid(rowids, txs, ty, h, w)
+
+        def library():
+            return torch.nn.functional.grid_sample(
+                inp, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)
+
+        rows.append(fwd_case(
+            "unpacked", f"train step launch {j}, ray-ordered, {n} planes "
+            f"[{h},{w},{feat}]",
+            lambda: pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w),
+            lambda: pk.bilerp_fwd_unpacked_plain(tables, rowids, txs, ty,
+                                                 h=h, w=w),
+            library, per_plane, case["bytes"], m * (1 + n * (9 * feat + 1)),
+            passes=BWD_PASSES, order="ray", planes=n, M=m))
+        del inp, grid, library
+    torch.cuda.empty_cache()
+    log(f"train step launches of bilerp_fwd_unpacked, ray-ordered: "
+        f"{len(rows)}, kernel {sum(r['ms'] for r in rows):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in rows):.4f} ms, library "
+        f"{sum(r['library_ms'] for r in rows):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in rows):.4f} ms (bytes: the touched "
+        f"table rows)")
+    return rows
 
 
 def bwd_step_cases(tree, dev):
@@ -1097,16 +1203,10 @@ def bwd_step_cases(tree, dev):
     del trainer, state
     for j, (kind, gs, rowids, txs, ty, shape) in enumerate(record):
         h, w = shape if kind == "unpacked" else hw[shape[0]]
-        # the continuous coordinates of each cell and fraction, for the
-        # grid_sample yardstick
-        yc = torch.div(rowids[0], w, rounding_mode="floor")
-        y = (yc + ty) * (2.0 / max(h - 1, 1)) - 1.0
-        grid = torch.stack([torch.stack(
-            [(r - yc + tx) * (2.0 / max(w - 1, 1)) - 1.0, y], -1)
-            for r, tx in zip(rowids, txs)])[:, None]
         yield {"label": f"train step launch {j}, ray-ordered", "order": "ray",
                "kind": kind, "h": h, "w": w, "gs": gs,
-               "rowids": rowids, "txs": txs, "ty": ty, "grid": grid}
+               "rowids": rowids, "txs": txs, "ty": ty,
+               "grid": cell_grid(rowids, txs, ty, h, w)}
 
 
 def bwd_strip() -> int:
@@ -1383,14 +1483,10 @@ def coords_step_cases(tree, dev):
     for j, (tables, gs, rowids, txs, ty, h, w) in enumerate(record):
         if w == 1:
             h, w = hw[h]
-        yc = torch.div(rowids[0], w, rounding_mode="floor")
-        y = (yc + ty) * (2.0 / max(h - 1, 1)) - 1.0
-        grid = torch.stack([torch.stack(
-            [(r - yc * w + tx) * (2.0 / max(w - 1, 1)) - 1.0, y], -1)
-            for r, tx in zip(rowids, txs)])[:, None]
         yield {"label": f"SO3xR3 train step launch {j}, ray-ordered",
                "order": "ray", "tables": tables, "gs": gs, "h": h, "w": w,
-               "rowids": rowids, "txs": txs, "ty": ty, "grid": grid}
+               "rowids": rowids, "txs": txs, "ty": ty,
+               "grid": cell_grid(rowids, txs, ty, h, w)}
 
 
 def coords_kernel_phase(cfg, params, tree, dev):
@@ -1732,9 +1828,9 @@ def make_cameras(dev, hw=None):
 def profile_device(label, fn, trace_path):
     """Device time by kernel over one call of ``fn``; busy share of the
     wall time.  Returns {kernel wrapper name: device ms} of the port's
-    kernels (templates bilerp_{fwd,bwd}_kernel<F, packed>,
-    bilerp_bwd_coords_kernel<F, packed>, scatter_add_rows_kernel<C> and
-    kplanes_fwd_fused_kernel<F, P>)."""
+    kernels (templates bilerp_fwd_{unpacked,packed}_kernel<F>,
+    bilerp_bwd_kernel<F, packed>, bilerp_bwd_coords_kernel<F, packed>,
+    scatter_add_rows_kernel<C> and kplanes_fwd_fused_kernel<F, P>)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1768,12 +1864,12 @@ def profile_device(label, fn, trace_path):
            f"{plane_us / total_us:.4f}" if total_us else "not measured"))
     for dev_us, count, key in rows[:15]:
         log(f"profile {label}: {dev_us / 1e3:10.3f} ms {count:6d}x  {key[:90]}")
-    times = {
-        f"bilerp_{d}_{kind}": sum(r[0] for r in rows
-                                  if f"bilerp_{d}_kernel<" in r[2] and flag in r[2]) / 1e3
-        for d in ("fwd", "bwd")
-        for kind, flag in (("unpacked", ", false>"), ("packed", ", true>"))
-    }
+    times = {f"bilerp_fwd_{kind}": sum(
+        r[0] for r in rows if f"bilerp_fwd_{kind}_kernel<" in r[2]) / 1e3
+        for kind in ("unpacked", "packed")}
+    times.update({f"bilerp_bwd_{kind}": sum(
+        r[0] for r in rows if "bilerp_bwd_kernel<" in r[2] and flag in r[2]) / 1e3
+        for kind, flag in (("unpacked", ", false>"), ("packed", ", true>"))})
     times["bilerp_bwd_coords"] = sum(
         r[0] for r in rows if "bilerp_bwd_coords_kernel<" in r[2]) / 1e3
     times["scatter_add_rows"] = sum(
@@ -5542,7 +5638,9 @@ def main() -> int:
     # ---- K-Planes: plane kernels, render, train
     _module, cfg, _camera_optimizer = method_parts(MODEL)
     tree, params, staged = make_params(MODEL, dev, time_noise=0.05)
+    t0 = time.perf_counter()
     kernels.update(kernel_phase(cfg, staged, dev))
+    log(f"kernel_phase: {time.perf_counter() - t0:.3f} s")
     kernels.update(fused_kernel_phase(cfg, staged, cams, dev, aabb))
     kernels.update(bwd_kernel_phase(cfg, params, tree, dev))
     t0 = time.perf_counter()
@@ -5565,7 +5663,11 @@ def main() -> int:
     render_cpu_check(MODEL, tree, staged, cams, dev, aabb)
     del staged, params
     torch.cuda.empty_cache()
-    fwd_bounds = fwd_step_bounds(tree, dev)
+    fwd_bounds, fwd_cases = fwd_step_bounds(tree, dev)
+    t0 = time.perf_counter()
+    kernels["bilerp_fwd_unpacked"] += fwd_step_phase(fwd_cases)
+    log(f"fwd_step_phase: {time.perf_counter() - t0:.3f} s")
+    del fwd_cases
     launches[f"train {MODEL}"], in_step = train_phase(
         MODEL, tree, dev, args.trace,
         must_launch=[k.__name__ for k in pk.TRAIN_KERNELS])

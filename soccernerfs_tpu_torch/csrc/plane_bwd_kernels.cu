@@ -260,41 +260,77 @@ extern "C" int snt_bilerp_bwd_strip(void) { return kStrip; }
 // a quad-packed [R, 4F] row's four quarters).  At the last column or row
 // two corners are one value, so the gradient across it is 0, as the
 // transpose of quad_pack gives it.  Each multiply and add rounds on its
-// own (no FMA contraction); the sum over F runs in the features' order and
-// the plain PyTorch version sums in another, so they agree to f32 rounding
-// of the sums.
+// own (no FMA contraction); the sums over F run in another order than the
+// plain PyTorch version's, so they agree to f32 rounding of the sums.
 //
 // It has no TPU kernel: the JAX package's camera-optimizer path samples
 // its planes with sample_plane_bilinear_packed
 // (soccernerfs_tpu/ops/grid_sample.py) and XLA's autodiff of that gather
 // and lerp gives these fractions' gradient.  The port's group samplers
 // (ops/grid_sample.py) launch this kernel in their backward only when the
-// fractions need a gradient, which no registered method's step asks for.
+// fractions need a gradient, which no registered method's step asks for:
+// 21 launches a K-Planes update step with the SO3xR3 camera optimizer, F =
+// 32 (unpacked and quad-packed) and F = 8 (quad-packed), 262,144 points
+// or fewer each.
 //
 // Bound on the card: bytes.  Per point the kernel must read ty (4 B) and
 // write d_ty (4 B); per point and plane it reads the row id and tx (8 B),
-// g (4F B) and the four corners (8F B of bf16), and writes d_tx (4 B):
-// 14 flops per feature against 12F B, far under the f32 rate.  The design
-// is a simple one:
-//   * A group of kLanes threads serves a point: the largest power of two
-//     (at most 16) that divides F/8, so 4 lanes at F = 32, 1 at F = 8 and
-//     F = 24.  Each lane walks the point's planes and its share of their
-//     features 8 at a time (one 16-byte load per corner, two for g) and
-//     keeps its sums in registers; the group's sums meet by warp shuffles
-//     (a power of two divides the warp, so a group never straddles one),
-//     and its first lane writes them.  No atomics.  A first version, one
-//     thread a point walking all F, ran 0.26-0.35 of the byte bound on
-//     the train step's launches and lost to the library yardstick on its
-//     small quad-packed tables (PERF.md): a lane's dependent loads were
-//     the only parallelism.
+// g (4F B) and the four corners (8F B of bf16, the touched rows once), and
+// writes d_tx (4 B): 14 flops per feature against 12F B, far under the f32
+// rate.  The design (PERF.md has each step's times, in turns against the
+// form it replaced):
+//   * A group of kLanes threads serves a point: F/8 rounded up to a power
+//     of two (at most 16), so 1 lane at F = 8, 4 at F = 24 and F = 32, 8
+//     at F = 48; lane c owns the 16-byte chunk c of every corner row and
+//     of g (8 features), and lanes past F/8 load nothing and add 0.  A
+//     power of two divides the warp, so a group never straddles one and
+//     its sums meet by warp shuffles.  No atomics.  The first design took
+//     the largest power of two dividing F/8: at F = 24 one lane walked
+//     three chunks in series and at F = 48 two lanes three each, 0.12-0.26
+//     of the bound.
+//   * A lane walks the group's planes in order, each plane ending in its
+//     shuffles.  Every plane's loads issued before any arithmetic (the
+//     planes a template argument), and two points a thread, measured
+//     slower on the train path's cases.
+//   * 32-bit cells (row / w by the host's RowDiv, as the unpacked forward
+//     kernel's).
+//   * Streaming (evict-first) loads of what a point reads once, g and its
+//     row ids, fractions and ty, where a point has several lanes; at one
+//     lane a point (F = 8) the read-only path measured faster.  Streaming
+//     stores of the gradients.
 //   * Consecutive groups gather other rows, so a warp's corner loads touch
 //     32 / kLanes rows each; the train path's points come ray by ray and
 //     neighbours often share rows, which L1 then serves.
+// What bounds it now: a launch of the train path lasts 20-80 us, so the
+// fixed cost of a short launch and each plane's two dependent memory round
+// trips (row ids, then corners) weigh; the random points over a 1024x1024
+// plane gather their corner rows from DRAM, which the bound (touched rows
+// once) leaves out; a padded width (F = 20) pays the wrapper's copy of g
+// to F = 24.
 namespace {
 
-// kLanes: the largest power of two dividing c, at most 16.
+// kLanes: c rounded up to a power of two, at most 16.
 __host__ __device__ constexpr int lanes_for(int c) {
-  return c % 16 == 0 ? 16 : c % 8 == 0 ? 8 : c % 4 == 0 ? 4 : c % 2 == 0 ? 2 : 1;
+  return c <= 1 ? 1 : c <= 2 ? 2 : c <= 4 ? 4 : c <= 8 ? 8 : 16;
+}
+
+// row / w for 0 <= row < 2^31 as (row * magic) >> shift (as in
+// plane_kernels.cu: l = ceil(log2 w), magic = ceil(2^(31+l) / w) < 2^32;
+// ops/kernels/plane_kernels.py row_divisor computes the same constants).
+struct RowDiv {
+  unsigned magic;
+  unsigned shift;
+};
+
+RowDiv row_div(int w) {
+  unsigned l = 0;
+  while ((1u << l) < (unsigned)w) ++l;
+  const unsigned shift = 31 + l;
+  return {(unsigned)(((1ull << shift) + (unsigned)w - 1) / (unsigned)w), shift};
+}
+
+__device__ __forceinline__ unsigned div_row(unsigned row, RowDiv d) {
+  return (unsigned)(((unsigned long long)row * d.magic) >> d.shift);
 }
 
 struct CoordArgs {
@@ -305,7 +341,10 @@ struct CoordArgs {
   float* d_tx[kMaxPlanes];
   const float* ty;
   float* d_ty;
-  int planes;
+  int rows;      // table rows, < 2^31
+  int last_row;  // unpacked: (h - 1) * w, the first row id of the bottom row
+  int w;
+  RowDiv div;    // unpacked: row / w
 };
 
 // 8 bf16 values in one 16-byte vector -> 8 floats (exact: bf16 is the top
@@ -328,74 +367,79 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+// A load of what a point reads once: streaming (evict-first) when L lanes
+// serve the point, through the read-only path at one lane.
+template <int L, class T>
+__device__ __forceinline__ T ld_once(const T* p) {
+  if constexpr (L == 1) return __ldg(p); else return __ldcs(p);
+}
+
 template <int F, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
-bilerp_bwd_coords_kernel(const __grid_constant__ CoordArgs a, long long m,
-                         int h, int w, long long rows) {
-  constexpr int kChunks = F / 8;  // 16-byte bf16 vectors per corner row
+bilerp_bwd_coords_kernel(const __grid_constant__ CoordArgs a, long long m, int planes) {
+  constexpr int kChunks = F / 8;
   constexpr int kLanes = lanes_for(kChunks);
-  constexpr int kPer = kChunks / kLanes;  // vectors per lane and corner
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int lane = (int)(t % kLanes);
-  // every lane of a warp takes part in the shuffles: a point past the end
-  // reads the last one and writes nothing
   const bool valid = t / kLanes < m;
   const long long i = valid ? t / kLanes : m - 1;
-  const float ty = __ldg(a.ty + i);
+  const bool active = kChunks == kLanes || lane < kChunks;
+  const float ty = ld_once<kLanes>(a.ty + i);
   const float omty = __fsub_rn(1.0f, ty);
   float d_ty = 0.0f;
 #pragma unroll
   for (int p = 0; p < kMaxPlanes; ++p) {
-    if (p >= a.planes) break;
-    long long row = __ldg(a.rowid[p] + i);
-    row = row < 0 ? 0 : (row >= rows ? rows - 1 : row);  // as the forward
-    const float tx = __ldg(a.tx[p] + i);
-    const float omtx = __fsub_rn(1.0f, tx);
+    if (p >= planes) break;
+    const int r = ld_once<kLanes>(a.rowid[p] + i);
+    const unsigned row = (unsigned)(r < 0 ? 0 : (r >= a.rows ? a.rows - 1 : r));
+    const float tx = ld_once<kLanes>(a.tx[p] + i);
     const uint4* r00;
-    long long s01, s10, s11;  // the other corners, in vectors from r00
+    size_t s01, s10;
     if constexpr (kPacked) {
-      r00 = a.table[p] + row * (4 * kChunks);
+      r00 = a.table[p] + (size_t)row * (4 * kChunks);
       s01 = kChunks;
       s10 = 2 * kChunks;
-      s11 = 3 * kChunks;
     } else {
-      const int y0 = (int)(row / w);
-      const int x0 = (int)(row - (long long)y0 * w);
-      const long long dx = x0 < w - 1 ? 1 : 0;
-      const long long dy = y0 < h - 1 ? w : 0;
-      r00 = a.table[p] + row * kChunks;
-      s01 = dx * kChunks;
-      s10 = dy * kChunks;
-      s11 = (dy + dx) * kChunks;
+      const unsigned x0 = row - div_row(row, a.div) * (unsigned)a.w;
+      r00 = a.table[p] + (size_t)row * kChunks;
+      s01 = x0 + 1 < (unsigned)a.w ? kChunks : 0;
+      s10 = row < (unsigned)a.last_row ? (size_t)a.w * kChunks : 0;
     }
-    const float4* g = reinterpret_cast<const float4*>(a.g[p] + i * F);
     float d_tx = 0.0f, d_typ = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int c = lane * kPer + k;
+    if (active) {
+      const uint4* rr = r00 + lane;
       float f00[8], f01[8], f10[8], f11[8];
-      bf16x8_to_f32(__ldg(r00 + c), f00);
-      bf16x8_to_f32(__ldg(r00 + s01 + c), f01);
-      bf16x8_to_f32(__ldg(r00 + s10 + c), f10);
-      bf16x8_to_f32(__ldg(r00 + s11 + c), f11);
-      const float4 g0 = __ldg(g + 2 * c);
-      const float4 g1 = __ldg(g + 2 * c + 1);
+      bf16x8_to_f32(__ldg(rr), f00);
+      bf16x8_to_f32(__ldg(rr + s01), f01);
+      bf16x8_to_f32(__ldg(rr + s10), f10);
+      bf16x8_to_f32(__ldg(rr + (kPacked ? 3 * kChunks : s10 + s01)), f11);
+      const float4* gp = reinterpret_cast<const float4*>(a.g[p] + i * F) + 2 * lane;
+      const float4 g0 = ld_once<kLanes>(gp);
+      const float4 g1 = ld_once<kLanes>(gp + 1);
       const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float omtx = __fsub_rn(1.0f, tx);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float ax = __fadd_rn(__fmul_rn(omty, __fsub_rn(f01[q], f00[q])),
-                                   __fmul_rn(ty, __fsub_rn(f11[q], f10[q])));
-        const float ay = __fadd_rn(__fmul_rn(omtx, __fsub_rn(f10[q], f00[q])),
-                                   __fmul_rn(tx, __fsub_rn(f11[q], f01[q])));
-        d_tx = __fadd_rn(d_tx, __fmul_rn(gv[q], ax));
-        d_typ = __fadd_rn(d_typ, __fmul_rn(gv[q], ay));
+      for (int k = 0; k < 8; ++k) {
+        const float ax = __fadd_rn(__fmul_rn(omty, __fsub_rn(f01[k], f00[k])),
+                                   __fmul_rn(ty, __fsub_rn(f11[k], f10[k])));
+        const float ay = __fadd_rn(__fmul_rn(omtx, __fsub_rn(f10[k], f00[k])),
+                                   __fmul_rn(tx, __fsub_rn(f11[k], f01[k])));
+        d_tx = __fadd_rn(d_tx, __fmul_rn(gv[k], ax));
+        d_typ = __fadd_rn(d_typ, __fmul_rn(gv[k], ay));
       }
     }
     d_tx = group_sum<kLanes>(d_tx);
-    if (valid && lane == 0) a.d_tx[p][i] = d_tx;
+    if (valid && lane == 0) __stcs(a.d_tx[p] + i, d_tx);
     d_ty = __fadd_rn(d_ty, group_sum<kLanes>(d_typ));
   }
-  if (valid && lane == 0) a.d_ty[i] = d_ty;
+  if (valid && lane == 0) __stcs(a.d_ty + i, d_ty);
+}
+
+template <int F, bool kPacked>
+void launch_coords(int planes, const CoordArgs& a, long long m, cudaStream_t s) {
+  const long long threads = m * lanes_for(F / 8);
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
+  bilerp_bwd_coords_kernel<F, kPacked><<<grid, kThreads, 0, s>>>(a, m, planes);
 }
 
 }  // namespace
@@ -404,13 +448,14 @@ bilerp_bwd_coords_kernel(const __grid_constant__ CoordArgs a, long long m,
 // quad-packed [rows, 4*feat] (packed = 1); gs: P x [m, feat] f32 upstream
 // gradients; rowids: P x [m] int32 (y0*w + x0); txs: P x [m] f32; ty: [m]
 // f32, shared by the P planes; d_txs: P x [m] f32 out; d_ty: [m] f32 out.
-// feat one of SNT_FOR_EACH_FEAT's, 1 <= P <= 3.
+// rows = h*w < 2^31.  feat one of SNT_FOR_EACH_FEAT's, 1 <= P <= 3.
 extern "C" int snt_bilerp_bwd_coords(
     int planes, const void* const* tables, const void* const* gs,
     const void* const* rowids, const void* const* txs, const void* ty,
     void* const* d_txs, void* d_ty, long long m, int packed, int h, int w,
     long long rows, int feat, void* stream) {
-  if (planes < 1 || planes > kMaxPlanes || m <= 0 || rows < 1)
+  if (planes < 1 || planes > kMaxPlanes || m <= 0 || rows < 1 ||
+      rows > INT32_MAX || h < 1 || w < 1)
     return (int)cudaErrorInvalidValue;
   CoordArgs a;
   for (int p = 0; p < kMaxPlanes; ++p) {
@@ -423,25 +468,30 @@ extern "C" int snt_bilerp_bwd_coords(
   }
   a.ty = static_cast<const float*>(ty);
   a.d_ty = static_cast<float*>(d_ty);
-  a.planes = planes;
+  a.rows = (int)rows;
+  a.last_row = (int)((long long)(h - 1) * w);
+  a.w = w;
+  a.div = row_div(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat) {
-#define SNT_COORDS_CASE(F)                                                   \
-    case F: {                                                                 \
-      const long long threads = m * lanes_for(F / 8);                         \
-      const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));      \
-      if (packed)                                                             \
-        bilerp_bwd_coords_kernel<F, true><<<grid, kThreads, 0, s>>>(a, m, h,  \
-                                                                   w, rows);  \
-      else                                                                    \
-        bilerp_bwd_coords_kernel<F, false><<<grid, kThreads, 0, s>>>(a, m, h, \
-                                                                    w, rows); \
-      break;                                                                  \
-    }
+#define SNT_COORDS_CASE(F)                               \
+    case F:                                               \
+      if (packed)                                         \
+        launch_coords<F, true>(planes, a, m, s);          \
+      else                                                \
+        launch_coords<F, false>(planes, a, m, s);         \
+      break;
     SNT_FOR_EACH_FEAT(SNT_COORDS_CASE)
 #undef SNT_COORDS_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The constants snt_bilerp_bwd_coords divides a row id by w with.
+extern "C" void snt_row_divisor(int w, unsigned* magic, unsigned* shift) {
+  const RowDiv d = row_div(w);
+  *magic = d.magic;
+  *shift = d.shift;
 }

@@ -17,13 +17,15 @@
 // launch per K-Planes scale computes every plane's cell and fractions
 // from the normalised points, gathers and lerps each plane, multiplies
 // the planes and stores the scale's features once (see its comment
-// below).  The two kernels here stay for the train forward, whose
-// autograd graph keeps every plane's factor.
+// below).  The two kernels here serve the train forward, whose autograd
+// graph keeps every plane's factor: 262,144 points a launch at the
+// registry's 4096 rays, 7 unpacked and 14 packed launches a step.
 //
 // snt_bilerp_fwd_unpacked replaces unpacked_bilerp_fwd_group
 //   (soccernerfs_tpu/ops/pallas/plane_kernels.py, body _fwd_kernel_unpacked):
 //   the table is the plane itself, [h*w, F] bf16; the four corners are
-//   four rows.
+//   four rows.  The train path stages the big F = 32 planes so (h*w >=
+//   65536, w % 32 == 0): 1024x1024 (64 MiB) down to 256x256 tables.
 // snt_bilerp_fwd_packed replaces packed_bilerp_fwd_group (same file, body
 //   _fwd_kernel): the table is quad-packed, [R, 4F] bf16, each row holding
 //   the 2x2 corner block, so a point reads one contiguous 8F-byte row.
@@ -34,26 +36,56 @@
 //
 // Bound on the card: bytes.  Per point the kernel must read 4 B of ty, and
 // per point and plane 8 B (row id, tx) and write 4F B of f32 (136 B at
-// F = 32), against 9 flops per feature, about 2 flop/B, far under the ~20 flop/B where H100's f32
-// rate (67 TFLOP/s over 3.35 TB/s) would bind.  The table is read once at least (64 MiB for a
-// 1024x1024x32 bf16 plane) but gathered at random rows, so the kernel
-// lives on L2 hits and 32-byte sector efficiency.  The design:
-//   * The TPU kernels sort points into row stripes and gather with one-hot
-//     MXU matmuls because Mosaic cannot lower a vector gather.  Here every
-//     thread gathers directly, so no sort, no one-hot and no stripe
-//     bookkeeping exist and the points may come in any order.
-//   * F/8 threads serve one point; each owns 8 features and loads them as
-//     one 16-byte vector per corner, so the threads of a point read whole
-//     32-byte sectors of a corner row (F = 32) and a warp keeps 4 x 32
-//     independent 16-byte loads in flight.
-//   * Each thread writes its 8 f32 outputs as two 16-byte stores; the
-//     threads of a warp cover 8 (F = 32) or 32 (F = 8) consecutive output
-//     rows, a fully coalesced stream.
-//   * Up to 3 planes of one table shape share a launch (blockIdx.y), so a
-//     plane group costs one launch.  The parameter struct is
-//     __grid_constant__, so indexing it by blockIdx.y reads parameter
-//     space: without it nvcc may copy the struct to a local stack frame in
-//     every thread, which cost 2.3x in time on the H100.
+// F = 32), against 9 flops per feature, about 2 flop/B, far under the ~20
+// flop/B where H100's f32 rate (67 TFLOP/s over 3.35 TB/s) would bind.  The
+// output is ~94 % of those bytes.  The table is read once at least (64 MiB
+// for a 1024x1024x32 bf16 plane) but gathered at random rows, so the
+// kernel lives on L2 hits and 32-byte sector efficiency; a plane larger
+// than L2 pays its random corner rows from DRAM, which the bound (each
+// table byte once) leaves out.  The TPU kernels sort points into row
+// stripes and gather with one-hot MXU matmuls because Mosaic cannot lower
+// a vector gather; here every thread gathers directly, so no sort, no
+// one-hot and no stripe bookkeeping exist and the points may come in any
+// order.  Both kernels: F/8 threads (lanes) serve one point, each owning 8
+// features, loaded as one 16-byte vector per corner, so the lanes of a
+// point read whole 32-byte sectors of a corner row (F = 32); each lane
+// writes its 8 f32 outputs as two 16-byte stores, a coalesced stream.
+//
+// The packed kernel (unchanged since its port): one plane per blockIdx.y,
+// up to 3 planes of one table shape in a launch; the parameter struct is
+// __grid_constant__, so indexing it by blockIdx.y reads parameter space
+// (a per-thread stack copy cost 2.3x in time on the H100).
+//
+// The unpacked kernel, redesigned from that same form (PERF.md has each
+// step's times, in turns against the form it replaced):
+//   * One plane per blockIdx.y, and two points a thread (g and g + n, n =
+//     ceil(m/2), so each load and store instruction of a warp still covers
+//     consecutive points): 8 independent corner loads in flight a thread.
+//     A thread serving its point across every plane of the launch (4P
+//     loads in flight, ty read once) measured slower on every case.
+//   * 32-bit cells.  The corners need x0 = row mod w (x1 at the right
+//     border); it was a 64-bit division in every lane.  Now row < 2^31
+//     (the wrappers refuse bigger tables) and row / w is one 32x32->64-bit
+//     multiply and a shift by constants the host computes once a launch
+//     (RowDiv, exact below 2^31); the bottom border is row >= (h-1)*w.
+//   * Cache hints chosen per launch by the tables' size.  When the
+//     launch's tables outgrow L2 (the 1024x1024 planes), the once-read row
+//     ids, fractions and ty come in with streaming loads and the output
+//     goes out with streaming stores (evict-first in L2), so ~33 MB a plane
+//     of f32 output does not push the gathered rows out; on tables that
+//     fit, the same hints measured slower, and the kernel reads through the
+//     read-only path and stores plainly.  An L2::evict_last policy on the
+//     table loads slowed the 1024x1024 planes and is gone.  Nothing
+//     device-wide changes: no persisting-L2 window, no cudaDeviceSetLimit.
+//   * ptxas gives the F = 32 instance 36 registers, so 6 blocks of 256
+//     threads share an SM; the same code held to 32 registers (8 blocks)
+//     took 1.24x as long on the L2-resident time group.
+//   * The plain version's arithmetic in its order: bit-equal to it.
+// What bounds it now: on tables that fit in L2, the L2 reads of the
+// gathers (four corner rows, 8F B a point and plane, twice its 4F B of
+// output); on the 1024x1024 planes, DRAM: the corner rows of random points
+// miss L2, and the bound, which counts each table byte once, leaves those
+// reads out.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +100,27 @@ namespace {
 
 constexpr int kMaxPlanes = 3;
 constexpr int kThreads = 256;
+constexpr int kPoints = 2;  // points a thread of the unpacked kernel
+
+// row / w for 0 <= row < 2^31 as (row * magic) >> shift: with l =
+// ceil(log2 w) and magic = ceil(2^(31+l) / w) < 2^32 the product's error
+// stays under 1/w, so the quotient is exact (ops/kernels/plane_kernels.py
+// row_divisor computes the same constants; the tests hold them exact).
+struct RowDiv {
+  unsigned magic;
+  unsigned shift;
+};
+
+RowDiv row_div(int w) {
+  unsigned l = 0;
+  while ((1u << l) < (unsigned)w) ++l;
+  const unsigned shift = 31 + l;
+  return {(unsigned)(((1ull << shift) + (unsigned)w - 1) / (unsigned)w), shift};
+}
+
+__device__ __forceinline__ unsigned div_row(unsigned row, RowDiv d) {
+  return (unsigned)(((unsigned long long)row * d.magic) >> d.shift);
+}
 
 struct PlaneArgs {
   const uint4* table[kMaxPlanes];
@@ -75,6 +128,16 @@ struct PlaneArgs {
   const float* tx[kMaxPlanes];
   float* out[kMaxPlanes];
   const float* ty;
+};
+
+struct UnpackedArgs {
+  PlaneArgs p;
+  int rows;      // h * w < 2^31
+  int last_row;  // (h - 1) * w: the first row id of the bottom row
+  int w;
+  RowDiv div;    // row / w
+  int streaming;  // 1: the tables outgrow L2; loads and stores of the points
+                  // evict first
 };
 
 // 8 bf16 values in one 16-byte vector -> 8 floats (exact: bf16 is the top
@@ -88,10 +151,28 @@ __device__ __forceinline__ void bf16x8_to_f32(const uint4 v, float (&f)[8]) {
   }
 }
 
-template <int F, bool kPacked>
+// The lerp of one lane's 8 features of four corners, in the plain order.
+__device__ __forceinline__ void lerp8(const uint4 (&q)[4], float tx, float ty,
+                                      float (&o)[8]) {
+  float f00[8], f01[8], f10[8], f11[8];
+  bf16x8_to_f32(q[0], f00);
+  bf16x8_to_f32(q[1], f01);
+  bf16x8_to_f32(q[2], f10);
+  bf16x8_to_f32(q[3], f11);
+  const float omtx = __fsub_rn(1.0f, tx);
+  const float omty = __fsub_rn(1.0f, ty);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float top = __fadd_rn(__fmul_rn(f00[k], omtx), __fmul_rn(f01[k], tx));
+    const float bot = __fadd_rn(__fmul_rn(f10[k], omtx), __fmul_rn(f11[k], tx));
+    o[k] = __fadd_rn(__fmul_rn(top, omty), __fmul_rn(bot, ty));
+  }
+}
+
+template <int F>
 __global__ void __launch_bounds__(kThreads)
-bilerp_fwd_kernel(const __grid_constant__ PlaneArgs a, long long m, int h,
-                  int w, long long rows) {
+bilerp_fwd_packed_kernel(const __grid_constant__ PlaneArgs a, long long m,
+                         long long rows) {
   constexpr int kLanes = F / 8;  // threads per point, 8 features each
   const int p = blockIdx.y;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -102,44 +183,72 @@ bilerp_fwd_kernel(const __grid_constant__ PlaneArgs a, long long m, int h,
   long long row = __ldg(a.rowid[p] + i);
   row = row < 0 ? 0 : (row >= rows ? rows - 1 : row);  // gather "clip" mode
   const float tx = __ldg(a.tx[p] + i);
-  const uint4* table = a.table[p];
   const float ty = __ldg(a.ty + i);
-
-  uint4 q00, q01, q10, q11;
-  if constexpr (kPacked) {
-    const uint4* r = table + row * (4 * kLanes) + lane;
-    q00 = __ldg(r);
-    q01 = __ldg(r + kLanes);
-    q10 = __ldg(r + 2 * kLanes);
-    q11 = __ldg(r + 3 * kLanes);
-  } else {
-    const int y0 = (int)(row / w);
-    const int x0 = (int)(row - (long long)y0 * w);
-    const long long dx = x0 < w - 1 ? 1 : 0;
-    const long long dy = y0 < h - 1 ? w : 0;
-    const uint4* r = table + row * kLanes + lane;
-    q00 = __ldg(r);
-    q01 = __ldg(r + dx * kLanes);
-    q10 = __ldg(r + dy * kLanes);
-    q11 = __ldg(r + (dy + dx) * kLanes);
-  }
-
-  float f00[8], f01[8], f10[8], f11[8], o[8];
-  bf16x8_to_f32(q00, f00);
-  bf16x8_to_f32(q01, f01);
-  bf16x8_to_f32(q10, f10);
-  bf16x8_to_f32(q11, f11);
-  const float omtx = __fsub_rn(1.0f, tx);
-  const float omty = __fsub_rn(1.0f, ty);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float top = __fadd_rn(__fmul_rn(f00[k], omtx), __fmul_rn(f01[k], tx));
-    const float bot = __fadd_rn(__fmul_rn(f10[k], omtx), __fmul_rn(f11[k], tx));
-    o[k] = __fadd_rn(__fmul_rn(top, omty), __fmul_rn(bot, ty));
-  }
+  const uint4* r = a.table[p] + row * (4 * kLanes) + lane;
+  const uint4 q[4] = {__ldg(r), __ldg(r + kLanes), __ldg(r + 2 * kLanes),
+                      __ldg(r + 3 * kLanes)};
+  float o[8];
+  lerp8(q, tx, ty, o);
   float4* dst = reinterpret_cast<float4*>(a.out[p] + i * F + lane * 8);
   dst[0] = make_float4(o[0], o[1], o[2], o[3]);
   dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+bilerp_fwd_unpacked_kernel(const __grid_constant__ UnpackedArgs a, long long m) {
+  constexpr int kLanes = F / 8;  // threads per point, 8 features each
+  const int p = blockIdx.y;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long g = t / kLanes;
+  const int lane = (int)(t - g * kLanes);
+  // the thread's points: g, g + n, ... (kPoints of them, n apart), so each
+  // load and store instruction of a warp still covers consecutive points
+  const long long n = (m + kPoints - 1) / kPoints;
+  if (g >= n) return;
+
+  long long idx[kPoints];
+  unsigned row[kPoints];
+  float tx[kPoints], ty[kPoints];
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    idx[j] = g + j * n < m ? g + j * n : g;  // past the end: redo point g
+    const int* rp = a.p.rowid[p] + idx[j];
+    const float* xp = a.p.tx[p] + idx[j];
+    const float* yp = a.p.ty + idx[j];
+    const int r = a.streaming ? __ldcs(rp) : __ldg(rp);
+    row[j] = (unsigned)(r < 0 ? 0 : (r >= a.rows ? a.rows - 1 : r));  // "clip"
+    tx[j] = a.streaming ? __ldcs(xp) : __ldg(xp);
+    ty[j] = a.streaming ? __ldcs(yp) : __ldg(yp);
+  }
+  uint4 q[kPoints][4];
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    const unsigned x0 = row[j] - div_row(row[j], a.div) * (unsigned)a.w;
+    const size_t dx = x0 + 1 < (unsigned)a.w ? kLanes : 0;
+    const size_t dy = row[j] < (unsigned)a.last_row ? (size_t)a.w * kLanes : 0;
+    const uint4* r = a.p.table[p] + (size_t)row[j] * kLanes + lane;
+    q[j][0] = __ldg(r);
+    q[j][1] = __ldg(r + dx);
+    q[j][2] = __ldg(r + dy);
+    q[j][3] = __ldg(r + dy + dx);
+  }
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    if (j > 0 && idx[j] == g) break;
+    float o[8];
+    lerp8(q[j], tx[j], ty[j], o);
+    float4* dst = reinterpret_cast<float4*>(a.p.out[p] + idx[j] * F + lane * 8);
+    const float4 lo = make_float4(o[0], o[1], o[2], o[3]);
+    const float4 hi = make_float4(o[4], o[5], o[6], o[7]);
+    if (a.streaming) {
+      __stcs(dst, lo);
+      __stcs(dst + 1, hi);
+    } else {
+      dst[0] = lo;
+      dst[1] = hi;
+    }
+  }
 }
 
 int fill_args(PlaneArgs* a, int planes, const void* const* tables,
@@ -157,20 +266,35 @@ int fill_args(PlaneArgs* a, int planes, const void* const* tables,
   return 0;
 }
 
-template <bool kPacked>
-int launch(int planes, const void* const* tables, const void* const* rowids,
-           const void* const* txs, const void* ty, void* const* outs,
-           long long m, int h, int w, long long rows, int feat, void* stream) {
-  PlaneArgs a;
-  const int err = fill_args(&a, planes, tables, rowids, txs, ty, outs);
+}  // namespace
+
+// tables: P pointers to [h*w, feat] bf16, h*w < 2^31; rowids: P x [m]
+// int32; txs: P x [m] f32; ty: [m] f32, shared by the P planes;
+// outs: P x [m, feat] f32.  feat one of SNT_FOR_EACH_FEAT's, 1 <= P <= 3.
+extern "C" int snt_bilerp_fwd_unpacked(
+    int planes, const void* const* tables, const void* const* rowids,
+    const void* const* txs, const void* ty, void* const* outs,
+    long long m, int h, int w, int feat, void* stream) {
+  UnpackedArgs a;
+  const int err = fill_args(&a.p, planes, tables, rowids, txs, ty, outs);
   if (err != 0) return err;
-  if (m <= 0) return (int)cudaErrorInvalidValue;
-  const long long threads = m * (feat / 8);
+  if (m <= 0 || h < 1 || w < 1 || (long long)h * w > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  a.rows = h * w;
+  a.last_row = (h - 1) * w;
+  a.w = w;
+  a.div = row_div(w);
+  int device = 0, l2 = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device) != cudaSuccess)
+    return (int)cudaGetLastError();
+  a.streaming = 2LL * feat * a.rows * planes > l2;
+  const long long threads = (m + kPoints - 1) / kPoints * (feat / 8);
   const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat) {
 #define SNT_FWD_CASE(F) \
-    case F: bilerp_fwd_kernel<F, kPacked><<<grid, kThreads, 0, s>>>(a, m, h, w, rows); break;
+    case F: bilerp_fwd_unpacked_kernel<F><<<grid, kThreads, 0, s>>>(a, m); break;
     SNT_FOR_EACH_FEAT(SNT_FWD_CASE)
 #undef SNT_FWD_CASE
     default:
@@ -179,6 +303,36 @@ int launch(int planes, const void* const* tables, const void* const* rowids,
   return (int)cudaGetLastError();
 }
 
+// tables: P pointers to [rows, 4*feat] bf16 quad-packed rows; the rest as
+// snt_bilerp_fwd_unpacked.
+extern "C" int snt_bilerp_fwd_packed(
+    int planes, const void* const* tables, const void* const* rowids,
+    const void* const* txs, const void* ty, void* const* outs,
+    long long m, long long rows, int feat, void* stream) {
+  PlaneArgs a;
+  const int err = fill_args(&a, planes, tables, rowids, txs, ty, outs);
+  if (err != 0) return err;
+  if (m <= 0) return (int)cudaErrorInvalidValue;
+  const long long threads = m * (feat / 8);
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), planes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (feat) {
+#define SNT_PACKED_CASE(F) \
+    case F: bilerp_fwd_packed_kernel<F><<<grid, kThreads, 0, s>>>(a, m, rows); break;
+    SNT_FOR_EACH_FEAT(SNT_PACKED_CASE)
+#undef SNT_PACKED_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The constants snt_bilerp_fwd_unpacked divides a row id by w with.
+extern "C" void snt_row_divisor(int w, unsigned* magic, unsigned* shift) {
+  const RowDiv d = row_div(w);
+  *magic = d.magic;
+  *shift = d.shift;
+}
 
 // ---------------------------------------------------------------------------
 // The fused render-path forward of one K-Planes scale
@@ -216,6 +370,7 @@ int launch(int planes, const void* const* tables, const void* const* rowids,
 //   * The planes' descriptors ride a __grid_constant__ struct (a copy on
 //     the stack cost 2.3x once).
 //   * One coalesced stream of two 16-byte stores per thread.
+namespace {
 
 constexpr int kMaxFusedPlanes = 6;
 
@@ -326,27 +481,6 @@ int launch_fused(int planes, const FusedArgs& a, long long m, cudaStream_t s) {
 }
 
 }  // namespace
-
-// tables: P pointers to [h*w, feat] bf16; rowids: P x [m] int32;
-// txs: P x [m] f32; ty: [m] f32, shared by the P planes;
-// outs: P x [m, feat] f32.  feat one of SNT_FOR_EACH_FEAT's, 1 <= P <= 3.
-extern "C" int snt_bilerp_fwd_unpacked(
-    int planes, const void* const* tables, const void* const* rowids,
-    const void* const* txs, const void* ty, void* const* outs,
-    long long m, int h, int w, int feat, void* stream) {
-  return launch<false>(planes, tables, rowids, txs, ty, outs, m, h, w,
-                       (long long)h * w, feat, stream);
-}
-
-// tables: P pointers to [rows, 4*feat] bf16 quad-packed rows; the rest as
-// snt_bilerp_fwd_unpacked.
-extern "C" int snt_bilerp_fwd_packed(
-    int planes, const void* const* tables, const void* const* rowids,
-    const void* const* txs, const void* ty, void* const* outs,
-    long long m, long long rows, int feat, void* stream) {
-  return launch<true>(planes, tables, rowids, txs, ty, outs, m, 1, 1, rows,
-                      feat, stream);
-}
 
 // One K-Planes scale, fused.  tables: P pointers to staged bf16 tables,
 // [h*w, feat] (packed[p] = 0) or [h*w, 4*feat] (packed[p] = 1); hs, ws,

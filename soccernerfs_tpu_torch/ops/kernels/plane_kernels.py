@@ -312,6 +312,28 @@ def _check_feat(feat: int) -> None:
         raise ValueError(f"feature width must be 1..{FEATS[-1]}, got {feat}")
 
 
+# the row ids the unpacked forward and the coordinate backward take: their
+# cells are 32-bit (csrc/ RowDiv)
+MAX_ROWS = 2 ** 31 - 1
+
+
+def _check_rows(h: int, w: int) -> None:
+    if not (h >= 1 and w >= 1 and h * w <= MAX_ROWS):
+        raise ValueError(f"a table of h*w = {h}*{w} rows: the kernel takes "
+                         f"1..{MAX_ROWS} (below 2**31)")
+
+
+def row_divisor(w: int):
+    """(magic, shift) with ``row // w == (row * magic) >> shift`` for every
+    0 <= row < 2**31: l = ceil(log2 w), magic = ceil(2**(31+l) / w) <
+    2**32, so the product overshoots row / w by less than 1/w.  The host
+    code of the unpacked forward and the coordinate backward computes the
+    same constants (``row_div`` in csrc/, exported as
+    ``snt_row_divisor``), and the kernels form a point's cell with them."""
+    shift = 31 + (w - 1).bit_length()
+    return -(-(1 << shift) // w), shift
+
+
 def _count(kernel, feat: int) -> None:
     """One launch of ``kernel`` at feature width ``feat``: its count and its
     count by width (the width asked for, before any padding)."""
@@ -343,8 +365,9 @@ def bilerp_fwd_unpacked(tables: Sequence[torch.Tensor], rowids, txs,
     """Bilinear sample of P [h*w, F] bf16 tables (the planes themselves).
 
     Args:
-        tables: P [h*w, F] bf16, 1 <= F <= 128 (a width outside FEATS is
-            zero-padded per call: stage_table's tables come padded).
+        tables: P [h*w, F] bf16, h*w < 2**31, 1 <= F <= 128 (a width
+            outside FEATS is zero-padded per call: stage_table's tables
+            come padded).
         rowids: P [M] int32 row ids y0*w + x0; txs: P [M] f32;
         ty: [M] f32, shared by the P planes.
     Returns:
@@ -352,6 +375,7 @@ def bilerp_fwd_unpacked(tables: Sequence[torch.Tensor], rowids, txs,
     """
     if _on_cpu([*tables, *rowids, *txs, ty]):
         return bilerp_fwd_unpacked_plain(tables, rowids, txs, ty, h=h, w=w)
+    _check_rows(h, w)
     m = _check(tables, rowids, txs, ty, torch.bfloat16)
     feat = tables[0].shape[-1]
     _check_feat(feat)
@@ -597,7 +621,7 @@ def bilerp_bwd_coords(tables: Sequence[torch.Tensor], gs: Sequence[torch.Tensor]
     Args:
         tables: P staged bf16 tables of one layout, the forward's own:
             unpacked [h*w, F'] or quad-packed [h*w, 4F'], F' =
-            native_feat(F) (ops/grid_sample.stage_table);
+            native_feat(F) (ops/grid_sample.stage_table), h*w < 2**31;
         gs: P [M, F] f32 upstream gradients, 1 <= F <= 128 (zero-padded to
             F' per call outside FEATS);
         rowids, txs, ty: as bilerp_fwd_unpacked.
@@ -607,6 +631,7 @@ def bilerp_bwd_coords(tables: Sequence[torch.Tensor], gs: Sequence[torch.Tensor]
     """
     if _on_cpu([*tables, *gs, *rowids, *txs, ty]):
         return bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty, h=h, w=w)
+    _check_rows(h, w)
     m, feat = _check_grads(gs, rowids, txs, ty)
     wide = native_feat(feat)
     _check(tables, rowids, txs, ty, torch.bfloat16)

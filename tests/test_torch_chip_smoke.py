@@ -101,6 +101,7 @@ def _stubs():
     cuda = [(torch.cuda, name, value) for name, value in (
         ("is_available", lambda: True),
         ("synchronize", lambda *a: None),
+        ("_sleep", lambda *a: None),
         ("Event", _Event),
         ("max_memory_allocated", lambda *a: 0),
         ("reset_peak_memory_stats", lambda *a: None),
@@ -433,6 +434,26 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert all(r["max_abs_err"] == 0.0 and r["library_ms"] > 0
                and r["bound_ms"] > 0 for r in fwd_width + width)
     assert sum(line.startswith("widths ") for line in lines) == 6
+    # the unpacked forward at the render path's and the train path's point
+    # counts, then on the captured launches of one train step, each held
+    # bit-equal; the step's launches as many as the profiled step made
+    fwd = [json.loads(line.split(" ", 2)[2]) for line in lines
+           if line.startswith("kernel unpacked ") and '"order": "width"' not in line]
+    orders = [r["order"] for r in fwd]
+    step_launches = orders.count("ray")
+    assert orders == (["random"] * orders.count("random") + ["train"]
+                      + ["ray"] * step_launches)
+    assert orders.count("random") >= 1 and step_launches >= 1
+    train = fwd[orders.index("train")]
+    assert train["M"] == 256 * small.num_nerf_samples_per_ray
+    assert all(r["max_abs_err"] == 0.0 and r["bound_ms"] > 0 for r in fwd)
+    assert all(len(r["ms_passes"]) == cs.BWD_PASSES
+               and r["ms"] == statistics.median(r["ms_passes"])
+               for r in fwd if r["order"] != "random")
+    assert any(line.startswith(f"train step launches of bilerp_fwd_unpacked, "
+                               f"ray-ordered: {step_launches}, ") for line in lines)
+    assert any(line.startswith("in-step bilerp_fwd_unpacked (update step)")
+               and f" in {step_launches} launches" in line for line in lines)
     assert {r["planes"] for r in step} == {1, 2, 3}
     assert all(0 < r["vector_reductions"] and r["points_per_flush"] >= 1.0
                for r in bwd)

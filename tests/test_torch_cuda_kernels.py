@@ -78,6 +78,24 @@ def test_unpacked_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
         torch.testing.assert_close(g, e, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("m", [1, 2, 3, 255, 257, 4097])
+@pytest.mark.parametrize("feat", [8, 48])
+def test_unpacked_kernel_two_points_a_thread(dev, feat, m):
+    """A thread of the unpacked forward serves points g and g + ceil(m/2):
+    at an odd m the last thread has one point, which it writes once; every
+    output row bit-equal to the plain version's."""
+    h, w, planes = 7, 9, 3
+    rng = np.random.default_rng([feat, m])
+    tables = [torch.from_numpy(rng.standard_normal((h * w, feat), dtype=np.float32))
+              .to(dev, torch.bfloat16) for _ in range(planes)]
+    rowids, txs, ty = _points(rng, h, w, m, planes, dev)
+    got = pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w)
+    want = pk.bilerp_fwd_unpacked_plain(tables, rowids, txs, ty, h=h, w=w)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):
+        assert g.shape == (m, feat) and torch.equal(g, e)
+
+
 @pytest.mark.parametrize("sort", [False, True])
 @pytest.mark.parametrize("h,w,m,planes,feat", CASES + WIDTH_CASES)
 def test_packed_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
@@ -198,6 +216,135 @@ def test_coords_bwd_kernel_matches_plain(dev, h, w, m, planes, feat, layout,
     if not sort:
         # _points puts the first five points on the right border
         assert all(not bool(g[:5].any()) for g in got_tx)
+
+
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("feat", [24, 48])
+def test_coords_bwd_kernel_at_the_borders(dev, feat, layout):
+    """F = 24 and 48 (4 and 8 lanes a point, one and two of them idle),
+    three planes, runs of points on the right border, the bottom border and
+    the corner cell: within 1e-5 of the largest |gradient| of the plain
+    version; across the right border the x fractions' gradients, and
+    across the bottom border the y fraction's, are exactly 0."""
+    from soccernerfs_tpu_torch.ops.grid_sample import quad_pack
+
+    h, w = 11, 13
+    rng = np.random.default_rng([feat, len(layout)])
+    rowids, txs, ty = _runs(rng, h, w, rng.integers(1, 20, 80), 3, dev,
+                            border=True)
+    m = ty.shape[0]
+    planes = [torch.from_numpy(rng.standard_normal((h, w, feat), dtype=np.float32))
+              .to(dev, torch.bfloat16) for _ in range(3)]
+    tables = [(p.reshape(h * w, feat) if layout == "unpacked" else quad_pack(p))
+              .contiguous() for p in planes]
+    gs = [torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
+          for _ in range(3)]
+    got_tx, got_ty = pk.bilerp_bwd_coords(tables, gs, rowids, txs, ty, h=h, w=w)
+    want_tx, want_ty = pk.bilerp_bwd_coords_plain(tables, gs, rowids, txs, ty,
+                                                  h=h, w=w)
+    torch.cuda.synchronize()
+    got, want = [*got_tx, got_ty], [*want_tx, want_ty]
+    scale = max(float(e.abs().max()) for e in want)
+    for g, e in zip(got, want):
+        assert float((g - e).abs().max()) <= 1e-5 * scale
+    for g, r in zip(got_tx, rowids):
+        right = r % w == w - 1
+        assert bool(right.any()) and not bool(g[right].any())
+    bottom = rowids[0] // w == h - 1
+    assert bool(bottom.any()) and not bool(got_ty[bottom].any())
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 7, 31, 33, 100, 1000, 1023, 1025,
+                               4097])
+def test_unpacked_kernels_find_the_border_at_any_width(dev, w):
+    """Every cell of a 5-row table of width w, in order: the kernels form
+    x0 = row mod w with the host's division constants (row_divisor), so
+    the forward is bit-equal to its plain version at every column and the
+    coordinate backward within 1e-5 of it, its x gradient exactly 0 on the
+    last column."""
+    h, feat = 5, 8
+    rng = np.random.default_rng(w)
+    table = torch.from_numpy(rng.standard_normal((h * w, feat), dtype=np.float32)
+                             ).to(dev, torch.bfloat16)
+    rowid = torch.arange(h * w, dtype=torch.int32, device=dev)
+    tx = torch.from_numpy(rng.uniform(0, 1, h * w).astype(np.float32)).to(dev)
+    ty = torch.from_numpy(rng.uniform(0, 1, h * w).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((h * w, feat), dtype=np.float32)).to(dev)
+    got = pk.bilerp_fwd_unpacked([table], [rowid], [tx], ty, h=h, w=w)
+    want = pk.bilerp_fwd_unpacked_plain([table], [rowid], [tx], ty, h=h, w=w)
+    (d_tx,), d_ty = pk.bilerp_bwd_coords([table], [g], [rowid], [tx], ty, h=h, w=w)
+    (want_tx,), want_ty = pk.bilerp_bwd_coords_plain([table], [g], [rowid], [tx],
+                                                     ty, h=h, w=w)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    scale = max(float(want_tx.abs().max()), float(want_ty.abs().max()))
+    assert float((d_tx - want_tx).abs().max()) <= 1e-5 * scale
+    assert float((d_ty - want_ty).abs().max()) <= 1e-5 * scale
+    assert not bool(d_tx[rowid % w == w - 1].any())
+
+
+def test_kernels_take_a_table_just_under_2_31_rows(dev):
+    """A [h*w, 8] bf16 table of 65535 x 32767 = 2,147,385,345 rows (32 GiB),
+    just under the wrappers' refusal of 2**31 rows: the forward bit-equal
+    to its plain version and the coordinate backward within 1e-5 of it,
+    at 4097 points (an odd count) across the table, on its last rows, its
+    last column and its last cell."""
+    h, w, feat = 65535, 32767, 8
+    if torch.cuda.mem_get_info(dev)[0] < h * w * feat * 2 + (4 << 30):
+        pytest.skip("needs ~36 GB of free device memory")
+    rng = np.random.default_rng(31)
+    m = 4097
+    yc = rng.integers(0, h, m)
+    xc = rng.integers(0, w, m)
+    yc[:100] = h - 1 - rng.integers(0, 2, 100)     # the last two rows
+    xc[100:200] = w - 1                            # the last column
+    yc[200], xc[200] = h - 1, w - 1                # the last cell
+    rowid = torch.from_numpy((yc * w + xc).astype(np.int32)).to(dev)
+    tx = torch.from_numpy(rng.uniform(0, 1, m).astype(np.float32)).to(dev)
+    ty = torch.from_numpy(rng.uniform(0, 1, m).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((m, feat), dtype=np.float32)).to(dev)
+    table = torch.zeros((h * w, feat), dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for rows in pk.corner_rows(rowid, h=h, w=w):
+        table[rows] = torch.randn((m, feat), generator=gen, device=dev).to(
+            torch.bfloat16)
+    try:
+        got = pk.bilerp_fwd_unpacked([table], [rowid], [tx], ty, h=h, w=w)
+        want = pk.bilerp_fwd_unpacked_plain([table], [rowid], [tx], ty, h=h, w=w)
+        (d_tx,), d_ty = pk.bilerp_bwd_coords([table], [g], [rowid], [tx], ty,
+                                             h=h, w=w)
+        (want_tx,), want_ty = pk.bilerp_bwd_coords_plain([table], [g], [rowid],
+                                                         [tx], ty, h=h, w=w)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        scale = max(float(want_tx.abs().max()), float(want_ty.abs().max()))
+        assert float((d_tx - want_tx).abs().max()) <= 1e-5 * scale
+        assert float((d_ty - want_ty).abs().max()) <= 1e-5 * scale
+    finally:
+        del table
+        torch.cuda.empty_cache()
+
+
+def test_row_divisor_constants_of_both_libraries(dev):
+    """The constants the kernels' host code divides row ids by w with
+    (snt_row_divisor of each library) are row_divisor's, which
+    tests/test_torch_plane_coords.py holds exact: every w up to 4096, a
+    seeded sample above it, and the largest."""
+    import ctypes
+
+    from soccernerfs_tpu_torch.ops.kernels import build
+
+    rng = np.random.default_rng(5)
+    ws = [*range(1, 4097), *rng.integers(4097, 2 ** 31, 2000).tolist(), 2 ** 31 - 1]
+    magic, shift = ctypes.c_uint(), ctypes.c_uint()
+    for lib in pk.LIBRARIES:
+        fn = build.load(lib).snt_row_divisor
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint),
+                       ctypes.POINTER(ctypes.c_uint)]
+        fn.restype = None
+        for w in ws:
+            fn(w, ctypes.byref(magic), ctypes.byref(shift))
+            assert (magic.value, shift.value) == pk.row_divisor(w), (lib, w)
 
 
 # run lengths: long runs of one row; runs that cross the edges of a strip

@@ -249,6 +249,55 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(fake_card):
     assert fake_card == []
 
 
+def test_wrappers_refuse_tables_of_2_31_rows(fake_card):
+    """The unpacked forward and the coordinate backward form cells in 32
+    bits: their wrappers refuse a table of h*w >= 2**31 rows before
+    anything else, and take h*w = 2**31 - 1 as far as their other checks
+    (here: the table's row count)."""
+    z = torch.zeros(4, dtype=torch.int32)
+    f = torch.zeros(4)
+    table = torch.zeros((12, 8), dtype=torch.bfloat16)
+    g = torch.zeros((4, 8))
+    for h, w in ((2 ** 16, 2 ** 15), (2 ** 31, 1), (3, 2 ** 30 + 1)):
+        with pytest.raises(ValueError, match=r"below 2\*\*31"):
+            pk.bilerp_fwd_unpacked([table], [z], [f], f, h=h, w=w)
+        with pytest.raises(ValueError, match=r"below 2\*\*31"):
+            pk.bilerp_bwd_coords([table], [g], [z], [f], f, h=h, w=w)
+    with pytest.raises(ValueError, match="table has 12 rows"):
+        pk.bilerp_fwd_unpacked([table], [z], [f], f, h=2 ** 31 - 1, w=1)
+    with pytest.raises(ValueError, match="neither"):
+        pk.bilerp_bwd_coords([table], [g], [z], [f], f, h=1, w=2 ** 31 - 1)
+    assert fake_card == []
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 7, 32, 100, 256, 1023, 1024, 1025,
+                               2048, 32767, 65535, 2 ** 20 + 1, 2 ** 30,
+                               2 ** 30 + 1, 2 ** 31 - 1])
+def test_row_divisor_is_exact(w):
+    """``row_divisor(w)``'s (magic, shift), the constants the kernels form
+    a point's cell with, give row // w exactly: on every row of the first
+    and last 4w rows (at most 2**16 each) of the largest table of width w
+    below 2**31 rows and of a 64-row one, around each of the last 64
+    multiples of w, and on 200,000 seeded rows below 2**31."""
+    magic, shift = pk.row_divisor(w)
+    assert 0 < magic < 2 ** 32
+    rows = pk.MAX_ROWS // w * w
+    edge = min(4 * w, 2 ** 16)
+    last = np.arange(max(rows // w - 64, 0), rows // w + 1, dtype=np.uint64) * w
+    rng = np.random.default_rng(w)
+    r = np.concatenate([
+        np.arange(min(edge, rows), dtype=np.uint64),
+        np.arange(rows - min(edge, rows), rows, dtype=np.uint64),
+        np.arange(min(64 * w, 2 ** 16), dtype=np.uint64),
+        *[np.clip(last.astype(np.int64) + d, 0, pk.MAX_ROWS).astype(np.uint64)
+          for d in (-1, 0, 1)],
+        np.array([pk.MAX_ROWS - 1, pk.MAX_ROWS], dtype=np.uint64),
+        rng.integers(0, 2 ** 31, 200_000).astype(np.uint64),
+    ])
+    assert np.array_equal((r * np.uint64(magic)) >> np.uint64(shift),
+                          r // np.uint64(w))
+
+
 # ---------------------------------------------------------------------------
 # the group samplers and the field
 # ---------------------------------------------------------------------------
