@@ -80,8 +80,8 @@
      optimizer step every 16 steps, over all cells before step 256):
      ``TrainStep.train_iteration`` on batches of bench.py's 20-camera
      ring, steps 0-11 (all update the proposals; an occupancy method's
-     step 0 updates its grid) and a steady window at step 10,000 (60
-     steps, a proposal update every sixth; 64 for an occupancy method, a
+     step 0 updates its grid) and a steady window at step 10,000 (36
+     steps, a proposal update every sixth; 32 for an occupancy method, a
      grid update every sixteenth); fails unless the path's kernels
      launched (K-Planes: all four plane kernels; the hash-grid methods:
      scatter_add_rows on every step), the loss and every gradient are
@@ -164,7 +164,7 @@
      (``viewer.server.make_server`` on a free port of 127.0.0.1) answers
      /scene, four /render requests (rgb and depth at 240x135 and 960x540),
      three /keyframe and an /export_path; ``scripts.render.main`` renders
-     an 8-frame spiral (rgb, depth, accumulation side by side), an
+     a 4-frame spiral (rgb, depth, accumulation side by side), an
      interpolated path and the exported camera_path.json as PNG frames.
      Fails unless all four train plane kernels launched in training and
      the fused one, and no per-plane forward kernel, in eval, in the
@@ -192,7 +192,7 @@
      snapshot's grid and render equal to the trainer's, snt-eval,
      snt-render's spiral, the viewer on the snapshot; scatter_add_rows)
      and ``cli_dnerf`` (snt-train dnerf on a D-NeRF layout it writes,
-     snt-eval, a 4-frame spiral).
+     snt-eval, a 2-frame spiral).
  10. The last two methods and the exporter.  ``semantic-nerfw``'s method
      phases after depth-nerfacto's: nerfacto's forward plus the semantic
      head (100 classes, chunk 2^16), render and its CPU check with the
@@ -207,9 +207,10 @@
      ``trainer_semantic_nerfw`` (Trainer.train on a Sitcoms3D capture it
      writes, 20 x 270x480 with labels, 24 steps, then snt-eval),
      ``cli_neus`` (snt-train neus 16 steps on a 10-frame 270x480
-     nerfstudio ring, snt-eval, a 2-frame spiral) and ``cli_export``
+     nerfstudio ring, snt-eval, a 1-frame spiral) and ``cli_export``
      (``scripts.exporter``'s pointcloud, cameras, marching-cubes, tsdf
-     and poisson at their defaults on ``cli_kplanes``' snapshot, and
+     and poisson at their defaults, but three of the ten eval cameras
+     for the renders, on ``cli_kplanes``' snapshot, and
      marching-cubes at the density's median on a 32^3 grid, each timed,
      with the plane kernels it launched counted: the fused one in every
      subcommand but cameras, no per-plane forward kernel).
@@ -234,7 +235,7 @@
  12. ``sweep_kp_res``, last: the paper's resolution study through the
      ported sweep harness (``experiments.sweeps``, ``snt_experiment``):
      kp_res_study's third run (k-planes at F = 24 over scales 1..32,
-     ~0.43 G parameters) on the Trainer phases' fixture, 32 steps, the
+     ~0.43 G parameters) on the Trainer phases' fixture, 16 steps, the
      render of a two-frame camera path and snt-eval, each command in its
      own process reporting its kernels' launches by feature width (F = 24
      must launch); then ``scripts.plot_kplane`` on the snapshot,
@@ -254,8 +255,19 @@
      (gathered), rank 0's recomputation of rank 1's shard, every state
      tensor bit-equal across the ranks, a sharded 960x540 frame against
      rank 0's own (the render tolerances; bit-equality printed).  (c)
-     the same for instant-ngp-bounded through a grid update.  Each rank
-     sends its launches back into the ``kernels`` line.
+     the same for instant-ngp-bounded through a grid update.  (d) the
+     entry points over the ranks on ``cli_kplanes``' snapshot: snt-render
+     of two 960x540 frames, snt-export marching-cubes (32^3) and
+     pointcloud of one camera, the viewer (three POST /render, a path
+     job of two frames, one cancelled as it starts), each through its
+     ``main`` at world size 1 over NCCL (in (a)'s group) and over (b)'s
+     pair: every render within the render tolerances of the single
+     process's of the same camera, the uint8 frames equal on 99.9 % of
+     values and within one level elsewhere, the density volume within
+     1e-5 of its max, the fused kernel on every rank, files from rank 0
+     alone, every rank ended within the phase's timeout of the viewer's
+     last request.  Each rank sends its launches back into the
+     ``kernels`` line.
 Prints a JSON line with the seven kernels' results, the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line.  Needs CUDA and this repository around it.
@@ -305,8 +317,8 @@ DEPTH_ZEROS = 0.1                # share of a depth batch's rays without a targe
 NERFPLAYER_CPU_SEEDS = (2,)      # both temporal proposal methods
 OCC_CPU_SEEDS = (2,)
 OCC_CPU_STEP = 272               # a sampled grid update
-TRAIN_WINDOW = 60                # steps, 10 update cycles
-OCC_TRAIN_WINDOW = 64            # steps, 4 grid-update cycles
+TRAIN_WINDOW = 36                # steps, 6 update cycles (60 before PR 20)
+OCC_TRAIN_WINDOW = 32            # steps, 2 grid-update cycles (64 before PR 20)
 SELECTION_TOL = 1e-3             # share of rays whose samples may differ
 OCCS_L2_TOL = 1e-5               # card vs CPU grid after an update, in L2
 GRAD_L2_TOL = 1e-2               # card vs CPU, each gradient leaf in L2
@@ -374,7 +386,7 @@ WINDOW_RAYS_PER_S = {}            # train_phase's window rate per method
 # the exported path's frames per keyframe transition, the viewer's
 # /render sizes (width, height), each asked for rgb and depth
 CLI_STEPS = 16
-CLI_RENDER_STEPS = 8
+CLI_RENDER_STEPS = 4
 CLI_PATH_STEPS = 2
 VIEWER_SIZES = ((240, 135), (960, 540))
 # the nerfacto family through the entry points: depth-nerfacto on a
@@ -400,7 +412,7 @@ HYPERNERF_STEPS = 32
 HYPERNERF_IST_FROM = 16
 DNERF_FIXTURE = {"num_frames": 4, "h": 400, "w": 400}
 DNERF_STEPS = 8
-DNERF_RENDER_STEPS = 4
+DNERF_RENDER_STEPS = 2
 BALL_BOX_MIN = 8                  # px a side of a DynMetric box, at least
 SEMANTIC = "semantic-nerfw"
 SEMANTIC_CPU_SEEDS = (2,)
@@ -416,7 +428,7 @@ NEUS_CLI_STEPS = 16
 # cli_neus' ring: a quarter of NERFSTUDIO_FIXTURE's pixels (a NeuS frame
 # at 960x540 takes ~36 s), 9 train frames and 1 eval frame
 NEUS_FIXTURE = {"num_frames": 10, "h": 270, "w": 480}
-NEUS_RENDER_STEPS = 2
+NEUS_RENDER_STEPS = 1
 # the exporter's arguments beyond --load-config and --output-dir: its
 # defaults on the card
 # a user's COLMAP capture, and the remaining dataparsers
@@ -428,8 +440,10 @@ POSE_TOL = 1e-5                   # the parsed ring against the capture's
 NGP = "instant-ngp"
 PARSER_FIXTURE = {"h": 270, "w": 480}
 PARSER_STEPS = 8
-EXPORT_ARGS = {"pointcloud": [], "cameras": [], "marching-cubes": [],
-               "tsdf": [], "poisson": []}
+# the exporter's defaults but three cameras (of ten) for the renders
+EXPORT_ARGS = {"pointcloud": ["--num-cameras", "3"], "cameras": [],
+               "marching-cubes": [], "tsdf": ["--num-cameras", "3"],
+               "poisson": ["--num-cameras", "3"]}
 
 
 def log(*a):
@@ -3998,7 +4012,7 @@ def cli_ingp_phase(dev, root, launches) -> None:
     viewer on a free port, which answers a /render at VIEWER_SIZES[0]
     mid-run; the trainer's own render of an eval camera, then
     ``eval_setup``'s of the snapshot, which must hold the grid exactly and
-    render the same image; ``snt-eval``; an 8-frame ``snt-render`` spiral;
+    render the same image; ``snt-eval``; a 4-frame ``snt-render`` spiral;
     the viewer's /render at VIEWER_SIZES on the snapshot.  Fails unless
     scatter_add_rows launched on every training step."""
     import io
@@ -4503,7 +4517,8 @@ def cli_neus_phase(dev, root, launches) -> None:
 
 def cli_export_phase(dev, root, launches) -> None:
     """The exporter's five subcommands (``scripts.exporter.main``, at
-    EXPORT_ARGS: its defaults on the card) on ``cli_kplanes``' K-Planes
+    EXPORT_ARGS: its defaults on the card, but three eval cameras for the
+    renders of pointcloud, tsdf and poisson) on ``cli_kplanes``' K-Planes
     snapshot: pointcloud, cameras, marching-cubes, tsdf and poisson, each
     timed, with the plane kernels it launched counted; then marching-cubes
     once more at the density's median on a 32^3 grid (the seeded
@@ -4569,13 +4584,13 @@ def cli_export_phase(dev, root, launches) -> None:
 
 
 # the paper's resolution study through the ported sweep harness: its third
-# parameter set (F = 24, scales 1..32: 2048^2 space planes), 32 steps on
+# parameter set (F = 24, scales 1..32: 2048^2 space planes), 16 steps on
 # the Trainer phases' fixture, the render of a two-frame camera path, eval;
 # then plot_kplane on the snapshot, compute_ist on the fixture and the
 # snapshot's render against the CPU on SWEEP_CPU_RAYS rays
 SWEEP = "kp_res_study"
 SWEEP_RUN = 2
-SWEEP_STEPS = 32
+SWEEP_STEPS = 16
 SWEEP_CPU_RAYS = 1024
 SWEEP_OVERRIDES = {}              # dotted train flags over the run's params
 # runs an entry point's command in its own process: chip_smoke's
@@ -5105,6 +5120,14 @@ PARALLEL_TIMEOUT_S = 300.0       # every collective and join of the phase
 PAIR_BUILD = True                # (b): both ranks build a kernel at once
 PAIR_HOST_STEPS = 16             # the data path's steps, alone and per rank
 RANK_SETUP = None                # run first in a spawned rank (the rehearsal)
+# (d): snt-render, snt-export and the viewer over the ranks, on cli_kplanes'
+# snapshot
+ENTRY_FRAMES = 2                 # snt-render's spiral frames (the eval camera's size)
+ENTRY_MC_RESOLUTION = 32         # snt-export marching-cubes' grid
+ENTRY_VIEWER_SIZES = ((240, 135), (240, 135), (960, 540))   # its POST /renders
+ENTRY_PATH_SIZE = (240, 135)     # the viewer's path jobs' frames
+ENTRY_CANCEL_FRAMES = 3          # the path job cancelled as it starts
+ENTRY_PIXEL_SHARE = 0.999        # uint8 frames: equal on this share of values
 
 
 def _clone_step(out):
@@ -5347,11 +5370,12 @@ def host_batches(dev, config) -> dict:
 
 
 def parallel_pair_rank(dev, specs: list, build_dir=None, setup=None,
-                       host_config=None) -> list:
+                       host_config=None, entry=None) -> list:
     """Phases (b) and (c) on one rank of a pair sharing the card: the
     concurrent build into ``build_dir`` (when given), the data path's host
     work of ``host_config`` (when given; both ranks at once), then each
-    method's ``pair_run``.  ``setup`` runs first (the CPU rehearsal's
+    method's ``pair_run``, then part (d)'s ``entry_points_rank`` of
+    ``entry`` (when given).  ``setup`` runs first (the CPU rehearsal's
     stubs)."""
     from soccernerfs_tpu_torch.parallel import mesh
 
@@ -5366,15 +5390,19 @@ def parallel_pair_rank(dev, specs: list, build_dir=None, setup=None,
     for spec in specs:
         results.append(pair_run(dev, world, spec))
         release_memory()
+    if entry is not None:
+        results.append(entry_points_rank(dev, entry))
     return results
 
 
-def parallel_world_one(dev, argv: list) -> dict:
+def parallel_world_one(dev, argv: list, entry=None) -> dict:
     """Phase (a) on its one rank: ``snt-train`` with ``force_shard_map``
     over the process group the caller made (so the Trainer's step is the
     sharded one at world size 1), then, from the trained state, the
     sharded path against the unsharded ``TrainStep`` given the same
-    (seed, step, 0) draws, and both steps' times in P S S P turns."""
+    (seed, step, 0) draws, and both steps' times in P S S P turns; then
+    part (d)'s ``entry_points_rank`` of ``entry`` (when given) in the same
+    group."""
     import copy
 
     from soccernerfs_tpu_torch.engine.trainer import Trainer, step_seed
@@ -5452,7 +5480,297 @@ def parallel_world_one(dev, argv: list) -> dict:
     out["peak_gib"] = peak
     out["ms_all"] = times
     out["rays"] = int(batch["cam_idx"].shape[0])
+    if entry is not None:
+        del trainer, sharded, plain, state, other, batch
+        release_memory()
+        out["entry"] = entry_points_rank(dev, entry)
     return out
+
+
+def entry_spec(config: Path, out: Path, iso_level: float) -> dict:
+    """Part (d)'s command lines on ``config``'s run, writing under
+    ``out``."""
+    load = ["--load-config", str(config)]
+    return {
+        "render": [*load, "--traj", "spiral", "--interpolation-steps",
+                   str(ENTRY_FRAMES), "--output-format", "images",
+                   "--output-path", str(out / "render" / "spiral.mp4")],
+        "export": {
+            "marching-cubes": ["marching-cubes", *load, "--output-dir",
+                               str(out / "marching-cubes"), "--resolution",
+                               str(ENTRY_MC_RESOLUTION), "--iso-level",
+                               repr(iso_level)],
+            "pointcloud": ["pointcloud", *load, "--output-dir",
+                           str(out / "pointcloud"), "--num-cameras", "1"]},
+        "viewer": [*load, "--port", "0"]}
+
+
+def entry_viewer_client(server) -> dict:
+    """Part (d)'s viewer client on rank 0: POST /render at each of
+    ENTRY_VIEWER_SIZES (eval camera 0, rgb), timed; two keyframes; a path
+    job of two frames at ENTRY_PATH_SIZE, run to its end; a path job of
+    ENTRY_CANCEL_FRAMES frames cancelled as it starts.  Returns the PNGs,
+    ms per request, both jobs' last status and the time it ended."""
+    import urllib.request
+
+    from soccernerfs_tpu_torch.core.camera_paths import get_spiral_path
+
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    cams = server.viewer_state.trainer.eval_cameras
+    c2w = cams.camera_to_worlds[0].tolist()
+    fov = float(np.rad2deg(2 * np.arctan(float(cams.height[0]) / 2
+                                         / float(cams.fy[0]))))
+    out = {"render": []}
+    for width, height in ENTRY_VIEWER_SIZES:
+        t0 = time.perf_counter()
+        png = post(f"{url}/render", {"c2w": c2w, "fov": fov, "width": width,
+                                      "height": height, "output": "rgb"})
+        out["render"].append({"size": f"{width}x{height}", "png": png,
+                              "ms": 1e3 * (time.perf_counter() - t0)})
+    path = get_spiral_path(cams, steps=2)
+    for i in range(2):
+        post(f"{url}/keyframe", {"c2w": path.camera_to_worlds[i].tolist(),
+                                 "fov": fov})
+
+    def finished():
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(f"{url}/render_status", timeout=60) as r:
+                status = json.loads(r.read())
+            if not status["running"]:
+                return status
+            time.sleep(0.05)
+        raise AssertionError("parallel entry points: a viewer path job ran on")
+
+    width, height = ENTRY_PATH_SIZE
+    for job, frames in (("path", 2), ("cancelled", ENTRY_CANCEL_FRAMES)):
+        t0 = time.perf_counter()
+        post(f"{url}/render_path", {"width": width, "height": height, "fps": 24,
+                                    "steps_per_transition": frames - 1})
+        if job == "cancelled":
+            post(f"{url}/cancel_render", {})
+        out[job] = finished()
+        out[job]["s"] = time.perf_counter() - t0
+    out["t_end"] = time.monotonic()
+    return out
+
+
+def entry_points_rank(dev, spec: dict) -> dict:
+    """Part (d) on this rank of the caller's process group: snt-render,
+    snt-export marching-cubes and pointcloud and the viewer (rank 0
+    serving ``entry_viewer_client``), each through its ``main`` (in the
+    group: ``launch`` runs it on this rank), timed, with the launch
+    counts at 0 before the first.  Spies: rank 0 keeps every
+    ``Trainer.render_camera``'s camera (host arrays) and outputs and every
+    density volume; every rank notes each file it writes."""
+    import pathlib
+
+    from PIL import Image
+
+    from soccernerfs_tpu_torch.engine.trainer import Trainer
+    from soccernerfs_tpu_torch.parallel import mesh
+    from soccernerfs_tpu_torch.scripts import exporter
+    from soccernerfs_tpu_torch.scripts import render as render_script
+    from soccernerfs_tpu_torch.utils import eval_utils
+    from soccernerfs_tpu_torch.viewer import server as viewer
+    from soccernerfs_tpu_torch.viewer.dispatch import host_camera
+
+    rank = mesh.rank()
+    kind = ["render"]
+    renders, volumes, writes, setup_s = [], [], [], []
+    saved = []
+
+    def spy(obj, name, make):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, make(getattr(obj, name)))
+
+    def render(fn):
+        def wrapper(trainer, cameras, index, chunk=None):
+            outputs = fn(trainer, cameras, index, chunk)
+            if rank == 0:
+                renders.append((kind[0], host_camera(cameras, index), outputs))
+            return outputs
+        return wrapper
+
+    def volume(fn):
+        def wrapper(*args, **kwargs):
+            result = fn(*args, **kwargs)
+            volumes.append(result[0])
+            return result
+        return wrapper
+
+    def setup(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            setup_s.append(time.perf_counter() - t0)
+            return result
+        return wrapper
+
+    def written(fn):
+        def wrapper(target, *args, **kwargs):
+            if isinstance(target, (str, os.PathLike)):
+                writes.append(str(target))
+            return fn(target, *args, **kwargs)
+        return wrapper
+
+    spy(Trainer, "render_camera", render)
+    spy(exporter, "density_volume", volume)
+    spy(exporter, "write_ply", written)
+    spy(eval_utils, "eval_setup", setup)
+    spy(render_script, "eval_setup", setup)
+    spy(Image.Image, "save", written)
+    spy(pathlib.Path, "write_text", written)
+    out = {"rank": rank, "export": {}}
+    try:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = render_script.main(spec["render"], device=dev)
+        torch.cuda.synchronize()
+        out["render"] = {"s": time.perf_counter() - t0, "setup_s": sum(setup_s),
+                         "frames": None if frames is None else
+                         [str(p) for p in sorted(frames.glob("*.png"))]}
+        for cmd, argv in spec["export"].items():
+            kind[0] = cmd
+            t0 = time.perf_counter()
+            path = exporter.main(argv, device=dev)
+            torch.cuda.synchronize()
+            out["export"][cmd] = {"s": time.perf_counter() - t0,
+                                  "path": None if path is None else str(path)}
+        kind[0] = "viewer"
+        t0 = time.perf_counter()
+        served = viewer.main(spec["viewer"], device=dev, on_serve=(
+            entry_viewer_client if rank == 0 else None))
+        out["viewer"] = {"s": time.perf_counter() - t0, **served}
+        out["launches"] = launch_counts()
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+    out.update(renders=renders, volumes=volumes, writes=writes,
+               setup_s=setup_s, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def check_entry_points(ref, results: dict, exits: dict, iso_level: float,
+                       launches: dict) -> None:
+    """Part (d)'s checks and lines: ``results`` {world size: every rank's
+    ``entry_points_rank``}, ``ref`` the single-process Trainer of the same
+    run.  Every render rank 0 kept against ``ref``'s render of the same
+    camera (rgb and accumulation within 2e-3, median depth within 1e-3
+    relative on 99 % of rays, finite); snt-render's PNGs against
+    ``compose_frame`` of ``ref``'s outputs and the viewer's /render PNGs
+    against its ``_to_rgb8`` (equal on ENTRY_PIXEL_SHARE of the values,
+    within one level elsewhere); the density volume within 1e-5 of its
+    max; kplanes_fwd_fused launched on every rank and no per-plane forward
+    kernel; files from rank 0 alone; every rank ended within
+    PARALLEL_TIMEOUT_S of the viewer's last request (``exits``: {world
+    size: the seconds from it to the spawn's return})."""
+    import io
+
+    from PIL import Image
+
+    from soccernerfs_tpu_torch.scripts import exporter
+    from soccernerfs_tpu_torch.scripts.render import compose_frame
+    from soccernerfs_tpu_torch.viewer.dispatch import device_cameras
+    from soccernerfs_tpu_torch.viewer.server import ViewerState
+
+    tag = "parallel entry points"
+    refs = {}
+
+    def reference(camera):
+        key = b"".join(np.ascontiguousarray(v).tobytes() for v in camera.values())
+        if key not in refs:
+            refs[key] = ref.render_camera(device_cameras(camera, ref.device), 0)
+        return refs[key]
+
+    def uint8_off(got, want) -> dict:
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        return {"share_equal": float((diff == 0).mean()), "max": int(diff.max())}
+
+    want_volume = exporter.density_volume(ref, ENTRY_MC_RESOLUTION, None)[0]
+    for size, ranks in sorted(results.items()):
+        rank0 = ranks[0]
+        found = {"renders": len(rank0["renders"]), "iso_level": iso_level,
+                 "max_abs": {}, "depth_off": 0.0}
+        for kind, camera, got in rank0["renders"]:
+            want = reference(camera)
+            for k in ("rgb", "accumulation"):
+                found["max_abs"][k] = max(found["max_abs"].get(k, 0.0),
+                                          float(np.abs(got[k] - want[k]).max()))
+            rel = (np.abs(got["depth"] - want["depth"])
+                   / np.maximum(np.abs(want["depth"]), 1e-6))
+            found["depth_off"] = max(found["depth_off"], float((rel > 1e-3).mean()))
+            if not all(np.isfinite(v).all() for v in got.values()):
+                raise AssertionError(f"{tag}, world {size}: a {kind} render is "
+                                     f"not finite")
+        if (max(found["max_abs"].values()) > 2e-3 or found["depth_off"] > 0.01):
+            raise AssertionError(f"{tag}, world {size}: renders differ from the "
+                                 f"single process's: {found}")
+        # snt-render's frames and the viewer's PNGs
+        frames = [(r, c) for kind, c, r in rank0["renders"] if kind == "render"]
+        pngs = rank0["render"]["frames"]
+        if len(pngs) != ENTRY_FRAMES or len(frames) != ENTRY_FRAMES:
+            raise AssertionError(f"{tag}, world {size}: {len(pngs)} PNGs of "
+                                 f"{len(frames)} frames")
+        uint8 = [uint8_off(np.asarray(Image.open(p)),
+                           compose_frame(reference(c), ["rgb"]))
+                 for p, (_, c) in zip(pngs, frames)]
+        client = rank0["viewer"]["client"]
+        viewer_cams = [c for kind, c, _ in rank0["renders"] if kind == "viewer"]
+        for reply, camera in zip(client["render"], viewer_cams):
+            uint8.append(uint8_off(np.asarray(Image.open(io.BytesIO(reply["png"]))),
+                                   ViewerState._to_rgb8(reference(camera), "rgb")))
+        found["uint8"] = uint8
+        if any(u["share_equal"] < ENTRY_PIXEL_SHARE or u["max"] > 1 for u in uint8):
+            raise AssertionError(f"{tag}, world {size}: written frames differ: "
+                                 f"{uint8}")
+        (volume,) = rank0["volumes"]
+        found["volume_max_rel"] = float(np.abs(volume - want_volume).max()
+                                        / max(float(np.abs(want_volume).max()), 1e-30))
+        if found["volume_max_rel"] > 1e-5:
+            raise AssertionError(f"{tag}, world {size}: density volume "
+                                 f"{found['volume_max_rel']:.3e} of its max off")
+        # the viewer's renders: every rank took part in each
+        counts = [r["viewer"]["renders"] for r in ranks]
+        done = (len(ENTRY_VIEWER_SIZES) + client["path"]["frame"]
+                + client["cancelled"]["frame"])
+        if counts != [done] * size:
+            raise AssertionError(f"{tag}, world {size}: viewer renders per rank "
+                                 f"{counts}, {done} answered")
+        for r in ranks:
+            name = f"parallel entry points, world {size}, rank {r['rank']}"
+            launches[name] = r["launches"]
+            if (r["launches"]["kplanes_fwd_fused"] <= 0
+                    or any(r["launches"][k] for k in FORWARD)):
+                raise AssertionError(f"{tag}: {name} launched {r['launches']}")
+            if r["rank"] != 0 and r["writes"]:
+                raise AssertionError(f"{tag}: {name} wrote {r['writes']}")
+            for cmd, row in r["export"].items():
+                if (row["path"] is None) != (r["rank"] != 0):
+                    raise AssertionError(f"{tag}: {name} {cmd} returned "
+                                         f"{row['path']}")
+        if exits[size] > PARALLEL_TIMEOUT_S:
+            raise AssertionError(f"{tag}, world {size}: the ranks ended "
+                                 f"{exits[size]:.1f} s after the viewer's last "
+                                 f"request")
+        render = rank0["render"]
+        log(f"{tag}, world {size} ({'NCCL' if size == 1 else 'gloo, two ranks on one card'}; "
+            f"{card_line()}): snt-render {(render['s'] - render['setup_s']) / ENTRY_FRAMES:.4f} "
+            f"s a frame ({ENTRY_FRAMES} frames, eval_setup {render['setup_s']:.3f} s "
+            f"left out); snt-export "
+            + ", ".join(f"{cmd} {row['s']:.3f} s" for cmd, row in rank0["export"].items())
+            + "; viewer ms per /render "
+            + ", ".join(f"{reply['size']} {reply['ms']:.1f}" for reply in client["render"])
+            + f", path job of {client['path']['frame']} frames {client['path']['s']:.3f} s,"
+            f" cancelled job {json.dumps({k: client['cancelled'].get(k) for k in ('frame', 'total', 'cancelled')})};"
+            f" eval_setup s per rank 0 call {json.dumps([round(x, 3) for x in rank0['setup_s']])};"
+            f" renders against the single process {json.dumps(found)};"
+            f" viewer renders per rank {counts}; the ranks ended {exits[size]:.3f} s"
+            f" after the viewer's last request; launches "
+            + json.dumps([{k: v for k, v in r["launches"].items() if v} for r in ranks])
+            + f"; peak GiB {json.dumps([round(r['peak_gib'], 3) for r in ranks])}")
 
 
 def parallel_phase(dev, root, launches) -> None:
@@ -5467,7 +5785,17 @@ def parallel_phase(dev, root, launches) -> None:
         PAIR_KPLANES_STEPS steps from an update step, a sharded 960x540 frame
         (``pair_run``);
     (c) the same pair for instant-ngp-bounded through a grid update
-        (PAIR_INGP_STEPS steps), its registered batch.
+        (PAIR_INGP_STEPS steps), its registered batch;
+    (d) the entry points over the ranks on ``cli_kplanes``' snapshot (the
+        registered k-planes): snt-render of ENTRY_FRAMES 960x540 frames,
+        snt-export marching-cubes (ENTRY_MC_RESOLUTION^3, at the volume's
+        median) and pointcloud of one camera, and the viewer (POST /render
+        at ENTRY_VIEWER_SIZES, a path job of two frames, one cancelled as
+        it starts), each through its ``main``: at world size 1 over NCCL
+        in (a)'s process group (a group of one rank, as
+        ``--machine.force-shard-map True`` runs them) and over (b)'s pair,
+        after its steps (``entry_points_rank``); held to the single
+        process's renders of the same cameras (``check_entry_points``).
 
     First both ranks of the pair build and load a kernel library into one
     empty directory at once (``concurrent_build``), then draw the
@@ -5475,12 +5803,29 @@ def parallel_phase(dev, root, launches) -> None:
     path's host work, which every rank pays, beside one process's alone).
 
     Each rank's launches (the comparisons' left out) join ``launches``;
-    fails unless every plane kernel launched in (a) and (b) and
-    scatter_add_rows in each rank of (c)."""
+    fails unless every plane kernel launched in (a) and (b),
+    scatter_add_rows in each rank of (c) and kplanes_fwd_fused on every
+    rank of (d).  Two ranks on one card measure the overhead of the split,
+    not a speedup."""
     from soccernerfs_tpu_torch.configs import method_configs as mc
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
     from soccernerfs_tpu_torch.parallel import mesh
+    from soccernerfs_tpu_torch.scripts import exporter
+    from soccernerfs_tpu_torch.utils.eval_utils import eval_setup
+
+    # (d)'s snapshot, its single-process Trainer and the marching-cubes
+    # level (the density's median: the default level's mesh is empty)
+    configs = sorted((root / "cli").glob("**/config.yml"))
+    if len(configs) != 1:
+        raise AssertionError(f"parallel entry points: cli_kplanes' snapshot: "
+                             f"{configs}")
+    _, ref, _ = eval_setup(configs[0], "inference", device=dev)
+    iso_level = float(np.median(exporter.density_volume(
+        ref, ENTRY_MC_RESOLUTION, None)[0]))
+    entries = {n: entry_spec(configs[0], root / "parallel_entry" / f"world{n}",
+                             iso_level) for n in (1, 2)}
+    exits = {}
 
     train_kernels = [k.__name__ for k in pk.TRAIN_KERNELS]
     data = root / "broadcaststyle"
@@ -5493,8 +5838,9 @@ def parallel_phase(dev, root, launches) -> None:
     argv += ["broadcaststyle-data", "--fps-downsample", "1", "--data", str(data)]
     release_memory()
     t0 = time.perf_counter()
-    (a,) = mesh.spawn(parallel_world_one, 1, (argv,), devices=[dev],
+    (a,) = mesh.spawn(parallel_world_one, 1, (argv, entries[1]), devices=[dev],
                       timeout_s=PARALLEL_TIMEOUT_S)
+    exits[1] = time.monotonic() - a["entry"]["viewer"]["client"]["t_end"]
     rays = a["rays"]
     launches[f"parallel snt-train {MODEL}, world 1"] = a["launches"]
     missing = [k for k in train_kernels if a["launches"][k] <= 0]
@@ -5543,10 +5889,11 @@ def parallel_phase(dev, root, launches) -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_build_") as build_dir:
         ranks = mesh.spawn(parallel_pair_rank, 2,
                            (specs, build_dir if PAIR_BUILD else None, RANK_SETUP,
-                            host_config),
+                            host_config, entries[2]),
                            devices=[dev, dev], backend="gloo",
                            timeout_s=PARALLEL_TIMEOUT_S)
     pair_s = time.perf_counter() - t0
+    exits[2] = time.monotonic() - ranks[0][-1]["viewer"]["client"]["t_end"]
     ist = TRAINER_DATA["iters_to_start_is"]
 
     def host_line(h):
@@ -5594,6 +5941,11 @@ def parallel_phase(dev, root, launches) -> None:
                 + (f", against rank 0's own: {json.dumps(got['frame'])}"
                    if "frame" in got else ""))
     log(f"parallel pair: {pair_s:.3f} s with the spawn")
+    t0 = time.perf_counter()
+    check_entry_points(ref, {1: [a["entry"]], 2: [r[-1] for r in ranks]}, exits,
+                       iso_level, launches)
+    log(f"parallel entry points: the single process's renders and checks "
+        f"{time.perf_counter() - t0:.3f} s")
 
 
 def main() -> int:
@@ -5617,6 +5969,7 @@ def main() -> int:
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
+    t_main = time.perf_counter()
     dev = torch.device(DEVICE)
     card = card_line()
     log("card:", card)
@@ -5636,6 +5989,7 @@ def main() -> int:
     kernels, launches = {}, {}
 
     # ---- K-Planes: plane kernels, render, train
+    t_block = time.perf_counter()
     _module, cfg, _camera_optimizer = method_parts(MODEL)
     tree, params, staged = make_params(MODEL, dev, time_noise=0.05)
     t0 = time.perf_counter()
@@ -5732,8 +6086,10 @@ def main() -> int:
     kplanes_so3_phases(tree, dev, args.trace, kernels, launches)
     log(f"kplanes_so3_phases {KPLANES_SO3}: {time.perf_counter() - t0:.3f} s")
     del tree
+    log(f"k-planes block: {time.perf_counter() - t_block:.3f} s")
 
     # ---- nerfacto: the scatter kernel, render, train (camera optimizer on)
+    t_block = time.perf_counter()
     _module, ncfg, _camera_optimizer = method_parts(NERFACTO)
     # an appearance embedding per training camera: the ring's 20
     tree, params, _ = make_params(NERFACTO, dev, num_train_data=20)
@@ -5752,12 +6108,14 @@ def main() -> int:
     scatter_in_step(NERFACTO, kernels["scatter_add_rows"], in_step)
     train_cpu_check(NERFACTO, tree, dev, NERFACTO_CPU_SEEDS, witnesses=False)
     del tree
+    log(f"nerfacto block: {time.perf_counter() - t_block:.3f} s")
 
     # ---- nerfacto with its normals branch and a random background
     t0 = time.perf_counter()
     normals_phases(dev, cams, aabb, args.trace, launches)
     log(f"normals_phases {NORMALS}: {time.perf_counter() - t0:.3f} s")
 
+    t_block = time.perf_counter()
     # ---- depth-nerfacto: nerfacto's render, and its step with the DS-NeRF
     # loss on batches with target depths (camera optimizer on); the
     # scatter's launches of one such step, captured, bound its in-step time
@@ -5774,6 +6132,7 @@ def main() -> int:
     scatter_in_step(DEPTH, kernels["scatter_add_rows"], in_step)
     train_cpu_check(DEPTH, tree, dev, DEPTH_CPU_SEEDS, witnesses=True)
     del tree
+    log(f"depth-nerfacto block: {time.perf_counter() - t_block:.3f} s")
 
     # ---- semantic-nerfw: nerfacto with the semantic head
     t0 = time.perf_counter()
@@ -5784,13 +6143,17 @@ def main() -> int:
     # decomposition field), camera optimizer off as registered; the
     # scatter's width-1 launches
     for method in (NERFPLAYER, NP):
+        t_block = time.perf_counter()
         proposal_method_phases(method, dev, cams, aabb, args.trace, kernels,
                                launches, so3=method == NERFPLAYER)
+        log(f"proposal_method_phases {method}: {time.perf_counter() - t_block:.3f} s")
 
     # ---- the occupancy-grid methods
     for method in (INGP, NPNGP, NPNGPC):
+        t_block = time.perf_counter()
         occupancy_method_phases(method, dev, cams, aabb, args.trace, kernels,
                                 launches)
+        log(f"occupancy_method_phases {method}: {time.perf_counter() - t_block:.3f} s")
 
     # ---- the classic methods: TensoRF, vanilla NeRF, mip-NeRF
     for method in (TENSORF, VNERF, MIPNERF):
@@ -5830,6 +6193,8 @@ def main() -> int:
         "kplanes_fwd_fused": (f"{pallas}:591,1062", "plane_kernels.cu"),
     }
     log("main-path launches:", json.dumps(launches))
+    log(f"chip_smoke: {time.perf_counter() - t_main:.3f} s from the card line "
+        f"to the kernels line")
     summary = []
     for name in (k.__name__ for k in all_kernels()):
         # the kernel phases' own cases at the main paths' widths, as

@@ -322,22 +322,6 @@ class TrainStep:
         return {"Train Loss": loss, **loss_dict, **metrics}
 
 
-class _LocalRenders:
-    """A trainer as its viewer sees it over a world: the same attributes,
-    and renders of every ray on this rank alone."""
-
-    def __init__(self, trainer: "Trainer"):
-        self._trainer = trainer
-
-    def __getattr__(self, name):
-        return getattr(self._trainer, name)
-
-    def render_camera(self, cameras: Cameras, camera_index: int,
-                      chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
-        return self._trainer.render_camera(cameras, camera_index, chunk,
-                                           local=True)
-
-
 def step_check(step: int, interval: int, run_at_zero: bool = False) -> bool:
     """Whether a cadence of ``interval`` steps fires at ``step`` (never for
     interval 0)."""
@@ -402,9 +386,12 @@ class Trainer:
     draws the same global batch and trains on its rows
     (``TrainStep``'s sharded step), renders split each chunk over the
     ranks, and only rank 0 writes the config, the dataparser's transform,
-    the writers' output, checkpoints, and serves the viewer (which renders
-    locally).  Every rank resumes from ``load_dir``; the state is then
-    broadcast from rank 0.
+    the writers' output, checkpoints, and serves the viewer.  Its renders
+    split over the ranks too: with "viewer" in ``vis`` every rank holds a
+    ``viewer.dispatch.Dispatcher`` and serves the viewer's queued renders
+    after each step (``serve_pending``: one broadcast a step; a run
+    without the viewer makes none).  Every rank resumes from
+    ``load_dir``; the state is then broadcast from rank 0.
     """
 
     def __init__(self, config: TrainerConfig, test_mode: str = "val",
@@ -418,6 +405,7 @@ class Trainer:
         self.model_cfg = config.pipeline.model
         config.seed_everything()
         self.viewer_server = None
+        self.dispatcher = None
         self.replica_digests = None
         # held around each step while a viewer serves renders
         self._step_lock = contextlib.nullcontext()
@@ -461,13 +449,18 @@ class Trainer:
         if self.world is not None:
             mesh.replicate_tree(self.state.tensors(), self.world.group)
 
+        viewer = self.test_mode == "val" and "viewer" in config.vis
+        if viewer and self.world is not None:
+            from soccernerfs_tpu_torch.viewer.dispatch import Dispatcher
+
+            self.dispatcher = Dispatcher(self)
         if self.test_mode == "val" and mesh.is_main_process():
             config.save_config()
             self.datamanager.train_dataparser_outputs.save_dataparser_transform(
                 self.base_dir / "dataparser_transforms.json")
             writer.setup_writers(config.vis, self.base_dir, config.experiment_name)
             profiler.setup_profiler(config.logging.enable_profiler)
-            if "viewer" in config.vis:
+            if viewer:
                 self._start_viewer()
         return self
 
@@ -480,15 +473,15 @@ class Trainer:
         The step updates the params and the optimizer state in place, so
         ``train_iteration`` holds the server's render lock around each
         step: a render waits for the step to end and never reads a
-        half-applied update."""
+        half-applied update.  Over a world the server's renders go through
+        ``self.dispatcher`` instead, which the training thread serves
+        between steps."""
         from soccernerfs_tpu_torch.viewer.server import make_server
 
-        # over a world the other ranks never enter a viewer's render: it
-        # must make no collective call
-        server = make_server(self if self.world is None else _LocalRenders(self),
-                             "0.0.0.0", self.config.viewer.websocket_port,
-                             output_dir=self.base_dir)
-        self._step_lock = server.viewer_state.lock
+        server = make_server(self, "0.0.0.0", self.config.viewer.websocket_port,
+                             output_dir=self.base_dir, dispatcher=self.dispatcher)
+        if self.dispatcher is None:
+            self._step_lock = server.viewer_state.lock
         threading.Thread(target=server.serve_forever, daemon=True).start()
         self.viewer_server = server
         print(f"[viewer] serving on http://localhost:{server.server_address[1]}")
@@ -563,18 +556,16 @@ class Trainer:
             self._generator(step + 1_000_000), step)
 
     def render_camera(self, cameras: Cameras, camera_index: int,
-                      chunk: Optional[int] = None, local: bool = False
-                      ) -> Dict[str, np.ndarray]:
+                      chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
         """A whole image of ``cameras[camera_index]`` at the state's params
         (and model state), as host arrays.  Over a world every rank must
-        call it alike: each renders its rows of every chunk (JAX's sharded
-        render); ``local`` renders every ray here instead, with no
-        collective (the viewer's renders, which only rank 0 makes)."""
+        call it alike, from one thread: each renders its rows of every
+        chunk (JAX's sharded render)."""
         aux = self.state.aux if hasattr(self.model, "eval_kwargs") else None
         out = render_camera(self.model_cfg, self.state.params, cameras,
                             camera_index, chunk, self.device, aabb=self.aabb,
                             model=self.config.pipeline.model_name, aux=aux,
-                            world=None if local else self.world)
+                            world=self.world)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def eval_image(self, step: int) -> Dict[str, float]:
@@ -622,7 +613,20 @@ class Trainer:
         then the final checkpoint.  Over a world every rank runs it alike,
         and at its end every tensor of the state must hold the same bits on
         every rank (``parallel.mesh.check_replicated``; the ranks' digests
-        in ``replica_digests``)."""
+        in ``replica_digests``).  With a ``dispatcher`` every rank serves the
+        viewer's queued renders after each step; when the loop ends (or
+        fails) rank 0's dispatcher refuses further renders."""
+        try:
+            self._train_loop()
+        finally:
+            if self.dispatcher is not None:
+                self.dispatcher.close("training over ranks has ended: the "
+                                      "live viewer renders no more")
+        if self.world is not None:
+            self.replica_digests = mesh.check_replicated(self.state.tensors(),
+                                                         self.world.group)
+
+    def _train_loop(self) -> None:
         config = self.config
         start_step = self.state.step
         num_iters = config.max_num_iterations
@@ -635,6 +639,8 @@ class Trainer:
 
         for step in range(start_step, num_iters):
             metrics = self.train_iteration(step)
+            if self.dispatcher is not None:
+                self.dispatcher.serve_pending()
             if config.pipeline.dynamic_batch and "num_samples_per_batch" in metrics:
                 num_samples = self._read(
                     {"n": metrics["num_samples_per_batch"]})["n"]
@@ -680,9 +686,6 @@ class Trainer:
         writer.write_out_storage()
         print(f"training finished: {num_iters - start_step} steps in "
               f"{time.time() - t_start:.1f}s")
-        if self.world is not None:
-            self.replica_digests = mesh.check_replicated(self.state.tensors(),
-                                                         self.world.group)
 
     def save_checkpoint(self, step: int) -> Optional[Path]:
         """Checkpoint the state as that of loop step ``step`` (the state's

@@ -20,6 +20,12 @@ The renders and the density queries run on the device (CUDA unless the
 caller names another); each image and each block of the volume comes to
 the host once, and the fusion, the solve and the meshing run there in
 numpy.
+
+Every subcommand runs on the ranks that the run's ``machine`` config
+names, as ``snt-train`` does: every rank sets up the run, the renders
+split each chunk's rays over the ranks and the density volume each block
+of points; rank 0 alone fuses, solves, meshes and writes, and returns
+the file written (the other ranks None).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from soccernerfs_tpu_torch.parallel import mesh
 from soccernerfs_tpu_torch.utils.device import full_f32
 
 
@@ -78,26 +85,40 @@ def _image_rays(cams, idx: int, h: int, w: int):
             rays.directions.cpu().numpy().reshape(h, w, 3))
 
 
+def _rendered(trainer, num_cameras: int):
+    """(index, outputs) of the first ``num_cameras`` eval cameras' renders:
+    every rank renders each (over a world the renders split each chunk
+    over the ranks), rank 0 alone gets them."""
+    cams = trainer.eval_cameras
+    for idx in range(min(num_cameras, cams.num_cameras)):
+        outputs = trainer.render_camera(cams, idx)
+        if mesh.is_main_process():
+            yield idx, outputs
+
+
 def _backproject(trainer, num_cameras: int, downsample: int = 4):
     """Render eval cameras; their depth backprojected to world points with
     the rendered colours, every ``downsample``-th pixel of accumulation
-    above 0.5."""
+    above 0.5 (rank 0; the other ranks render alike and get None)."""
     cams = trainer.eval_cameras
     pts, cols = [], []
-    for idx in range(min(num_cameras, cams.num_cameras)):
-        outputs = trainer.render_camera(cams, idx)
+    for idx, outputs in _rendered(trainer, num_cameras):
         h, w = outputs["rgb"].shape[:2]
         origins, dirs = _image_rays(cams, idx, h, w)
         sl = (slice(None, None, downsample), slice(None, None, downsample))
         keep = (outputs["accumulation"] > 0.5)[sl]
         pts.append((origins + dirs * outputs["depth"][..., None])[sl][keep])
         cols.append(outputs["rgb"][sl][keep])
+    if not mesh.is_main_process():
+        return None, None
     return np.concatenate(pts), np.concatenate(cols)
 
 
-def cmd_pointcloud(args, device=None) -> Path:
+def cmd_pointcloud(device, args) -> Path | None:
     trainer = _setup(args, device)
     pts, cols = _backproject(trainer, args.num_cameras, args.downsample)
+    if not mesh.is_main_process():
+        return None
     if args.num_points and pts.shape[0] > args.num_points:
         sel = np.random.default_rng(0).choice(pts.shape[0], args.num_points,
                                               replace=False)
@@ -107,8 +128,10 @@ def cmd_pointcloud(args, device=None) -> Path:
     return path
 
 
-def cmd_cameras(args, device=None) -> Path:
+def cmd_cameras(device, args) -> Path | None:
     trainer = _setup(args, device)
+    if not mesh.is_main_process():
+        return None
     out = {}
     for split, cams in (("train", trainer.train_cameras),
                         ("eval", trainer.eval_cameras)):
@@ -139,8 +162,10 @@ def density_volume(trainer, resolution: int, time):
     blocks of 2^16 points: the model's ``density_at(cfg, params, aabb,
     positions, time)`` where it has one, else K-Planes' field density
     where the params hold plane grids (the staged render tables: the
-    forward plane kernels); another model exits.  Returns (volume
-    [R, R, R] f32, aabb [2, 3])."""
+    forward plane kernels); another model exits.  Over the trainer's
+    world each block is split by rows over the ranks (padded to a multiple
+    of their count) and gathered, so every rank gets the whole volume.
+    Returns (volume [R, R, R] f32, aabb [2, 3])."""
     from soccernerfs_tpu_torch.fields import kplanes as fk
 
     model, cfg = trainer.model, trainer.model_cfg
@@ -157,11 +182,18 @@ def density_volume(trainer, resolution: int, time):
         if hasattr(model, "prepare_render_params"):
             params = model.prepare_render_params(cfg, params)
     dev = trainer.aabb.device
+    world = trainer.world
     vol = np.zeros(pts.shape[0], np.float32)
     chunk = 1 << 16
     with torch.no_grad(), full_f32():
         for i in range(0, pts.shape[0], chunk):
-            block = torch.from_numpy(pts[i:i + chunk]).to(dev)
+            block = pts[i:i + chunk]
+            m = block.shape[0]
+            if world is not None:
+                rows = -(-m // world.size) * world.size
+                block = mesh.shard_rows({"p": np.pad(block, ((0, rows - m), (0, 0)))},
+                                        world.rank, world.size)["p"]
+            block = torch.from_numpy(block).to(dev)
             if hasattr(model, "density_at"):
                 d = model.density_at(cfg, params, trainer.aabb, block, time)
             else:
@@ -169,15 +201,19 @@ def density_volume(trainer, resolution: int, time):
                          else torch.full((block.shape[0],), time, device=dev))
                 d, _ = fk.kplanes_density(cfg.field_config(), params["fields"],
                                           trainer.aabb, block, times)
+            if world is not None:
+                d = mesh.all_gather_rows(d.reshape(-1), world.group)[:m]
             vol[i:i + chunk] = d.cpu().numpy()
     return vol.reshape(resolution, resolution, resolution), aabb
 
 
-def cmd_marching_cubes(args, device=None) -> Path:
+def cmd_marching_cubes(device, args) -> Path | None:
     from soccernerfs_tpu_torch.ops.marching import marching_tetrahedra
 
     trainer = _setup(args, device)
     vol, aabb = density_volume(trainer, args.resolution, args.time)
+    if not mesh.is_main_process():
+        return None
     spacing = (aabb[1] - aabb[0]) / (args.resolution - 1)
     verts, faces = marching_tetrahedra(vol, args.iso_level, aabb[0], spacing)
     path = args.output_dir / "mesh.ply"
@@ -185,7 +221,7 @@ def cmd_marching_cubes(args, device=None) -> Path:
     return path
 
 
-def cmd_tsdf(args, device=None) -> Path:
+def cmd_tsdf(device, args) -> Path | None:
     """Depth-map TSDF fusion: every voxel projected into each eval camera
     and updated with its truncated signed distance to the rendered depth,
     then meshed at 0."""
@@ -204,8 +240,7 @@ def cmd_tsdf(args, device=None) -> Path:
     cams = trainer.eval_cameras
     c2ws = cams.camera_to_worlds.cpu().numpy()
     intrinsics = {f: getattr(cams, f).cpu().numpy() for f in ("fx", "fy", "cx", "cy")}
-    for idx in range(min(args.num_cameras, cams.num_cameras)):
-        outputs = trainer.render_camera(cams, idx)
+    for idx, outputs in _rendered(trainer, args.num_cameras):
         h, w = outputs["depth"].shape[:2]
         R, t = c2ws[idx][:3, :3], c2ws[idx][:3, 3]
         local = (voxels - t) @ R  # world -> camera (R orthonormal)
@@ -224,6 +259,8 @@ def cmd_tsdf(args, device=None) -> Path:
         new_w = weight + upd
         tsdf = np.where(upd, (tsdf * weight + sdf) / np.maximum(new_w, 1), tsdf)
         weight = new_w
+    if not mesh.is_main_process():
+        return None
 
     vol = tsdf.reshape(res, res, res)
     spacing = (aabb[1] - aabb[0]) / (res - 1)
@@ -233,7 +270,7 @@ def cmd_tsdf(args, device=None) -> Path:
     return path
 
 
-def cmd_poisson(args, device=None) -> Path:
+def cmd_poisson(device, args) -> Path | None:
     """A Poisson mesh of the rendered depth maps' points, each with the
     normal of its structured point map (image-space tangents, facing the
     camera)."""
@@ -242,8 +279,7 @@ def cmd_poisson(args, device=None) -> Path:
     trainer = _setup(args, device)
     cams = trainer.eval_cameras
     pts, nrms = [], []
-    for idx in range(min(args.num_cameras, cams.num_cameras)):
-        outputs = trainer.render_camera(cams, idx)
+    for idx, outputs in _rendered(trainer, args.num_cameras):
         h, w = outputs["rgb"].shape[:2]
         origins, dirs = _image_rays(cams, idx, h, w)
         pmap = origins + dirs * outputs["depth"][..., None]
@@ -252,6 +288,8 @@ def cmd_poisson(args, device=None) -> Path:
         keep = (outputs["accumulation"] > 0.5)[sl]
         pts.append(pmap[sl][keep])
         nrms.append(normals[sl][keep])
+    if not mesh.is_main_process():
+        return None
     pts = np.concatenate(pts) if pts else np.zeros((0, 3), np.float32)
     if pts.shape[0] == 0:
         raise SystemExit(
@@ -315,11 +353,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, device=None) -> Path:
-    """Run the subcommand of ``argv`` (``sys.argv[1:]`` by default); returns
-    the file written.  ``device``: default CUDA; raises when CUDA is absent
-    and the caller did not ask for another device."""
+    """Run the subcommand of ``argv`` (``sys.argv[1:]`` by default) on the
+    ranks that the run's ``machine`` config names; returns the file
+    written (local rank 0's value).  ``device``: default CUDA; raises
+    when CUDA is absent and the caller did not ask for another device."""
+    from soccernerfs_tpu_torch.configs.base import load_config
+    from soccernerfs_tpu_torch.scripts.train import launch
+
     args = build_parser().parse_args(argv)
-    return args.fn(args, device)
+    machine = load_config(args.load_config).machine
+    return launch(args.fn, device, machine, (args,))
 
 
 if __name__ == "__main__":

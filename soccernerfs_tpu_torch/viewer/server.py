@@ -30,6 +30,12 @@ The client asks for a low resolution while the camera moves and the full
 one at rest.  Renders share one lock: the server answers requests on many
 threads, and the card renders one image at a time.
 
+Over the ranks that the run's ``machine`` config names (one process per
+device, as ``snt-train`` runs them) rank 0 alone serves HTTP and writes,
+and each render splits its chunks' rays over every rank: the handler
+threads hand their renders to a ``viewer.dispatch.Dispatcher``, whose
+loop on rank 0's main thread broadcasts them to the other ranks.
+
     python -m soccernerfs_tpu_torch.viewer.server --load-config <run>/config.yml
 """
 from __future__ import annotations
@@ -508,10 +514,13 @@ def _host(t) -> np.ndarray:
 
 class ViewerState:
     """The trainer (at a loaded snapshot), the keyframes and the background
-    render job; renders hold ``lock``."""
+    render job.  Renders hold ``lock``, or, with a ``dispatcher`` (the
+    trainer's world of ranks), go through it."""
 
-    def __init__(self, trainer, output_dir: Path | None = None):
+    def __init__(self, trainer, output_dir: Path | None = None,
+                 dispatcher=None):
         self.trainer = trainer
+        self.dispatcher = dispatcher
         self.lock = threading.Lock()
         self.keyframes: list = []
         self.output_dir = Path(output_dir) if output_dir else Path.cwd()
@@ -570,6 +579,16 @@ class ViewerState:
                 if k in self.scene_tree:
                     self.scene_tree[k] = bool(v)
         return dict(self.scene_tree)
+
+    def _render(self, cameras, index, cancelled=lambda: False) -> dict:
+        """Camera ``index`` of ``cameras`` rendered at the snapshot (host
+        arrays): under ``lock`` on this thread, or through the dispatcher
+        over the ranks (``RenderCancelled`` if ``cancelled()`` holds
+        before it starts)."""
+        if self.dispatcher is not None:
+            return self.dispatcher.render(cameras, index, cancelled=cancelled)
+        with self.lock:
+            return self.trainer.render_camera(cameras, index)
 
     def cancel_render(self) -> dict:
         with self.lock:
@@ -663,14 +682,22 @@ class ViewerState:
         def run():
             from PIL import Image
 
+            from soccernerfs_tpu_torch.viewer.dispatch import RenderCancelled
+
+            def cancelled():
+                return bool(self.render_job.get("cancel"))
+
             try:
                 frames = []
                 for i in range(cams.num_cameras):
-                    if self.render_job.get("cancel"):
+                    if cancelled():
                         self.render_job["cancelled"] = True
                         return
-                    with self.lock:
-                        outputs = self.trainer.render_camera(cams, i)
+                    try:
+                        outputs = self._render(cams, i, cancelled)
+                    except RenderCancelled:
+                        self.render_job["cancelled"] = True
+                        return
                     frames.append(self._to_rgb8(outputs, output))
                     self.render_job["frame"] = i + 1
                     # the latest frame as JPEG for the render modal
@@ -735,8 +762,7 @@ class ViewerState:
             times=None if time is None else np.asarray([time], np.float32),
             device=self.trainer.device,
         )
-        with self.lock:
-            outputs = self.trainer.render_camera(cams, 0)
+        outputs = self._render(cams, 0)
         rgb = self._to_rgb8(outputs, output)
         buf = io.BytesIO()
         Image.fromarray(rgb).save(buf, format="PNG")
@@ -963,37 +989,100 @@ def make_handler(state: ViewerState):
 
 
 def make_server(trainer, host: str = "0.0.0.0", port: int = 7007,
-                output_dir=None) -> ThreadingHTTPServer:
+                output_dir=None, dispatcher=None) -> ThreadingHTTPServer:
     """The viewer's threaded HTTP server over ``trainer``, bound to
     (``host``, ``port``; 0 picks a free port, ``server.server_address``
     names it) and not yet serving: call ``serve_forever``, and
     ``shutdown`` from another thread.  ``server.viewer_state`` is its
-    ``ViewerState``, whose ``lock`` every render holds."""
-    state = ViewerState(trainer, output_dir)
+    ``ViewerState``, whose ``lock`` every render holds; with a
+    ``dispatcher`` (``viewer.dispatch``, the trainer's world) every render
+    goes through it instead."""
+    state = ViewerState(trainer, output_dir, dispatcher)
     server = ThreadingHTTPServer((host, port), make_handler(state))
     server.viewer_state = state
     return server
 
 
-def serve(trainer, port: int = 7007, output_dir=None):
-    server = make_server(trainer, "0.0.0.0", port, output_dir)
-    print(f"[viewer] serving on http://localhost:{port}")
-    server.serve_forever()
+def serve_rank(device, args: argparse.Namespace, on_serve=None) -> dict:
+    """The viewer of ``args.load_config`` on this rank.  Without a world,
+    the server answers and renders until it shuts down (Ctrl-C).  Over a
+    world, rank 0 serves HTTP on a thread and runs the ``Dispatcher``'s
+    loop on this one, which ends when the server shuts down; the other
+    ranks follow it.  ``on_serve(server)`` (rank 0; a script's or a test's
+    client) runs on a thread of its own once the server is up, and the
+    server shuts down when it returns.  Returns {"renders": the renders
+    over the world this rank took part in, "client": what ``on_serve``
+    returned}."""
+    from soccernerfs_tpu_torch.parallel import mesh
+    from soccernerfs_tpu_torch.utils.eval_utils import eval_setup
+    from soccernerfs_tpu_torch.viewer.dispatch import Dispatcher
+
+    _, trainer, _ = eval_setup(args.load_config, "inference", device=device)
+    dispatcher = None if trainer.world is None else Dispatcher(trainer)
+    if dispatcher is not None and not mesh.is_main_process():
+        return {"renders": dispatcher.follow(), "client": None}
+    try:
+        server = make_server(trainer, "0.0.0.0", args.port,
+                             output_dir=args.load_config.parent,
+                             dispatcher=dispatcher)
+    except BaseException:
+        if dispatcher is not None:
+            dispatcher.release()
+        raise
+    print(f"[viewer] serving on http://localhost:{server.server_address[1]}")
+    result = {"renders": 0, "client": None}
+    errors = []
+
+    def serve():
+        try:
+            server.serve_forever()
+        finally:
+            if dispatcher is not None:
+                dispatcher.stop()
+
+    def client():
+        try:
+            result["client"] = on_serve(server)
+        except BaseException as e:  # raised on this rank's main thread
+            errors.append(e)
+        finally:
+            server.shutdown()
+
+    serving = threading.Thread(target=serve, name="snt-viewer-http", daemon=True)
+    serving.start()
+    if on_serve is not None:
+        threading.Thread(target=client, name="snt-viewer-client",
+                         daemon=True).start()
+    try:
+        if dispatcher is not None:
+            result["renders"] = dispatcher.run()
+        while serving.is_alive():
+            serving.join(0.5)
+    finally:
+        if serving.is_alive():
+            server.shutdown()
+        serving.join()
+        server.server_close()
+    if errors:
+        raise errors[0]
+    return result
 
 
-def main(argv=None, device=None):
-    """Serve the run of ``--load-config``.  ``device``: default CUDA;
-    raises when CUDA is absent and the caller did not ask for another
-    device."""
+def main(argv=None, device=None, on_serve=None) -> dict:
+    """Serve the run of ``--load-config`` on the ranks that its
+    ``machine`` config names (``scripts.train.launch``); returns local
+    rank 0's ``serve_rank`` value.  ``device``: default CUDA; raises when
+    CUDA is absent and the caller did not ask for another device."""
     parser = argparse.ArgumentParser("snt-viewer")
     parser.add_argument("--load-config", type=Path, required=True)
     parser.add_argument("--port", type=int, default=7007)
     args = parser.parse_args(argv)
 
-    from soccernerfs_tpu_torch.utils.eval_utils import eval_setup
+    from soccernerfs_tpu_torch.configs.base import load_config
+    from soccernerfs_tpu_torch.scripts.train import launch
 
-    _, trainer, _ = eval_setup(args.load_config, "inference", device=device)
-    serve(trainer, args.port, output_dir=args.load_config.parent)
+    machine = load_config(args.load_config).machine
+    return launch(serve_rank, device, machine, (args, on_serve))
 
 
 if __name__ == "__main__":

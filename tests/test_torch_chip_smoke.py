@@ -354,6 +354,10 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "PAIR_KPLANES_RAYS", 256)
     monkeypatch.setattr(cs, "RANK_SETUP", rank_stubs)
     monkeypatch.setattr(cs, "PAIR_BUILD", False)     # no nvcc here
+    # (d): the entry points over the ranks at small sizes
+    monkeypatch.setattr(cs, "ENTRY_MC_RESOLUTION", 12)
+    monkeypatch.setattr(cs, "ENTRY_VIEWER_SIZES", ((24, 16), (24, 16), (48, 27)))
+    monkeypatch.setattr(cs, "ENTRY_PATH_SIZE", (24, 16))
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
     monkeypatch.syspath_prepend(str(REPO))
     monkeypatch.setattr(cs, "MODEL", "small")
@@ -982,6 +986,21 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     host = next(line for line in lines
                 if line.startswith("parallel host data path"))
     assert "one process alone: setup" in host and "rank 1 of 2 at once" in host
+    # (d): snt-render, snt-export and the viewer at world size 1 and over
+    # the pair, each rank launching the fused kernel, held to the single
+    # process's renders
+    for size, ranks in ((1, (0,)), (2, (0, 1))):
+        line = next(line for line in lines
+                    if line.startswith(f"parallel entry points, world {size} "))
+        assert "s a frame" in line and "viewer ms per /render 24x16" in line
+        assert "marching-cubes" in line and "pointcloud" in line
+        counts = json.loads(line.split("viewer renders per rank ", 1)[1]
+                            .split(";", 1)[0])
+        assert len(counts) == size and len(set(counts)) == 1 and counts[0] >= 5
+        for rank in ranks:
+            counts = main_path[f"parallel entry points, world {size}, rank {rank}"]
+            assert counts["kplanes_fwd_fused"] > 0
+            assert not any(counts[k] for k in cs.FORWARD)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

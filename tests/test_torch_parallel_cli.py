@@ -12,7 +12,8 @@ over ``--machine.coordinator 127.0.0.1:<free port>``.
   ``num-devices 2``; the second machine writes nothing.
 - ``snt-eval`` at world size 2: the metrics of world size 1 (the renders
   agree within 1e-5, so PSNR within 1e-4 dB and SSIM within 1e-5).
-- The live viewer on rank 0 alone, rendering without a collective.
+- (The viewer over ranks, live and standalone, is
+  tests/test_torch_parallel_entry_points.py's.)
 - Refusals: a batch that the world size does not divide, and
   ``num_machines > 1`` without a coordinator.
 """
@@ -24,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from soccernerfs_tpu_torch.configs.cli import parse_train_cli
 from soccernerfs_tpu_torch.data.fixtures import make_blender_fixture
 from soccernerfs_tpu_torch.parallel import mesh
 from soccernerfs_tpu_torch.pipelines import average_eval_image_metrics
@@ -162,17 +162,6 @@ def test_eval_at_world_two_matches_world_one(world_two, tmp_path):
     assert abs(got["psnr"] - want["psnr"]) <= 1e-4
     assert abs(got["ssim"] - want["ssim"]) <= 1e-5
     assert got["lpips"] is want["lpips"] is None
-
-
-def test_the_viewer_renders_on_rank_zero_alone(tmp_path):
-    """Over a world only rank 0 serves the live viewer, and its renders
-    make no collective call: the other rank never enters them."""
-    data = make_blender_fixture(tmp_path / "data", num_frames=2, h=12, w=12)
-    config = parse_train_cli(_argv(tmp_path / "out", data, "--vis", "viewer",
-                                   "--viewer.websocket-port", "0"))
-    served = mesh.spawn(ranks.viewer_rank, 2, (config,), devices=["cpu", "cpu"],
-                        timeout_s=JOIN_S)
-    assert served == [True, False]
 
 
 def test_refusals(tmp_path):
