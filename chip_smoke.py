@@ -592,8 +592,8 @@ def group_bytes(m, feat, tables) -> int:
 def fwd_case(tag, label, kern, plain, library, lib_outs, bytes_, flops,
              passes=1, **extra):
     """Check one forward case against its plain version (KERNEL_REL_TOL of
-    the max, bit-equal expected; the unpacked kernel, ``tag`` "unpacked",
-    held bit-equal) and time kernel (the median of ``passes`` passes of 20
+    the max, bit-equal expected; the per-plane kernels, ``tag`` "unpacked"
+    or "packed", held bit-equal) and time kernel (the median of ``passes`` passes of 20
     calls), plain version (5) and library yardstick (10); ``lib_outs``
     turns the library's output into the kernel's outputs (a list of
     [M, F]).  Logs and returns its row."""
@@ -602,7 +602,8 @@ def fwd_case(tag, label, kern, plain, library, lib_outs, bytes_, flops,
     torch.cuda.synchronize()
     err = max(float((g - e).abs().max()) for g, e in zip(got, want))
     scale = max(float(e.abs().max()) for e in want)
-    if tag == "unpacked" and not all(torch.equal(g, e) for g, e in zip(got, want)):
+    if (tag in ("unpacked", "packed")
+            and not all(torch.equal(g, e) for g, e in zip(got, want))):
         raise AssertionError(f"{tag} {label}: not bit-equal to its plain "
                              f"version, max |kernel - plain| = {err}")
     if not err <= KERNEL_REL_TOL * scale:
@@ -735,9 +736,12 @@ def width_kernel_phase(cfg, dev):
     as bwd_case holds it), timed beside its library call (F.grid_sample,
     for the fused kernel with the product; aten.grid_sampler_2d_backward)
     and its byte bound at F.  The per-plane forward wrappers take [h*w, F]
-    and [h*w, 4F] tables (a padded width is padded per call, inside the
-    timed call); the fused kernel the tables stage_table stages (padded
-    once).  Returns the rows by kernel, "order": "width"."""
+    and [h*w, 4F] tables, a padded width padded once outside the timed
+    call with the padded output columns dropped (as the train path runs
+    it; the per-call pad is logged on its own line); the fused kernel the
+    tables the render path stages (pack_grids_for_render).  Returns the
+    rows by kernel, "order": "width"."""
+    from soccernerfs_tpu_torch.fields.kplanes import pack_grids_for_render
     from soccernerfs_tpu_torch.ops.grid_sample import quad_pack, stage_table
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
@@ -760,20 +764,34 @@ def width_kernel_phase(cfg, dev):
         unpacked = [p.reshape(h * w, feat).to(torch.bfloat16).contiguous()
                     for p in planes]
         packed = [quad_pack(p.to(torch.bfloat16)).contiguous() for p in planes]
+        # a padded width runs as the train path runs it: on tables padded
+        # once (as stage_table pads them), the padded columns dropped
+        wide = pk.native_feat(feat)
+        unpacked_wide = [pk.pad_features(t, feat) for t in unpacked]
+        packed_wide = [pk.pad_features(t, feat, 4) for t in packed]
         flops = m * (1 + n * (9 * feat + 1))
         results["bilerp_fwd_unpacked"].append(fwd_case(
             "unpacked", label,
-            lambda: pk.bilerp_fwd_unpacked(unpacked, rowids, txs, ty, h=h, w=w),
+            lambda: [o[:, :feat] for o in pk.bilerp_fwd_unpacked(
+                unpacked_wide, rowids, txs, ty, h=h, w=w)],
             lambda: pk.bilerp_fwd_unpacked_plain(unpacked, rowids, txs, ty,
                                                  h=h, w=w),
             library, per_plane, group_bytes(m, feat, unpacked), flops, **extra))
         results["bilerp_fwd_packed"].append(fwd_case(
             "packed", label,
-            lambda: pk.bilerp_fwd_packed(packed, rowids, txs, ty),
+            lambda: [o[:, :feat] for o in pk.bilerp_fwd_packed(
+                packed_wide, rowids, txs, ty)],
             lambda: pk.bilerp_fwd_packed_plain(packed, rowids, txs, ty),
             library, per_plane, group_bytes(m, feat, packed), flops, **extra))
-        del unpacked, packed
-        staged = [stage_table(p) for p in planes]
+        if wide != feat:
+            log(f"width pad F = {feat}: the per-call pad to {wide} that no main "
+                f"path makes, {n} tables: unpacked "
+                f"{time_ms(lambda: [pk.pad_features(t, feat) for t in unpacked], 20):.4f}"
+                f" ms, packed "
+                f"{time_ms(lambda: [pk.pad_features(t, feat, 4) for t in packed], 20):.4f}"
+                f" ms")
+        del unpacked, packed, unpacked_wide, packed_wide
+        staged = pack_grids_for_render({"grids": [planes]})["grids_packed"][0]
         out = torch.empty((m, feat), device=dev)
 
         def product(lib):
@@ -797,8 +815,9 @@ def width_kernel_phase(cfg, dev):
                     "w": w, "gs": gs, "rowids": rowids, "txs": txs, "ty": ty,
                     "grid": grid}
             results[f"bilerp_bwd_{kind}"].append(bwd_case(case, strip))
-        # the coordinate backward over the tables stage_table stages at
-        # this width (quad-packed, padded to the next compiled width)
+        # the coordinate backward over the tables the train forward stages
+        # at this width (stage_table's default, padded to the next compiled
+        # width)
         results["bilerp_bwd_coords"].append(coords_case(
             {"label": label, "order": "width", "h": h, "w": w, "gs": gs,
              "tables": [stage_table(p) for p in planes], "rowids": rowids,
@@ -1088,8 +1107,10 @@ def fwd_step_bounds(tree, dev):
     inputs and outputs (``group_bytes`` less the tables) and the table rows
     its points touch (``touched_table_bytes``: a step's 4096 rays touch a
     fraction of the finest planes), at the card's memory rate.  Also
-    returns bilerp_fwd_unpacked's launches as cases of fwd_step_phase:
-    the path's own tables and ray-ordered operands, each with its bytes."""
+    returns both kernels' launches as cases of fwd_step_phase: the path's
+    own tables and ray-ordered operands, each with its bytes and its
+    planes' (h, w) (a packed launch names its rows only: the step's
+    planes give them)."""
     from soccernerfs_tpu_torch.configs.method_configs import train_num_rays_per_batch
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
@@ -1108,12 +1129,12 @@ def fwd_step_bounds(tree, dev):
             entry[0] += 1
             entry[1] += (whole - tables + touched) / H100_BYTES_PER_S * 1e3
             entry[2] += whole / H100_BYTES_PER_S * 1e3
-            if name == "snt_bilerp_fwd_unpacked":
-                cases.append({"tables": list(ins),
-                              "rowids": [r.clone() for r in rowids],
-                              "txs": [t.clone() for t in txs],
-                              "ty": ty.clone(), "h": shape[0], "w": shape[1],
-                              "bytes": whole - tables + touched})
+            cases.append({"kind": name[len("snt_bilerp_fwd_"):],
+                          "tables": list(ins),
+                          "rowids": [r.clone() for r in rowids],
+                          "txs": [t.clone() for t in txs],
+                          "ty": ty.clone(), "shape": shape,
+                          "bytes": whole - tables + touched})
         return launch(name, ins, rowids, txs, ty, outs, m, feat, *shape)
 
     pk._launch = capture
@@ -1124,6 +1145,13 @@ def fwd_step_bounds(tree, dev):
             generator=torch.Generator(device=dev).manual_seed(SEED))
     finally:
         pk._launch = launch
+    hw = {g.shape[0] * g.shape[1]: tuple(g.shape[:2])
+          for field in (state.params["fields"],
+                        *state.params["proposal_networks"].values())
+          for scale in field["grids"] for g in scale}
+    for case in cases:
+        shape = case.pop("shape")
+        case["h"], case["w"] = shape if case["kind"] == "unpacked" else hw[shape[0]]
     del trainer, state
     torch.cuda.empty_cache()
     return {k: tuple(v) for k, v in bounds.items()}, cases
@@ -1141,21 +1169,23 @@ def cell_grid(rowids, txs, ty, h, w):
 
 
 def fwd_step_phase(cases):
-    """bilerp_fwd_unpacked on the launches of one K-Planes train step
-    (fwd_step_bounds' cases): each against its plain version (bit-equal
-    expected) and timed beside F.grid_sample over the same bf16 plane
+    """Both per-plane forward kernels on the launches of one K-Planes train
+    step (fwd_step_bounds' cases): each against its plain version
+    (bit-equal) and timed beside F.grid_sample over the same bf16 plane
     values as f32 at the same coordinates; its bound the touched table
-    rows' bytes with the points' (fwd_step_bounds).  Returns the rows,
-    "order": "ray"."""
+    rows' bytes with the points' (fwd_step_bounds).  Returns the rows by
+    kernel, "order": "ray"."""
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
 
-    rows = []
+    rows = {"bilerp_fwd_unpacked": [], "bilerp_fwd_packed": []}
     for j, case in enumerate(cases):
-        tables, rowids, txs, ty = (case["tables"], case["rowids"], case["txs"],
-                                   case["ty"])
+        kind, tables, rowids, txs, ty = (case["kind"], case["tables"],
+                                         case["rowids"], case["txs"], case["ty"])
         h, w = case["h"], case["w"]
-        m, feat, n = ty.shape[0], tables[0].shape[1], len(tables)
-        inp = torch.stack([t.float().reshape(h, w, feat).permute(2, 0, 1)
+        m, n = ty.shape[0], len(tables)
+        feat = tables[0].shape[1] // (1 if kind == "unpacked" else 4)
+        # a packed row's first quarter is its own cell
+        inp = torch.stack([t[:, :feat].float().reshape(h, w, feat).permute(2, 0, 1)
                            for t in tables])
         grid = cell_grid(rowids, txs, ty, h, w)
 
@@ -1164,22 +1194,34 @@ def fwd_step_phase(cases):
                 inp, grid, mode="bilinear", padding_mode="border",
                 align_corners=True)
 
-        rows.append(fwd_case(
-            "unpacked", f"train step launch {j}, ray-ordered, {n} planes "
-            f"[{h},{w},{feat}]",
-            lambda: pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w),
-            lambda: pk.bilerp_fwd_unpacked_plain(tables, rowids, txs, ty,
-                                                 h=h, w=w),
-            library, per_plane, case["bytes"], m * (1 + n * (9 * feat + 1)),
+        if kind == "unpacked":
+            def kern():
+                return pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w)
+
+            def plain():
+                return pk.bilerp_fwd_unpacked_plain(tables, rowids, txs, ty,
+                                                    h=h, w=w)
+        else:
+            def kern():
+                return pk.bilerp_fwd_packed(tables, rowids, txs, ty)
+
+            def plain():
+                return pk.bilerp_fwd_packed_plain(tables, rowids, txs, ty)
+
+        rows[f"bilerp_fwd_{kind}"].append(fwd_case(
+            kind, f"train step launch {j}, ray-ordered, {n} planes "
+            f"[{h},{w},{feat}]", kern, plain, library, per_plane,
+            case["bytes"], m * (1 + n * (9 * feat + 1)),
             passes=BWD_PASSES, order="ray", planes=n, M=m))
         del inp, grid, library
     torch.cuda.empty_cache()
-    log(f"train step launches of bilerp_fwd_unpacked, ray-ordered: "
-        f"{len(rows)}, kernel {sum(r['ms'] for r in rows):.4f} ms, plain "
-        f"{sum(r['plain_ms'] for r in rows):.4f} ms, library "
-        f"{sum(r['library_ms'] for r in rows):.4f} ms, bound "
-        f"{sum(r['bound_ms'] for r in rows):.4f} ms (bytes: the touched "
-        f"table rows)")
+    for name, rs in rows.items():
+        log(f"train step launches of {name}, ray-ordered: {len(rs)}, kernel "
+            f"{sum(r['ms'] for r in rs):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in rs):.4f} ms, library "
+            f"{sum(r['library_ms'] for r in rs):.4f} ms, bound "
+            f"{sum(r['bound_ms'] for r in rs):.4f} ms (bytes: the touched "
+            f"table rows)")
     return rows
 
 
@@ -4705,7 +4747,7 @@ def sweep_phase(dev, root, launches) -> None:
     scripts.compute_ist on the fixture, and the snapshot's render on
     SWEEP_CPU_RAYS rays of eval camera 0 against the CPU.  Fails unless
     every command succeeded, the train command launched the train path's
-    plane kernels at F = 24 (bilerp_fwd_packed, bilerp_bwd_unpacked) and
+    plane kernels at F = 24 (bilerp_fwd_unpacked, bilerp_bwd_unpacked) and
     render and eval the fused one at F = 24 and no per-plane forward
     kernel, the eval's metrics are finite, the frames, plane PNGs and the
     IST cache exist, and the CPU check holds (2e-3)."""
@@ -4752,7 +4794,7 @@ def sweep_phase(dev, root, launches) -> None:
     if sorted(reports) != ["eval", "render", "train"]:
         raise AssertionError(f"{tag}: ran {sorted(reports)}")
     feat = exp.params[0]["pipeline.model.feature-dim"]
-    need = {"train": ("bilerp_fwd_packed", "bilerp_bwd_unpacked"),
+    need = {"train": ("bilerp_fwd_unpacked", "bilerp_bwd_unpacked"),
             "render": ("kplanes_fwd_fused",), "eval": ("kplanes_fwd_fused",)}
     for kind, names in need.items():
         by_width = reports[kind]["by_width"]
@@ -6019,7 +6061,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fwd_bounds, fwd_cases = fwd_step_bounds(tree, dev)
     t0 = time.perf_counter()
-    kernels["bilerp_fwd_unpacked"] += fwd_step_phase(fwd_cases)
+    for name, rows in fwd_step_phase(fwd_cases).items():
+        kernels[name] += rows
     log(f"fwd_step_phase: {time.perf_counter() - t0:.3f} s")
     del fwd_cases
     launches[f"train {MODEL}"], in_step = train_phase(

@@ -150,6 +150,10 @@ class RaySamples(_Replace):
     def get_weights(self, densities: torch.Tensor) -> torch.Tensor:
         """Volume-rendering weights w_i = (1 - exp(-sigma_i delta_i)) *
         exp(-sum_{j<i} sigma_j delta_j), NaN-scrubbed.  [N, S] -> [N, S]."""
+        # an overflowed (inf) density counts as the largest float, so that
+        # the deltas' gradient (the camera optimizer's) takes 0 * max, not
+        # 0 * inf; every finite density passes unchanged
+        densities = torch.clamp(densities, max=torch.finfo(densities.dtype).max)
         delta_density = self.deltas * densities
         alphas = 1.0 - torch.exp(-delta_density)
         shifted = torch.cat(

@@ -18,17 +18,22 @@
 // from the normalised points, gathers and lerps each plane, multiplies
 // the planes and stores the scale's features once (see its comment
 // below).  The two kernels here serve the train forward, whose autograd
-// graph keeps every plane's factor: 262,144 points a launch at the
-// registry's 4096 rays, 7 unpacked and 14 packed launches a step.
+// graph keeps every plane's factor: at the registry's 4096 rays, 15
+// unpacked launches a step of 262,144 points (the field) and 6 packed ones
+// of 524,288 or 1,048,576 points (the two F = 8 proposal fields).
 //
 // snt_bilerp_fwd_unpacked replaces unpacked_bilerp_fwd_group
 //   (soccernerfs_tpu/ops/pallas/plane_kernels.py, body _fwd_kernel_unpacked):
 //   the table is the plane itself, [h*w, F] bf16; the four corners are
-//   four rows.  The train path stages the big F = 32 planes so (h*w >=
-//   65536, w % 32 == 0): 1024x1024 (64 MiB) down to 256x256 tables.
+//   four rows.  The train forward stages every field plane so, each step
+//   (ops/grid_sample.stage_table: a cast, where quad-packing would also
+//   write 4x the plane's bytes): 64x64 up to kp_res_study's 2048x2048.
 // snt_bilerp_fwd_packed replaces packed_bilerp_fwd_group (same file, body
 //   _fwd_kernel): the table is quad-packed, [R, 4F] bf16, each row holding
-//   the 2x2 corner block, so a point reads one contiguous 8F-byte row.
+//   the 2x2 corner block, so a point reads one contiguous 8F-byte row.  The
+//   F = 8 proposal fields' route quad-packs its planes (as the JAX
+//   proposal path does), whose transpose folds the packed backward's
+//   gradient into the planes.
 //
 // The planes of one launch share their y axis (the caller groups planes by
 // it, as the TPU kernels' stripe groups do), so they share ty: one ty array
@@ -51,13 +56,13 @@
 // point read whole 32-byte sectors of a corner row (F = 32); each lane
 // writes its 8 f32 outputs as two 16-byte stores, a coalesced stream.
 //
-// The packed kernel (unchanged since its port): one plane per blockIdx.y,
-// up to 3 planes of one table shape in a launch; the parameter struct is
-// __grid_constant__, so indexing it by blockIdx.y reads parameter space
-// (a per-thread stack copy cost 2.3x in time on the H100).
+// Both kernels take one plane per blockIdx.y, up to 3 planes of one table
+// shape in a launch; the parameter struct is __grid_constant__, so
+// indexing it by blockIdx.y reads parameter space (a per-thread stack copy
+// cost 2.3x in time on the H100).
 //
-// The unpacked kernel, redesigned from that same form (PERF.md has each
-// step's times, in turns against the form it replaced):
+// The unpacked kernel, redesigned from its port (PERF.md has each step's
+// times, in turns against the form it replaced):
 //   * One plane per blockIdx.y, and two points a thread (g and g + n, n =
 //     ceil(m/2), so each load and store instruction of a warp still covers
 //     consecutive points): 8 independent corner loads in flight a thread.
@@ -86,6 +91,43 @@
 // output); on the 1024x1024 planes, DRAM: the corner rows of random points
 // miss L2, and the bound, which counts each table byte once, leaves those
 // reads out.
+//
+// The packed kernel, redesigned from its port in the same way, one lever
+// at a time against it (PERF.md has the times, in turns):
+//   * Two points a thread below F = 48 (g and g + n, as above): 8
+//     independent 16-byte loads in flight a thread.  It cut 8-10 % on
+//     random points of an F = 32 table in L2, 8-13 % on the [100, 2048]
+//     tables past L2 at F = 16 / 24, and 3 % over a train step's six
+//     F = 8 launches (two of them 3-5 % slower).  From F = 48 on, one point
+//     a thread (packed_points): at F = 48 the second point cost 2 %, its
+//     registers (40, not 32) leaving 6 blocks an SM, not 8.
+//   * Rows in 32 bits: a row id is clipped and scaled to its offset as a
+//     32-bit value (the wrapper refuses tables of 2^31 rows or more).  The
+//     point index stays 64-bit: a 32-bit one (a 32-bit t / (F/8)) was 4 %
+//     slower on the F = 20 / 24 tables past L2 and 5 % over the step's
+//     F = 8 launches, though faster on an F = 32 table in L2.
+//   * No cache hints: the read-only path for every load, plain stores.
+//     Its one main path, the F = 8 proposal fields, reads 1-2 MB tables
+//     that stay in L2.  Streaming the points' operands and output when
+//     the tables outgrow L2 (an instance of its own) won 1-4 % on the
+//     [100, 2048] tables, which no path sends this kernel since the train
+//     forward stages them unpacked; chosen at run time in one instance it
+//     was 9 % slower at F = 20 / 24.
+//   * Lost and gone: one lane per 16-byte vector of the row at F = 8 (four
+//     lanes a point lerping across two shuffles, so a load instruction
+//     reads whole rows), up to 1.7x on the step's [100, 128] proposal
+//     launch; the same at F = 24 (16 lanes, 4 idle), no gain; a 32-register
+//     cap (8 blocks an SM), 1.19x on F = 48 and up to 1.21x on the step's
+//     F = 8 launches; at F = 8 one point a thread (3-9 % slower than the
+//     port's form on four of the six step launches) or two adjacent points
+//     (2 points a thread reading neighbouring rows: up to 1.45x).
+//   * The plain version's arithmetic in its order: bit-equal to it.
+// What bounds it: every main path's launch (the proposal fields' 1-2 MB
+// packed tables) lives in L2, read 8F B a point and plane, twice its
+// output, at 0.5-1 M points a launch, 20-55 us each; on tables past L2
+// (the sweep widths' [100, 2048] planes, 79-236 MB packed, at random
+// points), DRAM: the same launch with its rows folded into 1/16 of the
+// table runs 13-30 % faster.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,7 +142,7 @@ namespace {
 
 constexpr int kMaxPlanes = 3;
 constexpr int kThreads = 256;
-constexpr int kPoints = 2;  // points a thread of the unpacked kernel
+constexpr int kPoints = 2;  // points a thread of the per-plane forward kernels
 
 // row / w for 0 <= row < 2^31 as (row * magic) >> shift: with l =
 // ceil(log2 w) and magic = ceil(2^(31+l) / w) < 2^32 the product's error
@@ -169,29 +211,58 @@ __device__ __forceinline__ void lerp8(const uint4 (&q)[4], float tx, float ty,
   }
 }
 
+struct PackedArgs {
+  PlaneArgs p;
+  int rows;  // R < 2^31
+};
+
+// Points a thread of the packed kernel at width F: one from F = 48 on,
+// where a point's F/8 lanes already have F/2 row loads in flight and a
+// second point's registers would cut the blocks an SM from 8 to 6.
+__host__ __device__ constexpr int packed_points(int feat) {
+  return feat >= 48 ? 1 : kPoints;
+}
+
 template <int F>
 __global__ void __launch_bounds__(kThreads)
-bilerp_fwd_packed_kernel(const __grid_constant__ PlaneArgs a, long long m,
-                         long long rows) {
+bilerp_fwd_packed_kernel(const __grid_constant__ PackedArgs a, long long m) {
   constexpr int kLanes = F / 8;  // threads per point, 8 features each
+  constexpr int P = packed_points(F);
   const int p = blockIdx.y;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long i = t / kLanes;
-  const int lane = (int)(t - i * kLanes);
-  if (i >= m) return;
+  const long long g = t / kLanes;
+  const int lane = (int)(t - g * kLanes);
+  // the thread's points: g, g + n, ... (P of them, n apart)
+  const long long n = (m + P - 1) / P;
+  if (g >= n) return;
 
-  long long row = __ldg(a.rowid[p] + i);
-  row = row < 0 ? 0 : (row >= rows ? rows - 1 : row);  // gather "clip" mode
-  const float tx = __ldg(a.tx[p] + i);
-  const float ty = __ldg(a.ty + i);
-  const uint4* r = a.table[p] + row * (4 * kLanes) + lane;
-  const uint4 q[4] = {__ldg(r), __ldg(r + kLanes), __ldg(r + 2 * kLanes),
-                      __ldg(r + 3 * kLanes)};
-  float o[8];
-  lerp8(q, tx, ty, o);
-  float4* dst = reinterpret_cast<float4*>(a.out[p] + i * F + lane * 8);
-  dst[0] = make_float4(o[0], o[1], o[2], o[3]);
-  dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+  long long idx[P];
+  unsigned row[P];
+  float tx[P], ty[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    idx[j] = g + j * n < m ? g + j * n : g;  // past the end: redo point g
+    const int r = __ldg(a.p.rowid[p] + idx[j]);
+    row[j] = (unsigned)(r < 0 ? 0 : (r >= a.rows ? a.rows - 1 : r));  // "clip"
+    tx[j] = __ldg(a.p.tx[p] + idx[j]);
+    ty[j] = __ldg(a.p.ty + idx[j]);
+  }
+  uint4 q[P][4];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const uint4* r = a.p.table[p] + (size_t)row[j] * (4 * kLanes) + lane;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[j][k] = __ldg(r + k * kLanes);
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (j > 0 && idx[j] == g) break;
+    float o[8];
+    lerp8(q[j], tx[j], ty[j], o);
+    float4* dst = reinterpret_cast<float4*>(a.p.out[p] + idx[j] * F + lane * 8);
+    dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+  }
 }
 
 template <int F>
@@ -303,22 +374,25 @@ extern "C" int snt_bilerp_fwd_unpacked(
   return (int)cudaGetLastError();
 }
 
-// tables: P pointers to [rows, 4*feat] bf16 quad-packed rows; the rest as
-// snt_bilerp_fwd_unpacked.
+// tables: P pointers to [rows, 4*feat] bf16 quad-packed rows, rows < 2^31;
+// the rest as snt_bilerp_fwd_unpacked.
 extern "C" int snt_bilerp_fwd_packed(
     int planes, const void* const* tables, const void* const* rowids,
     const void* const* txs, const void* ty, void* const* outs,
     long long m, long long rows, int feat, void* stream) {
-  PlaneArgs a;
-  const int err = fill_args(&a, planes, tables, rowids, txs, ty, outs);
+  PackedArgs a;
+  const int err = fill_args(&a.p, planes, tables, rowids, txs, ty, outs);
   if (err != 0) return err;
-  if (m <= 0) return (int)cudaErrorInvalidValue;
-  const long long threads = m * (feat / 8);
+  if (m <= 0 || rows < 1 || rows > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  a.rows = (int)rows;
+  const int points = packed_points(feat);
+  const long long threads = (m + points - 1) / points * (feat / 8);
   const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (feat) {
 #define SNT_PACKED_CASE(F) \
-    case F: bilerp_fwd_packed_kernel<F><<<grid, kThreads, 0, s>>>(a, m, rows); break;
+    case F: bilerp_fwd_packed_kernel<F><<<grid, kThreads, 0, s>>>(a, m); break;
     SNT_FOR_EACH_FEAT(SNT_PACKED_CASE)
 #undef SNT_PACKED_CASE
     default:

@@ -36,6 +36,7 @@ from soccernerfs_tpu_torch.ops.grid_sample import (
     plane_sample_fold_group,
     plane_sample_group_bwdsort,
     quad_pack,
+    render_packs,
     stage_table,
 )
 from soccernerfs_tpu_torch.ops.kernels.plane_kernels import kplanes_fwd_fused
@@ -84,10 +85,11 @@ def _sampled_planes(pts_dim: int, n_planes: int):
 
 def pack_grids_for_render(params: dict) -> dict:
     """Stage every plane table as a bf16 copy once per parameter snapshot
-    (``ops/grid_sample.stage_table``: big F = 32 tables unpacked, the rest
-    quad-packed, on every device).  The copies ride the params dict under
+    (``ops/grid_sample.stage_table``, in the layout ``render_packs``
+    picks, on every device).  The copies ride the params dict under
     ``grids_packed``."""
-    packed = [[stage_table(g) for g in grids] for grids in params["grids"]]
+    packed = [[stage_table(g, render_packs(*g.shape)) for g in grids]
+              for grids in params["grids"]]
     return {**params, "grids_packed": packed}
 
 

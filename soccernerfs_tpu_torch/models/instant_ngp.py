@@ -240,8 +240,10 @@ def get_outputs(
                 if ray_samples.camera_indices is not None else None)
     rgb_samples = instant_ngp_rgb(fcfg, params["fields"], geo, flat_dirs,
                                   flat_cam, train).reshape(n, s, 3)
-    # invalid samples contribute nothing
-    weights = ray_samples.get_weights(density.reshape(n, s) * valid)
+    # invalid samples contribute nothing, also where their density
+    # overflowed to inf (a product with the mask would make that NaN)
+    weights = ray_samples.get_weights(
+        torch.where(valid, density.reshape(n, s), 0.0))
     bg = background_for(cfg.background_color, n, ray_bundle.origins.device,
                         train, background)
     outputs = {

@@ -199,7 +199,8 @@ def get_outputs(
                 if ray_samples.camera_indices is not None else None)
     rgb_samples = nerfplayer_ngp_rgb(fcfg, params["fields"], geo, flat_dirs,
                                      flat_cam, train).reshape(n, s, 3)
-    sigmas = density.reshape(n, s) * valid
+    # 0 at invalid samples, also where their density overflowed to inf
+    sigmas = torch.where(valid, density.reshape(n, s), 0.0)
     weights = ray_samples.get_weights(sigmas)
     color = cfg.train_background_color if train else cfg.eval_background_color
     bg = background_for(color, n, ray_bundle.origins.device, train, background)

@@ -166,7 +166,8 @@ def get_outputs(
     flat_dirs = ray_samples.directions[:, None, :].expand(n, s, 3).reshape(-1, 3)
     rgb_samples = nerfplayer_rgb(fcfg, params["fields"], geo,
                                  flat_dirs).reshape(n, s, 3)
-    sigmas = density.reshape(n, s) * valid
+    # 0 at invalid samples, also where their density overflowed to inf
+    sigmas = torch.where(valid, density.reshape(n, s), 0.0)
     weights = ray_samples.get_weights(sigmas)
     color = cfg.train_background_color if train else cfg.eval_background_color
     bg = background_for(color, n, ray_bundle.origins.device, train, background)

@@ -56,22 +56,28 @@ def quad_pack(plane: torch.Tensor) -> torch.Tensor:
     return packed.reshape(H * W, 4 * F)
 
 
-def stage_table(plane: torch.Tensor) -> torch.Tensor:
+def stage_table(plane: torch.Tensor, packed: bool = False) -> torch.Tensor:
     """The bf16 table the forward kernels sample for an [H, W, F] plane:
-    big F = 32 planes (H*W >= 65536 and W % 32 == 0) unpacked, [H*W, F]
-    (4x less memory); the rest quad-packed, [H*W, 4F] (one contiguous
-    row per point).  Both hold the same bf16 values; kplanes_fwd_fused
-    takes either, bilerp_fwd_unpacked and bilerp_fwd_packed one each.
-    A width the kernels have no instance of is zero-padded to the next
-    one (``plane_kernels.native_feat``): F = 20 stages [H*W, 4 * 24], each
-    quarter's 4 last features 0."""
+    [H*W, F] (the plane itself), or with ``packed`` quad-packed [H*W, 4F]
+    (one contiguous row per point, 4x the bytes).  Both hold the same bf16
+    values; kplanes_fwd_fused takes either, bilerp_fwd_unpacked and
+    bilerp_fwd_packed one each.  A width the kernels have no instance of
+    is zero-padded to the next one (``plane_kernels.native_feat``): F = 20
+    stages [H*W, 24] or [H*W, 4 * 24], the last 4 features of each
+    quarter 0."""
     h, w, f = plane.shape
     if pk.native_feat(f) != f:
         plane = torch.nn.functional.pad(plane, (0, pk.native_feat(f) - f))
         f = plane.shape[-1]
-    if 4 * f == 128 and h * w >= 65536 and w % 32 == 0:
-        return plane.reshape(h * w, f).to(torch.bfloat16).contiguous()
-    return quad_pack(plane.to(torch.bfloat16)).contiguous()
+    if packed:
+        return quad_pack(plane.to(torch.bfloat16)).contiguous()
+    return plane.reshape(h * w, f).to(torch.bfloat16).contiguous()
+
+
+def render_packs(h: int, w: int, feat: int) -> bool:
+    """Whether the render path (fields/kplanes.pack_grids_for_render, one
+    staging a snapshot) quad-packs an [h, w, feat] plane's table."""
+    return not (4 * feat == 128 and h * w >= 65536 and w % 32 == 0)
 
 
 def _bilerp_rows(p, rowid, tx, ty) -> torch.Tensor:
@@ -117,8 +123,9 @@ def _needs_coord_grads(ctx, n) -> bool:
 
 
 class _FoldGroup(torch.autograd.Function):
-    """Forward: stage the grids to bf16 (``stage_table``) and sample them
-    with the forward kernel the staging picks (the staged width's padded
+    """Forward: stage the grids to bf16 [H*W, F] tables (``stage_table``,
+    unpacked: a cast, where a quad-pack would also write 4x the bytes) and
+    sample them with ``bilerp_fwd_unpacked`` (the staged width's padded
     columns dropped).  Backward: the unpacked backward kernel for every
     table, [H*W, F] f32 straight into the grid's gradient; and, only when
     the fractions need a gradient (the camera optimizer's steps), one
@@ -130,10 +137,7 @@ class _FoldGroup(torch.autograd.Function):
         grids, rowids, txs = _split(n, tensors)
         h, w, feat = grids[0].shape
         tables = [stage_table(g) for g in grids]
-        if tables[0].shape[-1] == pk.native_feat(feat):
-            feats = pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w)
-        else:
-            feats = pk.bilerp_fwd_packed(tables, rowids, txs, ty)
+        feats = pk.bilerp_fwd_unpacked(tables, rowids, txs, ty, h=h, w=w)
         coords = _needs_coord_grads(ctx, n)
         ctx.save_for_backward(ty, *rowids, *txs, *(tables if coords else ()))
         ctx.shape = (n, h, w, feat)

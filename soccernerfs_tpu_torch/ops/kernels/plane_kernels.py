@@ -312,8 +312,8 @@ def _check_feat(feat: int) -> None:
         raise ValueError(f"feature width must be 1..{FEATS[-1]}, got {feat}")
 
 
-# the row ids the unpacked forward and the coordinate backward take: their
-# cells are 32-bit (csrc/ RowDiv)
+# the row ids the unpacked forward and the coordinate backward take (their
+# cells are 32-bit, csrc/ RowDiv), and the packed forward's rows (32-bit)
 MAX_ROWS = 2 ** 31 - 1
 
 
@@ -400,14 +400,17 @@ def bilerp_fwd_packed(tables: Sequence[torch.Tensor], rowids, txs,
     """Bilinear sample of P quad-packed [R, 4F] bf16 tables.
 
     Args:
-        tables: P [R, 4F] bf16 (ops/grid_sample.quad_pack), 1 <= F <= 128
-            (padded per call outside FEATS, as bilerp_fwd_unpacked).
+        tables: P [R, 4F] bf16 (ops/grid_sample.quad_pack), R < 2**31,
+            1 <= F <= 128 (padded per call outside FEATS, as
+            bilerp_fwd_unpacked).
         rowids: P [M] int32 row ids; txs: P [M] f32; ty: [M] f32.
     Returns:
         P [M, F] f32.
     """
     if _on_cpu([*tables, *rowids, *txs, ty]):
         return bilerp_fwd_packed_plain(tables, rowids, txs, ty)
+    if tables:
+        _check_rows(tables[0].shape[0], 1)
     m = _check(tables, rowids, txs, ty, torch.bfloat16)
     if tables[0].shape[-1] % 4:
         raise ValueError("packed tables are [R, 4F]")

@@ -438,6 +438,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert all(r["max_abs_err"] == 0.0 and r["library_ms"] > 0
                and r["bound_ms"] > 0 for r in fwd_width + width)
     assert sum(line.startswith("widths ") for line in lines) == 6
+    # F = 20 runs on tables padded once; the per-call pad on its own line
+    assert [line.split(":")[0] for line in lines
+            if line.startswith("width pad ")] == ["width pad F = 20"]
     # the unpacked forward at the render path's and the train path's point
     # counts, then on the captured launches of one train step, each held
     # bit-equal; the step's launches as many as the profiled step made
@@ -456,6 +459,18 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                for r in fwd if r["order"] != "random")
     assert any(line.startswith(f"train step launches of bilerp_fwd_unpacked, "
                                f"ray-ordered: {step_launches}, ") for line in lines)
+    # the packed forward on the step's own launches too (the F = 8 proposal
+    # fields'), each bit-equal, as many as the profiled step made
+    packed = [json.loads(line.split(" ", 2)[2]) for line in lines
+              if line.startswith("kernel packed ") and '"order": "ray"' in line]
+    assert packed and all(r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
+                          and len(r["ms_passes"]) == cs.BWD_PASSES
+                          and "[" in r["case"] and ",8]" in r["case"]
+                          for r in packed)
+    assert any(line.startswith(f"train step launches of bilerp_fwd_packed, "
+                               f"ray-ordered: {len(packed)}, ") for line in lines)
+    assert any(line.startswith("in-step bilerp_fwd_packed (update step)")
+               and f" in {len(packed)} launches" in line for line in lines)
     assert any(line.startswith("in-step bilerp_fwd_unpacked (update step)")
                and f" in {step_launches} launches" in line for line in lines)
     assert {r["planes"] for r in step} == {1, 2, 3}
@@ -952,7 +967,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     (sweep,) = phases["sweep_kp_res"]
     assert sweep["params"]["pipeline.model.multiscale-res"] == "1 2 4 8 16 32"
     assert sweep["field_plane_shapes"][0][-1] == 24
-    for kind, names in (("train", ("bilerp_fwd_packed", "bilerp_bwd_unpacked")),
+    for kind, names in (("train", ("bilerp_fwd_unpacked", "bilerp_bwd_unpacked")),
                         ("render", ("kplanes_fwd_fused",)),
                         ("eval", ("kplanes_fwd_fused",))):
         assert all(sweep[kind]["launches_by_width"][n]["24"] > 0 for n in names)

@@ -113,6 +113,52 @@ def test_packed_kernel_matches_plain(dev, h, w, m, planes, feat, sort):
         torch.testing.assert_close(g, e, rtol=1e-6, atol=0)
 
 
+def _packed_operands(rng, rows, feat, m, planes, dev):
+    """Quad-packed bf16 tables and per-point operands whose row ids run
+    past both ends of the table (the kernels clip them)."""
+    tables = [torch.from_numpy(rng.standard_normal((rows, 4 * feat),
+                                                   dtype=np.float32))
+              .to(dev, torch.bfloat16) for _ in range(planes)]
+    rowids = [torch.from_numpy(rng.integers(-3, rows + 3, m).astype(np.int32))
+              .to(dev) for _ in range(planes)]
+    txs = [torch.from_numpy(rng.random(m, dtype=np.float32)).to(dev)
+           for _ in range(planes)]
+    ty = torch.from_numpy(rng.random(m, dtype=np.float32)).to(dev)
+    return tables, rowids, txs, ty
+
+
+@pytest.mark.parametrize("planes", [1, 2, 3])
+@pytest.mark.parametrize("m", [1, 2, 3, 255, 4097])
+@pytest.mark.parametrize("feat", pk.FEATS)
+def test_packed_kernel_every_width_bit_equal(dev, feat, m, planes):
+    """The packed forward at every compiled width, two points a thread
+    below F = 48 (g and g + ceil(m/2)): at an odd m the last thread has
+    one point, which it writes once, and row ids past either end clip;
+    every output row bit-equal to the plain version's."""
+    rng = np.random.default_rng([feat, m, planes])
+    tables, rowids, txs, ty = _packed_operands(rng, 23, feat, m, planes, dev)
+    got = pk.bilerp_fwd_packed(tables, rowids, txs, ty)
+    want = pk.bilerp_fwd_packed_plain(tables, rowids, txs, ty)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):
+        assert g.shape == (m, feat) and torch.equal(g, e)
+
+
+@pytest.mark.parametrize("feat", [8, 24, 32, 48])
+def test_packed_kernel_tables_past_l2_bit_equal(dev, feat):
+    """Tables whose launch outgrows the 50 MB L2 (rows gathered from DRAM)
+    and a small one in the same width: bit-equal both."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    for rows in (1000, l2 // (8 * feat) + 4099):
+        rng = np.random.default_rng([feat, rows])
+        tables, rowids, txs, ty = _packed_operands(rng, rows, feat, 100_003, 2,
+                                                   dev)
+        got = pk.bilerp_fwd_packed(tables, rowids, txs, ty)
+        want = pk.bilerp_fwd_packed_plain(tables, rowids, txs, ty)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, e) for g, e in zip(got, want)), rows
+
+
 # many points on a 2x2 table: every add contends with thousands of others
 COLLISION_CASES = [(2, 2, 20000, 2, 32), (2, 2, 20000, 3, 8)]
 

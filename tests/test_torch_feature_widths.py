@@ -161,17 +161,17 @@ def test_wrappers_take_every_width(fake_card, feat):
 
 @pytest.mark.parametrize("feat", WIDTHS)
 def test_fused_wrapper_takes_staged_tables_of_every_width(fake_card, feat):
-    """kplanes_fwd_fused at F over stage_table's tables (padded to
-    native_feat(F), both layouts in one launch) writes its scale's column
-    slice of the concatenated features and leaves the neighbours alone;
-    equal to the CPU route's result."""
+    """kplanes_fwd_fused at F over the render path's staged tables (padded
+    to native_feat(F), both layouts in one launch) writes its scale's
+    column slice of the concatenated features and leaves the neighbours
+    alone; equal to the CPU route's result."""
     rng = np.random.default_rng(100 + feat)
     reso, m = (256, 256, 6, 5), 333
     grids = [_t(rng.uniform(0.1, 0.5, (reso[c2], reso[c1], feat))
                 .astype(np.float32)) for c1, c2 in tkpf.plane_combinations(4)]
-    tables = [tgs.stage_table(g) for g in grids]
+    tables = [tgs.stage_table(g, tgs.render_packs(*g.shape)) for g in grids]
     wide = pk.native_feat(feat)
-    # the 256x256 XY plane stages unpacked at F = 32 (stage_table's rule)
+    # the 256x256 XY plane stages unpacked at F = 32 (render_packs' rule)
     assert {t.shape[1] for t in tables} == ({wide, 4 * wide} if feat == 32
                                             else {4 * wide})
     planes = [(c1, c2, reso[c2], reso[c1])
@@ -292,6 +292,25 @@ def test_train_step_matches_jax_at_width(feat):
     take the planes' differences in bf16, and XLA's CPU compiler keeps
     them in f32 where torch rounds them (3.0e-5 at F = 24, 6.4e-6 at
     F = 20, 1.2e-6 at F = 32); they read the grids, not the samplers."""
+    _step_matches_jax(feat)
+
+
+def test_train_step_over_unpacked_tables_matches_jax(fake_card):
+    """The same step at F = 24 through the wrappers' card route: the
+    field's _FoldGroup stages every plane unpacked (stage_table) and
+    launches bilerp_fwd_unpacked at F = 24, the F = 8 proposal fields keep
+    the quad-packed route (bilerp_fwd_packed and its backward), and the
+    step still holds JAX's as above."""
+    pk.reset_launch_counts()
+    _step_matches_jax(24)
+    assert pk.bilerp_fwd_unpacked.launches_by_width == {
+        24: pk.bilerp_bwd_unpacked.launches}
+    assert set(pk.bilerp_fwd_packed.launches_by_width) == {8}
+    assert pk.bilerp_bwd_packed.launches == pk.bilerp_fwd_packed.launches > 0
+    assert set(fake_card) == {8, 24}
+
+
+def _step_matches_jax(feat):
     jcfg = jk.Config(**_tiny(feat))
     tcfg = tk.Config(**_tiny(feat))
     tree = _time_noise(jax.tree_util.tree_map(

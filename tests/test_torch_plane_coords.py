@@ -270,6 +270,24 @@ def test_wrappers_refuse_tables_of_2_31_rows(fake_card):
     assert fake_card == []
 
 
+def test_packed_forward_refuses_tables_of_2_31_rows(fake_card):
+    """The packed forward clips and offsets its rows in 32 bits: its
+    wrapper refuses a table of 2**31 rows or more before anything else
+    (meta tensors: no memory), and takes 2**31 - 1 rows as far as its
+    other checks (here: the operands' devices)."""
+    before = pk.bilerp_fwd_packed.launches
+    meta = {"dtype": torch.bfloat16, "device": "meta"}
+    f = torch.zeros(4)
+    z = torch.zeros(4, dtype=torch.int32)
+    for rows in (2 ** 31, 2 ** 32 + 5):
+        with pytest.raises(ValueError, match=r"below 2\*\*31"):
+            pk.bilerp_fwd_packed([torch.empty((rows, 32), **meta)], [z], [f], f)
+    with pytest.raises(ValueError, match="per-point operands"):
+        pk.bilerp_fwd_packed([torch.empty((2 ** 31 - 1, 32), **meta)], [z],
+                             [f], f)
+    assert pk.bilerp_fwd_packed.launches == before
+
+
 @pytest.mark.parametrize("w", [1, 2, 3, 7, 32, 100, 256, 1023, 1024, 1025,
                                2048, 32767, 65535, 2 ** 20 + 1, 2 ** 30,
                                2 ** 30 + 1, 2 ** 31 - 1])
@@ -324,7 +342,7 @@ def _group_sample(route, grids, pts, h, w):
 
 @pytest.mark.parametrize("route,feat,h,w", [
     ("fold", 32, 256, 256),   # staged unpacked (the field's big planes)
-    ("fold", 32, 8, 12),      # staged quad-packed
+    ("fold", 32, 8, 12),      # a small plane, staged unpacked as every fold table
     ("fold", 20, 8, 12),      # padded to 24
     ("packed", 8, 8, 12),     # the proposal fields' route
 ])
