@@ -132,12 +132,25 @@
      CPU check of one step, its leaves with the card's bins on both sides
      within 1e-2 or twice their one-ulp witness (the poses' printed).
 
+     The importance sampler's kernels (``sampler_kernel_phase``, just
+     before the Trainer phases), at trainer_kplanes' shapes: 95 IST-like
+     f16 maps of 540x960 made on the card from SEED, the 9 a step visits
+     (the registered 614 IST rays of 4096: 8 x 70 + 54) and a 3-cell map
+     drawn 5 times without replacement (its rejection budget runs out): cdf_scan_f64 against
+     numpy's sequential f64 cumsum on the host (bit-equal expected),
+     cdf_draw against the plain walk on the card's CDF (equal), the card's
+     draws against the whole plain route (equal but for counted ulp ties:
+     a search that lands elsewhere for any other reason fails); each timed
+     beside its plain version (host ms), torch.cumsum / torch.searchsorted
+     on the card and the bytes it must move.
   7. Trainer phases, through ``Trainer(config).setup().train()`` with the
      registered ``trainer_configs``, on fixtures the script writes to a
      temporary directory: ``trainer_kplanes`` (k-planes at
      full width on a broadcaststyle scene of 20 cameras x 10 steps at
      540x960: the image cache picks 95 images every 16 steps, IST weights
-     computed on the card at each refresh, IST rays from step 8; 64 steps
+     computed on the card at each refresh, IST rays from step 8, drawn by
+     cdf_scan_f64 and cdf_draw, each launched once on every IST step and
+     on no step before; 64 steps
      with eval batches, an eval image and checkpoints; all four plane
      kernels must launch; a fresh Trainer resumed from the final checkpoint
      must hold a bit-equal state and runs to step 96),
@@ -492,9 +505,10 @@ def time_ms(fn, iters: int) -> float:
 def all_kernels():
     """Every kernel wrapper of the port (each counts its launches)."""
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
-    return (*pk.KERNELS, *sk.KERNELS)
+    return (*pk.KERNELS, *sk.KERNELS, *spk.KERNELS)
 
 
 def reset_launch_counts() -> None:
@@ -2995,6 +3009,214 @@ def classic_method_phases(method, dev, cams, aabb, trace_dir, launches) -> None:
     torch.cuda.empty_cache()
 
 
+# the importance sampler's draws at trainer_kplanes' shapes: the cache's 95
+# maps of 540 x 960, num_ist = floor(0.15 * 4096) = 614 rays (the
+# registered k-planes' is_pixel_ratio and batch) from the 9 maps a step
+# visits (8 x 70 + 54), and a map of 3 cells drawn at k = 5 without
+# replacement (its rejection budget runs out)
+SAMPLER_MAPS = (95, 540, 960)
+SAMPLER_NUM_IST = 614
+SAMPLER_PASSES = 20
+SAMPLER_TIE_ULPS = 4             # |u - CDF step| that makes a draw a tie
+H100_F64_FLOPS = 34e12           # f64 outside the tensor cores, H100 SXM data sheet
+
+
+def sampler_maps(dev):
+    """IST-like f16 maps made on the card from SEED: ~90 % zeros, the rest
+    in [0.15, 1); map N has 3 cells."""
+    n, h, w = SAMPLER_MAPS
+    size = h * w
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    maps = torch.rand((n + 1, size), generator=gen, device=dev)
+    keep = torch.rand((n + 1, size), generator=gen, device=dev) < 0.1
+    maps = torch.where(keep, 0.15 + 0.85 * maps, 0.0).half()
+    maps[n] = 0
+    maps[n, [5, size // 2, size - 1]] = torch.tensor(
+        [0.5, 1.0, 0.25], dtype=torch.float16, device=dev)
+    return maps
+
+
+def sampler_visits(rng, n):
+    """The importance sampler's visits of one step (ids, k): images in a
+    shuffled order, each up to 10 * ceil(num_ist / n) draws until num_ist;
+    then the 3-cell map at k = 5."""
+    cap = 10 * -(-SAMPLER_NUM_IST // n)
+    ids, ks, left = [], [], SAMPLER_NUM_IST
+    for i in rng.permutation(n):
+        if left <= 0:
+            break
+        ids.append(int(i))
+        ks.append(min(cap, left))
+        left -= ks[-1]
+    return ids + [n], ks + [5]
+
+
+def count_ties(cdf, seq, uniforms, plan):
+    """Attempts whose search lands elsewhere on the card's CDF than on the
+    sequential one: (ties, faults).  A tie is an attempt whose uniform
+    lies within SAMPLER_TIE_ULPS ulps of the sequential CDF step where the
+    two searches part; any other is a fault."""
+    from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
+
+    ties = faults = 0
+    for c, q, (off, k, replace, _out) in zip(cdf.numpy(), seq.numpy(), plan):
+        u = uniforms[off:off + spk.draw_count(int(k), bool(replace))]
+        a = np.minimum(np.searchsorted(c, u * c[-1]), c.size - 1)
+        b = np.minimum(np.searchsorted(q, u * q[-1]), q.size - 1)
+        for j in np.nonzero(a != b)[0]:
+            step = q[min(a[j], b[j])]
+            if abs(u[j] * q[-1] - step) <= SAMPLER_TIE_ULPS * np.spacing(step):
+                ties += 1
+            else:
+                faults += 1
+    return ties, faults
+
+
+def lower_bound_probes(cdf, values):
+    """The cells that ``std::lower_bound`` over ``cdf`` reads for each of
+    ``values``: (distinct cells read, comparisons made).  Searches of one
+    map share their first levels, so the distinct cells are what the
+    searches must read."""
+    first = np.zeros(values.size, np.int64)
+    count = np.full(values.size, cdf.size, np.int64)
+    read = []
+    while (count > 0).any():
+        live = count > 0
+        step = count // 2
+        cell = first + step
+        read.append(cell[live])
+        less = live & (cdf[np.minimum(cell, cdf.size - 1)] < values)
+        first = np.where(less, cell + 1, first)
+        count = np.where(less, count - step - 1, np.where(live, step, count))
+    read = np.concatenate(read) if read else np.zeros(0, np.int64)
+    return np.unique(read).size, read.size
+
+
+def sampler_kernel_phase(dev) -> dict:
+    """cdf_scan_f64 and cdf_draw at trainer_kplanes' shapes
+    (SAMPLER_MAPS, SAMPLER_NUM_IST; with replacement where a map's support
+    is below its k, as the sampler draws), against their plain versions on
+    the host: the scan
+    against numpy's sequential f64 cumsum (bit-equal expected: f16 maps in
+    [0, 1] sum exactly), the draws against the plain walk on the card's
+    CDF (equal), and the card's draws against the whole plain route (equal
+    but for counted ulp ties).  Times each kernel (median of 5 passes of
+    SAMPLER_PASSES launches, L2 flushed) beside its plain version (host
+    seconds) and its library yardstick (torch.cumsum of the gathered maps
+    in f64; torch.searchsorted of every attempt's uniform)."""
+    from soccernerfs_tpu_torch.data import native_loader
+    from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
+
+    n, h, w = SAMPLER_MAPS
+    size = h * w
+    maps = sampler_maps(dev)
+    rng = np.random.default_rng(SEED)
+    ids, ks = sampler_visits(rng, n)
+    ids_t = torch.tensor(ids, dtype=torch.int64, device=dev)
+    support = torch.count_nonzero(maps.index_select(0, ids_t), 1).tolist()
+    reps = [s < k for s, k in zip(support, ks)]
+    reps[-1] = False                 # the 3-cell map: the budget runs out
+    seeds = [int(s) for s in rng.integers(0, 2**62, len(ids))]
+    plan_np, uni_np = native_loader.draw_inputs(ks, reps, seeds)
+    plan, uni = (torch.from_numpy(a).to(dev) for a in (plan_np, uni_np))
+    num_out = sum(ks)
+    scan = lambda: spk.cdf_scan_f64(maps, ids_t)
+    cdf = scan()
+    draw = lambda: spk.cdf_draw(cdf, uni, plan, num_out)
+    got = draw()
+    torch.cuda.synchronize()
+
+    host = maps.index_select(0, ids_t).cpu()
+    local = torch.arange(len(ids))
+    t0 = time.perf_counter()
+    seq = spk.cdf_scan_f64_plain(host, local)
+    scan_plain_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = spk.cdf_draw_plain(seq, uni.cpu(), plan.cpu(), num_out)
+    draw_plain_ms = 1e3 * (time.perf_counter() - t0)
+    card_cdf = cdf.cpu()
+    scan_err = float((card_cdf - seq).abs().max())
+    if scan_err != 0:
+        raise AssertionError(f"cdf_scan_f64: the CDF differs from the "
+                             f"sequential f64 sum by up to {scan_err} "
+                             f"(f16 maps in [0, 1] sum exactly)")
+    if not bool((card_cdf[:, 1:] >= card_cdf[:, :-1]).all()):
+        raise AssertionError("cdf_scan_f64: a CDF step decreases")
+    on_card_cdf = spk.cdf_draw_plain(card_cdf, uni.cpu(), plan.cpu(), num_out)
+    draw_err = float((got.cpu() - on_card_cdf).abs().max())
+    if draw_err != 0:
+        raise AssertionError(f"cdf_draw: {int((got.cpu() != on_card_cdf).sum())} "
+                             f"of {num_out} draws differ from its plain "
+                             f"version on the same CDF")
+    ties, faults = count_ties(card_cdf, seq, uni_np, plan_np)
+    differ = int((got.cpu() != want).sum())
+    if faults or (differ and not ties):
+        raise AssertionError(f"sampler: {differ} of {num_out} draws differ "
+                             f"from the sequential route, {faults} searches "
+                             f"apart beyond {SAMPLER_TIE_ULPS} ulps")
+    kept = got.cpu().numpy()
+    if len(set(kept[-5:].tolist())) != 3:
+        raise AssertionError(f"sampler: the 3-cell map drew {kept[-5:]}")
+    log(f"sampler: {len(ids)} maps ({ks}), {num_out} draws, card vs "
+        f"sequential route: {differ} differ, {ties} ulp ties, max |CDF "
+        f"difference| {scan_err}")
+
+    # the library yardsticks: the CDF by torch.cumsum, each attempt's
+    # search by torch.searchsorted (no walk)
+    lib_scan = lambda: torch.cumsum(maps.index_select(0, ids_t), 1,
+                                    dtype=torch.float64)
+    counts = [spk.draw_count(k, r) for k, r in zip(ks, reps)]
+    width = max(counts)
+    u2 = torch.zeros((len(ids), width), dtype=torch.float64)
+    for m, (off, c) in enumerate(zip(plan_np[:, 0], counts)):
+        u2[m, :c] = torch.from_numpy(uni_np[off:off + c])
+    u2 = (u2.to(dev) * cdf[:, -1:]).contiguous()
+    lib_draw = lambda: torch.searchsorted(cdf, u2)
+    lib_err = float((lib_scan() - cdf).abs().max())
+
+    # bytes each must move: the scan reads the visited f16 cells and writes
+    # their f64 CDF; the draw reads the uniforms its walks consume, each
+    # map's distinct CDF cells that their searches read, the plan and the
+    # totals, and writes the indices
+    consumed = cells = compares = 0
+    for c, (off, k, rep, _o) in zip(seq.numpy(), plan_np):
+        u = uni_np[off:off + spk.draw_count(int(k), bool(rep))] * c[-1]
+        lb = np.minimum(np.searchsorted(c, u), size - 1)
+        used = spk.walk(lb, int(k), bool(rep))[1]
+        distinct, made = lower_bound_probes(c, u[:used])
+        consumed, cells, compares = (consumed + used, cells + distinct,
+                                     compares + made)
+    rows = {}
+    for name, fn, lib, plain_ms, err, bytes_, ops in (
+            ("cdf_scan_f64", scan, lib_scan, scan_plain_ms, scan_err,
+             len(ids) * size * (2 + 8) + 8 * len(ids), 2 * len(ids) * size),
+            ("cdf_draw", draw, lib_draw, draw_plain_ms, draw_err,
+             8 * (consumed + cells) + 8 * len(ids) * 5 + 8 * num_out,
+             compares + consumed)):
+        passes = [time_ms(fn, SAMPLER_PASSES) for _ in range(BWD_PASSES)]
+        t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_F64_FLOPS * 1e3
+        row = {"case": f"{len(ids)} maps of {h}x{w}, k {ks}", "order": "step",
+               "max_abs_err": err, "ms": statistics.median(passes),
+               "ms_passes": passes, "plain_ms": plain_ms,
+               "plain_on": "host CPU", "library_ms": time_ms(lib, SAMPLER_PASSES),
+               "bytes": bytes_, "flops": ops, "peak_flops": H100_F64_FLOPS,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if name == "cdf_scan_f64":
+            row.update(library_max_abs_diff=lib_err, ulp_ties=ties,
+                       draws_differing=differ)
+        else:
+            row.update(uniforms_consumed=consumed, cdf_cells_read=cells,
+                       comparisons=compares)
+        log("kernel sampler", name, json.dumps(row))
+        rows[name] = [row]
+    maps_bound = len(ids) * size * 2 / H100_BYTES_PER_S * 1e3
+    log(f"sampler: both kernels {rows['cdf_scan_f64'][0]['ms'] + rows['cdf_draw'][0]['ms']:.4f} "
+        f"ms, bound {maps_bound:.4f} ms (the visited maps' f16 bytes once)")
+    return rows
+
+
 def timed(fn, record, sync=False):
     """``fn`` wrapped so that each call appends its host seconds to
     ``record`` (after a synchronise when ``sync``)."""
@@ -3058,14 +3280,17 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
     image and checkpoints; then a fresh Trainer resumed from the final
     checkpoint (its state bit-equal) runs to step 96.  Fails unless the
     cache refreshed twice with IST weights, a batch held
-    floor(is_pixel_ratio * rays) IST rays, every loss was finite, every
-    param group moved and all five plane kernels launched in the loop (the
-    fused one by the eval image at step 32)."""
+    floor(is_pixel_ratio * rays) IST rays, every IST step launched
+    cdf_scan_f64 and cdf_draw once each (and no step before), every loss
+    was finite, every param group moved and all five plane kernels
+    launched in the loop (the fused one by the eval image at step 32)."""
+    from soccernerfs_tpu_torch.data import native_loader
     from soccernerfs_tpu_torch.data.dataparsers import DATAPARSERS
     from soccernerfs_tpu_torch.data.fixtures import make_broadcaststyle_fixture
     from soccernerfs_tpu_torch.engine import checkpoints
     from soccernerfs_tpu_torch.engine.trainer import Trainer
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
     from soccernerfs_tpu_torch.utils.tree import tree_leaves
 
@@ -3102,29 +3327,32 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
     dm = trainer.datamanager
     rays = dm.get_train_rays_per_batch()
 
-    # the data path's host time per step, the refreshes apart
+    # the data path's host time per step, the refreshes apart, and each
+    # step's IST draws and sampler kernel launches
     decode_s, is_s, raw = [], [], []
     dm.train_cache._collate = timed(dm.train_cache._collate, decode_s)
-    dm.train_dataset.compute_is = timed(dm.train_dataset.compute_is, is_s)
-    sampler = dm.train_pixel_sampler
+    dm.train_dataset.importance_maps = timed(dm.train_dataset.importance_maps,
+                                             is_s, sync=True)
     drawn = [0]
-    weighted_choice = sampler._weighted_choice
+    weighted_samples = native_loader.weighted_samples
 
-    def counted_choice(*args):
-        out = weighted_choice(*args)
+    def counted_samples(*args):
+        out = weighted_samples(*args)
         drawn[0] += len(out)
         return out
 
-    sampler._weighted_choice = counted_choice
+    native_loader.weighted_samples = counted_samples
     next_train_raw = dm.next_train_raw
 
     def timed_raw(step):
         n_dec, n_is = len(decode_s), len(is_s)
         drawn[0] = 0
+        before = [k.launches for k in spk.KERNELS]
         t = time.perf_counter()
         out = next_train_raw(step)
         refresh = sum(decode_s[n_dec:]) + sum(is_s[n_is:])
-        raw.append((step, time.perf_counter() - t - refresh, drawn[0]))
+        raw.append((step, time.perf_counter() - t - refresh, drawn[0],
+                    [k.launches - n for k, n in zip(spk.KERNELS, before)]))
         return out
 
     dm.next_train_raw = timed_raw
@@ -3138,8 +3366,11 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
     watch = watch_groups(trainer)
     reset_launch_counts()
     t0 = time.perf_counter()
-    trainer.train()
-    torch.cuda.synchronize()
+    try:
+        trainer.train()
+        torch.cuda.synchronize()
+    finally:
+        native_loader.weighted_samples = weighted_samples
     train_s = time.perf_counter() - t0
     launches[f"trainer {MODEL}"] = counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3158,18 +3389,28 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
         raise AssertionError(f"{tag}: {len(is_s)} cache refreshes with IST "
                              f"weights (at least 2)")
     want_ist = int(dm_cfg.is_pixel_ratio * rays)
-    ist_rays = [n for _s, _t, n in raw]
+    ist_rays = [n for _s, _t, n, _l in raw]
     if want_ist not in ist_rays:
         raise AssertionError(f"{tag}: no batch held {want_ist} IST rays "
                              f"({sorted(set(ist_rays))})")
+    # one scan and one draw launch on every IST step (the sampler starts
+    # once the cache's iteration count passes iters_to_start_is), none
+    # before
+    start_is = dm_cfg.iters_to_start_is
+    odd = [(s, n, l) for s, _t, n, l in raw
+           if ((l != [1, 1] or not n) if s >= start_is else any(l))]
+    if odd:
+        raise AssertionError(f"{tag}: steps (step, IST rays, [scan, draw] "
+                             f"launches) off one scan and one draw per IST "
+                             f"step: {odd[:6]}")
+    ist_steps = sum(s >= start_is for s, _t, _n, _l in raw)
 
     loop_s = train_s - sum(side_s) - sum(save_s)
     steps = len(raw)
     TRAINER_KPLANES.update(loop_rays_per_s=rays * steps / loop_s,
                            refresh_decode_ms=[1e3 * t for t in decode_s])
-    start_is = dm_cfg.iters_to_start_is
-    before_is = [t for s, t, _n in raw if s < start_is]
-    after_is = [t for s, t, _n in raw if s >= start_is]
+    before_is = [t for s, t, _n, _l in raw if s < start_is]
+    after_is = [t for s, t, _n, _l in raw if s >= start_is]
     rolling = [v for n, _s, v in sink.scalars if n == "Train Rays / Sec"]
 
     # resume: a fresh Trainer from the final checkpoint
@@ -3221,7 +3462,8 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
     split, refresh_s = [], []
     dm = resumed.datamanager
     dm.train_cache._collate = timed(dm.train_cache._collate, refresh_s)
-    dm.train_dataset.compute_is = timed(dm.train_dataset.compute_is, refresh_s)
+    dm.train_dataset.importance_maps = timed(dm.train_dataset.importance_maps,
+                                             refresh_s, sync=True)
     for step in range(TRAINER_RESUME_TO, TRAINER_RESUME_TO + TRAINER_LOG_STEPS):
         n_refresh = len(refresh_s)
         t0 = time.perf_counter()
@@ -3250,6 +3492,8 @@ def trainer_kplanes_phase(dev, root, launches) -> None:
         "refresh_decode_ms": [1e3 * t for t in decode_s],
         "refresh_ist_ms": [1e3 * t for t in is_s],
         "ist_rays_per_batch": sorted(set(ist_rays)),
+        "ist_steps": ist_steps, "sampler_launches": {
+            k.__name__: counts[k.__name__] for k in spk.KERNELS},
         "evals_and_image_s": sum(side_s), "eval_image_psnr":
             [r["psnr"] for r in eval_psnr],
         "save_ms": [1e3 * t for t in save_s], "load_ms": 1e3 * load_s[0],
@@ -3291,7 +3535,8 @@ def trainer_kplanes_depth_phase(dev, root, launches) -> None:
     rays = dm.get_train_rays_per_batch()
     decode_s, is_s, side_s, save_s = [], [], [], []
     dm.train_cache._collate = timed(dm.train_cache._collate, decode_s)
-    dm.train_dataset.compute_is = timed(dm.train_dataset.compute_is, is_s)
+    dm.train_dataset.importance_maps = timed(dm.train_dataset.importance_maps,
+                                             is_s, sync=True)
     trainer.eval_iteration = timed(trainer.eval_iteration, side_s)
     trainer.eval_image = timed(trainer.eval_image, side_s)
     trainer.save_checkpoint = timed(trainer.save_checkpoint, save_s, sync=True)
@@ -6009,6 +6254,7 @@ def main() -> int:
         return 1
     from soccernerfs_tpu_torch.ops.kernels import build
     from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+    from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
     from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
     t_main = time.perf_counter()
@@ -6019,7 +6265,7 @@ def main() -> int:
         "python", sys.version.split()[0])
 
     t0 = time.perf_counter()
-    libs = build.build_all([*pk.LIBRARIES, *sk.LIBRARIES])
+    libs = build.build_all([*pk.LIBRARIES, *sk.LIBRARIES, *spk.LIBRARIES])
     log(f"build: {time.perf_counter() - t0:.3f} s, {[lib.name for lib in libs]}")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -6209,6 +6455,11 @@ def main() -> int:
     neus_method_phases(dev, cams, aabb, args.trace, launches)
     log(f"neus_method_phases {NEUS}: {time.perf_counter() - t0:.3f} s")
 
+    # ---- the importance sampler's kernels at trainer_kplanes' shapes
+    t0 = time.perf_counter()
+    kernels.update(sampler_kernel_phase(dev))
+    log(f"sampler_kernel_phase: {time.perf_counter() - t0:.3f} s")
+
     # ---- the Trainer phases: the data path, checkpoints, the gate
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
         for phase in (trainer_kplanes_phase, trainer_kplanes_depth_phase,
@@ -6234,6 +6485,10 @@ def main() -> int:
                               "plane_bwd_kernels.cu"),
         # the render path's launches of both forward kernels, fused
         "kplanes_fwd_fused": (f"{pallas}:591,1062", "plane_kernels.cu"),
+        # no TPU kernel: the JAX package's C++ sampler, snt_weighted_sample
+        # (its CDF loop, then its draws and walk)
+        "cdf_scan_f64": ("native/snt_loader.cpp:174", "sampler_kernels.cu"),
+        "cdf_draw": ("native/snt_loader.cpp:181", "sampler_kernels.cu"),
     }
     log("main-path launches:", json.dumps(launches))
     log(f"chip_smoke: {time.perf_counter() - t_main:.3f} s from the card line "
@@ -6248,7 +6503,8 @@ def main() -> int:
         rows = [r for r in rows
                 if r.get("order", "random") == "random"] or rows
         t_bytes = sum(r["bytes"] for r in rows) / H100_BYTES_PER_S * 1e3
-        t_ops = sum(r["flops"] for r in rows) / H100_F32_FLOPS * 1e3
+        t_ops = sum(r["flops"] / r.get("peak_flops", H100_F32_FLOPS)
+                    for r in rows) * 1e3
         count = sum(path[name] for path in launches.values())
         if count <= 0:
             raise AssertionError(f"{name} was launched on no main path")

@@ -14,6 +14,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 from PIL import Image
 
 from soccernerfs_tpu_torch.data import importance
@@ -95,16 +96,23 @@ class InputDataset:
                          self.alpha_color)
 
     def get_metadata(self, data: Dict) -> Dict:
-        """What a subclass adds to an item beside its image and mask."""
+        """What a subclass adds to an item beside its image and mask, from
+        ``data["image_idx"]``."""
         return {}
 
-    def __getitem__(self, image_idx: int) -> Dict:
-        data = {"image_idx": image_idx, "image": self.get_image(image_idx)}
+    def get_extras(self, image_idx: int) -> Dict:
+        """An item's mask and metadata, without its image."""
+        data = {"image_idx": image_idx}
         if self._dataparser_outputs.mask_filenames is not None:
             data["mask"] = get_mask(
                 self._dataparser_outputs.mask_filenames[image_idx],
                 self.scale_factor)
         data.update(self.get_metadata(data))
+        return data
+
+    def __getitem__(self, image_idx: int) -> Dict:
+        data = {"image_idx": image_idx, "image": self.get_image(image_idx)}
+        data.update(self.get_extras(image_idx))
         return data
 
 
@@ -190,16 +198,19 @@ class DynamicDataset(InputDataset):
             self.depth_filenames[idx], int(self.cameras.height[idx]),
             int(self.cameras.width[idx]), scale)}
 
-    def compute_is(self, batch: Dict, offline: bool = False) -> Optional[np.ndarray]:
+    def importance_maps(self, batch: Dict, offline: bool = False
+                        ) -> Optional[torch.Tensor]:
         """Static ISS, ISG or IST weights of ``batch``: [B, H, W] float16
-        or None."""
+        on the dataset's device (where the importance sampler draws from
+        them), or None."""
         split = "eval" if self.eval_dataset else "train"
         if self.static:
-            return importance.compute_iss(self, batch, split=split, offline=offline)
+            return importance.iss_maps(self, batch, split=split,
+                                       offline=offline, device=self.device)
         if self.is_config.isg:
-            return importance.compute_isg(
+            return importance.isg_maps(
                 self, batch, gamma=self.is_config.isg_gamma, split=split,
                 offline=offline, device=self.device)
-        return importance.compute_ist(
+        return importance.ist_maps(
             self, batch, ist_range=self.is_config.ist_range, split=split,
             offline=offline, device=self.device)

@@ -2,8 +2,13 @@
 soccernerfs_tpu/data/image_cache.py).
 
 Holds N decoded images, picks a new set every ``num_times_to_repeat_images``
-iterations (pick modes normal / randsteps / lowfps), decodes in a thread
-pool and attaches importance weights and the running iteration count.
+iterations (pick modes normal / randsteps / lowfps), decodes the picked
+images, and attaches importance weights (staged on the dataset's device,
+where the importance sampler draws from them) and the running iteration
+count.  Images of one size at scale 1 decode through
+``native_loader.decode_batch``, the JAX package's default path; others,
+or all where a test turns ``native_loader.available`` off, through the
+dataset in a thread pool.
 The picks draw from a ``random.Random`` the caller hands in: the JAX cache
 draws from the global ``random`` module, which its trainer seeds with the
 same seed, so both pick the same images.
@@ -18,6 +23,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from soccernerfs_tpu_torch.data import native_loader
 from soccernerfs_tpu_torch.data.datasets import DynamicDataset, InputDataset
 
 
@@ -50,7 +56,7 @@ class ImageBatchCache:
         if self.cache_all:
             self.cached_batch = self._collate()
             if self._is_dynamic_with_is():
-                self.cached_batch["ist_weights"] = self.dataset.compute_is(
+                self.cached_batch["ist_weights"] = self.dataset.importance_maps(
                     self.cached_batch, offline=True
                 )
 
@@ -103,21 +109,38 @@ class ImageBatchCache:
         return indices
 
     def _collate(self) -> Dict:
-        """Decode the picked images in a thread pool and stack them."""
+        """Decode the picked images and stack them with their masks, depth
+        maps and labels, in threads.  The images decode in one
+        ``decode_batch`` when they share a size at scale 1 (the C++
+        loader's f32 composite, the JAX package's default path), else
+        through the dataset's ``get_image`` (its path without the
+        loader)."""
         indices = (
             list(range(len(self.dataset))) if self.cache_all else self._pick_indices()
         )
+        images = self._native_decode(indices)
         workers = max(1, min(self.num_workers * 4, (os.cpu_count() or 2) - 1))
         with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
-            items = list(ex.map(self.dataset.__getitem__, indices))
-        batch = {
-            "image_idx": np.asarray([it["image_idx"] for it in items], np.int64),
-            "image": np.stack([it["image"] for it in items]),
-        }
+            if images is None:
+                images = np.stack(list(ex.map(self.dataset.get_image, indices)))
+            extras = list(ex.map(self.dataset.get_extras, indices))
+        batch = {"image_idx": np.asarray(indices, np.int64), "image": images}
         for key in ("mask", "depth_image", "semantics"):
-            if key in items[0]:
-                batch[key] = np.stack([it[key] for it in items])
+            if key in extras[0]:
+                batch[key] = np.stack([e[key] for e in extras])
         return batch
+
+    def _native_decode(self, indices) -> Optional[np.ndarray]:
+        if self.dataset.scale_factor != 1.0 or not native_loader.available():
+            return None
+        heights = self.dataset.cameras.height.reshape(-1)[indices].tolist()
+        widths = self.dataset.cameras.width.reshape(-1)[indices].tolist()
+        if len(set(heights)) != 1 or len(set(widths)) != 1:
+            return None
+        paths = [self.dataset.image_filenames[i] for i in indices]
+        return native_loader.decode_batch(paths, int(heights[0]),
+                                          int(widths[0]),
+                                          self.dataset.alpha_color)
 
     def next_batch(self) -> Dict:
         """The cached batch of this iteration, picked and decoded anew every
@@ -135,7 +158,7 @@ class ImageBatchCache:
             if self._is_dynamic_with_is():
                 iters_to_start = self.dataset.is_config.iters_to_start_is
                 if self.iter_step + self.num_times_to_repeat_images >= iters_to_start:
-                    batch["ist_weights"] = self.dataset.compute_is(batch)
+                    batch["ist_weights"] = self.dataset.importance_maps(batch)
             self.cached_batch = (
                 batch if self.num_times_to_repeat_images != 0 else None
             )

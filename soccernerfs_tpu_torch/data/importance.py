@@ -4,7 +4,10 @@ soccernerfs_tpu/data/importance.py).
 The image stack is processed per physical camera as one max-|diff| (IST)
 or ψ-diff (ISG) pass in torch on the caller's device, with the JAX
 package's thresholds, fallbacks, cache file names, ``offline`` semantics
-and float16 output.  Caches are .npy files beside the images.
+and float16 output.  Caches are .npy files beside the images.  The
+``*_maps`` functions (the JAX package's ``compute_*``) return the weights
+where they were computed (a cache file is uploaded once), the tensors the
+importance sampler draws from.
 """
 from __future__ import annotations
 
@@ -75,9 +78,9 @@ def _cam_ids(cameras, img_idx: np.ndarray) -> np.ndarray:
 
 
 def _per_camera(images: np.ndarray, cam_ids: np.ndarray, device, weights_fn
-                ) -> np.ndarray:
+                ) -> torch.Tensor:
     """``weights_fn(frames of one camera, their positions)`` for each
-    camera, gathered into [B, H, W] float16 on the host."""
+    camera, gathered into [B, H, W] float16 on ``device``."""
     dev = resolve_device(device)
     B, H, W = images.shape[:3]
     out = torch.empty((B, H, W), dtype=torch.float16, device=dev)
@@ -86,18 +89,23 @@ def _per_camera(images: np.ndarray, cam_ids: np.ndarray, device, weights_fn
         frames = torch.from_numpy(np.ascontiguousarray(images[sel])).to(dev)
         out[torch.from_numpy(sel).to(dev)] = weights_fn(frames, sel).to(
             torch.float16)
-    return out.cpu().numpy()
+    return out
 
 
-def compute_ist(dataset, batch: Dict, ist_range: float, split: str,
-                offline: bool = False, device=None) -> Optional[np.ndarray]:
+def _load_maps(path: Path, expected_batch: int, dev) -> Optional[torch.Tensor]:
+    cached = _try_load_cache(path, expected_batch)
+    return None if cached is None else torch.from_numpy(cached).to(dev)
+
+
+def ist_maps(dataset, batch: Dict, ist_range: float, split: str,
+             offline: bool = False, device=None) -> Optional[torch.Tensor]:
     """IST weights of a cached image batch.
 
     Args:
         batch: {"image": [B, H, W, 3] float32, "image_idx": [B] int}.
         device: where the weights are computed (default CUDA).
     Returns:
-        [B, H, W] float16, or None for cameras without times.
+        [B, H, W] float16 on ``device``, or None for cameras without times.
     """
     cameras = dataset.cameras
     if cameras.times is None:
@@ -106,14 +114,14 @@ def compute_ist(dataset, batch: Dict, ist_range: float, split: str,
     B, H = images.shape[:2]
     rng_str = str(ist_range).replace(".", "_")
     cache = _cache_path(dataset, f"ist-weights-{rng_str}-{split}-{B}-{H}p.npy")
+    dev = resolve_device(device)
     if offline:
-        cached = _try_load_cache(cache, B)
+        cached = _load_maps(cache, B, dev)
         if cached is not None:
             return cached
 
     img_idx = np.asarray(batch["image_idx"])
     cam_times = cameras.times.cpu().numpy()[img_idx]
-    dev = resolve_device(device)
 
     def weights(frames, sel):
         t = cam_times[sel]
@@ -123,46 +131,48 @@ def compute_ist(dataset, batch: Dict, ist_range: float, split: str,
 
     out = _per_camera(images, _cam_ids(cameras, img_idx), dev, weights)
     if offline:
-        np.save(cache, out)
+        np.save(cache, out.cpu().numpy())
     return out
 
 
-def compute_isg(dataset, batch: Dict, gamma: float, split: str,
-                offline: bool = False, device=None) -> Optional[np.ndarray]:
-    """ISG weights of a cached image batch ([B, H, W] float16, or None for
-    cameras without times)."""
+def isg_maps(dataset, batch: Dict, gamma: float, split: str,
+             offline: bool = False, device=None) -> Optional[torch.Tensor]:
+    """ISG weights of a cached image batch ([B, H, W] float16 on
+    ``device``, or None for cameras without times)."""
     cameras = dataset.cameras
     if cameras.times is None:
         return None
     images = np.asarray(batch["image"])
     B, H = images.shape[:2]
     cache = _cache_path(dataset, f"isg-weights-{gamma}-{split}-{B}-{H}p.npy")
+    dev = resolve_device(device)
     if offline:
-        cached = _try_load_cache(cache, B)
+        cached = _load_maps(cache, B, dev)
         if cached is not None:
             return cached
     img_idx = np.asarray(batch["image_idx"])
-    out = _per_camera(images, _cam_ids(cameras, img_idx), device,
+    out = _per_camera(images, _cam_ids(cameras, img_idx), dev,
                       lambda frames, sel: isg_weights(frames, gamma))
     if offline:
-        np.save(cache, out)
+        np.save(cache, out.cpu().numpy())
     return out
 
 
-def compute_iss(dataset, batch: Dict, split: str, offline: bool = False
-                ) -> np.ndarray:
+def iss_maps(dataset, batch: Dict, split: str, offline: bool = False,
+             device=None) -> torch.Tensor:
     """Static-scene ISS: detection boxes -> binary weight maps, [B, H, W]
-    float16.  No detector is loaded (its weights are not in the
-    repository), so every image gets uniform 1s, the JAX package's branch
-    for an image without detections."""
+    float16 on ``device``.  No detector is loaded (its weights are not in
+    the repository), so every image gets uniform 1s, the JAX package's
+    branch for an image without detections."""
     images = np.asarray(batch["image"])
     B, H, W = images.shape[:3]
     cache = _cache_path(dataset, f"iss-weights-{split}-{B}-{H}p.npy")
+    dev = resolve_device(device)
     if offline:
-        cached = _try_load_cache(cache, B)
+        cached = _load_maps(cache, B, dev)
         if cached is not None:
             return cached
-    out = np.ones((B, H, W), dtype=np.float16)
+    out = torch.ones((B, H, W), dtype=torch.float16, device=dev)
     if offline:
-        np.save(cache, out)
+        np.save(cache, out.cpu().numpy())
     return out

@@ -6,7 +6,11 @@ from its own ``numpy.random.Generator(seed)``, so a seed gives the JAX
 package's indices.  The importance sampler (``DynamicBasedPixelSampler``,
 over IST/ISG weight maps) keeps the fork's semantics: ratio split,
 10x-ceil per-image cap, shuffled image order, empty-map skip,
-with-replacement fallback for tiny supports, uniform remainder.
+with-replacement fallback for tiny supports, uniform remainder.  Its
+draws are the JAX package's C++ sampler's, draw for draw
+(``native_loader.weighted_samples``: one scan and one draw launch a step
+on the maps' device), or numpy's ``choice``, JAX's path without its
+library, where a test turns ``native_loader.available`` off.
 """
 from __future__ import annotations
 
@@ -15,6 +19,9 @@ from math import ceil, floor
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+from soccernerfs_tpu_torch.data import native_loader
 
 
 @dataclass
@@ -145,6 +152,7 @@ class DynamicBasedPixelSampler(PixelSampler):
         super().__init__(num_rays_per_batch, keep_full_image, **kwargs)
         self.is_pixel_ratio = is_pixel_ratio
         self.iters_to_start_is = iters_to_start_is
+        self._staged_from = None
 
     def sample_method(
         self, batch_size, num_images, image_height, image_width, mask=None, batch=None
@@ -161,41 +169,62 @@ class DynamicBasedPixelSampler(PixelSampler):
         num_ist = floor(self.is_pixel_ratio * batch_size)
         per_image_cap = 10 * ceil(num_ist / num_images)
 
-        rows = []
+        # the visited images, their sample counts and replacement; the
+        # maps are not read here (their supports come once per refresh)
+        maps, support = self._staged(ist_weights)
+        visits = []
         sampled = 0
         order = self.rng.permutation(num_images)
         for i in order:
             if sampled >= num_ist:
                 break
-            weight_map = np.asarray(ist_weights[i], dtype=np.float64)
-            total = weight_map.sum()
-            if total <= 0:
+            if support[i] == 0:
                 continue  # motionless camera: empty map, skip
             num_samples = min(per_image_cap, num_ist - sampled)
-            flat = weight_map.reshape(-1)
-            support = int(np.count_nonzero(flat))
-            replace = support < num_samples
-            samples = self._weighted_choice(flat, total, num_samples, replace)
-            h, w = samples // image_width, samples % image_width
-            rows.append(
-                np.stack([np.full(num_samples, i), h, w], axis=-1)
-            )
+            visits.append((int(i), num_samples, bool(support[i] < num_samples)))
             sampled += num_samples
 
-        ist_indices = (
-            np.concatenate(rows, axis=0)
-            if rows
-            else np.zeros((0, 3), dtype=np.int64)
-        )
+        if not visits:
+            ist_indices = np.zeros((0, 3), dtype=np.int64)
+        else:
+            ids, ks, replaces = (list(v) for v in zip(*visits))
+            if native_loader.available():
+                seeds = [int(self.rng.integers(0, 2**62)) for _ in visits]
+                flat = native_loader.weighted_samples(maps, ids, ks, replaces,
+                                                      seeds)
+            else:
+                flat = np.concatenate([
+                    self._weighted_choice(ist_weights, i, k, r)
+                    for i, k, r in visits])
+            ist_indices = np.stack([np.repeat(ids, ks), flat // image_width,
+                                    flat % image_width], axis=-1)
         num_unif = batch_size - ist_indices.shape[0]
         unif = super().sample_method(
             num_unif, num_images, image_height, image_width, mask=mask
         )
         return np.concatenate([ist_indices.astype(np.int64), unif], axis=0)
 
-    def _weighted_choice(self, flat, total, num_samples, replace):
-        """numpy's weighted draw, the JAX package's draw where its C++
-        loader library is absent."""
+    def _staged(self, ist_weights):
+        """(maps [B, H*W] tensor, support [B] numpy): the weight maps where
+        the cache staged them (a numpy batch's on the CPU) and each map's
+        count of nonzero cells, counted on the maps' device once per map
+        set and read back once.  The weights are non-negative: a map
+        without support is a map whose total is 0."""
+        if ist_weights is not self._staged_from:
+            maps = (ist_weights if torch.is_tensor(ist_weights)
+                    else torch.from_numpy(np.ascontiguousarray(ist_weights)))
+            maps = maps.reshape(maps.shape[0], -1)
+            self._staged_from = ist_weights
+            self._maps = maps
+            self._support = torch.count_nonzero(maps, dim=1).cpu().numpy()
+        return self._maps, self._support
+
+    def _weighted_choice(self, ist_weights, i, num_samples, replace):
+        """numpy's weighted draw from map i, the JAX package's draw where
+        its C++ loader library is absent (read on the host)."""
+        weight_map = np.asarray(ist_weights[i], dtype=np.float64)
+        total = weight_map.sum()
+        flat = weight_map.reshape(-1)
         return self.rng.choice(
             flat.size, size=num_samples, replace=replace, p=flat / total
         )

@@ -55,11 +55,12 @@ def main(argv=None) -> np.ndarray:
         "image": np.stack([ds.get_image(i) for i in range(len(ds))]),
     }
     if args.isg:
-        w = importance.compute_isg(ds, batch, args.isg_gamma, args.split,
-                                   offline=True, device=device)
+        w = importance.isg_maps(ds, batch, args.isg_gamma, args.split,
+                                offline=True, device=device)
     else:
-        w = importance.compute_ist(ds, batch, args.ist_range, args.split,
-                                   offline=True, device=device)
+        w = importance.ist_maps(ds, batch, args.ist_range, args.split,
+                                offline=True, device=device)
+    w = w.cpu().numpy()
     print(f"weights: {w.shape} {w.dtype}, nonzero frac {float((w > 0).mean()):.3f}")
 
     if args.save_maps:

@@ -34,6 +34,7 @@ import torch
 from soccernerfs_tpu_torch.configs import method_configs as mc
 from soccernerfs_tpu_torch.ops.kernels import build
 from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
 from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
 
@@ -120,6 +121,12 @@ def _stubs():
         (sk, "_launch",
          lambda g, idxs, ws, out, flag, points, groups, corners, c, rows, window:
          out.copy_(sk.scatter_add_rows_plain(g, idxs, ws, rows=rows))),
+        (spk, "_on_cpu", lambda ts: False),
+        (spk, "_check_cuda", lambda operands: None),
+        (spk, "_launch_scan", lambda maps, ids, out: out.copy_(
+            spk.cdf_scan_f64_plain(maps, ids))),
+        (spk, "_launch_draw", lambda cdf, uniforms, plan, out: out.copy_(
+            spk.cdf_draw_plain(cdf, uniforms, plan, out.numel()))),
     ]
 
 
@@ -292,6 +299,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "NERFSTUDIO_FIXTURE", {"num_frames": 10, "h": 24,
                                                    "w": 32})
     monkeypatch.setattr(cs, "TRAINER_KPLANES", {})
+    monkeypatch.setattr(cs, "SAMPLER_MAPS", (12, 24, 40))
+    monkeypatch.setattr(cs, "SAMPLER_NUM_IST", 38)   # floor(0.15 * 256)
+    monkeypatch.setattr(cs, "SAMPLER_PASSES", 2)
     monkeypatch.setattr(cs, "TRAINER_RESUME_TO", 12)
     monkeypatch.setattr(cs, "INGP_TRAINER_STEPS", 6)
     monkeypatch.setattr(cs, "CONVERGENCE_STEPS", 3)
@@ -407,7 +417,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     for obj, name, value in _stubs():
         monkeypatch.setattr(obj, name, value)
     libs = [tmp_path / f"lib{name}_stub.so"
-            for name in (*pk.LIBRARIES, *sk.LIBRARIES)]
+            for name in (*pk.LIBRARIES, *sk.LIBRARIES, *spk.LIBRARIES)]
     for lib in libs:
         lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers\n")
     monkeypatch.setattr(build, "build_all", lambda names: libs)
@@ -496,8 +506,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert lines[-2] == "stub card, 0 W"
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [
-        k.__name__ for k in (*pk.KERNELS, *sk.KERNELS)]
-    assert len(kernels) == 7
+        k.__name__ for k in (*pk.KERNELS, *sk.KERNELS, *spk.KERNELS)]
+    assert len(kernels) == 9
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
@@ -639,6 +649,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert run["loop_rays_per_s"] > 0 and run["load_ms"] > 0
     assert len(run["refresh_ist_ms"]) >= 2 and len(run["save_ms"]) == 2
     assert int(0.15 * 256) in run["ist_rays_per_batch"]
+    # one scan and one draw launch on each of the steps from 2 on (the
+    # loop's 8) and the resumed run's 4 (checked in the phase, step by step)
+    assert run["ist_steps"] == 6
+    assert run["sampler_launches"] == {"cdf_scan_f64": 6, "cdf_draw": 6}
+    assert phases["trainer_kplanes"][0]["phase"] == "trainer_kplanes"
     # the four train kernels, and the fused one in the eval images; the
     # registered method no coordinate backward
     assert all(run["launches"][k.__name__] > 0
@@ -912,6 +927,23 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert k["ms"] == pytest.approx(sum(r["ms"] for r in random))
     assert k["bound_ms"] == pytest.approx(
         sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
+    # the importance sampler's kernels at the trainer's shapes (here 12
+    # maps of 24x40: 38 draws from one, and the 3-cell map's 5): each
+    # against its plain version, the draws against the sequential route,
+    # no tie
+    sampler = {line.split(" ", 3)[2]: json.loads(line.split(" ", 3)[3])
+               for line in lines if line.startswith("kernel sampler ")}
+    assert list(sampler) == ["cdf_scan_f64", "cdf_draw"]
+    assert sampler["cdf_scan_f64"]["ulp_ties"] == 0
+    assert sampler["cdf_scan_f64"]["draws_differing"] == 0
+    assert all(r["max_abs_err"] == 0 and r["bound_by"] == "bytes"
+               and r["plain_ms"] > 0 and r["library_ms"] > 0
+               for r in sampler.values())
+    assert sampler["cdf_draw"]["case"].endswith("k [38, 5]")
+    for k, name in zip(kernels[7:], sampler):
+        assert k["name"] == name and k["ms"] == sampler[name]["ms"]
+        assert k["replaces"].startswith("native/snt_loader.cpp:")
+        assert k["launches"] >= main_path["trainer small"][name] == 6
     # a user's COLMAP capture: colmap-to-json, the poses and distortions
     # read back, nerfacto through snt-train with an eval image, snt-eval,
     # the panorama's crops

@@ -29,6 +29,7 @@ from PIL import Image
 
 from soccernerfs_tpu.data import colmap_utils as jcu
 from soccernerfs_tpu.data import native_loader
+from soccernerfs_tpu_torch.data import native_loader as tnative
 from soccernerfs_tpu.data.datamanager import VanillaDataManagerConfig as JVanilla
 from soccernerfs_tpu.data.dataparsers.nerfstudio_parser import (
     NerfstudioDataParserConfig as JNerfstudio,
@@ -63,9 +64,11 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
-    """JAX's pixel sampler and cache use its C++ loader when it loads; the
-    port draws and decodes with numpy, JAX's path without it."""
+    """Both packages' data-path runtimes off (JAX's C++ loader, which its
+    sampler and cache use when it loads, and the port's counterpart):
+    both draw with numpy's choice and decode through their datasets."""
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")

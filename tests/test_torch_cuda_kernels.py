@@ -1,5 +1,6 @@
 """The port's CUDA kernels (plane sampling forward and backward, the hash
-grids' row scatter-add) against their plain versions, on the card.
+grids' row scatter-add, the importance sampler's CDF scan and draw)
+against their plain versions, on the card.
 
 Needs CUDA and nvcc; everywhere else each test skips.  Imports neither JAX
 nor the JAX package (the card's machine has neither), so run it without
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from soccernerfs_tpu_torch.ops.kernels import plane_kernels as pk
+from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
 from soccernerfs_tpu_torch.ops.kernels import scatter_kernels as sk
 
 pytestmark = pytest.mark.cuda
@@ -846,3 +848,101 @@ def test_viewer_render_on_the_card_matches_the_cpu(dev):
     assert card.shape == cpu.shape == (64, 96, 3)
     assert np.mean(np.all(np.abs(card - cpu) <= 1, axis=-1)) >= 0.999
     assert cpu.std() > 0  # the snapshot renders an image, not one colour
+
+
+# ---------------------------------------------------------------------------
+# the importance sampler: cdf_scan_f64, cdf_draw
+# ---------------------------------------------------------------------------
+
+
+def _ist_maps(rng, n, size):
+    """IST-like f16 maps: ~90 % zeros, the rest in (0.15, 1]."""
+    maps = rng.uniform(0.15, 1.0, (n, size)).astype(np.float16)
+    maps[rng.random((n, size)) < 0.9] = 0
+    return maps
+
+
+@pytest.mark.parametrize("size", [1, 31, 1000, 16384, 16385, 540 * 960])
+def test_cdf_scan_matches_plain_f16(dev, size):
+    """Every partial sum of an f16 map in [0, 1] is exact in f64, so the
+    card's order of adds gives the sequential CDF bit for bit."""
+    rng = np.random.default_rng(size)
+    maps = torch.from_numpy(_ist_maps(rng, 5, size)).to(dev)
+    ids = torch.tensor([3, 0, 4, 3], dtype=torch.int64, device=dev)
+    before = spk.cdf_scan_f64.launches
+    got = spk.cdf_scan_f64(maps, ids)
+    want = spk.cdf_scan_f64_plain(maps.cpu(), ids.cpu())
+    torch.cuda.synchronize()
+    assert spk.cdf_scan_f64.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("size", [1000, 16385, 540 * 960])
+def test_cdf_scan_f32_is_non_decreasing(dev, size):
+    """f32 weights over many octaves round in the card's order: within
+    1e-10 of the sequential sum (518,400 sequential f64 adds may stray by
+    up to ~6e-11 of the sum), and no step decreases."""
+    rng = np.random.default_rng(size)
+    w = (rng.random((2, size)) * 10.0 ** rng.integers(-6, 6, (2, size))
+         ).astype(np.float32)
+    w[:, ::7] = 0
+    maps = torch.from_numpy(w).to(dev)
+    ids = torch.tensor([1, 0], dtype=torch.int64, device=dev)
+    got = spk.cdf_scan_f64(maps, ids).cpu()
+    want = spk.cdf_scan_f64_plain(maps.cpu(), ids.cpu())
+    assert (got[:, 1:] >= got[:, :-1]).all()
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+
+
+def _plan(ks, reps):
+    counts = [spk.draw_count(k, r) for k, r in zip(ks, reps)]
+    uni_off = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    out_off = np.concatenate([[0], np.cumsum(ks)[:-1]])
+    plan = np.stack([uni_off, ks, np.asarray(reps, np.int64), out_off], 1)
+    return torch.from_numpy(plan.astype(np.int64)), int(sum(counts))
+
+
+def test_cdf_draw_matches_plain(dev):
+    """The same CDFs and uniforms: the same indices, with and without
+    replacement, a spent budget (3 cells at k = 5), a single cell, k = 0
+    and a uniform of 0."""
+    rng = np.random.default_rng(0)
+    size = 540 * 960
+    maps = _ist_maps(rng, 6, size)
+    maps[3] = 0
+    maps[3, [5, 7000, size - 1]] = [0.5, 1.0, 0.25]     # support 3
+    maps[4] = 0
+    maps[4, 12345] = 1.0                                # one cell
+    ks = [20, 20, 2, 5, 3, 0, 122]
+    reps = [False, True, False, False, False, False, False]
+    ids = torch.tensor([0, 1, 2, 3, 4, 5, 5], dtype=torch.int64, device=dev)
+    cdf = spk.cdf_scan_f64(torch.from_numpy(maps).to(dev), ids)
+    plan, n = _plan(ks, reps)
+    uni = rng.random(n)
+    uni[0] = 0.0
+    uniforms = torch.from_numpy(uni).to(dev)
+    before = spk.cdf_draw.launches
+    got = spk.cdf_draw(cdf, uniforms, plan.to(dev), sum(ks)).cpu()
+    want = spk.cdf_draw_plain(cdf.cpu(), uniforms.cpu(), plan, sum(ks))
+    torch.cuda.synchronize()
+    assert spk.cdf_draw.launches == before + 1
+    assert torch.equal(got, want)
+    kept = got.numpy()
+    assert len(set(kept[:20].tolist())) == 20
+    assert set(kept[42:47].tolist()) == {5, 7000, size - 1}
+    assert (kept[47:50] == 12345).all()
+
+
+def test_weighted_samples_on_the_card_match_the_cpu(dev):
+    """The sampler's call on card tensors and on CPU tensors: equal draws
+    (f16 IST maps: the card's CDF is the sequential one)."""
+    from soccernerfs_tpu_torch.data import native_loader
+
+    rng = np.random.default_rng(1)
+    maps = torch.from_numpy(_ist_maps(rng, 95, 540 * 960))
+    ids = [int(i) for i in rng.choice(95, 9, replace=False)]
+    ks, reps = [70] * 8 + [54], [False] * 9      # 614 IST rays of 4096
+    seeds = [int(s) for s in rng.integers(0, 2**62, 9)]
+    got = native_loader.weighted_samples(maps.to(dev), ids, ks, reps, seeds)
+    want = native_loader.weighted_samples(maps, ids, ks, reps, seeds)
+    np.testing.assert_array_equal(got, want)

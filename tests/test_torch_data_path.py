@@ -24,6 +24,7 @@ from soccernerfs_tpu.data import fixtures as jfix
 from soccernerfs_tpu.data import image_cache as jcache
 from soccernerfs_tpu.data import importance as jimp
 from soccernerfs_tpu.data import native_loader
+from soccernerfs_tpu_torch.data import native_loader as tnative
 from soccernerfs_tpu.data import pixel_samplers as jps
 from soccernerfs_tpu.data.datamanager import DynamicDataManagerConfig as JDMConfig
 from soccernerfs_tpu.data.dataparsers.blender import BlenderDataParserConfig as JBlender
@@ -57,11 +58,27 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+JAX_AVAILABLE = native_loader.available    # before the fixture patches it
+
+
+def _runtimes(monkeypatch, native):
+    """Both data-path runtimes back on for ``native`` ("on"); skips when
+    JAX's C++ library does not load."""
+    if native == "on":
+        if not JAX_AVAILABLE():
+            pytest.skip("the JAX package's C++ loader (native/) does not "
+                        "load here: no toolchain or image libraries")
+        monkeypatch.setattr(native_loader, "available", JAX_AVAILABLE)
+        monkeypatch.setattr(tnative, "available", lambda: True)
+
+
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
-    """JAX's pixel sampler and cache use its C++ loader when it loads; the
-    port draws and decodes with numpy, JAX's path without it."""
+    """Both packages' data-path runtimes off (JAX's C++ loader, which its
+    sampler and cache use when it loads, and the port's counterpart):
+    both draw with numpy's choice and decode through their datasets."""
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -255,13 +272,18 @@ def _within_f16_ulp(a, b):
     assert not bad.any(), (bad.sum(), np.abs(a32 - b32).max())
 
 
+def _host(maps):
+    """Weights the port computed on the CPU, as numpy (None stays None)."""
+    return None if maps is None else maps.numpy()
+
+
 @pytest.mark.parametrize("ist_range", [1.0, 0.5, 0.02])
 @pytest.mark.parametrize("fps", [1.0, 2.0])  # 4 and 2 frames per camera
 def test_ist_matches_jax(broadcast_root, ist_range, fps):
     jd, td, batch = _datasets(broadcast_root, fps)
     j = jimp.compute_ist(jd, batch, ist_range=ist_range, split="train")
-    t = timp.compute_ist(td, batch, ist_range=ist_range, split="train",
-                         device="cpu")
+    t = _host(timp.ist_maps(td, batch, ist_range=ist_range, split="train",
+                            device="cpu"))
     _within_f16_ulp(t, j)
     gap = 1 / 3 if fps == 1.0 else 1.0  # between a camera's frames
     if ist_range < gap:  # no close frames: uniform 1s
@@ -280,7 +302,7 @@ def test_isg_matches_jax(broadcast_root, frames, ids):
                       <= (frames - 1) / 3 + 1e-6)[0]
     batch = {"image_idx": batch["image_idx"][keep], "image": batch["image"][keep]}
     j = jimp.compute_isg(jd, batch, gamma=5e-2, split="train")
-    t = timp.compute_isg(td, batch, gamma=5e-2, split="train", device="cpu")
+    t = _host(timp.isg_maps(td, batch, gamma=5e-2, split="train", device="cpu"))
     _within_f16_ulp(t, j)
     if frames == 4:
         # torch.median's lower middle value differs from the midpoint here
@@ -293,11 +315,12 @@ def test_isg_matches_jax(broadcast_root, frames, ids):
 @pytest.mark.parametrize("ids", [True, False], ids=["ids", "no-ids"])
 def test_ist_without_times_or_ids(broadcast_root, ids):
     jd, td, batch = _datasets(broadcast_root, ids=ids)
-    _within_f16_ulp(timp.compute_ist(td, batch, 1.0, "train", device="cpu"),
+    _within_f16_ulp(_host(timp.ist_maps(td, batch, 1.0, "train",
+                                        device="cpu")),
                     jimp.compute_ist(jd, batch, 1.0, "train"))
     td.cameras = dataclasses.replace(td.cameras, times=None)
-    assert timp.compute_ist(td, batch, 1.0, "train", device="cpu") is None
-    assert timp.compute_isg(td, batch, 5e-2, "train", device="cpu") is None
+    assert _host(timp.ist_maps(td, batch, 1.0, "train", device="cpu")) is None
+    assert _host(timp.isg_maps(td, batch, 5e-2, "train", device="cpu")) is None
 
 
 def test_importance_cache_files(broadcast_root):
@@ -308,15 +331,15 @@ def test_importance_cache_files(broadcast_root):
     folder = td.image_filenames[0].parent
     for f in folder.glob("*-weights-*.npy"):
         f.unlink()
-    t = timp.compute_ist(td, batch, 1.0, "train", offline=True, device="cpu")
+    t = _host(timp.ist_maps(td, batch, 1.0, "train", offline=True, device="cpu"))
     name = f"ist-weights-1_0-train-{b}-{h}p.npy"
     np.testing.assert_array_equal(np.load(folder / name), t)
     np.save(folder / name, np.zeros_like(t))
-    assert not timp.compute_ist(td, batch, 1.0, "train", offline=True,
-                                device="cpu").any()
-    g = timp.compute_isg(td, batch, 0.05, "eval", offline=True, device="cpu")
+    assert not _host(timp.ist_maps(td, batch, 1.0, "train", offline=True,
+                                   device="cpu")).any()
+    g = _host(timp.isg_maps(td, batch, 0.05, "eval", offline=True, device="cpu"))
     np.testing.assert_array_equal(np.load(folder / f"isg-weights-0.05-eval-{b}-{h}p.npy"), g)
-    s = timp.compute_iss(td, batch, "train", offline=True)
+    s = _host(timp.iss_maps(td, batch, "train", offline=True, device="cpu"))
     assert s.dtype == np.float16 and (s == 1).all()
     np.testing.assert_array_equal(
         s, jimp.compute_iss(jd, batch, "train", offline=True))
@@ -327,7 +350,7 @@ def test_importance_cache_files(broadcast_root):
 def test_static_dataset_uses_iss(broadcast_root):
     jd, td, batch = _datasets(broadcast_root)
     td.metadata["static"] = True
-    out = td.compute_is(batch)
+    out = _host(td.importance_maps(batch))
     assert out.shape == batch["image"].shape[:3] and (out == 1).all()
 
 
@@ -355,8 +378,13 @@ def test_uniform_samplers_match_jax(broadcast_root, cls):
             np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
+@pytest.mark.parametrize("native", ["off", "on"])
 @pytest.mark.parametrize("iter_steps", [1, 10])  # before and after IS starts
-def test_importance_sampler_matches_jax(broadcast_root, iter_steps):
+def test_importance_sampler_matches_jax(broadcast_root, iter_steps, native,
+                                        monkeypatch):
+    """Off: numpy's choice on both sides; on: JAX's C++ sampler against the
+    port's draws (its plain route on these host maps), draw for draw."""
+    _runtimes(monkeypatch, native)
     batch = _image_batch(broadcast_root, iter_steps)
     j = jps.DynamicBasedPixelSampler(512, is_pixel_ratio=0.15,
                                      iters_to_start_is=5, seed=3)
@@ -374,11 +402,15 @@ def test_importance_sampler_matches_jax(broadcast_root, iter_steps):
         assert (w[slot, rows[:, 1], rows[:, 2]] > 0).all()
 
 
+@pytest.mark.parametrize("native", ["off", "on"])
 @pytest.mark.parametrize("pick_mode", ["normal", "randsteps", "lowfps"])
-def test_cache_picks_match_jax(broadcast_root, pick_mode):
+def test_cache_picks_match_jax(broadcast_root, pick_mode, native, monkeypatch):
     """Three refreshes of a cache of 6 of the 12 train images, IST weights
     attached once ``iter_step + repeat >= iters_to_start_is``: the same
-    images, in the same order, with the same weights."""
+    images, in the same order, with the same weights (staged on the port's
+    dataset device, here the CPU); decoded through the datasets (off) or
+    by both runtimes' ``decode_batch`` (on)."""
+    _runtimes(monkeypatch, native)
     cfg = dict(ist_range=1.0, iters_to_start_is=5, pick_mode=pick_mode)
     jd, td, _ = _datasets(broadcast_root, **cfg)
     random.seed(11)
@@ -391,7 +423,8 @@ def test_cache_picks_match_jax(broadcast_root, pick_mode):
         assert b["iter_steps"] == a["iter_steps"] == step + 1
         assert ("ist_weights" in b) == ("ist_weights" in a)
         if "ist_weights" in a:
-            _within_f16_ulp(b["ist_weights"], a["ist_weights"])
+            assert b["ist_weights"].device.type == "cpu"
+            _within_f16_ulp(_np(b["ist_weights"]), a["ist_weights"])
     assert "ist_weights" in b
 
 

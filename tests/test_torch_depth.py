@@ -32,6 +32,7 @@ from soccernerfs_tpu.core import rays as jrays
 from soccernerfs_tpu.data import datasets as jds
 from soccernerfs_tpu.data import fixtures as jfix
 from soccernerfs_tpu.data import native_loader
+from soccernerfs_tpu_torch.data import native_loader as tnative
 from soccernerfs_tpu.data.datamanager import DynamicDataManagerConfig as JDMConfig
 from soccernerfs_tpu.data.dataparsers.nerfstudio_parser import (
     NerfstudioDataParserConfig as JNerfstudio,
@@ -79,9 +80,11 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
-    """JAX's pixel sampler and cache use its C++ loader when it loads; the
-    port draws and decodes with numpy, JAX's path without it."""
+    """Both packages' data-path runtimes off (JAX's C++ loader, which its
+    sampler and cache use when it loads, and the port's counterpart):
+    both draw with numpy's choice and decode through their datasets."""
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 CPU = "cpu"

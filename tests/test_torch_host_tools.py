@@ -288,11 +288,10 @@ def test_broken_plugin_is_reported_not_raised(tmp_path, monkeypatch, capsys):
 # ---------------------------------------------------------------------------
 
 # the JAX package's modules that the port has no counterpart of: the Pallas
-# kernels (ported as CUDA kernels under csrc/), the downloader (it needs
-# the network) and the C++ image loader's binding (the card's machine has
-# no libpng or libjpeg)
+# kernels (ported as CUDA kernels under csrc/) and the downloader (it needs
+# the network)
 UNPORTED = {"ops/pallas/__init__.py", "ops/pallas/plane_kernels.py",
-            "scripts/download_data.py", "data/native_loader.py"}
+            "scripts/download_data.py"}
 RENAMED = {"data/dataparsers/nerfstudio_parser.py": "data/dataparsers/nerfstudio.py"}
 
 

@@ -24,6 +24,7 @@ from soccernerfs_tpu.configs.cli import parse_train_cli as jparse
 from soccernerfs_tpu.data import datasets as jds
 from soccernerfs_tpu.data import image_cache as jcache
 from soccernerfs_tpu.data import native_loader
+from soccernerfs_tpu_torch.data import native_loader as tnative
 from soccernerfs_tpu.data.dataparsers import DATAPARSERS as JAX_PARSERS
 from soccernerfs_tpu_torch.configs.cli import parse_train_cli as tparse
 from soccernerfs_tpu_torch.data import datasets as tds
@@ -51,9 +52,11 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
-    """JAX's cache uses its C++ loader when it loads; the port decodes
-    with numpy, JAX's path without it."""
+    """Both packages' data-path runtimes off (JAX's C++ loader, which its
+    sampler and cache use when it loads, and the port's counterpart):
+    both draw with numpy's choice and decode through their datasets."""
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def _sparse0(root):

@@ -34,6 +34,7 @@ from soccernerfs_tpu.core import cameras as jcam
 from soccernerfs_tpu.data import datasets as jds
 from soccernerfs_tpu.data import fixtures as jfix
 from soccernerfs_tpu.data import native_loader
+from soccernerfs_tpu_torch.data import native_loader as tnative
 from soccernerfs_tpu.data.datamanager import SemanticDataManagerConfig as JSemanticDM
 from soccernerfs_tpu.data.dataparsers.sitcoms3d import (
     Sitcoms3DDataParserConfig as JSitcoms,
@@ -70,9 +71,11 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _no_native_loader(monkeypatch):
-    """JAX's pixel sampler and cache use its C++ loader when it loads; the
-    port draws and decodes with numpy, JAX's path without it."""
+    """Both packages' data-path runtimes off (JAX's C++ loader, which its
+    sampler and cache use when it loads, and the port's counterpart):
+    both draw with numpy's choice and decode through their datasets."""
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 CPU = "cpu"
