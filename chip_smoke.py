@@ -136,13 +136,15 @@
      before the Trainer phases), at trainer_kplanes' shapes: 95 IST-like
      f16 maps of 540x960 made on the card from SEED, the 9 a step visits
      (the registered 614 IST rays of 4096: 8 x 70 + 54) and a 3-cell map
-     drawn 5 times without replacement (its rejection budget runs out): cdf_scan_f64 against
+     drawn 5 times without replacement (its rejection budget runs out);
+     then one of those maps drawn 70 times (one cluster of the scan) and
+     two 1080x1920 maps drawn 70 times each: cdf_scan_f64 against
      numpy's sequential f64 cumsum on the host (bit-equal expected),
      cdf_draw against the plain walk on the card's CDF (equal), the card's
      draws against the whole plain route (equal but for counted ulp ties:
      a search that lands elsewhere for any other reason fails); each timed
      beside its plain version (host ms), torch.cumsum / torch.searchsorted
-     on the card and the bytes it must move.
+     on the card, the bytes it must move and an empty kernel's launch.
   7. Trainer phases, through ``Trainer(config).setup().train()`` with the
      registered ``trainer_configs``, on fixtures the script writes to a
      temporary directory: ``trainer_kplanes`` (k-planes at
@@ -294,6 +296,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import statistics
@@ -3013,12 +3016,27 @@ def classic_method_phases(method, dev, cams, aabb, trace_dir, launches) -> None:
 # maps of 540 x 960, num_ist = floor(0.15 * 4096) = 614 rays (the
 # registered k-planes' is_pixel_ratio and batch) from the 9 maps a step
 # visits (8 x 70 + 54), and a map of 3 cells drawn at k = 5 without
-# replacement (its rejection budget runs out)
+# replacement (its rejection budget runs out); then one of those maps drawn
+# SAMPLER_SINGLE_K times (weighted_sample's route: the scan's one cluster)
+# and SAMPLER_FULL_MAPS, full-HD maps drawn SAMPLER_FULL_K times each (the
+# scan's cluster tiles over a map of 2,073,600 cells)
 SAMPLER_MAPS = (95, 540, 960)
 SAMPLER_NUM_IST = 614
+SAMPLER_SINGLE_K = 70
+SAMPLER_FULL_MAPS = (2, 1080, 1920)
+SAMPLER_FULL_K = 70
 SAMPLER_PASSES = 20
 SAMPLER_TIE_ULPS = 4             # |u - CDF step| that makes a draw a tie
 H100_F64_FLOPS = 34e12           # f64 outside the tensor cores, H100 SXM data sheet
+
+
+def ist_like_maps(shape, gen, dev):
+    """f16 maps [n, h * w] like IST weights: ~90 % zeros, the rest in
+    [0.15, 1)."""
+    n, h, w = shape
+    maps = torch.rand((n, h * w), generator=gen, device=dev)
+    keep = torch.rand((n, h * w), generator=gen, device=dev) < 0.1
+    return torch.where(keep, 0.15 + 0.85 * maps, 0.0).half()
 
 
 def sampler_maps(dev):
@@ -3027,9 +3045,7 @@ def sampler_maps(dev):
     n, h, w = SAMPLER_MAPS
     size = h * w
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    maps = torch.rand((n + 1, size), generator=gen, device=dev)
-    keep = torch.rand((n + 1, size), generator=gen, device=dev) < 0.1
-    maps = torch.where(keep, 0.15 + 0.85 * maps, 0.0).half()
+    maps = ist_like_maps((n + 1, h, w), gen, dev)
     maps[n] = 0
     maps[n, [5, size // 2, size - 1]] = torch.tensor(
         [0.5, 1.0, 0.25], dtype=torch.float16, device=dev)
@@ -3092,31 +3108,32 @@ def lower_bound_probes(cdf, values):
     return np.unique(read).size, read.size
 
 
-def sampler_kernel_phase(dev) -> dict:
-    """cdf_scan_f64 and cdf_draw at trainer_kplanes' shapes
-    (SAMPLER_MAPS, SAMPLER_NUM_IST; with replacement where a map's support
-    is below its k, as the sampler draws), against their plain versions on
-    the host: the scan
-    against numpy's sequential f64 cumsum (bit-equal expected: f16 maps in
-    [0, 1] sum exactly), the draws against the plain walk on the card's
-    CDF (equal), and the card's draws against the whole plain route (equal
-    but for counted ulp ties).  Times each kernel (median of 5 passes of
+def replacements(maps, ids, ks):
+    """Each visit's replacement flag, as the sampler sets it: a map whose
+    support is below its k draws with replacement."""
+    ids_t = torch.tensor(ids, dtype=torch.int64, device=maps.device)
+    support = torch.count_nonzero(maps.index_select(0, ids_t), 1).tolist()
+    return [s < k for s, k in zip(support, ks)]
+
+
+def sampler_case(dev, maps, ids, ks, reps, seeds, order, floor_ms):
+    """cdf_scan_f64 and cdf_draw on the maps at ``ids`` drawn ``ks`` times
+    (with replacement where ``reps``), against their plain versions on the
+    host: the scan against numpy's sequential f64 cumsum (bit-equal
+    expected: f16 maps in [0, 1] sum exactly), the draws against the plain
+    walk on the card's CDF (equal), and the card's draws against the whole
+    plain route (equal but for counted ulp ties).  Times each kernel (median of 5 passes of
     SAMPLER_PASSES launches, L2 flushed) beside its plain version (host
-    seconds) and its library yardstick (torch.cumsum of the gathered maps
-    in f64; torch.searchsorted of every attempt's uniform)."""
+    seconds), its library yardstick (torch.cumsum of the gathered maps in
+    f64; torch.searchsorted of every attempt's uniform), its bound and
+    ``floor_ms`` (an empty kernel's launch, timed the same way).  Returns
+    ({kernel: row}, the draws); the rows carry the sha256 of the CDFs and
+    of the draws."""
     from soccernerfs_tpu_torch.data import native_loader
     from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
 
-    n, h, w = SAMPLER_MAPS
-    size = h * w
-    maps = sampler_maps(dev)
-    rng = np.random.default_rng(SEED)
-    ids, ks = sampler_visits(rng, n)
+    size = maps.shape[1]
     ids_t = torch.tensor(ids, dtype=torch.int64, device=dev)
-    support = torch.count_nonzero(maps.index_select(0, ids_t), 1).tolist()
-    reps = [s < k for s, k in zip(support, ks)]
-    reps[-1] = False                 # the 3-cell map: the budget runs out
-    seeds = [int(s) for s in rng.integers(0, 2**62, len(ids))]
     plan_np, uni_np = native_loader.draw_inputs(ks, reps, seeds)
     plan, uni = (torch.from_numpy(a).to(dev) for a in (plan_np, uni_np))
     num_out = sum(ks)
@@ -3154,20 +3171,16 @@ def sampler_kernel_phase(dev) -> dict:
         raise AssertionError(f"sampler: {differ} of {num_out} draws differ "
                              f"from the sequential route, {faults} searches "
                              f"apart beyond {SAMPLER_TIE_ULPS} ulps")
-    kept = got.cpu().numpy()
-    if len(set(kept[-5:].tolist())) != 3:
-        raise AssertionError(f"sampler: the 3-cell map drew {kept[-5:]}")
-    log(f"sampler: {len(ids)} maps ({ks}), {num_out} draws, card vs "
-        f"sequential route: {differ} differ, {ties} ulp ties, max |CDF "
-        f"difference| {scan_err}")
+    log(f"sampler ({order}): {len(ids)} maps of {size} cells ({ks}), "
+        f"{num_out} draws, card vs sequential route: {differ} differ, "
+        f"{ties} ulp ties, max |CDF difference| {scan_err}")
 
     # the library yardsticks: the CDF by torch.cumsum, each attempt's
     # search by torch.searchsorted (no walk)
     lib_scan = lambda: torch.cumsum(maps.index_select(0, ids_t), 1,
                                     dtype=torch.float64)
     counts = [spk.draw_count(k, r) for k, r in zip(ks, reps)]
-    width = max(counts)
-    u2 = torch.zeros((len(ids), width), dtype=torch.float64)
+    u2 = torch.zeros((len(ids), max(counts)), dtype=torch.float64)
     for m, (off, c) in enumerate(zip(plan_np[:, 0], counts)):
         u2[m, :c] = torch.from_numpy(uni_np[off:off + c])
     u2 = (u2.to(dev) * cdf[:, -1:]).contiguous()
@@ -3186,6 +3199,8 @@ def sampler_kernel_phase(dev) -> dict:
         distinct, made = lower_bound_probes(c, u[:used])
         consumed, cells, compares = (consumed + used, cells + distinct,
                                      compares + made)
+    digests = {"cdf_sha256": hashlib.sha256(card_cdf.numpy().tobytes()).hexdigest(),
+               "draws_sha256": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()}
     rows = {}
     for name, fn, lib, plain_ms, err, bytes_, ops in (
             ("cdf_scan_f64", scan, lib_scan, scan_plain_ms, scan_err,
@@ -3196,13 +3211,14 @@ def sampler_kernel_phase(dev) -> dict:
         passes = [time_ms(fn, SAMPLER_PASSES) for _ in range(BWD_PASSES)]
         t_bytes = bytes_ / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_F64_FLOPS * 1e3
-        row = {"case": f"{len(ids)} maps of {h}x{w}, k {ks}", "order": "step",
+        row = {"case": f"{len(ids)} maps of {size} cells, k {ks}", "order": order,
                "max_abs_err": err, "ms": statistics.median(passes),
                "ms_passes": passes, "plain_ms": plain_ms,
                "plain_on": "host CPU", "library_ms": time_ms(lib, SAMPLER_PASSES),
                "bytes": bytes_, "flops": ops, "peak_flops": H100_F64_FLOPS,
                "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "floor_ms": floor_ms, **digests}
         if name == "cdf_scan_f64":
             row.update(library_max_abs_diff=lib_err, ulp_ties=ties,
                        draws_differing=differ)
@@ -3210,11 +3226,51 @@ def sampler_kernel_phase(dev) -> dict:
             row.update(uniforms_consumed=consumed, cdf_cells_read=cells,
                        comparisons=compares)
         log("kernel sampler", name, json.dumps(row))
-        rows[name] = [row]
-    maps_bound = len(ids) * size * 2 / H100_BYTES_PER_S * 1e3
-    log(f"sampler: both kernels {rows['cdf_scan_f64'][0]['ms'] + rows['cdf_draw'][0]['ms']:.4f} "
-        f"ms, bound {maps_bound:.4f} ms (the visited maps' f16 bytes once)")
-    return rows
+        rows[name] = row
+    return rows, got.cpu().numpy()
+
+
+def sampler_kernel_phase(dev) -> dict:
+    """cdf_scan_f64 and cdf_draw (sampler_case) at trainer_kplanes' shapes
+    (SAMPLER_MAPS, SAMPLER_NUM_IST, "order": "step"), then one of its maps
+    drawn SAMPLER_SINGLE_K times ("single") and SAMPLER_FULL_MAPS
+    ("full"); first an empty kernel's launch, timed as the kernels are
+    (floor_ms).  Returns {kernel: rows}."""
+    from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
+
+    floor_ms = statistics.median(
+        time_ms(lambda: spk.empty_launch(dev), SAMPLER_PASSES)
+        for _ in range(BWD_PASSES))
+    log(f"sampler: an empty kernel's launch {floor_ms:.4f} ms (floor_ms)")
+    n, h, w = SAMPLER_MAPS
+    maps = sampler_maps(dev)
+    rng = np.random.default_rng(SEED)
+    ids, ks = sampler_visits(rng, n)
+    seeds = [int(s) for s in rng.integers(0, 2**62, len(ids))]
+    reps = replacements(maps, ids, ks)
+    reps[-1] = False                 # the 3-cell map: the budget runs out
+    step, kept = sampler_case(dev, maps, ids, ks, reps, seeds, "step", floor_ms)
+    if len(set(kept[-5:].tolist())) != 3:
+        raise AssertionError(f"sampler: the 3-cell map drew {kept[-5:]}")
+    one = ids[:1], [SAMPLER_SINGLE_K]
+    single, _ = sampler_case(dev, maps, *one, replacements(maps, *one),
+                             seeds[:1], "single", floor_ms)
+    del maps
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    full_maps = ist_like_maps(SAMPLER_FULL_MAPS, gen, dev)
+    count = SAMPLER_FULL_MAPS[0]
+    every = list(range(count)), [SAMPLER_FULL_K] * count
+    full, _ = sampler_case(dev, full_maps, *every, replacements(full_maps, *every),
+                           [int(s) for s in rng.integers(0, 2**62, count)],
+                           "full", floor_ms)
+    del full_maps
+    torch.cuda.empty_cache()
+    maps_bound = len(ids) * h * w * 2 / H100_BYTES_PER_S * 1e3
+    log(f"sampler: both kernels {step['cdf_scan_f64']['ms'] + step['cdf_draw']['ms']:.4f} "
+        f"ms at the step, bound {maps_bound:.4f} ms (the visited maps' f16 "
+        f"bytes once), floor {2 * floor_ms:.4f} ms (two empty launches)")
+    return {name: [step[name], single[name], full[name]]
+            for name in ("cdf_scan_f64", "cdf_draw")}
 
 
 def timed(fn, record, sync=False):
@@ -6498,10 +6554,12 @@ def main() -> int:
         # the kernel phases' own cases at the main paths' widths, as
         # earlier runs summed them; the backward kernels' captured
         # train-step launches and the other widths' cases have lines of
-        # their own; the fused kernel's cases are a frame's own launches
+        # their own; the fused kernel's cases are a frame's own launches;
+        # the sampler's, its step case (its single-map and full-HD cases
+        # have lines of their own)
         rows = [r for r in kernels[name] if r.get("order") != "width"]
         rows = [r for r in rows
-                if r.get("order", "random") == "random"] or rows
+                if r.get("order", "random") in ("random", "step")] or rows
         t_bytes = sum(r["bytes"] for r in rows) / H100_BYTES_PER_S * 1e3
         t_ops = sum(r["flops"] / r.get("peak_flops", H100_F32_FLOPS)
                     for r in rows) * 1e3

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Per-call times of the plane kernels of checkouts of this repository in
-turns, on one CUDA card, to compare two versions (run them as P C C P).
+"""Per-call times of the plane and sampler kernels of checkouts of this
+repository in turns, on one CUDA card, to compare two versions (run them
+as P C C P).
 
 Each argument is the root of a checkout (``.`` for this one); each turn
 runs in a fresh process with that checkout's ``soccernerfs_tpu_torch``
@@ -21,18 +22,21 @@ packed kernel's wide cases with the points' rows folded into L2
 (``l2_probe_phase``, "l2"); and the two staged layouts of a plane table
 under
 the train forward and the render path, per width and plane shape
-(``layout_phase``, "layout").  Each case is held against its plain
-version as chip_smoke holds it.
+(``layout_phase``, "layout"); the importance sampler's two kernels on
+chip_smoke's step, single-map and full-HD cases ("sampler").  Each case is
+held against its plain version as chip_smoke holds it.
 
 It prints one JSON line per turn: the build's seconds; per kernel and
-case order (random, train, ray: a step's launches, width: per F) the
+case order (random, train, ray: a step's launches, width: per F; the
+sampler's step, single and full) the
 cases' count, summed ms and byte bound, and the largest error against
 the plain version; per layout case [F, h, w, planes, then for the
 unpacked and the packed layout the train forward's ms (staging and
 kernel), the staging's, the kernel's and the render launch's]; the
 kp_res_study forward's ms a step and launches; the sha256 of the forward
-kernels' outputs at F = 8, 24 and 32 on seeded operands (equal hashes
-across checkouts: bit-equal results).
+kernels' outputs at F = 8, 24 and 32 on seeded operands, and with
+"sampler" of each sampler case's CDFs and draws (equal hashes across
+checkouts: bit-equal results), beside an empty kernel's launch time.
 
 Usage (from any directory; needs CUDA):
     python3 kernels_ab.py [--phases kernel,step,...] PARENT_TREE . . PARENT_TREE
@@ -61,17 +65,33 @@ kab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(kab)
 from soccernerfs_tpu_torch.ops.grid_sample import quad_pack
 from soccernerfs_tpu_torch.ops.kernels import build, plane_kernels as pk, scatter_kernels as sk
+from soccernerfs_tpu_torch.ops.kernels import sampler_kernels as spk
 
 t0 = time.perf_counter()
-build.build_all([*pk.LIBRARIES, *sk.LIBRARIES])
+build.build_all([*pk.LIBRARIES, *sk.LIBRARIES, *spk.LIBRARIES])
 out = {"build_s": time.perf_counter() - t0}
 dev = torch.device("cuda")
 aabb = torch.tensor(cs.AABB, device=dev)
 cams = cs.make_cameras(dev)
 _module, cfg, _camera_optimizer = cs.method_parts(cs.MODEL)
-tree, params, staged = cs.make_params(cs.MODEL, dev, time_noise=0.05)
 phases = sys.argv[2].split(",")
-rows = {k.__name__: [] for k in pk.KERNELS}
+if set(phases) - {"sampler"}:
+    tree, params, staged = cs.make_params(cs.MODEL, dev, time_noise=0.05)
+else:                                   # the sampler's phase needs no model
+    tree = params = staged = None
+rows = {k.__name__: [] for k in (*pk.KERNELS, *spk.KERNELS)}
+if "sampler" in phases:
+    # a checkout from before the launch floor has no empty kernel: its
+    # rows' floor_ms are then a no-op's and are not reported
+    has_floor = hasattr(spk, "empty_launch")
+    if not has_floor:
+        spk.empty_launch = lambda device: None
+    sampler = cs.sampler_kernel_phase(dev)
+    rows.update(sampler)
+    out["sampler_floor_ms"] = sampler["cdf_draw"][0]["floor_ms"] if has_floor else None
+    out["sampler_hashes"] = {
+        f"{r['order']} {key}": r[key + "_sha256"]
+        for r in sampler["cdf_draw"] for key in ("cdf", "draws")}
 if "kernel" in phases:
     rows.update(cs.kernel_phase(cfg, staged, dev))
 if "fused" in phases:
@@ -410,7 +430,7 @@ def l2_probe_phase(cs, cfg, dev, feats=(16, 24, 48)):
 
 
 PHASES = ("kernel", "fused", "bwd", "coords", "width", "step", "kpres",
-          "layout", "l2", "cpu")
+          "layout", "l2", "cpu", "sampler")
 
 
 def main() -> int:

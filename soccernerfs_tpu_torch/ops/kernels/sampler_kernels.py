@@ -194,6 +194,17 @@ def cdf_draw(cdf: torch.Tensor, uniforms: torch.Tensor, plan: torch.Tensor,
     return out
 
 
+def empty_launch(device) -> None:
+    """One launch of an empty kernel (``csrc/sampler_kernels.cu``) on the
+    device's current stream, through the wrappers' ctypes route: the floor
+    under a short kernel's time.  No kernel of the port, and uncounted."""
+    fn = _fn("snt_sampler_empty_launch", [ctypes.c_void_p])
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        err = fn(torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "snt_sampler_empty_launch")
+
+
 cdf_scan_f64.launches = 0
 cdf_draw.launches = 0
 

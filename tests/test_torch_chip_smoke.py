@@ -127,6 +127,7 @@ def _stubs():
             spk.cdf_scan_f64_plain(maps, ids))),
         (spk, "_launch_draw", lambda cdf, uniforms, plan, out: out.copy_(
             spk.cdf_draw_plain(cdf, uniforms, plan, out.numel()))),
+        (spk, "empty_launch", lambda device: None),
     ]
 
 
@@ -302,6 +303,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(cs, "SAMPLER_MAPS", (12, 24, 40))
     monkeypatch.setattr(cs, "SAMPLER_NUM_IST", 38)   # floor(0.15 * 256)
     monkeypatch.setattr(cs, "SAMPLER_PASSES", 2)
+    monkeypatch.setattr(cs, "SAMPLER_FULL_MAPS", (2, 30, 48))
     monkeypatch.setattr(cs, "TRAINER_RESUME_TO", 12)
     monkeypatch.setattr(cs, "INGP_TRAINER_STEPS", 6)
     monkeypatch.setattr(cs, "CONVERGENCE_STEPS", 3)
@@ -928,20 +930,36 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert k["bound_ms"] == pytest.approx(
         sum(r["bytes"] for r in random) / cs.H100_BYTES_PER_S * 1e3)
     # the importance sampler's kernels at the trainer's shapes (here 12
-    # maps of 24x40: 38 draws from one, and the 3-cell map's 5): each
-    # against its plain version, the draws against the sequential route,
-    # no tie
-    sampler = {line.split(" ", 3)[2]: json.loads(line.split(" ", 3)[3])
-               for line in lines if line.startswith("kernel sampler ")}
+    # maps of 24x40: 38 draws from one, and the 3-cell map's 5), on one of
+    # those maps drawn 70 times and on two "full-HD" maps (here 30x48):
+    # each against its plain version, the draws against the sequential
+    # route, no tie, beside an empty launch's time; the kernels line takes
+    # the step case
+    sampler = {}
+    for line in lines:
+        if line.startswith("kernel sampler "):
+            _, _, name, row = line.split(" ", 3)
+            sampler.setdefault(name, []).append(json.loads(row))
     assert list(sampler) == ["cdf_scan_f64", "cdf_draw"]
-    assert sampler["cdf_scan_f64"]["ulp_ties"] == 0
-    assert sampler["cdf_scan_f64"]["draws_differing"] == 0
-    assert all(r["max_abs_err"] == 0 and r["bound_by"] == "bytes"
-               and r["plain_ms"] > 0 and r["library_ms"] > 0
-               for r in sampler.values())
-    assert sampler["cdf_draw"]["case"].endswith("k [38, 5]")
+    for rows in sampler.values():
+        assert [r["order"] for r in rows] == ["step", "single", "full"]
+        assert all(r["max_abs_err"] == 0 and r["bound_by"] == "bytes"
+                   and r["plain_ms"] > 0 and r["library_ms"] > 0
+                   and r["floor_ms"] == rows[0]["floor_ms"] > 0
+                   for r in rows)
+    for scan_row, draw_row in zip(*sampler.values()):
+        assert all(scan_row[key] == draw_row[key]
+                   for key in ("cdf_sha256", "draws_sha256"))
+    assert len({r["draws_sha256"] for r in sampler["cdf_draw"]}) == 3
+    assert all(r["ulp_ties"] == 0 and r["draws_differing"] == 0
+               for r in sampler["cdf_scan_f64"])
+    draw = sampler["cdf_draw"]
+    assert draw[0]["case"].endswith("k [38, 5]")
+    assert draw[1]["case"] == "1 maps of 960 cells, k [70]"
+    assert draw[2]["case"] == "2 maps of 1440 cells, k [70, 70]"
     for k, name in zip(kernels[7:], sampler):
-        assert k["name"] == name and k["ms"] == sampler[name]["ms"]
+        assert k["name"] == name and k["ms"] == sampler[name][0]["ms"]
+        assert k["bound_ms"] == sampler[name][0]["bound_ms"]
         assert k["replaces"].startswith("native/snt_loader.cpp:")
         assert k["launches"] >= main_path["trainer small"][name] == 6
     # a user's COLMAP capture: colmap-to-json, the poses and distortions

@@ -862,7 +862,15 @@ def _ist_maps(rng, n, size):
     return maps
 
 
-@pytest.mark.parametrize("size", [1, 31, 1000, 16384, 16385, 540 * 960])
+# the scan's boundaries: a thread's 16 cells, a CTA's 8,192, a cluster
+# tile of 16 CTAs (131,072), each +- 1 (scalar loads: the rows are not
+# 16-byte aligned) and +- 8 (vector loads), a 540 x 960 and a 1080 x 1920 map
+SCAN_SIZES = [1, 15, 16, 17, 31, 1000, 8184, 8191, 8192, 8193, 8200, 16384,
+              16385, 131064, 131071, 131072, 131073, 131080, 540 * 960,
+              1080 * 1920]
+
+
+@pytest.mark.parametrize("size", SCAN_SIZES)
 def test_cdf_scan_matches_plain_f16(dev, size):
     """Every partial sum of an f16 map in [0, 1] is exact in f64, so the
     card's order of adds gives the sequential CDF bit for bit."""
@@ -877,7 +885,8 @@ def test_cdf_scan_matches_plain_f16(dev, size):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("size", [1000, 16385, 540 * 960])
+@pytest.mark.parametrize("size", [1000, 8193, 16385, 131072, 131073,
+                                  540 * 960, 1080 * 1920])
 def test_cdf_scan_f32_is_non_decreasing(dev, size):
     """f32 weights over many octaves round in the card's order: within
     1e-10 of the sequential sum (518,400 sequential f64 adds may stray by
@@ -892,6 +901,37 @@ def test_cdf_scan_f32_is_non_decreasing(dev, size):
     want = spk.cdf_scan_f64_plain(maps.cpu(), ids.cpu())
     assert (got[:, 1:] >= got[:, :-1]).all()
     torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("maps,size", [(1, 540 * 960), (9, 540 * 960),
+                                       (140, 100_003), (140, 100_000)])
+def test_cdf_scan_many_maps_in_one_launch(dev, maps, size):
+    """1 map (one cluster of 16 CTAs), a step's 9 and 140 (one CTA each),
+    rows in any order and repeated: each bit-equal to the sequential sum."""
+    rng = np.random.default_rng(maps)
+    weights = torch.from_numpy(_ist_maps(rng, min(maps, 20), size)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, weights.shape[0], maps)).to(dev)
+    got = spk.cdf_scan_f64(weights, ids)
+    want = spk.cdf_scan_f64_plain(weights.cpu(), ids.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("half", [True, False])
+def test_cdf_scan_unaligned_rows(dev, half):
+    """Maps whose data starts 8 bytes past a 16-byte boundary take the
+    scalar loads: the same CDF."""
+    rng = np.random.default_rng(5)
+    size = 540 * 960
+    dtype = torch.float16 if half else torch.float32
+    flat = torch.zeros(3 * size + 8, dtype=dtype, device=dev)
+    shift = 8 // flat.element_size()
+    maps = flat[shift:shift + 3 * size].view(3, size)
+    maps.copy_(torch.from_numpy(_ist_maps(rng, 3, size)).to(dev, dtype))
+    assert maps.data_ptr() % 16 == 8
+    ids = torch.tensor([2, 0, 1], dtype=torch.int64, device=dev)
+    got = spk.cdf_scan_f64(maps, ids)
+    want = spk.cdf_scan_f64_plain(maps.cpu(), ids.cpu())
+    assert torch.equal(got.cpu(), want)
 
 
 def _plan(ks, reps):
@@ -931,6 +971,94 @@ def test_cdf_draw_matches_plain(dev):
     assert len(set(kept[:20].tolist())) == 20
     assert set(kept[42:47].tolist()) == {5, 7000, size - 1}
     assert (kept[47:50] == 12345).all()
+
+
+def _draws_match_plain(dev, maps, ks, reps, uni=None, seed=0):
+    """The card's draws from the card's CDFs of ``maps`` [M, S] (numpy)
+    against the plain version on the same CDFs; returns the draws."""
+    rng = np.random.default_rng(seed)
+    ids = torch.arange(len(maps), dtype=torch.int64, device=dev)
+    cdf = spk.cdf_scan_f64(torch.from_numpy(maps).to(dev), ids)
+    plan, n = _plan(ks, reps)
+    if uni is None:
+        uni = rng.random(n)
+    uniforms = torch.from_numpy(uni).to(dev)
+    got = spk.cdf_draw(cdf, uniforms, plan.to(dev), sum(ks)).cpu()
+    want = spk.cdf_draw_plain(cdf.cpu(), uniforms.cpu(), plan, sum(ks))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return got.numpy()
+
+
+def test_cdf_draw_window_edges(dev):
+    """Searches at the coarse index's seams (540 x 960: windows of 127
+    cells): support only in the last window; a plateau of zeros across
+    three window boundaries hit exactly at its value (the first cell that
+    reaches it), just above it, and at 0; a uniform of 0 and the largest
+    double below 1."""
+    size = 540 * 960
+    last = np.zeros(size, np.float16)
+    last[[size - 3, size - 1]] = [0.5, 0.25]        # the last window only
+    plateau = np.zeros(size, np.float16)
+    plateau[:100] = 0.5                             # CDF 50 at cell 99,
+    plateau[400:556] = 0.5                          # zeros 100-399, total 128
+    lead = np.zeros(size, np.float16)
+    lead[300::7] = 1.0                              # zeros over 3 windows
+    below_one = np.nextafter(1.0, 0.0)
+    above = np.nextafter(50 / 128, 1.0)
+    uni = np.concatenate([
+        [1e-12, below_one, 0.5, 0.7, 0.75, 2 / 3],
+        [0.0, below_one, 50 / 128, above], np.full(96, 0.9),
+        [50 / 128, above, 0.0, below_one, 0.0],
+        [0.0, below_one, 1e-9, 0.5, 0.0],
+    ])
+    got = _draws_match_plain(dev, np.stack([last, plateau, plateau, lead]),
+                             [6, 4, 5, 5], [True, False, True, True], uni)
+    assert set(got[:6].tolist()) <= {size - 3, size - 1}
+    assert got[6:10].tolist() == [0, 555, 99, 400]
+    assert got[10:15].tolist() == [99, 400, 0, 555, 0]
+    assert got[15:20].tolist()[:3] == [0, np.flatnonzero(lead)[-1], 300]
+    assert got[19] == 0
+
+
+@pytest.mark.parametrize("size", [1, 7, 4095, 4097, 540 * 960, 1080 * 1920])
+def test_cdf_draw_sizes(dev, size):
+    """Maps smaller than the coarse index (one cell a window), one window
+    more or less than it, a step's and a full HD map's (507-cell windows:
+    four 128-cell chunks a window)."""
+    rng = np.random.default_rng(size)
+    maps = _ist_maps(rng, 3, size)
+    maps[:, -1] = 0.5                               # no all-zero map
+    _draws_match_plain(dev, maps, [70, 70, 20], [size < 80, True, False])
+
+
+@pytest.mark.parametrize("k", [0, 3, 4, 40])
+def test_cdf_draw_budget(dev, k):
+    """A map of 3 cells: k = 3 keeps all three within the 8k + 64
+    attempts, k = 4 and 40 spend the budget and fill with replacement, k = 0
+    draws nothing (with and without replacement)."""
+    size = 540 * 960
+    maps = np.zeros((2, size), np.float16)
+    maps[:, [5, size // 2, size - 1]] = [0.5, 1.0, 0.25]
+    got = _draws_match_plain(dev, maps, [k, k], [False, True], seed=k)
+    if k:
+        assert set(got[:min(k, 3)].tolist()) == {5, size // 2, size - 1}
+
+
+def test_cdf_draw_large_k(dev):
+    """k past the kept indices held in shared memory (2,048) and rounds of
+    1,024 attempts: 3,000 without replacement from 50,000 cells (the walk
+    reads the later kept indices back from the output), 5,000 with; and a
+    support barely above k (many rejections, rounds that double)."""
+    rng = np.random.default_rng(3)
+    size = 540 * 960
+    maps = np.zeros((3, size), np.float16)
+    maps[0, rng.choice(size, 50_000, replace=False)] = 0.75
+    maps[1] = _ist_maps(rng, 1, size)[0]
+    maps[2, rng.choice(size, 75, replace=False)] = 0.5
+    got = _draws_match_plain(dev, maps, [3000, 5000, 70], [False, True, False])
+    assert len(set(got[:3000].tolist())) == 3000
+    assert len(set(got[8000:].tolist())) == 70
 
 
 def test_weighted_samples_on_the_card_match_the_cpu(dev):
